@@ -1,0 +1,39 @@
+"""altro_tpu_torch: the PyTorch and CUDA port of altro_tpu.
+
+The augmented-Lagrangian iLQR solver, its warm-started receding-horizon MPC
+step and the random-linear benchmark model, batched over scenarios, with
+hand-written Hopper kernels for the fused AL expansion + Riccati backward
+pass and the line-search ladder rollout (``csrc/``). The JAX package
+``altro_tpu`` is the reference it is checked against; this package imports
+neither it nor JAX.
+
+Importing the package pins float32 matrix products to full precision (no
+TF32): the solver's tolerances assume it, as the JAX package pins its
+matmuls away from bf16.
+"""
+
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.set_float32_matmul_precision("highest")
+
+from .cones import Cone  # noqa: E402
+from .constraints import (  # noqa: E402
+    ConicConstraint,
+    DualState,
+    bound_constraint,
+    goal_constraint,
+)
+from .costs import (  # noqa: E402
+    QuadCost,
+    lqr_objective,
+    retarget_tracking,
+    tracking_objective,
+)
+from .dynamics import LTVDynamics, lti_dynamics  # noqa: E402
+from .problem import Problem  # noqa: E402
+from .solver.altro import Solution, Stats, solve  # noqa: E402
+from .solver.options import SolverOptions  # noqa: E402
+
+__version__ = "0.1.0"

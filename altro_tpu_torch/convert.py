@@ -1,0 +1,92 @@
+"""State carried across from the JAX package, as numpy arrays and plain
+values, into the port's objects.
+
+``numpy_tree`` turns any tree of dataclasses, tuples, enums and array-likes
+into nested dicts and lists of numpy arrays and plain values (it calls
+``np.asarray`` on each leaf, so it needs no JAX import). The ``*_from_numpy``
+functions build the port's objects from such trees; ``tree_to`` moves a
+tree of the port's objects to another device or floating dtype.
+"""
+from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import Any, Tuple
+
+import numpy as np
+import torch
+
+from .cones import Cone
+from .constraints import ConicConstraint, DualState
+from .costs import QuadCost
+from .dynamics import LTVDynamics
+from .problem import Problem
+from .solver.options import SolverOptions
+
+
+def numpy_tree(obj) -> Any:
+    """Dataclasses -> dicts of their fields, tuples/lists -> lists, enums ->
+    their values, other scalars unchanged, array-likes -> numpy arrays."""
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return {f.name: numpy_tree(getattr(obj, f.name))
+                for f in dataclasses.fields(obj)}
+    if isinstance(obj, (tuple, list)):
+        return [numpy_tree(v) for v in obj]
+    if isinstance(obj, enum.Enum):
+        return obj.value
+    if obj is None or isinstance(obj, (bool, int, float, str)):
+        return obj
+    return np.asarray(obj)
+
+
+def _t(a, device, dtype):
+    return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+
+def problem_from_numpy(tree: dict, device="cpu",
+                       dtype=torch.float64) -> Problem:
+    """Build a :class:`Problem` from ``numpy_tree`` of an LTV problem with
+    affine conic blocks."""
+    dyn, cost = tree["dynamics"], tree["cost"]
+    return Problem(
+        dynamics=LTVDynamics(**{k: _t(dyn[k], device, dtype)
+                                for k in ("A", "B", "d")}),
+        cost=QuadCost(**{k: _t(cost[k], device, dtype)
+                         for k in ("Q", "q", "R", "r", "H", "c")}),
+        constraints=tuple(
+            ConicConstraint(Cx=_t(c["Cx"], device, dtype),
+                            Cu=_t(c["Cu"], device, dtype),
+                            b=_t(c["b"], device, dtype),
+                            mask=_t(c["mask"], device, dtype),
+                            cone=Cone(c["cone"]), name=c.get("name", ""))
+            for c in tree["constraints"]),
+        x0=_t(tree["x0"], device, dtype))
+
+
+def duals_from_numpy(tree: list, device="cpu",
+                     dtype=torch.float64) -> Tuple[DualState, ...]:
+    """Build the dual tuple from ``numpy_tree`` of a tuple of DualState."""
+    return tuple(DualState(lam=_t(d["lam"], device, dtype),
+                           rho=_t(d["rho"], device, dtype)) for d in tree)
+
+
+def options_from_dict(tree: dict) -> SolverOptions:
+    """Build :class:`SolverOptions` from a dict of plain values (unknown
+    keys raise)."""
+    return SolverOptions(**{k: (v.item() if isinstance(v, np.ndarray) else v)
+                            for k, v in tree.items()})
+
+
+def tree_to(obj, device=None, dtype=None):
+    """Copy of a tree of the port's dataclasses and tuples with every tensor
+    moved to ``device`` and every floating tensor cast to ``dtype``."""
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device=device,
+                      dtype=dtype if obj.is_floating_point() else None)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{
+            f.name: tree_to(getattr(obj, f.name), device, dtype)
+            for f in dataclasses.fields(obj) if f.init})
+    if isinstance(obj, tuple):
+        return tuple(tree_to(v, device, dtype) for v in obj)
+    return obj

@@ -1,0 +1,62 @@
+"""Discrete-time linear dynamics (PyTorch counterpart of the LTV part of
+``altro_tpu/dynamics.py``).
+
+The stacks are shared problem data with a leading knot axis of length N-1;
+states and controls carry leading batch axes.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+
+@dataclass
+class LTVDynamics:
+    """x_{k+1} = A_k x_k + B_k u_k + d_k, k = 0..N-2. LTI models are stored
+    broadcast to the horizon."""
+
+    A: torch.Tensor  # [N-1, n, n]
+    B: torch.Tensor  # [N-1, n, m]
+    d: torch.Tensor  # [N-1, n]
+
+    @property
+    def N(self) -> int:
+        return self.A.shape[0] + 1
+
+    @property
+    def n(self) -> int:
+        return self.A.shape[-1]
+
+    @property
+    def m(self) -> int:
+        return self.B.shape[-1]
+
+    def step(self, x, u, k: int):
+        """x [..., n], u [..., m] -> x+ [..., n] at knot k."""
+        return (torch.einsum("ij,...j->...i", self.A[k], x)
+                + torch.einsum("ij,...j->...i", self.B[k], u) + self.d[k])
+
+    def linearize(self, X, U):
+        """(A, B, d) stacks about a trajectory: exact for linear models."""
+        del X, U
+        return self.A, self.B, self.d
+
+    def rollout(self, x0, U):
+        """Open-loop rollout of U [..., N-1, m] from x0 [..., n]; returns
+        X [..., N, n]."""
+        xs = [x0]
+        for k in range(U.shape[-2]):
+            xs.append(self.step(xs[-1], U[..., k, :], k))
+        return torch.stack(xs, dim=-2)
+
+
+def lti_dynamics(Ad, Bd, N: int, dd=None) -> LTVDynamics:
+    """Broadcast a discrete LTI model to an N-knot :class:`LTVDynamics`."""
+    n = Ad.shape[0]
+    dd = torch.zeros(n, dtype=Ad.dtype, device=Ad.device) if dd is None else dd
+    return LTVDynamics(
+        A=Ad.expand((N - 1,) + tuple(Ad.shape)).contiguous(),
+        B=Bd.expand((N - 1,) + tuple(Bd.shape)).contiguous(),
+        d=dd.expand(N - 1, n).contiguous(),
+    )

@@ -1,0 +1,382 @@
+"""ALTRO-style augmented-Lagrangian iLQR solver: the batched PyTorch port of
+``altro_tpu/solver/altro.py`` for LTV dynamics with affine ZERO/NONPOS
+constraint blocks.
+
+Every entry point takes an explicit leading batch axis B (``prob.x0`` is
+[B, n]); dynamics, cost and constraint stacks are shared by the batch. Each
+iteration runs
+
+- the AL expansion fused into the Riccati backward pass
+  (ops/riccati_fused.py: a CUDA kernel on the card),
+- the whole line-search ladder of step sizes plus a trailing alpha = 0 rung
+  in one closed-loop rollout (ops/rollout.py: a CUDA kernel on the card),
+  whose AL merit and constraint residuals are evaluated in PyTorch,
+- the AL round bookkeeping (dual update by polar-cone projection, penalty
+  scaling, violation check) inline under a per-lane mask.
+
+Loop control: a host ``while`` over one flat AL + iLQR loop. Each pass
+computes the per-lane ``live`` mask, stops when no lane is live (one host
+sync per iteration) and applies the body under ``torch.where(live, new,
+old)``, so a lane freezes as soon as its own condition is false, as under
+``vmap`` of the JAX ``lax.while_loop``.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import torch
+
+from ..cones import project_polar, violation
+from ..constraints import DualState, al_terms_structured
+from ..ops.riccati_fused import fused_expand_backward
+from ..ops.rollout import batched_ls_rollout
+from ..problem import Problem
+from .options import SolverOptions
+
+
+@dataclass
+class Stats:
+    iterations: torch.Tensor        # [B] total inner (iLQR) iterations
+    outer_iterations: torch.Tensor  # [B] AL iterations
+    cost: torch.Tensor              # [B] final true (un-penalized) cost
+    viol: torch.Tensor              # [B] final max constraint violation
+    gradient: torch.Tensor          # [B]
+    status: torch.Tensor            # [B] 1 = SOLVE_SUCCEEDED, 0 = MAX_ITERATIONS
+
+
+@dataclass
+class Solution:
+    X: torch.Tensor                 # [B, N, n]
+    U: torch.Tensor                 # [B, N-1, m]
+    K: torch.Tensor                 # [B, N-1, m, n] final feedback gains
+    duals: Tuple[DualState, ...]
+    stats: Stats
+
+
+# ----------------------------------------------------------------------------
+# AL cost and expansion
+# ----------------------------------------------------------------------------
+
+def total_al_cost_res(prob: Problem, duals, X, U):
+    """AL cost [...] plus the per-block residuals c and projected duals
+    ctilde = proj_polar(lam + rho c) computed along the way. X, U and the
+    duals broadcast over any leading axes (the ladder evaluates [B, L])."""
+    J = prob.cost.total(X, U)
+    cs, cts = [], []
+    for con, dual in zip(prob.constraints, duals):
+        c = con.evaluate(X, U)
+        z = dual.lam + dual.rho[..., None] * c
+        ct = project_polar(con.cone, z)
+        J = J + torch.sum(
+            con.mask * (torch.sum(ct * ct, dim=-1)
+                        - torch.sum(dual.lam ** 2, dim=-1))
+            / (2.0 * dual.rho), dim=-1)
+        cs.append(c)
+        cts.append(ct)
+    return J, (tuple(cs), tuple(cts))
+
+
+def _al_expansion_cd(cost, constraints, duals, X, U):
+    """Quadratic expansion of the AL objective along (X [B,N,n], U).
+
+    Returns lx [B,N,n], lu [B,N,m], lxx [(B,)N,n,n], luu [(B,)N,m,m],
+    lux [(B,)N,m,n]: the Hessians stay shared when no block adds per-lane
+    curvature. Blocks are affine, so the Gauss-Newton curvature
+    C' diag(w) C is exact up to the projection kink."""
+    lx, lu, lxx, luu, lux = cost.expansion(X, U)
+    for con, dual in zip(constraints, duals):
+        g, (_, w) = al_terms_structured(con, dual, X, U)
+        Cx, Cu = con.jacobians(X, U)
+        lx = lx + torch.einsum("kpn,...kp->...kn", Cx, g)
+        lu = lu + torch.einsum("kpm,...kp->...km", Cu, g)
+        WCx = w[..., None] * Cx
+        WCu = w[..., None] * Cu
+        lxx = lxx + torch.einsum("kpi,...kpj->...kij", Cx, WCx)
+        luu = luu + torch.einsum("kpi,...kpj->...kij", Cu, WCu)
+        lux = lux + torch.einsum("kpi,...kpj->...kij", Cu, WCx)
+    return lx, lu, lxx, luu, lux
+
+
+def _backward_pass(A, B, lx, lu, lxx, luu, lux, reg):
+    """Riccati recursion, a Python loop over knots batched over scenarios.
+
+    A [(B,)N-1,n,n], B [(B,)N-1,n,m] and the Hessian stacks may be shared or
+    per lane; lx [B,N,n], lu [B,N,m]; reg [B]. Returns K [B,N-1,m,n],
+    d [B,N-1,m], dV1, dV2 [B]: the expected cost change of a step of size
+    alpha is alpha*dV1 + alpha^2*dV2 (dV1 <= 0).
+    """
+    Bt, N, n = lx.shape
+    m = lu.shape[-1]
+    eye_m = torch.eye(m, dtype=lx.dtype, device=lx.device)
+    Vx = lx[:, -1]
+    Vxx = lxx[..., -1, :, :].expand(Bt, n, n)
+    dV1 = torch.zeros(Bt, dtype=lx.dtype, device=lx.device)
+    dV2 = torch.zeros_like(dV1)
+    Ks, ds = [None] * (N - 1), [None] * (N - 1)
+
+    def mv(M, v):
+        return (M @ v[..., None])[..., 0]
+
+    for k in reversed(range(N - 1)):
+        A_k, B_k = A[..., k, :, :], B[..., k, :, :]
+        VA = Vxx @ A_k
+        Qx = lx[:, k] + mv(A_k.mT, Vx)
+        Qu = lu[:, k] + mv(B_k.mT, Vx)
+        Qxx = lxx[..., k, :, :] + A_k.mT @ VA
+        Quu = luu[..., k, :, :] + B_k.mT @ (Vxx @ B_k)
+        Qux = lux[..., k, :, :] + B_k.mT @ VA
+        Quu_reg = Quu + reg[:, None, None] * eye_m
+
+        # Quu is SPD (R > 0 plus PSD curvature): Cholesky solve. A lane
+        # whose factorization fails gets NaN gains, as in the JAX solver.
+        rhs = torch.cat([Qux, Qu[..., None]], dim=-1)
+        L, info = torch.linalg.cholesky_ex(Quu_reg)
+        L = torch.where((info > 0)[:, None, None], math.nan, L)
+        sol = torch.cholesky_solve(rhs, L)
+        K_k = -sol[..., :-1]
+        d_k = -sol[..., -1]
+
+        Quu_d = mv(Quu, d_k)
+        Vx = Qx + mv(K_k.mT, Quu_d) + mv(K_k.mT, Qu) + mv(Qux.mT, d_k)
+        Vxx = Qxx + K_k.mT @ (Quu @ K_k) + K_k.mT @ Qux + Qux.mT @ K_k
+        Vxx = 0.5 * (Vxx + Vxx.mT)
+        dV1 = dV1 + torch.sum(d_k * Qu, dim=-1)
+        dV2 = dV2 + 0.5 * torch.sum(d_k * Quu_d, dim=-1)
+        Ks[k], ds[k] = K_k, d_k
+    return torch.stack(Ks, dim=1), torch.stack(ds, dim=1), dV1, dV2
+
+
+def _expand_backward_base(cost, dynA, dynB, blocks, X, U, lams, rhos, reg):
+    """AL expansion + Riccati backward pass composed from the plain pieces
+    (the plain version of the fused kernel)."""
+    duals = tuple(DualState(lam=l, rho=r) for l, r in zip(lams, rhos))
+    lx, lu, lxx, luu, lux = _al_expansion_cd(cost, blocks, duals, X, U)
+    return _backward_pass(dynA, dynB, lx, lu, lxx, luu, lux, reg)
+
+
+# ----------------------------------------------------------------------------
+# Solve
+# ----------------------------------------------------------------------------
+
+def _where_tree(pred, a, b):
+    """torch.where over matching trees of tensors, tuples and DualStates;
+    ``pred`` [B] broadcasts over each leaf's trailing axes."""
+    if isinstance(a, torch.Tensor):
+        p = pred.reshape(pred.shape + (1,) * (a.dim() - pred.dim()))
+        return torch.where(p, a, b)
+    if isinstance(a, DualState):
+        return DualState(lam=_where_tree(pred, a.lam, b.lam),
+                         rho=_where_tree(pred, a.rho, b.rho))
+    return tuple(_where_tree(pred, x, y) for x, y in zip(a, b))
+
+
+@torch.no_grad()
+def solve(prob: Problem, opts: SolverOptions,
+          U0: Optional[torch.Tensor] = None,
+          duals: Optional[Tuple[DualState, ...]] = None,
+          X0: Optional[torch.Tensor] = None) -> Solution:
+    """Solve a batch of trajectory-optimization problems that share their
+    dynamics, cost and constraints and differ in ``prob.x0`` [B, n].
+
+    Warm start: ``U0`` [B, N-1, m] (shifted controls) and ``duals``
+    (shifted multipliers, [B, ...]) from the previous MPC solve. Without
+    ``X0`` the states come from an open-loop rollout of U0 from x0; passing
+    ``X0`` [B, N, n] skips that rollout and linearizes iteration 1 around
+    (X0, U0), with X0[:, 0] overwritten by x0.
+    """
+    s0 = _warmstart_state(prob, opts, U0, duals, X0)
+    return _finalize(prob, _flat_while(prob, opts, s0))
+
+
+def _warmstart_state(prob: Problem, opts: SolverOptions,
+                     U0: Optional[torch.Tensor],
+                     duals: Optional[Tuple[DualState, ...]],
+                     X0: Optional[torch.Tensor] = None):
+    """Initial flat-loop state: warm-start rollout + dual init."""
+    x0 = prob.x0
+    if x0.dim() != 2:
+        raise ValueError(f"solve takes a batch: x0 [B, n], got "
+                         f"{tuple(x0.shape)}")
+    Bt = x0.shape[0]
+    N, n, m = prob.N, prob.n, prob.m
+    kw = dict(dtype=x0.dtype, device=x0.device)
+    if U0 is None:
+        U0 = torch.zeros((Bt, N - 1, m), **kw)
+    if X0 is not None:
+        X0 = X0.clone()
+        X0[:, 0] = x0
+    else:
+        # Open-loop rollout through the ladder-rollout kernel: with K = 0,
+        # d = 0 the closed-loop ladder (L = 1, alpha = 1) reduces to
+        # x+ = A x + B u0 + d.
+        dyn = prob.dynamics
+        Xb0 = torch.zeros((Bt, N, n), **kw)
+        Xb0[:, 0] = x0
+        Xts, _ = batched_ls_rollout(
+            dyn.A, dyn.B, dyn.d, Xb0, U0, torch.zeros((Bt, N - 1, m, n), **kw),
+            torch.zeros((Bt, N - 1, m), **kw), (1.0,))
+        X0 = Xts[:, 0]
+
+    if duals is None:
+        duals = prob.init_duals(opts.penalty_initial)
+    else:
+        if opts.reset_duals:
+            duals = tuple(DualState(lam=torch.zeros_like(d.lam), rho=d.rho)
+                          for d in duals)
+        if opts.reset_penalties:
+            duals = tuple(
+                DualState(lam=d.lam,
+                          rho=torch.full_like(d.rho, opts.penalty_initial))
+                for d in duals)
+
+    K0 = torch.zeros((Bt, N - 1, m, n), **kw)
+    zi = torch.zeros(Bt, dtype=torch.int32, device=x0.device)
+    inf = torch.full((Bt,), math.inf, **kw)
+    return (X0, U0, K0, duals, torch.full((Bt,), opts.reg_initial, **kw),
+            inf, inf.clone(), zi, zi.clone(), zi.clone(),
+            torch.zeros(Bt, dtype=torch.bool, device=x0.device))
+
+
+def _flat_while(prob: Problem, opts: SolverOptions, s):
+    """The flat AL + iLQR loop from state ``s``, driven from the host until
+    no lane is live."""
+    cond, body = _loop_fns(prob, opts, s)
+    while bool(cond(s).any()):
+        s = body(s)
+    return s
+
+
+def _loop_fns(prob: Problem, opts: SolverOptions, s0):
+    """(cond, body) of the flat AL + iLQR loop. ``body`` freezes every lane
+    whose own ``cond`` is false."""
+    if opts.ls_fused == "on":
+        raise NotImplementedError("ls_fused='on' needs the fused ladder+merit "
+                                  "kernel, which is not ported yet")
+    X_0 = s0[0]
+    lanes = torch.arange(X_0.shape[0], device=X_0.device)
+    dyn = prob.dynamics
+    # the alpha ladder plus the trailing alpha = 0 rung, whose rollout
+    # reproduces the current trajectory: Jts[:, -1] is the current AL cost
+    alphas_t = tuple(opts.ls_decrease ** i
+                     for i in range(opts.iterations_linesearch)) + (0.0,)
+    alphas = torch.tensor(alphas_t, dtype=X_0.dtype, device=X_0.device)
+
+    def round_end_update(cs, cts, duals, lam_ok):
+        """AL round bookkeeping from the line search's residuals (cs) and
+        projected duals (cts). The multipliers are updated only when
+        ``lam_ok`` (an ACCEPTED rung or an inner optimum): on a stuck round
+        the alpha=0 re-roll's rounding error times rho would snowball the
+        carried multipliers. Penalty scaling always applies."""
+        viol_r = torch.zeros_like(X_0[:, 0, 0])
+        lams = []
+        for con, c, ct in zip(prob.constraints, cs, cts):
+            v = violation(con.cone, c)
+            # mask via where (not multiply): masked knots can carry inf/NaN
+            # residuals on diverged lanes and 0 * inf = NaN
+            v = torch.where(con.mask[:, None] > 0, v, 0.0)
+            viol_r = torch.maximum(viol_r, torch.amax(torch.abs(v), (-2, -1)))
+            lams.append(ct * con.mask[:, None])
+        converged = viol_r < opts.constraint_tolerance
+        new_duals = tuple(
+            DualState(lam=torch.where(lam_ok[:, None, None], lam, dual.lam),
+                      rho=torch.where(converged[:, None], dual.rho,
+                                      torch.clamp(dual.rho * opts.penalty_scaling,
+                                                  max=opts.penalty_max)))
+            for lam, dual in zip(lams, duals))
+        return viol_r, converged, new_duals
+
+    def cond(s):
+        done, rounds = s[10], s[9]
+        return (~done) & (rounds < opts.iterations_outer)
+
+    def body(s):
+        X, U, K, duals, reg, grad, viol, it_rd, it, rounds, done = s
+        lams = tuple(d.lam for d in duals)
+        rhos = tuple(d.rho for d in duals)
+        Knew, dff, dV1, dV2 = fused_expand_backward(
+            prob.cost, dyn.A, dyn.B, prob.constraints, X, U, lams, rhos, reg)
+        if len(rhos) > 1:
+            # the fused expansion reads one shared penalty schedule
+            # (rhos[0]): poison the feedforward of lanes whose blocks
+            # diverge, so the wrongness is loud instead of silent
+            rho_dev = sum(torch.amax(torch.abs(r - rhos[0]), dim=-1)
+                          for r in rhos[1:])
+            dff = torch.where((rho_dev > 0)[:, None, None], math.nan, dff)
+
+        # gradient metric (Altro's d-based gradient check)
+        grad_new = torch.amax(torch.amax(torch.abs(dff), dim=-1)
+                              / (torch.amax(torch.abs(U), dim=-1) + 1.0),
+                              dim=-1)
+        pre_done = grad_new < opts.gradient_tolerance
+
+        # parallel line search over the whole ladder
+        Xts, Uts = batched_ls_rollout(dyn.A, dyn.B, dyn.d, X, U, Knew, dff,
+                                      alphas_t)
+        duals_l = tuple(DualState(lam=d.lam[:, None], rho=d.rho[:, None])
+                        for d in duals)
+        Jts, (Cts, CTts) = total_al_cost_res(prob, duals_l, Xts, Uts)
+        J = Jts[:, -1]
+        expected = -(alphas * dV1[:, None] + alphas * alphas * dV2[:, None])
+        ratio = (J[:, None] - Jts) / torch.clamp(expected, min=1e-12)
+        oks = torch.where(expected > 1e-12, ratio > opts.ls_min_ratio,
+                          Jts < J[:, None]) & torch.isfinite(Jts)
+        idx = oks.to(torch.int8).argmax(dim=-1)   # first True = largest alpha
+        accepted = oks.any(dim=-1)
+        Xn = _where_tree(accepted, Xts[lanes, idx], X)
+        Un = _where_tree(accepted, Uts[lanes, idx], U)
+        Jn = torch.where(accepted, Jts[lanes, idx], J)
+        # accepted rung's residuals / projected duals (the alpha=0 rung IS
+        # the current trajectory, so the rejected case selects rung -1)
+        cs_acc = tuple(_where_tree(accepted, Ct[lanes, idx], Ct[:, -1])
+                       for Ct in Cts)
+        cts_acc = tuple(_where_tree(accepted, Ct[lanes, idx], Ct[:, -1])
+                        for Ct in CTts)
+
+        # regularization schedule
+        reg_fail = torch.clamp(torch.clamp(reg, min=opts.reg_min)
+                               * opts.reg_increase, opts.reg_min, opts.reg_max)
+        reg_ok = torch.where(reg * opts.reg_decrease < opts.reg_min, 0.0,
+                             reg * opts.reg_decrease)
+        reg_new = torch.where(accepted, reg_ok, reg_fail)
+
+        dJ = J - Jn
+        stuck = (~accepted) & (reg >= opts.reg_max)
+        # exact-model early stop (options.early_exact_tol): an accepted FULL
+        # Newton step whose achieved/predicted ratio is ~1
+        eet = opts.early_exact_tol
+        exact_full = (accepted & (idx == 0) & (eet > 0)
+                      & (expected[:, 0] > 1e-12)
+                      & (torch.abs(ratio[:, 0] - 1.0) <= eet))
+        inner_done = (pre_done | (accepted & (dJ < opts.cost_tolerance))
+                      | stuck | exact_full)
+        round_end = inner_done | (it_rd + 1 >= opts.iterations_inner)
+
+        # masked AL round bookkeeping
+        viol_r, converged_r, duals_r = round_end_update(
+            cs_acc, cts_acc, duals, accepted | pre_done)
+        duals_new = _where_tree(round_end, duals_r, duals)
+        viol_new = torch.where(round_end, viol_r, viol)
+        it_rd_new = torch.where(round_end, 0, it_rd + 1)
+        rounds_new = rounds + round_end.to(torch.int32)
+        done_new = round_end & converged_r
+
+        out = (Xn, Un, Knew, duals_new, reg_new, grad_new, viol_new,
+               it_rd_new, it + 1, rounds_new, done_new)
+        # freeze a lane as soon as ITS OWN cond is false (done, or the
+        # outer-round cap without convergence)
+        return _where_tree(cond(s), out, s)
+
+    return cond, body
+
+
+def _finalize(prob: Problem, s) -> Solution:
+    X, U, K, duals, reg, grad, viol, it_rd, it, rounds, done = s
+    if len(prob.constraints) == 0:
+        # unconstrained: zero violation, unconditional success
+        viol = torch.zeros_like(viol)
+    stats = Stats(iterations=it, outer_iterations=rounds,
+                  cost=prob.cost.total(X, U), viol=viol, gradient=grad,
+                  status=done.to(torch.int32))
+    return Solution(X=X, U=U, K=K, duals=duals, stats=stats)
