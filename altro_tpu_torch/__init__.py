@@ -1,11 +1,13 @@
 """altro_tpu_torch: the PyTorch and CUDA port of altro_tpu.
 
-The augmented-Lagrangian iLQR solver, its warm-started receding-horizon MPC
-step and the random-linear benchmark model, batched over scenarios, with
-hand-written Hopper kernels for the fused AL expansion + Riccati backward
-pass and the line-search ladder rollout (``csrc/``). The JAX package
-``altro_tpu`` is the reference it is checked against; this package imports
-neither it nor JAX.
+The augmented-Lagrangian iLQR solver with ZERO, NONPOS and second-order-cone
+constraint blocks, its warm-started receding-horizon MPC step and the
+random-linear and rocket soft-landing benchmark models, batched over
+scenarios, with hand-written Hopper kernels for the fused AL expansion +
+Riccati backward pass, the line-search ladder rollout and the ladder
+rollout fused with the AL merit (``csrc/``). The JAX package ``altro_tpu``
+is the reference it is checked against; this package imports neither it
+nor JAX.
 
 Importing the package pins float32 matrix products to full precision (no
 TF32): the solver's tolerances assume it, as the JAX package pins its
@@ -24,6 +26,8 @@ from .constraints import (  # noqa: E402
     DualState,
     bound_constraint,
     goal_constraint,
+    norm_constraint,
+    norm_constraint2,
 )
 from .costs import (  # noqa: E402
     QuadCost,
@@ -31,7 +35,7 @@ from .costs import (  # noqa: E402
     retarget_tracking,
     tracking_objective,
 )
-from .dynamics import LTVDynamics, lti_dynamics  # noqa: E402
+from .dynamics import LTVDynamics, lti_dynamics, zoh_discretize  # noqa: E402
 from .problem import Problem  # noqa: E402
 from .solver.altro import Solution, Stats, solve  # noqa: E402
 from .solver.options import SolverOptions  # noqa: E402

@@ -57,6 +57,69 @@ def project_soc(z):
                        torch.where(in_polar, torch.zeros_like(z), boundary))
 
 
+def project_soc_jacobian(z):
+    """Jacobian of ``project_soc`` at z, shape [..., p, p]. Branchless.
+
+    Boundary-case closed form with w = v/a (unit), a = ||v||:
+      d proj_v / dv = ((a+s)/(2a)) I - (s/(2a)) w w^T
+      d proj_v / ds = w / 2,   d proj_s / dv = w^T / 2,   d proj_s / ds = 1/2
+
+    Every factor is a ratio of same-scale quantities (the boundary branch is
+    selected only when a > |s|), so a denormal-scale residual near the apex
+    cannot underflow the way a form dividing by a^3 would.
+    """
+    v, s, a, a_safe = _soc_parts(z)
+    p = z.shape[-1]
+    kw = dict(dtype=z.dtype, device=z.device)
+    w = v / a_safe[..., None]
+    wwT = w[..., :, None] * w[..., None, :]
+    coef = (a + s) / (2.0 * a_safe)
+    Jvv = (coef[..., None, None] * torch.eye(p - 1, **kw)
+           - (s / (2.0 * a_safe))[..., None, None] * wwT)
+    Jvs = w / 2.0
+    top = torch.cat([Jvv, Jvs[..., :, None]], dim=-1)
+    bot = torch.cat([Jvs, torch.full_like(s[..., None], 0.5)], dim=-1)
+    J_boundary = torch.cat([top, bot[..., None, :]], dim=-2)
+    eye_p = torch.eye(p, **kw).expand(J_boundary.shape)
+    inside = (a <= s)[..., None, None]
+    in_polar = (a <= -s)[..., None, None]
+    return torch.where(inside, eye_p,
+                       torch.where(in_polar, torch.zeros_like(J_boundary),
+                                   J_boundary))
+
+
+def soc_polar_curvature_factors(z):
+    """Exact diag + rank-2 factorization of the SOC polar-projection
+    Jacobian: J_polar(z) = diag(w) + c1 u1 u1' + c2 u2 u2'.
+
+    With z = (v, s), a = ||v||, v_hat = v / a, gamma = (a - s) / (2a):
+
+      inside  (a <= s):  w = 0,                  c1 = c2 = 0
+      polar   (a <= -s): w = 1,                  c1 = c2 = 0
+      boundary:          w = (gamma, ..., gamma, 0),
+                         c1 = -gamma, u1 = (v_hat, 0),
+                         c2 = 1/2,    u2 = (-v_hat, 1)
+
+    Shapes: z [..., p] -> w [..., p], c1/c2 [...], u1/u2 [..., p].
+    """
+    v, s, a, a_safe = _soc_parts(z)
+    p = z.shape[-1]
+    vh = v / a_safe[..., None]
+    gamma = (a - s) / (2.0 * a_safe)
+    inside = a <= s
+    in_polar = a <= -s
+    bnd = (~(inside | in_polar)).to(z.dtype)
+    head = torch.ones(p, dtype=z.dtype, device=z.device)
+    head[-1] = 0.0
+    w = ((bnd * gamma)[..., None] * head
+         + in_polar.to(z.dtype)[..., None] * torch.ones_like(head))
+    c1 = -(bnd * gamma)
+    c2 = 0.5 * bnd
+    u1 = torch.cat([vh, torch.zeros_like(s)[..., None]], dim=-1)
+    u2 = torch.cat([-vh, torch.ones_like(s)[..., None]], dim=-1)
+    return w, c1, u1, c2, u2
+
+
 def project(cone: Cone, z):
     """Projection onto cone K."""
     if cone == Cone.ZERO:
@@ -77,6 +140,20 @@ def project_polar(cone: Cone, z):
         return torch.clamp(z, min=0.0)    # polar of R^p_- is R^p_+
     if cone == Cone.SOC:
         return z - project_soc(z)     # Moreau
+    raise ValueError(f"unknown cone {cone!r}")
+
+
+def project_polar_jacobian(cone: Cone, z):
+    """Jacobian of ``project_polar`` at z, shape [..., p, p] (symmetric
+    PSD): the Gauss-Newton curvature of the conic AL penalty."""
+    p = z.shape[-1]
+    eye = torch.eye(p, dtype=z.dtype, device=z.device)
+    if cone == Cone.ZERO:
+        return eye.expand(z.shape + (p,))
+    if cone == Cone.NONPOS:
+        return (z > 0.0).to(z.dtype)[..., :, None] * eye
+    if cone == Cone.SOC:
+        return eye - project_soc_jacobian(z)
     raise ValueError(f"unknown cone {cone!r}")
 
 

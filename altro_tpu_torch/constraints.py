@@ -1,5 +1,5 @@
-"""Affine conic constraint blocks (PyTorch counterpart of
-``altro_tpu/constraints.py``, for the ZERO/NONPOS slice).
+"""Affine conic constraint blocks (PyTorch counterpart of the affine part
+of ``altro_tpu/constraints.py``: ZERO, NONPOS and SOC blocks).
 
     c_k = Cx_k @ x_k + Cu_k @ u_k + b_k   in  K       (for knots with mask=1)
 
@@ -14,7 +14,8 @@ from typing import Optional
 
 import torch
 
-from .cones import Cone, project_polar, violation
+from .cones import (Cone, project_polar, project_polar_jacobian,
+                    soc_polar_curvature_factors, violation)
 from .costs import pad_terminal
 
 
@@ -82,17 +83,45 @@ class DualState:
         return dataclasses.replace(self, lam=lam)
 
 
-def al_terms_structured(con: ConicConstraint, dual: DualState, X, U):
-    """AL penalty gradient and curvature of one block in the diagonal form.
+def _penalty_parts(con: ConicConstraint, dual: DualState, X, U):
+    """(z, ctilde) with z = lam + rho c and ctilde = proj_polar(z)."""
+    z = dual.lam + dual.rho[..., None] * con.evaluate(X, U)
+    return z, project_polar(con.cone, z)
 
-    With ctilde = proj_polar(lam + rho * c):
+
+def al_cost(con: ConicConstraint, dual: DualState, X, U):
+    """AL penalty value [...]:
+    sum_k mask_k (||ctilde_k||^2 - ||lam_k||^2) / (2 rho_k)."""
+    _, ct = _penalty_parts(con, dual, X, U)
+    return torch.sum(con.mask * (torch.sum(ct * ct, dim=-1)
+                                 - torch.sum(dual.lam ** 2, dim=-1))
+                     / (2.0 * dual.rho), dim=-1)
+
+
+def al_terms(con: ConicConstraint, dual: DualState, X, U):
+    """Per-block AL penalty value [...], gradient in c [..., N, p]
+    (ctilde * mask) and Gauss-Newton curvature in c [..., N, p, p]
+    (rho * Jac(proj_polar)(lam + rho c) * mask)."""
+    z, ct = _penalty_parts(con, dual, X, U)
+    value = torch.sum(con.mask * (torch.sum(ct * ct, dim=-1)
+                                  - torch.sum(dual.lam ** 2, dim=-1))
+                      / (2.0 * dual.rho), dim=-1)
+    J = project_polar_jacobian(con.cone, z)
+    curv = (dual.rho[..., None, None] * J) * con.mask[:, None, None]
+    return value, ct * con.mask[:, None], curv
+
+
+def al_terms_structured(con: ConicConstraint, dual: DualState, X, U):
+    """AL penalty gradient g [..., N, p] and curvature of one block in the
+    cheapest structured form per cone, with ctilde = proj_polar(lam + rho c):
+
       ZERO:   g = ctilde * mask, ('diag', w) with w = rho * mask
       NONPOS: g = ctilde * mask, ('diag', w) with w = rho * active * mask
-    The SOC block's diag + rank-2 and dense forms are not ported yet.
+      SOC, p >= 12: ('diag_lr', (w, ((c1, u1), (c2, u2)))) with
+              rho * mask * J_polar = diag(w) + c1 u1 u1' + c2 u2 u2'
+      SOC, p < 12:  ('dense', H [..., N, p, p]) = rho * mask * J_polar
     """
-    c = con.evaluate(X, U)
-    z = dual.lam + dual.rho[..., None] * c
-    ct = project_polar(con.cone, z)
+    z, ct = _penalty_parts(con, dual, X, U)
     g = ct * con.mask[:, None]
     if con.cone == Cone.ZERO:
         w = (dual.rho * con.mask)[..., None].expand(z.shape)
@@ -101,7 +130,24 @@ def al_terms_structured(con: ConicConstraint, dual: DualState, X, U):
         active = (z > 0.0).to(z.dtype)
         w = (dual.rho[..., None] * active) * con.mask[:, None]
         return g, ("diag", w)
-    raise NotImplementedError(f"{con.cone} AL curvature is not ported yet")
+    if z.shape[-1] < 12:
+        J = project_polar_jacobian(con.cone, z)
+        H = (dual.rho[..., None, None] * J) * con.mask[:, None, None]
+        return g, ("dense", H)
+    w, c1, u1, c2, u2 = soc_polar_curvature_factors(z)
+    rm = dual.rho * con.mask
+    return g, ("diag_lr", (w * rm[..., None],
+                           ((c1 * rm, u1), (c2 * rm, u2))))
+
+
+def dual_update(con: ConicConstraint, dual: DualState, X, U,
+                penalty_scaling, penalty_max) -> DualState:
+    """AL outer-loop update: lam <- proj_polar(lam + rho c) * mask,
+    rho <- min(rho * phi, rho_max)."""
+    _, ct = _penalty_parts(con, dual, X, U)
+    return DualState(lam=ct * con.mask[:, None],
+                     rho=torch.clamp(dual.rho * penalty_scaling,
+                                     max=penalty_max))
 
 
 # ----------------------------------------------------------------------------
@@ -170,3 +216,47 @@ def goal_constraint(N: int, n: int, m: int, xf, dtype=torch.float32,
         b=(-xf).expand(N, n).contiguous(),
         mask=_range_mask(N, N - 1, N, dtype, device),
         cone=Cone.ZERO, name="goal")
+
+
+def norm_constraint(N: int, n: int, m: int, bound, on: str = "control",
+                    start: int = 0, stop: Optional[int] = None,
+                    dtype=torch.float32, device=None) -> ConicConstraint:
+    """||z|| <= bound as the SOC row (z, bound), z = x or u."""
+    dim = m if on == "control" else n
+    kw = dict(dtype=dtype, device=device)
+    return norm_constraint2(N, n, m, torch.eye(dim, **kw),
+                            torch.zeros(dim, **kw), on=on, offset=bound,
+                            start=start, stop=stop, dtype=dtype,
+                            device=device)
+
+
+def norm_constraint2(N: int, n: int, m: int, A, c, on: str = "control",
+                     offset=0.0, start: int = 0, stop: Optional[int] = None,
+                     mask=None, dtype=torch.float32,
+                     device=None) -> ConicConstraint:
+    """||A z|| <= c'z + offset, z = x or u, as an SOC block. A [p, dim] or
+    per knot [N, p, dim]; c [dim] or [N, dim]."""
+    kw = dict(dtype=dtype, device=device)
+    A = torch.as_tensor(A, **kw)
+    c = torch.as_tensor(c, **kw)
+    if A.dim() == 2:
+        A = A.expand((N,) + tuple(A.shape))
+    if c.dim() == 1:
+        c = c.expand(N, c.shape[0])
+    p_rows, dim = A.shape[1], A.shape[2]
+    M = torch.cat([A, c[:, None, :]], dim=1)              # [N, p+1, dim]
+    if on == "control":
+        assert dim == m
+        Cx, Cu = torch.zeros((N, p_rows + 1, n), **kw), M
+    elif on == "state":
+        assert dim == n
+        Cx, Cu = M, torch.zeros((N, p_rows + 1, m), **kw)
+    else:
+        raise ValueError(on)
+    b = torch.zeros((N, p_rows + 1), **kw)
+    b[:, -1] += torch.as_tensor(offset, **kw)
+    if mask is None:
+        stop = N - 1 if stop is None else stop
+        mask = _range_mask(N, start, stop, dtype, device)
+    return ConicConstraint(Cx=Cx.contiguous(), Cu=Cu.contiguous(), b=b,
+                           mask=mask, cone=Cone.SOC, name="norm_soc")

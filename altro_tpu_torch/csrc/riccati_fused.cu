@@ -1,23 +1,34 @@
 // AL expansion fused into the Riccati backward pass.
 //
 // Replaces the TPU kernel altro_tpu/ops/riccati_fused.py:
-// fused_expand_backward (Pallas body `_make_kernel`), for ZERO and NONPOS
-// constraint rows. At every knot, from the terminal one backwards, it forms
-// the quadratic expansion of the augmented Lagrangian from the SHARED cost,
-// dynamics and constraint rows and the per-scenario x, u, lambda and rho:
+// fused_expand_backward (Pallas body `_make_kernel`), for ZERO, NONPOS and
+// SOC constraint blocks. At every knot, from the terminal one backwards, it
+// forms the quadratic expansion of the augmented Lagrangian from the SHARED
+// cost, dynamics and constraint rows and the per-scenario x, u, lambda and
+// rho:
 //
 //   z = lam + rho (Cx x + Cu u + b)
 //   ZERO:   g = z mask,          w = rho mask
 //   NONPOS: g = max(z, 0) mask,  w = rho [z > 0] mask
-//   lx = Q x + q + H'u + Cx'g,   lxx = Q + Cx' diag(w) Cx   (and u, ux parts)
+//   SOC, z = (v, s), a = |v|, a_safe = a > 0 ? a : 1:
+//     polar = [a <= -s], bnd = [a > s and a > -s],
+//     gamma = bnd (a - s) / (2 a_safe), vh = v / a_safe;
+//     v rows: g = (polar + gamma) z mask, w = rho (polar + gamma) mask;
+//     s row:  g = (polar s - gamma a) mask, w = rho polar mask;
+//     plus the rank-1 curvature terms coef1 u1 u1' + coef2 u2 u2' with
+//     u1 = (vh, 0), u2 = (-vh, 1), coef1 = -rho mask gamma,
+//     coef2 = rho mask bnd / 2 (the exact polar-projection Jacobian)
+//   lx = Q x + q + H'u + Cx'g,
+//   lxx = Q + Cx' diag(w) Cx + sum_SOC coef (Cx'u1)(Cx'u1)'  (u, ux alike)
 //
 // and runs the Riccati recursion on it, with the regularised m x m Cholesky
 // of Quu + reg I (pivots clamped as sqrt(max(., 1e-12))), writing
 // K [Bt, N-1, m, n], d [Bt, N-1, m] and the expected-decrease terms
-// dV1, dV2 [Bt]. The terminal knot is expanded with u = 0. Multiple blocks
-// arrive concatenated row-wise by the wrapper (one bit per row in
-// `nonpos_bits` says NONPOS, otherwise ZERO); every block shares the first
-// block's penalty rho, as on the TPU.
+// dV1, dV2 [Bt]. The terminal knot is expanded with u = 0. The blocks
+// arrive row-concatenated with a block table (common.cuh: BlockTable, one
+// entry per block, its multipliers read where they lie); every block shares
+// the first block's penalty rho, as on the TPU. Comparisons follow jnp's, so
+// a NaN in a lane's inputs stays NaN in its outputs.
 //
 // Thread mapping: one warp per scenario, SPB scenarios (warps) per block.
 // The TPU grid's sequential knot axis is a loop inside the block. Each
@@ -25,13 +36,18 @@
 // each warp keeps its scenario's Vx/Vxx, the Q blocks, the Cholesky factor
 // and the gains in shared memory (about 900 floats at n=12, m=6, p=12: too
 // many for registers) and spreads the matrix elements of every product over
-// its 32 lanes. The tiny sequential pieces (Cholesky pivots, the dV sums)
-// run on lane 0; the n+1 triangular solves run one column per lane.
+// its 32 lanes. The constraint rows are spread over the lanes; an SOC
+// block's |v| needs all of its rows, so z goes to the warp's scratch first
+// and one lane per SOC block forms the block's scalars, after which the
+// lanes project the block's rows through u1 and u2 (Cx'u, Cu'u) once per
+// knot. The tiny sequential pieces (Cholesky pivots, the dV sums) run on
+// lane 0; the n+1 triangular solves run one column per lane.
 //
 // What bounds it on the H100: latency of the knot recursion (about 20 warp
 // synchronisations per knot and short dot products on shared memory), not
 // bytes or FLOPs: at B=1024, N=30, n=12, m=6 it reads ~1 MB and does
-// ~10 kFLOP per scenario-knot. B=1024 gives 256 blocks of 4 warps.
+// ~10 kFLOP per scenario-knot. An SOC block adds O(p (n + m)) work per knot
+// and two more warp synchronisations. B=1024 gives 256 blocks of 4 warps.
 #include <cstdint>
 
 #include "common.cuh"
@@ -41,15 +57,24 @@ namespace {
 // Shared-memory sizes, in elements: the staged knot rows
 //   Q[n*n] q[n] R[m*m] r[m] H[m*n] A[n*n] B[n*m] Cx[P*n] Cu[P*m] b[P] mask[P]
 // and one scenario's work space
-//   x[n] u[m] g[P] w[P] Vx[n] Vxx[n*n] Qx[n] Qu[m] Qxx[n*n] Quu[m*m]
+//   x[n] u[m] g[P] w[P] z[P] Vx[n] Vxx[n*n] Qx[n] Qu[m] Qxx[n*n] Quu[m*m]
 //   Qux[m*n] VA[n*n] VB[n*m] L[m*m] KD[(n+1)*m] Quud[m] QuuK[m*n]
+//   and per SOC block soc_elems: its scalars and its rows projected through
+//   u1 and u2.
 __host__ __device__ inline int knot_elems(int n, int m, int P) {
   return 2 * n * n + n + m * m + m + 2 * m * n + P * (n + m + 2);
 }
 
-__host__ __device__ inline int scenario_elems(int n, int m, int P) {
-  return 3 * n + 2 * m + 2 * P + 3 * n * n + 2 * m * m + 3 * m * n +
-         (n + 1) * m + m + m * n;
+// polar, gamma, a, a_safe, coef1, coef2, ax1[n], ax2[n], au1[m], au2[m]
+constexpr int kSocScalars = 6;
+__host__ __device__ inline int soc_elems(int n, int m) {
+  return kSocScalars + 2 * (n + m);
+}
+
+__host__ __device__ inline int scenario_elems(int n, int m, int P,
+                                              int nsoc) {
+  return 3 * n + 2 * m + 3 * P + 3 * n * n + 2 * m * m + 3 * m * n +
+         (n + 1) * m + m + m * n + nsoc * soc_elems(n, m);
 }
 
 template <typename T>
@@ -58,31 +83,119 @@ __device__ inline void copy_block(T* dst, const T* __restrict__ src,
   for (int e = threadIdx.x; e < count; e += blockDim.x) dst[e] = src[e];
 }
 
-// z = lam + rho c and the per-row gradient g and curvature weight w.
+// z = lam + rho c and the per-row gradient g and curvature weight w; for
+// each SOC block also its scalars and its rows projected through u1 and u2
+// (only the state part when !with_u). Ends with the warp synchronised.
 template <typename T>
-__device__ inline void row_terms(int P, int n, int m, bool with_u,
-                                 const T* sCx, const T* sCu, const T* sb,
-                                 const T* smask,
-                                 unsigned long long nonpos_bits, const T* x,
-                                 const T* u, const T* __restrict__ lamk,
-                                 T rho, T* g, T* w, int lane) {
+__device__ inline void row_terms(const altro::BlockTable<T>& tab, int P,
+                                 int n, int m, bool with_u, const T* sCx,
+                                 const T* sCu, const T* sb, const T* smask,
+                                 const T* x, const T* u, size_t lane_knot,
+                                 T rho, T* z, T* g, T* w, T* soc, int lane) {
   for (int rr = lane; rr < P; rr += 32) {
+    const int bi = altro::block_of(tab, rr);
+    const int p = tab.p[bi];
     T c = sb[rr];
     for (int i = 0; i < n; ++i) c += sCx[rr * n + i] * x[i];
     if (with_u)
       for (int j = 0; j < m; ++j) c += sCu[rr * m + j] * u[j];
-    const T z = lamk[rr] + rho * c;
+    const T zr = tab.lam[bi][lane_knot * p + (rr - tab.row0[bi])] + rho * c;
+    z[rr] = zr;
     const T mk = smask[rr];
-    if ((nonpos_bits >> rr) & 1ull) {
-      const bool act = z > T(0);
+    if (tab.cone[bi] == altro::kNonpos) {
+      const bool act = zr > T(0);
       // max(z, 0), NaN propagating like jnp.maximum
-      g[rr] = (act || z != z ? z : T(0)) * mk;
+      g[rr] = (act || zr != zr ? zr : T(0)) * mk;
       w[rr] = rho * (act ? T(1) : T(0)) * mk;
-    } else {
-      g[rr] = z * mk;
+    } else if (tab.cone[bi] == altro::kZero) {
+      g[rr] = zr * mk;
       w[rr] = rho * mk;
     }
   }
+  __syncwarp();
+  if (tab.nsoc == 0) return;
+  const int se = soc_elems(n, m);
+  // one lane per SOC block: |v|, the case flags and the rank-1 weights
+  for (int s = lane; s < tab.nsoc; s += 32) {
+    const int bi = tab.soc_block[s];
+    const int r0 = tab.row0[bi], p = tab.p[bi];
+    T a2 = T(0);
+    for (int r = 0; r < p - 1; ++r) a2 += z[r0 + r] * z[r0 + r];
+    const T sv = z[r0 + p - 1];
+    const T a = sqrt(a2);
+    const T a_safe = a > T(0) ? a : T(1);
+    // float flags multiplied in, as jnp does: a NaN z stays NaN
+    const T polar = a <= -sv ? T(1) : T(0);
+    const T bnd = (a > sv && a > -sv) ? T(1) : T(0);
+    const T gamma = bnd * (a - sv) / (T(2) * a_safe);
+    const T rm = rho * smask[r0];
+    T* sc = soc + s * se;
+    sc[0] = polar;
+    sc[1] = gamma;
+    sc[2] = a;
+    sc[3] = a_safe;
+    sc[4] = -(rm * gamma);
+    sc[5] = T(0.5) * (rm * bnd);
+  }
+  __syncwarp();
+  for (int rr = lane; rr < P; rr += 32) {
+    const int bi = altro::block_of(tab, rr);
+    if (tab.cone[bi] != altro::kSoc) continue;
+    const T* sc = soc + tab.slot[bi] * se;
+    const T polar = sc[0], gamma = sc[1], mk = smask[rr];
+    if (rr < tab.row0[bi] + tab.p[bi] - 1) {
+      g[rr] = (polar * z[rr] + gamma * z[rr]) * mk;
+      w[rr] = rho * (polar + gamma) * mk;
+    } else {
+      g[rr] = (polar * z[rr] - gamma * sc[2]) * mk;
+      w[rr] = rho * polar * mk;
+    }
+  }
+  // ax1/ax2 = Cx' u1/u2 (and au = Cu' u), u1 = (vh, 0), u2 = (-vh, 1)
+  const int width = with_u ? n + m : n;
+  for (int e = lane; e < tab.nsoc * width; e += 32) {
+    const int s = e / width, i = e % width;
+    const int bi = tab.soc_block[s];
+    const int r0 = tab.row0[bi], p = tab.p[bi];
+    T* sc = soc + s * se;
+    const T a_safe = sc[3];
+    const bool state = i < n;
+    const T* C = state ? sCx + i : sCu + (i - n);
+    const int stride = state ? n : m;
+    T acc1 = T(0), acc2 = T(0);
+    for (int r = 0; r < p; ++r) {
+      const T cr = C[(r0 + r) * stride];
+      const T vh = r < p - 1 ? z[r0 + r] / a_safe : T(0);
+      acc1 += cr * vh;
+      acc2 += cr * (r < p - 1 ? -vh : T(1));
+    }
+    if (state) {
+      sc[kSocScalars + i] = acc1;
+      sc[kSocScalars + n + i] = acc2;
+    } else {
+      sc[kSocScalars + 2 * n + (i - n)] = acc1;
+      sc[kSocScalars + 2 * n + m + (i - n)] = acc2;
+    }
+  }
+  __syncwarp();
+}
+
+// sum over SOC blocks of coef1 p1_i q1_j + coef2 p2_i q2_j, where p and q
+// are the blocks' projections at offsets oi and oj (0: Cx'u, 2n: Cu'u)
+template <typename T>
+__device__ inline T rank_terms(const T* soc, int nsoc, int n, int m, int oi,
+                               int i, int oj, int j) {
+  const int se = soc_elems(n, m);
+  const int w2 = oi == 0 ? n : m, v2 = oj == 0 ? n : m;
+  T acc = T(0);
+  for (int s = 0; s < nsoc; ++s) {
+    const T* sc = soc + s * se;
+    const T* P1 = sc + kSocScalars + oi;
+    const T* Q1 = sc + kSocScalars + oj;
+    acc += (sc[4] * P1[i]) * Q1[j];
+    acc += (sc[5] * P1[w2 + i]) * Q1[v2 + j];
+  }
+  return acc;
 }
 
 template <typename T>
@@ -92,14 +205,15 @@ __global__ void fused_expand_backward_kernel(
     const T* __restrict__ H, const T* __restrict__ A,
     const T* __restrict__ Bm, const T* __restrict__ Cx,
     const T* __restrict__ Cu, const T* __restrict__ cb,
-    const T* __restrict__ cmask, unsigned long long nonpos_bits,
+    const T* __restrict__ cmask, altro::BlockTable<T> table,
     const T* __restrict__ X, const T* __restrict__ U,
-    const T* __restrict__ lam, const T* __restrict__ rho,
-    const T* __restrict__ reg, T* __restrict__ Kout, T* __restrict__ dout,
-    T* __restrict__ dV1out, T* __restrict__ dV2out, int Bt, int N, int n,
-    int m, int P) {
+    const T* __restrict__ rho, const T* __restrict__ reg,
+    T* __restrict__ Kout, T* __restrict__ dout, T* __restrict__ dV1out,
+    T* __restrict__ dV2out, int Bt, int N, int n, int m, int P) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ altro::BlockTable<T> tab;
   T* smem = reinterpret_cast<T*>(smem_raw);
+  if (threadIdx.x == 0) tab = table;
   const int spb = blockDim.x / 32;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -119,11 +233,13 @@ __global__ void fused_expand_backward_kernel(
   T* sb = sCu + P * m;
   T* smask = sb + P;
 
-  T* x = smem + knot_elems(n, m, P) + warp * scenario_elems(n, m, P);
+  T* x = smem + knot_elems(n, m, P) +
+         warp * scenario_elems(n, m, P, table.nsoc);
   T* u = x + n;
   T* g = u + m;
   T* w = g + P;
-  T* Vx = w + P;
+  T* z = w + P;
+  T* Vx = z + P;
   T* Vxx = Vx + n;
   T* Qx = Vxx + n * n;
   T* Qu = Qx + n;
@@ -136,6 +252,8 @@ __global__ void fused_expand_backward_kernel(
   T* KD = Lc + m * m;  // column c of the solve at KD[c*m]: K[:, c], d at c=n
   T* Quud = KD + (n + 1) * m;
   T* QuuK = Quud + m;
+  T* soc = QuuK + m * n;  // SOC block scalars and projections
+  const int nsoc = table.nsoc;
 
   // ---------------- terminal knot: V = expansion at N-1 with u = 0
   copy_block(sQ, Q + (size_t)N1 * n * n, n * n);
@@ -150,10 +268,9 @@ __global__ void fused_expand_backward_kernel(
     const T* xk = X + ((size_t)b * N + N1) * n;
     for (int i = lane; i < n; i += 32) x[i] = xk[i];
     __syncwarp();
-    row_terms(P, n, m, false, sCx, sCu, sb, smask, nonpos_bits, x, u,
-              lam + ((size_t)b * N + N1) * P, rho[(size_t)b * N + N1], g, w,
+    row_terms(tab, P, n, m, false, sCx, sCu, sb, smask, x, u,
+              (size_t)b * N + N1, rho[(size_t)b * N + N1], z, g, w, soc,
               lane);
-    __syncwarp();
     for (int i = lane; i < n; i += 32) {
       T acc = sq[i];
       for (int p = 0; p < n; ++p) acc += sQ[i * n + p] * x[p];
@@ -166,6 +283,7 @@ __global__ void fused_expand_backward_kernel(
       T acc = sQ[i * n + j];
       for (int rr = 0; rr < P; ++rr)
         acc += (sCx[rr * n + i] * w[rr]) * sCx[rr * n + j];
+      acc += rank_terms(soc, nsoc, n, m, 0, i, 0, j);
       Vxx[i * n + j] = acc;
       Vxx[j * n + i] = acc;
     }
@@ -195,8 +313,8 @@ __global__ void fused_expand_backward_kernel(
       for (int i = lane; i < m; i += 32) u[i] = uk[i];
       const T regb = reg[b];
       __syncwarp();
-      row_terms(P, n, m, true, sCx, sCu, sb, smask, nonpos_bits, x, u,
-                lam + ((size_t)b * N + k) * P, rho[(size_t)b * N + k], g, w,
+      row_terms(tab, P, n, m, true, sCx, sCu, sb, smask, x, u,
+                (size_t)b * N + k, rho[(size_t)b * N + k], z, g, w, soc,
                 lane);
       for (int e = lane; e < n * n; e += 32) {
         const int i = e / n, j = e % n;
@@ -237,6 +355,7 @@ __global__ void fused_expand_backward_kernel(
         T lxx = sQ[a * n + c];
         for (int rr = 0; rr < P; ++rr)
           lxx += (sCx[rr * n + a] * w[rr]) * sCx[rr * n + c];
+        lxx += rank_terms(soc, nsoc, n, m, 0, a, 0, c);
         T acc = T(0);
         for (int p = 0; p < n; ++p) acc += sA[p * n + i] * VA[p * n + j];
         Qxx[e] = lxx + acc;
@@ -247,6 +366,7 @@ __global__ void fused_expand_backward_kernel(
         T luu = sR[a * m + c];
         for (int rr = 0; rr < P; ++rr)
           luu += (sCu[rr * m + a] * w[rr]) * sCu[rr * m + c];
+        luu += rank_terms(soc, nsoc, n, m, 2 * n, a, 2 * n, c);
         T acc = T(0);
         for (int p = 0; p < n; ++p) acc += sB[p * m + i] * VB[p * m + j];
         Quu[e] = luu + acc;
@@ -256,6 +376,7 @@ __global__ void fused_expand_backward_kernel(
         T lux = sH[i * n + j];
         for (int rr = 0; rr < P; ++rr)
           lux += (sCu[rr * m + i] * w[rr]) * sCx[rr * n + j];
+        lux += rank_terms(soc, nsoc, n, m, 2 * n, i, 0, j);
         T acc = T(0);
         for (int p = 0; p < n; ++p) acc += sB[p * m + i] * VA[p * n + j];
         Qux[e] = lux + acc;
@@ -358,25 +479,29 @@ template <typename T>
 int launch_fused(const void* Q, const void* q, const void* R, const void* r,
                  const void* H, const void* A, const void* Bm,
                  const void* Cx, const void* Cu, const void* cb,
-                 const void* cmask, unsigned long long nonpos_bits,
-                 const void* X, const void* U, const void* lam,
+                 const void* cmask, int nblocks, const int* meta,
+                 const void* const* lams, const void* X, const void* U,
                  const void* rho, const void* reg, void* K, void* d,
                  void* dV1, void* dV2, int Bt, int N, int n, int m, int P,
                  void* stream) {
   if (n < 1 || m < 1 || n > altro::kMaxDim || m > altro::kMaxDim || P < 0 ||
       P > altro::kMaxRows || N < 2 || Bt < 1)
     return (int)cudaErrorInvalidValue;
-  const size_t smem_cap = 232448;  // 227 KB opt-in limit per block
+  altro::BlockTable<T> table;
+  if (!altro::make_table(nblocks, meta, lams, P, &table))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem_cap = 232448 - sizeof(table);  // 227 KB opt-in limit
   int spb = 4;
   size_t bytes = 0;
   for (;;) {
-    bytes = (size_t)(knot_elems(n, m, P) + spb * scenario_elems(n, m, P)) *
+    bytes = (size_t)(knot_elems(n, m, P) +
+                     spb * scenario_elems(n, m, P, table.nsoc)) *
             sizeof(T);
     if (bytes <= smem_cap || spb == 1) break;
     spb /= 2;
   }
   if (bytes > smem_cap) return (int)cudaErrorInvalidValue;
-  if (bytes > 48 * 1024) {
+  if (bytes > 48 * 1024 - sizeof(table)) {
     cudaError_t e = cudaFuncSetAttribute(
         fused_expand_backward_kernel<T>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -387,9 +512,9 @@ int launch_fused(const void* Q, const void* q, const void* R, const void* r,
       <<<blocks, 32 * spb, bytes, (cudaStream_t)stream>>>(
           (const T*)Q, (const T*)q, (const T*)R, (const T*)r, (const T*)H,
           (const T*)A, (const T*)Bm, (const T*)Cx, (const T*)Cu,
-          (const T*)cb, (const T*)cmask, nonpos_bits, (const T*)X,
-          (const T*)U, (const T*)lam, (const T*)rho, (const T*)reg, (T*)K,
-          (T*)d, (T*)dV1, (T*)dV2, Bt, N, n, m, P);
+          (const T*)cb, (const T*)cmask, table, (const T*)X, (const T*)U,
+          (const T*)rho, (const T*)reg, (T*)K, (T*)d, (T*)dV1, (T*)dV2, Bt,
+          N, n, m, P);
   return (int)cudaGetLastError();
 }
 
@@ -399,14 +524,14 @@ int launch_fused(const void* Q, const void* q, const void* R, const void* r,
   extern "C" int NAME(                                                      \
       const void* Q, const void* q, const void* R, const void* r,           \
       const void* H, const void* A, const void* Bm, const void* Cx,         \
-      const void* Cu, const void* cb, const void* cmask,                    \
-      unsigned long long nonpos_bits, const void* X, const void* U,         \
-      const void* lam, const void* rho, const void* reg, void* K, void* d,  \
+      const void* Cu, const void* cb, const void* cmask, int nblocks,       \
+      const int* meta, const void* const* lams, const void* X,              \
+      const void* U, const void* rho, const void* reg, void* K, void* d,    \
       void* dV1, void* dV2, int Bt, int N, int n, int m, int P,             \
       void* stream) {                                                       \
     return launch_fused<T>(Q, q, R, r, H, A, Bm, Cx, Cu, cb, cmask,         \
-                           nonpos_bits, X, U, lam, rho, reg, K, d, dV1, dV2, \
-                           Bt, N, n, m, P, stream);                         \
+                           nblocks, meta, lams, X, U, rho, reg, K, d, dV1,  \
+                           dV2, Bt, N, n, m, P, stream);                    \
   }
 
 ALTRO_FUSED_ENTRY(altro_fused_expand_backward_f32, float)

@@ -1,5 +1,5 @@
 """Discrete-time linear dynamics (PyTorch counterpart of the LTV part of
-``altro_tpu/dynamics.py``).
+``altro_tpu/dynamics.py``, with its exact zero-order-hold discretization).
 
 The stacks are shared problem data with a leading knot axis of length N-1;
 states and controls carry leading batch axes.
@@ -60,3 +60,18 @@ def lti_dynamics(Ad, Bd, N: int, dd=None) -> LTVDynamics:
         B=Bd.expand((N - 1,) + tuple(Bd.shape)).contiguous(),
         d=dd.expand(N - 1, n).contiguous(),
     )
+
+
+def zoh_discretize(A, B, dt, d=None):
+    """Exact zero-order-hold discretization of x' = A x + B u (+ d) via one
+    matrix exponential of the augmented system [[A, B, d], [0, 0, 0]].
+    Returns (Ad, Bd, dd)."""
+    n, m = B.shape
+    kw = dict(dtype=A.dtype, device=A.device)
+    dcol = d[:, None] if d is not None else torch.zeros((n, 0), **kw)
+    width = n + m + dcol.shape[1]
+    top = torch.cat([A, B, dcol], dim=1)
+    M = torch.cat([top, torch.zeros((width - n, width), **kw)], dim=0)
+    E = torch.linalg.matrix_exp(M * dt)
+    dd = E[:n, n + m] if d is not None else torch.zeros(n, **kw)
+    return E[:n, :n], E[:n, n:n + m], dd

@@ -5,7 +5,8 @@ Each step of a batch of scenarios:
 
     propagate x0 through the first control (+ noise)
     advance the tracking-cost window          (once for the whole batch)
-    shift primal warm starts, seam-correct the shifted states
+    seed the controls: the shifted previous solution (states
+        seam-corrected) or the tracking window's controls
     shift duals, reset penalties
     solve (warm-started, batched)
 """
@@ -129,12 +130,18 @@ def make_mpc_step(prob_mpc: Problem, opts: SolverOptions, X_track, U_track,
     ``init_carry(batch) -> carry`` with carry = (x0, X, U, duals), all
     batched. Every scenario sits at the same window index ``k``, so the
     tracking window and cost retarget are computed once per step
-    (``shared_k=True``, the only form ported). ``warm_start="shift"``
-    carries the previous solution: controls shifted one knot, duals
-    shifted, states seam-corrected (:func:`_xws_corrector`)."""
-    if not shared_k or warm_start != "shift":
-        raise NotImplementedError("only shared_k=True with warm_start='shift' "
-                                  "is ported")
+    (``shared_k=True``, the only form ported).
+
+    ``warm_start``: "shift" carries the previous solution (controls shifted
+    one knot, duals shifted, states seam-corrected by
+    :func:`_xws_corrector`); "track" seeds every solve from the tracking
+    window's controls, with no states (the solve runs its init rollout),
+    while the duals still shift (``opts.reset_duals`` then zeroes them)."""
+    if not shared_k:
+        raise NotImplementedError("only shared_k=True is ported")
+    if warm_start not in ("shift", "track"):
+        raise ValueError(f"warm_start must be 'shift' or 'track', got "
+                         f"{warm_start!r}")
     N = prob_mpc.N
     dyn = prob_mpc.dynamics
     xws = _xws_corrector(dyn)
@@ -146,9 +153,13 @@ def make_mpc_step(prob_mpc: Problem, opts: SolverOptions, X_track, U_track,
         prob_k = dataclasses.replace(
             prob_mpc, cost=retarget_tracking(prob_mpc.cost, Xw, Uw),
             x0=x0_new)
-        U_ws = shift_fill(U)
+        if warm_start == "shift":
+            U_ws = shift_fill(U)
+            X_ws = None if xws is None else xws(X, U_ws, x0_new)
+        else:
+            U_ws = Uw.expand(U.shape).contiguous()
+            X_ws = None
         duals_ws = tuple(d.shift() for d in duals)
-        X_ws = None if xws is None else xws(X, U_ws, x0_new)
         sol = solve(prob_k, opts, U0=U_ws, duals=duals_ws, X0=X_ws)
         out = MPCResults(X=sol.X, U=sol.U, iters=sol.stats.iterations,
                          status=sol.stats.status, viol=sol.stats.viol,

@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-All ``csrc/*.cu`` sources compile with nvcc, for ``sm_90a``, into one shared
-library with a plain C interface, loaded with ctypes. The library is built
-at first use into ``build/altro_tpu_torch/<hash>/`` under the repository
-root (listed in .gitignore), keyed by a hash of the sources and flags, so a
-fresh checkout builds everything from its own sources and later calls reuse
-the build. Nothing here runs at import time.
+Each ``csrc/*.cu`` source compiles with its own nvcc process, all started
+together, for ``sm_90a``; one more nvcc call links the objects into one
+shared library with a plain C interface, loaded with ctypes. The library is
+built at first use into ``build/altro_tpu_torch/<hash>/`` under the
+repository root (listed in .gitignore), keyed by a hash of the sources and
+flags, so a fresh checkout builds everything from its own sources and later
+calls reuse the build. Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -21,16 +22,20 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "altro_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libaltro_tpu_torch_kernels.so"
 
-_P, _I, _U64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_ulonglong
-# C signatures of the entry points; every pointer and the stream is c_void_p
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C signatures of the entry points; every pointer and the stream is c_void_p.
+# A block table is (int count, int* meta, void** multiplier pointers).
+_TABLE = [_I, _P, _P]
 _SIGNATURES = {
     "altro_ls_rollout_f32": [_P] * 3 + [_I] + [_P] * 5 + [_I] + [_P] * 2
                             + [_I] * 4 + [_P],
-    "altro_fused_expand_backward_f32": [_P] * 11 + [_U64] + [_P] * 9
+    "altro_fused_expand_backward_f32": [_P] * 11 + _TABLE + [_P] * 8
                                        + [_I] * 5 + [_P],
+    "altro_ls_rollout_al_f32": [_P] * 13 + _TABLE + [_P] * 6 + [_I]
+                               + [_P] * 3 + [_I] * 5 + [_P],
 }
 for _name in list(_SIGNATURES):
     _SIGNATURES[_name.replace("_f32", "_f64")] = _SIGNATURES[_name]
@@ -66,17 +71,32 @@ def build() -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    cus = [str(s) for s in _sources() if s.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cus]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
+    nvcc = _nvcc()
+    cus = [s for s in _sources() if s.suffix == ".cu"]
+    cmds = [[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(cu), "-o",
+             str(out_dir / (cu.stem + ".o"))] for cu in cus]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    log, failed = [], []
+    for cmd, proc in zip(cmds, procs):
+        out, _ = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(log[-1])
+    if not failed:
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+        os.close(fd)
+        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+               "-o", tmp, *(c[-1] for c in cmds)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(log[-1])
+            os.unlink(tmp)
+    (out_dir / "build.log").write_text("".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "".join(failed))
     os.replace(tmp, lib)
     return lib
 

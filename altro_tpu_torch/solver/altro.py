@@ -1,5 +1,5 @@
 """ALTRO-style augmented-Lagrangian iLQR solver: the batched PyTorch port of
-``altro_tpu/solver/altro.py`` for LTV dynamics with affine ZERO/NONPOS
+``altro_tpu/solver/altro.py`` for LTV dynamics with affine ZERO/NONPOS/SOC
 constraint blocks.
 
 Every entry point takes an explicit leading batch axis B (``prob.x0`` is
@@ -9,8 +9,14 @@ iteration runs
 - the AL expansion fused into the Riccati backward pass
   (ops/riccati_fused.py: a CUDA kernel on the card),
 - the whole line-search ladder of step sizes plus a trailing alpha = 0 rung
-  in one closed-loop rollout (ops/rollout.py: a CUDA kernel on the card),
-  whose AL merit and constraint residuals are evaluated in PyTorch,
+  in one closed-loop rollout, either
+  - classical: the ladder rollout (ops/rollout.py: a CUDA kernel on the
+    card), whose AL cost and constraint residuals are evaluated in
+    PyTorch for every rung, or
+  - fused (``SolverOptions.ls_fused``): the ladder rollout with each
+    rung's AL merit accumulated in the same pass (ops/rollout_al.py: a
+    CUDA kernel on the card), the residuals then evaluated once on the
+    adopted trajectory,
 - the AL round bookkeeping (dual update by polar-cone projection, penalty
   scaling, violation check) inline under a per-lane mask.
 
@@ -30,8 +36,10 @@ import torch
 
 from ..cones import project_polar, violation
 from ..constraints import DualState, al_terms_structured
+from ..ops.blocks import pack_blocks
 from ..ops.riccati_fused import fused_expand_backward
 from ..ops.rollout import batched_ls_rollout
+from ..ops.rollout_al import batched_ls_rollout_al
 from ..problem import Problem
 from .options import SolverOptions
 
@@ -78,24 +86,57 @@ def total_al_cost_res(prob: Problem, duals, X, U):
     return J, (tuple(cs), tuple(cts))
 
 
+def _al_merit_tail(blocks, lams, rho0, X, U):
+    """AL penalty part of the line-search merit [...]:
+    sum over blocks of mask * |proj_polar(lam + rho0 c)|^2 / (2 rho0).
+
+    This is the AL cost minus the rung-independent -|lam|^2/(2 rho) term:
+    every use of the merit is a difference or comparison between rungs, so
+    dropping it changes no decision. ``rho0`` is the shared penalty
+    schedule [..., N]; X, U, lams and rho0 broadcast over leading axes."""
+    pen = torch.zeros((), dtype=X.dtype, device=X.device)
+    for con, lam in zip(blocks, lams):
+        c = con.evaluate(X, U)
+        ct = project_polar(con.cone, lam + rho0[..., None] * c)
+        pen = pen + torch.sum(
+            con.mask * torch.sum(ct * ct, dim=-1) / (2.0 * rho0), dim=-1)
+    return pen
+
+
 def _al_expansion_cd(cost, constraints, duals, X, U):
     """Quadratic expansion of the AL objective along (X [B,N,n], U).
 
     Returns lx [B,N,n], lu [B,N,m], lxx [(B,)N,n,n], luu [(B,)N,m,m],
     lux [(B,)N,m,n]: the Hessians stay shared when no block adds per-lane
     curvature. Blocks are affine, so the Gauss-Newton curvature
-    C' diag(w) C is exact up to the projection kink."""
+    C' (rho J_polar) C is exact up to the projection kink; each block's
+    curvature comes in its structured form (al_terms_structured)."""
     lx, lu, lxx, luu, lux = cost.expansion(X, U)
     for con, dual in zip(constraints, duals):
-        g, (_, w) = al_terms_structured(con, dual, X, U)
+        g, (kind, H) = al_terms_structured(con, dual, X, U)
         Cx, Cu = con.jacobians(X, U)
         lx = lx + torch.einsum("kpn,...kp->...kn", Cx, g)
         lu = lu + torch.einsum("kpm,...kp->...km", Cu, g)
+        if kind == "dense":
+            # small cones: contract the [N, p, p] curvature directly
+            lxx = lxx + torch.einsum("kpi,...kpq,kqj->...kij", Cx, H, Cx)
+            luu = luu + torch.einsum("kpi,...kpq,kqj->...kij", Cu, H, Cu)
+            lux = lux + torch.einsum("kpi,...kpq,kqj->...kij", Cu, H, Cx)
+            continue
+        w, ranks = (H, ()) if kind == "diag" else H
         WCx = w[..., None] * Cx
         WCu = w[..., None] * Cu
         lxx = lxx + torch.einsum("kpi,...kpj->...kij", Cx, WCx)
         luu = luu + torch.einsum("kpi,...kpj->...kij", Cu, WCu)
         lux = lux + torch.einsum("kpi,...kpj->...kij", Cu, WCx)
+        for coef, u in ranks:
+            # 'diag_lr': coef (C'u)(C'u)', the SOC Jacobian's rank-1 terms
+            ax = torch.einsum("kpn,...kp->...kn", Cx, u)
+            au = torch.einsum("kpm,...kp->...km", Cu, u)
+            c3 = coef[..., None, None]
+            lxx = lxx + c3 * (ax[..., :, None] * ax[..., None, :])
+            luu = luu + c3 * (au[..., :, None] * au[..., None, :])
+            lux = lux + c3 * (au[..., :, None] * ax[..., None, :])
     return lx, lu, lxx, luu, lux
 
 
@@ -248,12 +289,35 @@ def _flat_while(prob: Problem, opts: SolverOptions, s):
     return s
 
 
+def _uses_fused_ladder(opts: SolverOptions, prob: Problem, X) -> bool:
+    """Whether the line search takes the fused ladder + merit pass:
+    ``ls_fused`` "on" always, "off" never, "auto" on a CUDA device for
+    multi-block constraint sets (the classical ladder stays the CPU
+    default, as in the JAX package)."""
+    if opts.ls_fused == "off":
+        return False
+    return opts.ls_fused == "on" or (X.device.type == "cuda"
+                                     and len(prob.constraints) > 1)
+
+
+def _ladder_choice(Jts, alphas, dV1, dV2, ls_min_ratio):
+    """Rung selection of the parallel line search from the ladder's merits
+    Jts [B, L] (the last rung is alpha = 0, the current trajectory) and the
+    backward pass's expected decrease terms dV1, dV2 [B]. Returns the first
+    (largest-alpha) admissible rung idx [B], accepted [B], the expected
+    decreases [B, L] and the achieved/expected ratios [B, L]."""
+    J = Jts[:, -1]
+    expected = -(alphas * dV1[:, None] + alphas * alphas * dV2[:, None])
+    ratio = (J[:, None] - Jts) / torch.clamp(expected, min=1e-12)
+    oks = torch.where(expected > 1e-12, ratio > ls_min_ratio,
+                      Jts < J[:, None]) & torch.isfinite(Jts)
+    idx = oks.to(torch.int8).argmax(dim=-1)   # first True = largest alpha
+    return idx, oks.any(dim=-1), expected, ratio
+
+
 def _loop_fns(prob: Problem, opts: SolverOptions, s0):
     """(cond, body) of the flat AL + iLQR loop. ``body`` freezes every lane
     whose own ``cond`` is false."""
-    if opts.ls_fused == "on":
-        raise NotImplementedError("ls_fused='on' needs the fused ladder+merit "
-                                  "kernel, which is not ported yet")
     X_0 = s0[0]
     lanes = torch.arange(X_0.shape[0], device=X_0.device)
     dyn = prob.dynamics
@@ -262,13 +326,18 @@ def _loop_fns(prob: Problem, opts: SolverOptions, s0):
     alphas_t = tuple(opts.ls_decrease ** i
                      for i in range(opts.iterations_linesearch)) + (0.0,)
     alphas = torch.tensor(alphas_t, dtype=X_0.dtype, device=X_0.device)
+    fused_ladder = _uses_fused_ladder(opts, prob, X_0)
+    # the kernels' row-concatenated constraint stacks, once per solve
+    packed = (pack_blocks(prob.constraints, prob.N, prob.n, prob.m, X_0)
+              if X_0.device.type == "cuda" else None)
 
     def round_end_update(cs, cts, duals, lam_ok):
-        """AL round bookkeeping from the line search's residuals (cs) and
-        projected duals (cts). The multipliers are updated only when
+        """AL round bookkeeping from the adopted trajectory's residuals (cs)
+        and projected duals (cts). The multipliers are updated only when
         ``lam_ok`` (an ACCEPTED rung or an inner optimum): on a stuck round
-        the alpha=0 re-roll's rounding error times rho would snowball the
-        carried multipliers. Penalty scaling always applies."""
+        the rounding error of the kept trajectory's residuals times rho
+        would snowball the carried multipliers. Penalty scaling always
+        applies."""
         viol_r = torch.zeros_like(X_0[:, 0, 0])
         lams = []
         for con, c, ct in zip(prob.constraints, cs, cts):
@@ -296,11 +365,13 @@ def _loop_fns(prob: Problem, opts: SolverOptions, s0):
         lams = tuple(d.lam for d in duals)
         rhos = tuple(d.rho for d in duals)
         Knew, dff, dV1, dV2 = fused_expand_backward(
-            prob.cost, dyn.A, dyn.B, prob.constraints, X, U, lams, rhos, reg)
+            prob.cost, dyn.A, dyn.B, prob.constraints, X, U, lams, rhos, reg,
+            packed=packed)
         if len(rhos) > 1:
-            # the fused expansion reads one shared penalty schedule
-            # (rhos[0]): poison the feedforward of lanes whose blocks
-            # diverge, so the wrongness is loud instead of silent
+            # the fused expansion and the fused ladder read one shared
+            # penalty schedule (rhos[0]): poison the feedforward of lanes
+            # whose blocks diverge, so the wrongness is loud instead of
+            # silent
             rho_dev = sum(torch.amax(torch.abs(r - rhos[0]), dim=-1)
                           for r in rhos[1:])
             dff = torch.where((rho_dev > 0)[:, None, None], math.nan, dff)
@@ -312,27 +383,40 @@ def _loop_fns(prob: Problem, opts: SolverOptions, s0):
         pre_done = grad_new < opts.gradient_tolerance
 
         # parallel line search over the whole ladder
-        Xts, Uts = batched_ls_rollout(dyn.A, dyn.B, dyn.d, X, U, Knew, dff,
-                                      alphas_t)
-        duals_l = tuple(DualState(lam=d.lam[:, None], rho=d.rho[:, None])
-                        for d in duals)
-        Jts, (Cts, CTts) = total_al_cost_res(prob, duals_l, Xts, Uts)
+        if fused_ladder:
+            Xts, Uts, Jts = batched_ls_rollout_al(
+                prob.cost, dyn.A, dyn.B, dyn.d, prob.constraints, X, U, Knew,
+                dff, lams, rhos[0] if rhos else torch.zeros_like(X[..., 0]),
+                alphas_t, packed=packed)
+        else:
+            Xts, Uts = batched_ls_rollout(dyn.A, dyn.B, dyn.d, X, U, Knew,
+                                          dff, alphas_t)
+            duals_l = tuple(DualState(lam=d.lam[:, None], rho=d.rho[:, None])
+                            for d in duals)
+            Jts, (Cts, CTts) = total_al_cost_res(prob, duals_l, Xts, Uts)
+        idx, accepted, expected, ratio = _ladder_choice(
+            Jts, alphas, dV1, dV2, opts.ls_min_ratio)
         J = Jts[:, -1]
-        expected = -(alphas * dV1[:, None] + alphas * alphas * dV2[:, None])
-        ratio = (J[:, None] - Jts) / torch.clamp(expected, min=1e-12)
-        oks = torch.where(expected > 1e-12, ratio > opts.ls_min_ratio,
-                          Jts < J[:, None]) & torch.isfinite(Jts)
-        idx = oks.to(torch.int8).argmax(dim=-1)   # first True = largest alpha
-        accepted = oks.any(dim=-1)
         Xn = _where_tree(accepted, Xts[lanes, idx], X)
         Un = _where_tree(accepted, Uts[lanes, idx], U)
         Jn = torch.where(accepted, Jts[lanes, idx], J)
-        # accepted rung's residuals / projected duals (the alpha=0 rung IS
-        # the current trajectory, so the rejected case selects rung -1)
-        cs_acc = tuple(_where_tree(accepted, Ct[lanes, idx], Ct[:, -1])
-                       for Ct in Cts)
-        cts_acc = tuple(_where_tree(accepted, Ct[lanes, idx], Ct[:, -1])
-                        for Ct in CTts)
+        if fused_ladder:
+            # one constraint pass on the ADOPTED trajectory (a rejected
+            # lane evaluates the kept X, U directly)
+            cs_acc, cts_acc = [], []
+            for con, dual in zip(prob.constraints, duals):
+                c = con.evaluate(Xn, Un)
+                cs_acc.append(c)
+                cts_acc.append(project_polar(
+                    con.cone, dual.lam + dual.rho[..., None] * c))
+        else:
+            # accepted rung's residuals / projected duals (the alpha=0 rung
+            # IS the current trajectory, so the rejected case selects rung
+            # -1)
+            cs_acc = tuple(_where_tree(accepted, Ct[lanes, idx], Ct[:, -1])
+                           for Ct in Cts)
+            cts_acc = tuple(_where_tree(accepted, Ct[lanes, idx], Ct[:, -1])
+                            for Ct in CTts)
 
         # regularization schedule
         reg_fail = torch.clamp(torch.clamp(reg, min=opts.reg_min)

@@ -43,7 +43,10 @@ class SolverOptions:
     reset_duals: bool = False
     reset_penalties: bool = True
 
-    # Fused ladder-rollout + AL-merit line search: "auto" | "on" | "off".
-    # Its kernel is not ported yet; the solver takes the classical ladder
-    # path for "auto" and "off" and refuses "on".
+    # Fused ladder-rollout + AL-merit line search: each rung's AL merit is
+    # accumulated in the rollout pass (ops/rollout_al.py) and the adopted
+    # trajectory's residuals are computed once afterwards. "auto" (default):
+    # on a CUDA device for multi-block constraint sets, the classical ladder
+    # otherwise (the CPU default keeps the classical path); "on": always;
+    # "off": never.
     ls_fused: str = "auto"

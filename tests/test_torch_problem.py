@@ -217,7 +217,9 @@ def test_convert_duals_and_options():
 
 def test_port_imports_no_jax():
     code = ("import sys, altro_tpu_torch, altro_tpu_torch.mpc, "
-            "altro_tpu_torch.bench.flagship, altro_tpu_torch.convert; "
+            "altro_tpu_torch.bench.flagship, altro_tpu_torch.bench.conic, "
+            "altro_tpu_torch.models.rocket, altro_tpu_torch.ops.rollout_al, "
+            "altro_tpu_torch.ops.blocks, altro_tpu_torch.convert; "
             "bad = [k for k in sys.modules if k.split('.')[0] in "
             "('jax', 'flax', 'altro_tpu')]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120,

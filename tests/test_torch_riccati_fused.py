@@ -5,9 +5,11 @@
 - its composed plain path ``jax.vmap(_expand_backward_base)`` at the
   flagship's widths n=12, m=6 on N=11 with NONPOS multipliers |lambda| and a
   nonzero per-lane regularization (atol 1e-9), and with a second, ZERO block;
+- its Pallas kernel in interpret mode on the rocket MPC window's three SOC
+  blocks at N=13, B=4 (1e-10 of each output's scale);
 
 the wrapper's CPU dispatch; and, on a CUDA device, the kernel against the
-plain version.
+plain version, on ZERO/NONPOS and on SOC blocks.
 
 JAX is imported only by the tests that compare with it, so the kernel tests
 also run where JAX is not installed:
@@ -144,11 +146,104 @@ def test_kernel_matches_plain_version(cuda, widths, goal, dtype, tol):
                                                       float(r.abs().max()))
 
 
+def _rocket_case(N, Bt, seed, jax_too=False):
+    """The rocket MPC window (three SOC blocks, tracking the hover rollout)
+    and per-lane inputs that put the cone residuals in all three cases,
+    with one lane-knot at the glideslope cone's apex (v = 0): the
+    port's arguments and, if ``jax_too``, the JAX package's."""
+    from altro_tpu_torch.models import rocket
+    from altro_tpu_torch.mpc import gen_tracking_mpc
+
+    tp = rocket.rocket_problem(N=N + 2, tf=(N + 1) * 0.05)
+    U_tr = rocket.hover_controls(tp)
+    X_tr = tp.dynamics.rollout(tp.x0, U_tr)
+    pm = gen_tracking_mpc(tp, X_tr, U_tr, N, dt=0.05)
+    rng = np.random.default_rng(seed)
+    n, m = pm.n, pm.m
+    X = X_tr[None, :N].numpy() + rng.standard_normal((Bt, N, n))
+    U = U_tr[None, :N - 1].numpy() + 60.0 * rng.standard_normal((Bt, N - 1,
+                                                                 m))
+    lams = [300.0 * rng.standard_normal((Bt, N, c.p))
+            for c in pm.constraints]
+    # glideslope apex at lane 0, knot N-3: x = y = 0 and lambda_v = 0
+    X[0, N - 3, :2] = 0.0
+    lams[2][0, N - 3, :-1] = 0.0
+    rhos = [np.full((Bt, N), 10.0) for _ in pm.constraints]
+    reg = np.full(Bt, 1.0)
+    t = torch.as_tensor
+    targs = (pm.cost, pm.dynamics.A, pm.dynamics.B, pm.constraints, t(X),
+             t(U), tuple(map(t, lams)), tuple(map(t, rhos)), t(reg))
+    if not jax_too:
+        return targs
+    import jax.numpy as jnp
+
+    from altro_tpu.constraints import ConicConstraint
+    from altro_tpu.costs import QuadCost
+    from altro_tpu.cones import Cone
+    a = jnp.asarray
+    jcost = QuadCost(**{k: a(v.numpy()) for k, v in vars(pm.cost).items()})
+    jblocks = tuple(ConicConstraint(Cx=a(c.Cx.numpy()), Cu=a(c.Cu.numpy()),
+                                    b=a(c.b.numpy()), mask=a(c.mask.numpy()),
+                                    cone=Cone(c.cone.value), name=c.name)
+                    for c in pm.constraints)
+    jargs = (jcost, a(pm.dynamics.A.numpy()), a(pm.dynamics.B.numpy()),
+             jblocks, a(X), a(U), tuple(map(a, lams)), tuple(map(a, rhos)),
+             a(reg))
+    return targs, jargs
+
+
+def soc_case_counts(blocks, X, U, lams, rhos):
+    """(inside, polar, boundary) counts of the masked SOC residuals z."""
+    counts = np.zeros(3, int)
+    for c, lam, rho in zip(blocks, lams, rhos):
+        z = lam + rho[..., None] * c.evaluate(X, U)
+        a = torch.linalg.vector_norm(z[..., :-1], dim=-1)
+        s = z[..., -1]
+        act = c.mask > 0
+        inside, polar = (a <= s) & act, (a <= -s) & act
+        counts += [int(inside.sum()), int(polar.sum()),
+                   int((act & ~((a <= s) | (a <= -s))).sum())]
+    return counts
+
+
+def test_soc_reference_matches_jax_pallas_interpret():
+    """The rocket window's SOC blocks: the port's plain version (dense SOC
+    curvature) against the Pallas kernel (diagonal + two rank-1 terms) in
+    interpret mode. Tolerance 1e-10 of each output's largest entry: the two
+    forms differ only in summation order, and the inputs put entries of
+    K, d and dV far above 1."""
+    from altro_tpu.ops.riccati_fused import fused_expand_backward as j_fused
+
+    targs, jargs = _rocket_case(13, 4, seed=5, jax_too=True)
+    assert min(soc_case_counts(*(targs[i] for i in (3, 4, 5, 6, 7)))) > 0
+    want = j_fused(*jargs, interpret=True)
+    got = riccati_fused.fused_expand_backward_reference(*targs)
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.numpy(), w, rtol=0,
+                                   atol=1e-10 * max(1.0, np.abs(w).max()))
+
+
 @pytest.mark.cuda
-def test_kernel_refuses_soc_blocks(cuda):
-    targs = convert.tree_to(_case(5, 3, 7, 2, seed=3), cuda, torch.float32)
-    (con,) = targs[3]
-    soc = (tt.ConicConstraint(Cx=con.Cx, Cu=con.Cu, b=con.b, mask=con.mask,
-                              cone=tt.Cone.SOC),)
-    with pytest.raises(NotImplementedError):
-        riccati_fused.fused_expand_backward(*targs[:3], soc, *targs[4:])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3),
+                                       (torch.float64, 1e-9)])
+def test_kernel_matches_plain_version_soc(cuda, dtype, tol):
+    """The rocket window's three SOC blocks (all three cone cases and an
+    apex lane-knot), with and without a ZERO block in front."""
+    targs = convert.tree_to(_rocket_case(21, 67, seed=6), cuda, dtype)
+    goal = tt.goal_constraint(21, 6, 3, torch.zeros(6), dtype=dtype,
+                              device=cuda)
+    lam_goal = torch.ones((67, 21, 6), dtype=dtype, device=cuda)
+    with_goal = (*targs[:3], (goal,) + targs[3], *targs[4:6],
+                 (lam_goal,) + targs[6], (targs[7][0],) + targs[7],
+                 targs[8])
+    for args in (targs, with_goal):
+        before = riccati_fused.launch_count
+        got = riccati_fused.fused_expand_backward(*args)
+        torch.cuda.synchronize()
+        assert riccati_fused.launch_count == before + 1
+        for g, r in zip(got,
+                        riccati_fused.fused_expand_backward_reference(*args)):
+            assert torch.isfinite(g).all()
+            assert float((g - r).abs().max()) <= tol * max(
+                1.0, float(r.abs().max()))

@@ -1,0 +1,182 @@
+"""Fused ladder rollout + AL merit: the port's plain
+``batched_ls_rollout_al_reference`` against the JAX package's Pallas kernel
+in interpret mode on the rocket MPC window (three SOC blocks) and on a
+ZERO + NONPOS pair in float64 (Xs/Us rtol 1e-9, J rtol 1e-8); the
+wrapper's CPU dispatch; and, on a CUDA device, the kernel against the plain
+version in float32 and float64, and the wrapper's limits.
+
+JAX is imported only by the tests that compare with it, so the kernel tests
+also run where JAX is not installed:
+``python -m pytest --noconftest -m cuda tests/test_torch_rollout_al.py``."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import altro_tpu_torch as tt  # noqa: E402
+from altro_tpu_torch import convert  # noqa: E402
+from altro_tpu_torch.ops import rollout_al  # noqa: E402
+
+torch.set_num_threads(1)
+LADDER = (1.0, 0.5, 0.25, 0.125, 0.0625, 0.0)
+
+
+def _window(kind, N):
+    """The rocket MPC window tracking the hover rollout ('rocket': three SOC
+    blocks) or the same window with a terminal ZERO goal and a NONPOS
+    thrust bound instead ('zero_nonpos')."""
+    from altro_tpu_torch.models import rocket
+    from altro_tpu_torch.mpc import gen_tracking_mpc
+
+    tp = rocket.rocket_problem(N=N + 2, tf=(N + 1) * 0.05)
+    U_tr = rocket.hover_controls(tp)
+    X_tr = tp.dynamics.rollout(tp.x0, U_tr)
+    pm = gen_tracking_mpc(tp, X_tr, U_tr, N, dt=0.05)
+    if kind == "zero_nonpos":
+        blocks = (tt.goal_constraint(N, 6, 3, torch.ones(6),
+                                     dtype=torch.float64),
+                  tt.bound_constraint(N, 6, 3, u_min=-50.0, u_max=150.0,
+                                      dtype=torch.float64))
+        pm = tt.Problem(dynamics=pm.dynamics, cost=pm.cost,
+                        constraints=blocks, x0=pm.x0)
+    return pm, X_tr[:N], U_tr[:N - 1]
+
+
+def _case(kind, N, Bt, seed):
+    """Port arguments (without the ladder) for per-lane inputs around the
+    window's track: rho varies over lanes and knots; lane 0 sits at the
+    thrust-angle cone's apex (v = 0) at knot 0 for the rocket blocks."""
+    pm, X_tr, U_tr = _window(kind, N)
+    rng = np.random.default_rng(seed)
+    n, m = pm.n, pm.m
+    X = X_tr[None].numpy() + rng.standard_normal((Bt, N, n))
+    U = U_tr[None].numpy() + 60.0 * rng.standard_normal((Bt, N - 1, m))
+    K = 0.1 * rng.standard_normal((Bt, N - 1, m, n))
+    d = 5.0 * rng.standard_normal((Bt, N - 1, m))
+    lams = [300.0 * rng.standard_normal((Bt, N, c.p))
+            for c in pm.constraints]
+    if kind == "rocket":
+        # knot 0 rolls out to x = xbar, u = ubar + alpha d for every rung
+        U[0, 0, :2] = d[0, 0, :2] = 0.0
+        lams[1][0, 0, :-1] = 0.0
+    rho = 10.0 ** rng.uniform(0, 3, (Bt, N))
+    t = torch.as_tensor
+    dyn = pm.dynamics
+    return (pm.cost, dyn.A, dyn.B, dyn.d, pm.constraints, t(X), t(U), t(K),
+            t(d), tuple(map(t, lams)), t(rho))
+
+
+def _to_jax(args):
+    import jax.numpy as jnp
+
+    from altro_tpu.cones import Cone
+    from altro_tpu.constraints import ConicConstraint
+    from altro_tpu.costs import QuadCost
+    a = lambda v: jnp.asarray(v.numpy())            # noqa: E731
+    cost, A, B, dd, blocks, X, U, K, d, lams, rho = args
+    jcost = QuadCost(**{k: a(v) for k, v in vars(cost).items()})
+    jblocks = tuple(ConicConstraint(Cx=a(c.Cx), Cu=a(c.Cu), b=a(c.b),
+                                    mask=a(c.mask), cone=Cone(c.cone.value),
+                                    name=c.name) for c in blocks)
+    return (jcost, a(A), a(B), a(dd), jblocks, a(X), a(U), a(K), a(d),
+            tuple(map(a, lams)), a(rho))
+
+
+@pytest.fixture(scope="module")
+def interpret_cases():
+    """One interpret-mode run of the JAX Pallas kernel per block set (slow
+    on the CPU): {kind: (port args, JAX outputs)}."""
+    pytest.importorskip("jax")
+    from altro_tpu.ops.rollout import batched_ls_rollout_al as j_al
+
+    out = {}
+    for kind, N in (("rocket", 13), ("zero_nonpos", 7)):
+        args = _case(kind, N, 4, seed=1)
+        out[kind] = (args, j_al(*_to_jax(args), LADDER[::2], interpret=True))
+    return out
+
+
+@pytest.mark.parametrize("kind", ["rocket", "zero_nonpos"])
+def test_reference_matches_jax_pallas_interpret(interpret_cases, kind):
+    args, (Xj, Uj, Jj) = interpret_cases[kind]
+    Xs, Us, J = rollout_al.batched_ls_rollout_al_reference(*args,
+                                                           LADDER[::2])
+    assert J.shape == (4, 3) and Xs.shape[:2] == (4, 3)
+    np.testing.assert_allclose(Xs.numpy(), np.asarray(Xj), rtol=1e-9,
+                               atol=1e-9)
+    np.testing.assert_allclose(Us.numpy(), np.asarray(Uj), rtol=1e-9,
+                               atol=1e-9)
+    np.testing.assert_allclose(J.numpy(), np.asarray(Jj), rtol=1e-8)
+
+
+def test_wrapper_takes_plain_version_on_cpu(interpret_cases):
+    args, _ = interpret_cases["rocket"]
+    before = rollout_al.launch_count
+    got = rollout_al.batched_ls_rollout_al(*args, LADDER)
+    ref = rollout_al.batched_ls_rollout_al_reference(*args, LADDER)
+    assert rollout_al.launch_count == before
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    with pytest.raises(ValueError):
+        rollout_al.batched_ls_rollout_al(*args[:7], args[7][:, :-1],
+                                         *args[8:], LADDER)
+
+
+def test_merit_is_al_cost_without_the_lambda_term():
+    """J of the alpha=0 rung with K = d = 0 is the AL cost of (Xbar rolled
+    out, Ubar) plus sum mask |lam|^2 / (2 rho)."""
+    from altro_tpu_torch.solver.altro import total_al_cost_res
+
+    cost, A, B, dd, blocks, X, U, K, d, lams, rho = _case("rocket", 9, 3, 2)
+    Xs, Us, J = rollout_al.batched_ls_rollout_al_reference(
+        cost, A, B, dd, blocks, X, U, torch.zeros_like(K),
+        torch.zeros_like(d), lams, rho, (0.0,))
+    prob = tt.Problem(dynamics=tt.LTVDynamics(A=A, B=B, d=dd), cost=cost,
+                      constraints=blocks, x0=X[:, 0])
+    duals = tuple(tt.DualState(lam=lam, rho=rho) for lam in lams)
+    J_al, _ = total_al_cost_res(prob, duals, Xs[:, 0], Us[:, 0])
+    lam_term = sum(torch.sum(c.mask * torch.sum(lam ** 2, -1) / (2 * rho), -1)
+                   for c, lam in zip(blocks, lams))
+    np.testing.assert_allclose(J[:, 0].numpy(), (J_al + lam_term).numpy(),
+                               rtol=1e-12)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device to run the hand-written kernel")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3),
+                                       (torch.float64, 1e-9)])
+@pytest.mark.parametrize("kind,N,Bt", [("rocket", 21, 67),
+                                       ("zero_nonpos", 9, 5)])
+def test_kernel_matches_plain_version(cuda, kind, N, Bt, dtype, tol):
+    """Xs, Us against max(1, max|plain|); J per lane against
+    max(1, |J_plain|): the merit reaches 1e6 with rho up to 1e3."""
+    args = convert.tree_to(_case(kind, N, Bt, seed=3), cuda, dtype)
+    before = rollout_al.launch_count
+    got = rollout_al.batched_ls_rollout_al(*args, LADDER)
+    torch.cuda.synchronize()
+    assert rollout_al.launch_count == before + 1
+    ref = rollout_al.batched_ls_rollout_al_reference(*args, LADDER)
+    for g, r in zip(got[:2], ref[:2]):
+        assert float((g - r).abs().max()) <= tol * max(1.0,
+                                                      float(r.abs().max()))
+    assert bool(((got[2] - ref[2]).abs()
+                 <= tol * torch.clamp(ref[2].abs(), min=1.0)).all())
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_past_its_limits(cuda):
+    args = convert.tree_to(_case("rocket", 9, 2, seed=4), cuda,
+                           torch.float64)
+    with pytest.raises(ValueError):                 # L > 16
+        rollout_al.batched_ls_rollout_al(*args, (0.5,) * 17)
+    many = args[4] * 6                              # 18 blocks, 90 rows
+    lams = args[9] * 6
+    with pytest.raises(ValueError):
+        rollout_al.batched_ls_rollout_al(*args[:4], many, *args[5:9], lams,
+                                         args[10], LADDER)
