@@ -2,10 +2,12 @@
 
 The augmented-Lagrangian iLQR solver with ZERO, NONPOS and second-order-cone
 constraint blocks, its warm-started receding-horizon MPC step and the
-random-linear and rocket soft-landing benchmark models, batched over
-scenarios, with hand-written Hopper kernels for the fused AL expansion +
-Riccati backward pass, the line-search ladder rollout and the ladder
-rollout fused with the AL merit (``csrc/``). The JAX package ``altro_tpu``
+random-linear, rocket soft-landing and quadruped trot benchmark models,
+batched over scenarios (with shared or per-scenario dynamics), with
+hand-written Hopper kernels for the fused AL expansion + Riccati backward
+pass, the Riccati backward pass from a per-scenario expansion, the
+line-search ladder rollout and the ladder rollout fused with the AL merit
+(``csrc/``). The JAX package ``altro_tpu``
 is the reference it is checked against; this package imports neither it
 nor JAX.
 
@@ -25,7 +27,9 @@ from .constraints import (  # noqa: E402
     ConicConstraint,
     DualState,
     bound_constraint,
+    friction_cone,
     goal_constraint,
+    linearized_friction,
     norm_constraint,
     norm_constraint2,
 )

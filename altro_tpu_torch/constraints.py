@@ -260,3 +260,41 @@ def norm_constraint2(N: int, n: int, m: int, A, c, on: str = "control",
         mask = _range_mask(N, start, stop, dtype, device)
     return ConicConstraint(Cx=Cx.contiguous(), Cu=Cu.contiguous(), b=b,
                            mask=mask, cone=Cone.SOC, name="norm_soc")
+
+
+def friction_cone(N: int, n: int, m: int, mu, foot_inds,
+                  mask=None, dtype=torch.float32,
+                  device=None) -> ConicConstraint:
+    """||(f_x, f_y)|| <= mu f_z for one contact force in u, as the SOC
+    block (f_x, f_y, mu f_z); ``foot_inds`` are the force's 3 control
+    indices."""
+    ix, iy, iz = foot_inds
+    kw = dict(dtype=dtype, device=device)
+    A = torch.zeros((2, m), **kw)
+    A[0, ix] = 1.0
+    A[1, iy] = 1.0
+    c = torch.zeros(m, **kw)
+    c[iz] = mu
+    return norm_constraint2(N, n, m, A, c, on="control", mask=mask,
+                            dtype=dtype, device=device)
+
+
+def linearized_friction(N: int, n: int, m: int, mu, foot_inds,
+                        mask=None, dtype=torch.float32,
+                        device=None) -> ConicConstraint:
+    """The friction pyramid |f_x| <= mu f_z, |f_y| <= mu f_z as 4 NONPOS
+    rows."""
+    ix, iy, iz = foot_inds
+    kw = dict(dtype=dtype, device=device)
+    Au = torch.zeros((4, m), **kw)
+    for r, (i, s) in enumerate(((ix, 1.0), (ix, -1.0), (iy, 1.0),
+                                (iy, -1.0))):
+        Au[r, i] = s
+        Au[r, iz] -= mu
+    if mask is None:
+        mask = _range_mask(N, 0, N - 1, dtype, device)
+    return ConicConstraint(
+        Cx=torch.zeros((N, 4, n), **kw),
+        Cu=Au.expand(N, 4, m).contiguous(),
+        b=torch.zeros((N, 4), **kw),
+        mask=mask, cone=Cone.NONPOS, name="linearized_friction")

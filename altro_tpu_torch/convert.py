@@ -43,23 +43,42 @@ def _t(a, device, dtype):
     return torch.tensor(np.asarray(a), dtype=dtype, device=device)
 
 
+# ranks of the shared cost and constraint stacks (without a batch axis)
+_COST_RANKS = {"Q": 3, "q": 2, "R": 3, "r": 2, "H": 3, "c": 1}
+_BLOCK_RANKS = {"Cx": 3, "Cu": 3, "b": 2, "mask": 1}
+
+
+def _shared(a, rank: int, name: str) -> np.ndarray:
+    """A shared stack from an array that may carry a batch axis: equal
+    lanes give lane 0; lanes that differ raise."""
+    a = np.asarray(a)
+    if a.ndim == rank:
+        return a
+    if a.ndim != rank + 1 or not (a == a[:1]).all():
+        raise ValueError(f"{name}: shape {a.shape} is neither a shared "
+                         f"rank-{rank} stack nor equal across its lanes")
+    return a[0]
+
+
 def problem_from_numpy(tree: dict, device="cpu",
                        dtype=torch.float64) -> Problem:
     """Build a :class:`Problem` from ``numpy_tree`` of an LTV problem with
-    affine conic blocks."""
+    affine conic blocks, shared or batched (as the JAX package stacks a
+    per-lane problem for ``vmap``). Batched dynamics stay per lane; cost and
+    constraint stacks must be equal across lanes and are taken from lane 0
+    (the port keeps them shared)."""
     dyn, cost = tree["dynamics"], tree["cost"]
     return Problem(
         dynamics=LTVDynamics(**{k: _t(dyn[k], device, dtype)
                                 for k in ("A", "B", "d")}),
-        cost=QuadCost(**{k: _t(cost[k], device, dtype)
-                         for k in ("Q", "q", "R", "r", "H", "c")}),
+        cost=QuadCost(**{k: _t(_shared(cost[k], r, k), device, dtype)
+                         for k, r in _COST_RANKS.items()}),
         constraints=tuple(
-            ConicConstraint(Cx=_t(c["Cx"], device, dtype),
-                            Cu=_t(c["Cu"], device, dtype),
-                            b=_t(c["b"], device, dtype),
-                            mask=_t(c["mask"], device, dtype),
-                            cone=Cone(c["cone"]), name=c.get("name", ""))
-            for c in tree["constraints"]),
+            ConicConstraint(cone=Cone(c["cone"]), name=c.get("name", ""),
+                            **{k: _t(_shared(c[k], r, f"{k}{i}"), device,
+                                     dtype)
+                               for k, r in _BLOCK_RANKS.items()})
+            for i, c in enumerate(tree["constraints"])),
         x0=_t(tree["x0"], device, dtype))
 
 

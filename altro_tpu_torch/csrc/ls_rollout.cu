@@ -15,7 +15,8 @@
 // the rungs of one scenario so they share its K/xbar/ubar/d reads in L1.
 // The knot loop runs inside the thread; x, dx and u live in registers
 // (fully unrolled loops over the compile-time widths NM/MM, guarded by the
-// runtime n/m).
+// runtime n/m). Widths 16/8 serve the flagship and the rocket, 16/16 the
+// quadruped (n = m = 12; at 32/32 its f64 build spills), 32/32 the rest.
 //
 // What bounds it on the H100: latency of the sequential knot loop. Each
 // thread does ~(n*n + 2*n*m) FMAs per knot on data it has to wait for, and
@@ -137,6 +138,8 @@ int launch_ls_rollout(const void* A, const void* Bm, const void* dd,
       Bt, N, n, m
   if (n <= 16 && m <= 8)
     ls_rollout_kernel<T, 16, 8><<<blocks, threads, 0, s>>>(ALTRO_LS_ARGS);
+  else if (n <= 16 && m <= 16)
+    ls_rollout_kernel<T, 16, 16><<<blocks, threads, 0, s>>>(ALTRO_LS_ARGS);
   else
     ls_rollout_kernel<T, 32, 32><<<blocks, threads, 0, s>>>(ALTRO_LS_ARGS);
 #undef ALTRO_LS_ARGS

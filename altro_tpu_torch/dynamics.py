@@ -1,8 +1,10 @@
 """Discrete-time linear dynamics (PyTorch counterpart of the LTV part of
 ``altro_tpu/dynamics.py``, with its exact zero-order-hold discretization).
 
-The stacks are shared problem data with a leading knot axis of length N-1;
-states and controls carry leading batch axes.
+The stacks have a knot axis of length N-1 and are either shared by the
+batch ([N-1, ...]) or per scenario ([B, N-1, ...], as when every scenario is
+linearized about its own contact schedule); states and controls carry
+leading batch axes.
 """
 from __future__ import annotations
 
@@ -16,13 +18,18 @@ class LTVDynamics:
     """x_{k+1} = A_k x_k + B_k u_k + d_k, k = 0..N-2. LTI models are stored
     broadcast to the horizon."""
 
-    A: torch.Tensor  # [N-1, n, n]
-    B: torch.Tensor  # [N-1, n, m]
-    d: torch.Tensor  # [N-1, n]
+    A: torch.Tensor  # [(B,) N-1, n, n]
+    B: torch.Tensor  # [(B,) N-1, n, m]
+    d: torch.Tensor  # [(B,) N-1, n]
+
+    @property
+    def per_lane(self) -> bool:
+        """Whether the stacks carry a batch axis."""
+        return self.A.dim() == 4
 
     @property
     def N(self) -> int:
-        return self.A.shape[0] + 1
+        return self.A.shape[-3] + 1
 
     @property
     def n(self) -> int:
@@ -33,7 +40,12 @@ class LTVDynamics:
         return self.B.shape[-1]
 
     def step(self, x, u, k: int):
-        """x [..., n], u [..., m] -> x+ [..., n] at knot k."""
+        """x [..., n], u [..., m] -> x+ [..., n] at knot k; with per-lane
+        stacks x and u are [B, n] and [B, m]."""
+        if self.per_lane:
+            return (torch.einsum("bij,bj->bi", self.A[:, k], x)
+                    + torch.einsum("bij,bj->bi", self.B[:, k], u)
+                    + self.d[:, k])
         return (torch.einsum("ij,...j->...i", self.A[k], x)
                 + torch.einsum("ij,...j->...i", self.B[k], u) + self.d[k])
 

@@ -1,8 +1,10 @@
 """Trajectory-optimization problem container (PyTorch counterpart of
 ``altro_tpu/problem.py``).
 
-Dynamics, cost and constraint stacks are shared by every scenario of a
-batch; ``x0`` carries the batch: [B, n] for a batched solve.
+``x0`` carries the batch: [B, n] for a batched solve. The dynamics stacks
+are shared ([N-1, ...]) or carry the batch ([B, N-1, ...]: every scenario
+linearized about its own schedule); cost and constraint stacks are shared by
+every scenario.
 """
 from __future__ import annotations
 
@@ -18,9 +20,9 @@ from .dynamics import LTVDynamics
 
 @dataclass
 class Problem:
-    dynamics: LTVDynamics
-    cost: QuadCost
-    constraints: Tuple[ConicConstraint, ...]
+    dynamics: LTVDynamics   # stacks [N-1, ...] or per scenario [B, N-1, ...]
+    cost: QuadCost          # shared
+    constraints: Tuple[ConicConstraint, ...]  # shared
     x0: torch.Tensor  # [B, n] (or [n] for an unbatched problem)
 
     @property

@@ -3,11 +3,14 @@
 constraint blocks.
 
 Every entry point takes an explicit leading batch axis B (``prob.x0`` is
-[B, n]); dynamics, cost and constraint stacks are shared by the batch. Each
-iteration runs
+[B, n]); cost and constraint stacks are shared by the batch, the dynamics
+stacks are shared or per scenario. Each iteration runs
 
-- the AL expansion fused into the Riccati backward pass
-  (ops/riccati_fused.py: a CUDA kernel on the card),
+- the AL expansion and the Riccati backward pass, either
+  - with shared dynamics: fused into one pass (ops/riccati_fused.py: a
+    CUDA kernel on the card), or
+  - with per-lane dynamics: the expansion in PyTorch, then
+    :func:`backward_pass` (ops/riccati.py: a CUDA kernel on the card),
 - the whole line-search ladder of step sizes plus a trailing alpha = 0 rung
   in one closed-loop rollout, either
   - classical: the ladder rollout (ops/rollout.py: a CUDA kernel on the
@@ -15,8 +18,9 @@ iteration runs
     PyTorch for every rung, or
   - fused (``SolverOptions.ls_fused``): the ladder rollout with each
     rung's AL merit accumulated in the same pass (ops/rollout_al.py: a
-    CUDA kernel on the card), the residuals then evaluated once on the
-    adopted trajectory,
+    CUDA kernel on the card; with per-lane dynamics the ladder-rollout
+    kernel followed by the merit in PyTorch), the residuals then
+    evaluated once on the adopted trajectory,
 - the AL round bookkeeping (dual update by polar-cone projection, penalty
   scaling, violation check) inline under a per-lane mask.
 
@@ -37,6 +41,7 @@ import torch
 from ..cones import project_polar, violation
 from ..constraints import DualState, al_terms_structured
 from ..ops.blocks import pack_blocks
+from ..ops.riccati import batched_riccati
 from ..ops.riccati_fused import fused_expand_backward
 from ..ops.rollout import batched_ls_rollout
 from ..ops.rollout_al import batched_ls_rollout_al
@@ -189,6 +194,14 @@ def _backward_pass(A, B, lx, lu, lxx, luu, lux, reg):
     return torch.stack(Ks, dim=1), torch.stack(ds, dim=1), dV1, dV2
 
 
+def backward_pass(A, B, lx, lu, lxx, luu, lux, reg):
+    """Riccati backward pass of a batch from its expansion (shapes as
+    :func:`_backward_pass`): the kernel on a CUDA device
+    (ops/riccati.batched_riccati), the plain recursion on the CPU."""
+    return batched_riccati(*(t.contiguous() for t in
+                             (A, B, lx, lu, lxx, luu, lux, reg)))
+
+
 def _expand_backward_base(cost, dynA, dynB, blocks, X, U, lams, rhos, reg):
     """AL expansion + Riccati backward pass composed from the plain pieces
     (the plain version of the fused kernel)."""
@@ -219,7 +232,8 @@ def solve(prob: Problem, opts: SolverOptions,
           duals: Optional[Tuple[DualState, ...]] = None,
           X0: Optional[torch.Tensor] = None) -> Solution:
     """Solve a batch of trajectory-optimization problems that share their
-    dynamics, cost and constraints and differ in ``prob.x0`` [B, n].
+    cost and constraints and differ in ``prob.x0`` [B, n] and, with
+    per-lane stacks [B, N-1, ...], in their dynamics.
 
     Warm start: ``U0`` [B, N-1, m] (shifted controls) and ``duals``
     (shifted multipliers, [B, ...]) from the previous MPC solve. Without
@@ -327,9 +341,13 @@ def _loop_fns(prob: Problem, opts: SolverOptions, s0):
                      for i in range(opts.iterations_linesearch)) + (0.0,)
     alphas = torch.tensor(alphas_t, dtype=X_0.dtype, device=X_0.device)
     fused_ladder = _uses_fused_ladder(opts, prob, X_0)
-    # the kernels' row-concatenated constraint stacks, once per solve
+    # per-lane dynamics take the unfused route: expansion in PyTorch, then
+    # the Riccati pass; the line search's fused branch then runs the ladder
+    # rollout and the merit in PyTorch
+    per_lane = dyn.per_lane
+    # the fused kernels' row-concatenated constraint stacks, once per solve
     packed = (pack_blocks(prob.constraints, prob.N, prob.n, prob.m, X_0)
-              if X_0.device.type == "cuda" else None)
+              if X_0.device.type == "cuda" and not per_lane else None)
 
     def round_end_update(cs, cts, duals, lam_ok):
         """AL round bookkeeping from the adopted trajectory's residuals (cs)
@@ -364,9 +382,16 @@ def _loop_fns(prob: Problem, opts: SolverOptions, s0):
         X, U, K, duals, reg, grad, viol, it_rd, it, rounds, done = s
         lams = tuple(d.lam for d in duals)
         rhos = tuple(d.rho for d in duals)
-        Knew, dff, dV1, dV2 = fused_expand_backward(
-            prob.cost, dyn.A, dyn.B, prob.constraints, X, U, lams, rhos, reg,
-            packed=packed)
+        if per_lane:
+            lx, lu, lxx, luu, lux = _al_expansion_cd(prob.cost,
+                                                     prob.constraints,
+                                                     duals, X, U)
+            Knew, dff, dV1, dV2 = backward_pass(dyn.A, dyn.B, lx, lu, lxx,
+                                                luu, lux, reg)
+        else:
+            Knew, dff, dV1, dV2 = fused_expand_backward(
+                prob.cost, dyn.A, dyn.B, prob.constraints, X, U, lams, rhos,
+                reg, packed=packed)
         if len(rhos) > 1:
             # the fused expansion and the fused ladder read one shared
             # penalty schedule (rhos[0]): poison the feedforward of lanes
@@ -383,11 +408,19 @@ def _loop_fns(prob: Problem, opts: SolverOptions, s0):
         pre_done = grad_new < opts.gradient_tolerance
 
         # parallel line search over the whole ladder
-        if fused_ladder:
+        rho0 = rhos[0] if rhos else torch.zeros_like(X[..., 0])
+        if fused_ladder and per_lane:
+            # the fused branch's arithmetic with per-lane dynamics: the
+            # ladder rollout, then each rung's cost and AL merit tail
+            Xts, Uts = batched_ls_rollout(dyn.A, dyn.B, dyn.d, X, U, Knew,
+                                          dff, alphas_t)
+            Jts = prob.cost.total(Xts, Uts) + _al_merit_tail(
+                prob.constraints, tuple(lam[:, None] for lam in lams),
+                rho0[:, None], Xts, Uts)
+        elif fused_ladder:
             Xts, Uts, Jts = batched_ls_rollout_al(
                 prob.cost, dyn.A, dyn.B, dyn.d, prob.constraints, X, U, Knew,
-                dff, lams, rhos[0] if rhos else torch.zeros_like(X[..., 0]),
-                alphas_t, packed=packed)
+                dff, lams, rho0, alphas_t, packed=packed)
         else:
             Xts, Uts = batched_ls_rollout(dyn.A, dyn.B, dyn.d, X, U, Knew,
                                           dff, alphas_t)

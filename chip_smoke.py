@@ -18,6 +18,10 @@ Phases, each printing its findings; any failure raises (non-zero exit):
       three cone cases and an apex lane-knot): the fused expansion's SOC
       branch, and the fused ladder + AL merit at L=6 (J gated per lane
       against max(1, |J|), and the accepted rung compared);
+   c. the flat quadruped batch (B=1024, n=m=12, N=15, per-lane dynamics of
+      8 contact schedules, SOC friction cones): the Riccati pass on the
+      solver's own AL expansion at perturbed X, U and multipliers, and the
+      ladder rollout with per-lane dynamics at the solver's L=11 ladder;
 4. main paths, each with the launch counters reset just before and read
    just after:
    a. the flagship MPC benchmark (B=1024, T=20, float32): success,
@@ -25,6 +29,11 @@ Phases, each printing its findings; any failure raises (non-zero exit):
    b. the rocket MPC benchmark (cold N=301 solve, then B=1024, T=30,
       float32): success >= 0.999, violation of the succeeded solves
       <= 1e-4, and the counters against the solver-loop iterations;
+   c. the flat quadruped benchmark (B=1024, float32, both friction modes,
+      QUAD_ROUNDS cold rounds after a warm-up solve): success 1.0,
+      violation <= 1e-4, the Riccati kernel once and the ladder rollout once
+      per solver-loop iteration (plus once per solve), kernels B and C
+      never;
 5. agreement of the float32 kernel path on the card with the float64 plain
    path on the CPU:
    a. flagship, the same 64 lanes for 10 steps (gate: equal status,
@@ -32,7 +41,11 @@ Phases, each printing its findings; any failure raises (non-zero exit):
    b. rocket, 64 lanes x 5 steps, both from the card's float32 carry of
       each step with ls_fused="on", scored by the float64 true cost of
       each instance (gates: at most one lane-step whose status differs,
-      |mean gap| <= 5e-3, p99 |gap| <= 1e-1; see GATE_BIAS).
+      |mean gap| <= 5e-3, p99 |gap| <= 1e-1; see GATE_BIAS);
+   c. quadruped, 64 lanes (8 per schedule) of the same float64-built
+      instances in both friction modes, scored by the float64 true cost of
+      each lane's controls (gates: at most one lane whose status differs,
+      |mean gap| <= 1e-4, p99 |gap| <= 1e-3).
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -63,6 +76,8 @@ ROCKET_LADDER = (1.0, 0.5, 0.25, 0.125, 0.0625, 0.0)
 # many lanes or fails solves; the gates sit ~4x above the H100 measurement
 # and below the reference's own float32.
 GATE_BIAS, GATE_P99 = 5e-3, 1e-1
+QUAD_B, QUAD_ROUNDS, QUAD_AGREE_B = 1024, 5, 64
+QUAD_GATE_BIAS, QUAD_GATE_P99 = 1e-4, 1e-3
 
 
 def time_ms(fn, reps: int = 20) -> float:
@@ -246,6 +261,104 @@ def rocket_parity(dtype, tol):
     return res
 
 
+def quadruped_parity(dtype, tol):
+    """The Riccati kernel and the ladder rollout with per-lane dynamics
+    against their plain versions on the flat quadruped batch; returns
+    {kernel: ({output: max_abs_err}, ms, plain_ms)}."""
+    from altro_tpu_torch.bench.families import quadruped_setup
+    from altro_tpu_torch.constraints import DualState
+    from altro_tpu_torch.ops import riccati, rollout
+    from altro_tpu_torch.solver.altro import _al_expansion_cd
+
+    dev = torch.device("cuda")
+    su = quadruped_setup(QUAD_B, False, dtype, dev)
+    prob, dyn, B = su.prob, su.prob.dynamics, QUAD_B
+    N, n, m = prob.N, prob.n, prob.m
+    rng = np.random.default_rng(9)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=dev)
+
+    x0 = su.draw_x0().to(device=dev, dtype=dtype)
+    # forces 10 N around the stance forces, states off the rollout, and
+    # multipliers on the scale of rho c: every cone case occurs
+    U = su.U0 + t(10.0 * rng.standard_normal((B, N - 1, m)))
+    X = dyn.rollout(x0, U) + t(0.05 * rng.standard_normal((B, N, n)))
+    duals = tuple(DualState(lam=t(5.0 * rng.standard_normal((B, N, c.p))),
+                            rho=torch.full((B, N), 1e2, dtype=dtype,
+                                           device=dev))
+                  for c in prob.constraints)
+    lx, lu, lxx, luu, lux = (a.contiguous() for a in _al_expansion_cd(
+        prob.cost, prob.constraints, duals, X, U))
+    reg = t(np.where(rng.random(B) < 0.5, 0.0, 1e-2))
+    args = (dyn.A, dyn.B, lx, lu, lxx, luu, lux, reg)
+    bp, bp_ref = riccati.batched_riccati, riccati.batched_riccati_reference
+    out, ref = bp(*args), bp_ref(*args)
+    torch.cuda.synchronize()
+    if not all(bool(torch.isfinite(r).all()) for r in ref):
+        raise AssertionError("quadruped parity inputs make Quu indefinite")
+    res = {"batched_riccati": (errors(out, ref, ("K", "d", "dV1", "dV2"),
+                                      tol),
+                               time_ms(lambda: bp(*args)),
+                               time_ms(lambda: bp_ref(*args)))}
+
+    K, dff = ref[0].contiguous(), ref[1].contiguous()
+    ladder = tuple(0.5 ** i for i in range(10)) + (0.0,)
+    largs = (dyn.A, dyn.B, dyn.d, X, U, K, dff, ladder)
+    ls, ls_ref = rollout.batched_ls_rollout, rollout.batched_ls_rollout_reference
+    res["batched_ls_rollout"] = (
+        errors(ls(*largs), ls_ref(*largs), ("Xs L=11", "Us L=11"), tol),
+        time_ms(lambda: ls(*largs)), time_ms(lambda: ls_ref(*largs)))
+    return res
+
+
+def quadruped_agreement():
+    """Quadruped agreement: the same float64-built instances (64 lanes, both
+    friction modes) solved by the float32 kernel path on the card and the
+    float64 plain path on the CPU, both controls scored by the float64 true
+    cost of each lane (its own dynamics, rolled out from its x0)."""
+    from altro_tpu_torch.bench.families import quadruped_setup
+    from altro_tpu_torch.convert import tree_to
+    from altro_tpu_torch.solver.altro import solve
+
+    Bn = QUAD_AGREE_B
+    for lin in (True, False):
+        s64 = quadruped_setup(Bn, lin, torch.float64, "cpu")
+        s32 = tree_to(s64, "cuda", torch.float32)
+        x0 = s64.draw_x0()
+        p64 = dataclasses.replace(s64.prob, x0=x0)
+        p32 = dataclasses.replace(s32.prob, x0=x0.to("cuda", torch.float32))
+        o32 = solve(p32, s32.opts, U0=s32.U0)
+        o64 = solve(p64, s64.opts, U0=s64.U0)
+        U32 = o32.U.double().cpu()
+        dyn, cost = p64.dynamics, p64.cost
+        J64 = cost.total(dyn.rollout(x0, o64.U), o64.U)
+        J32 = cost.total(dyn.rollout(x0, U32), U32)
+        gap = (J32 - J64) / J64.abs().clamp(min=1e-12)
+        status_diff = int((o32.stats.status.cpu() != o64.stats.status).sum())
+        worst = int(gap.abs().argmax())
+        p99 = float(torch.quantile(gap.abs(), 0.99))
+        mode = "qp" if lin else "socp"
+        print(f"quadruped agreement [{mode}] {Bn} lanes, f32 kernels vs f64 "
+              f"plain: status differs on {status_diff} lanes (f64 success "
+              f"{float(o64.stats.status.double().mean()):.4f}, f32 "
+              f"{float(o32.stats.status.double().mean()):.4f}); true-cost gap"
+              f" mean {float(gap.mean()):.3e}, p99 |gap| {p99:.3e}, worst "
+              f"{float(gap[worst]):.3e} (lane {worst}); max|dU| "
+              f"{float((U32 - o64.U).abs().max()):.3e}; iterations f32 mean "
+              f"{float(o32.stats.iterations.double().mean()):.3f} max "
+              f"{int(o32.stats.iterations.max())}, f64 mean "
+              f"{float(o64.stats.iterations.double().mean()):.3f} max "
+              f"{int(o64.stats.iterations.max())}")
+        if status_diff > 1:
+            raise AssertionError(f"quadruped [{mode}] status differs on "
+                                 f"{status_diff} lanes")
+        if not (abs(float(gap.mean())) <= QUAD_GATE_BIAS
+                and p99 <= QUAD_GATE_P99):
+            raise AssertionError(f"quadruped [{mode}] cost gap: mean "
+                                 f"{float(gap.mean()):.3e}, p99 {p99:.3e}")
+
+
 def rocket_agreement(su32):
     """Rocket agreement: at each step the card's float32 carry is advanced
     by the float32 kernel path and, cast to float64, solved by the plain
@@ -310,8 +423,10 @@ def main() -> None:
     from altro_tpu_torch.bench.flagship import (flagship_setup, power_limit,
                                                 run_flagship, run_steps)
     from altro_tpu_torch.bench.conic import rocket_batched, rocket_setup
+    from altro_tpu_torch.bench.families import quadruped_batched
     from altro_tpu_torch.convert import tree_to
-    from altro_tpu_torch.ops import _build, riccati_fused, rollout, rollout_al
+    from altro_tpu_torch.ops import (_build, riccati, riccati_fused, rollout,
+                                     rollout_al)
 
     kind = torch.cuda.get_device_name(0)
     card = power_limit()
@@ -327,9 +442,11 @@ def main() -> None:
         if re.search(r"Compiling entry|Used \d+ registers|spill", line):
             print("  ptxas:", line.split("ptxas info    :")[-1].strip())
 
-    # ---- 3. kernel parity: (a) flagship shapes, (b) the rocket window
+    # ---- 3. kernel parity: (a) flagship shapes, (b) the rocket window,
+    # (c) the flat quadruped batch
     par = {}
-    for shape, fn in (("flagship", parity), ("rocket", rocket_parity)):
+    for shape, fn in (("flagship", parity), ("rocket", rocket_parity),
+                      ("quadruped", quadruped_parity)):
         par[shape] = (fn(torch.float32, F32_TOL), fn(torch.float64, F64_TOL))
         for name in par[shape][0]:
             for label, (errs, ms, plain_ms) in zip(
@@ -343,11 +460,13 @@ def main() -> None:
         rollout.launch_count = 0
         riccati_fused.launch_count = 0
         rollout_al.launch_count = 0
+        riccati.launch_count = 0
 
     def read_counts():
         return {"batched_ls_rollout": rollout.launch_count,
                 "fused_expand_backward": riccati_fused.launch_count,
-                "batched_ls_rollout_al": rollout_al.launch_count}
+                "batched_ls_rollout_al": rollout_al.launch_count,
+                "batched_riccati": riccati.launch_count}
 
     # ---- 4a. main path: flagship
     reset_counts()
@@ -364,7 +483,8 @@ def main() -> None:
     iters = res["loop_iterations"]
     if not (iters > 0 and launches["fused_expand_backward"] == iters
             and launches["batched_ls_rollout"] == iters + res["cold_solves"]
-            and launches["batched_ls_rollout_al"] == 0):
+            and launches["batched_ls_rollout_al"] == 0
+            and launches["batched_riccati"] == 0):
         raise AssertionError(f"launch counts {launches} do not match "
                              f"{iters} solver-loop iterations")
 
@@ -391,10 +511,33 @@ def main() -> None:
     riters = rres["loop_iterations"]
     if not (riters > 0 and rlaunches["fused_expand_backward"] == riters
             and rlaunches["batched_ls_rollout_al"] == riters
-            and rlaunches["batched_ls_rollout"] == rres["solves"]):
+            and rlaunches["batched_ls_rollout"] == rres["solves"]
+            and rlaunches["batched_riccati"] == 0):
         raise AssertionError(f"rocket launch counts {rlaunches} do not match "
                              f"{riters} solver-loop iterations of "
                              f"{rres['solves']} solves")
+
+    # ---- 4c. main path: the flat quadruped batch, both friction modes
+    qlaunches = {}
+    for lin in (True, False):
+        reset_counts()
+        qres = quadruped_batched(B=QUAD_B, rounds=QUAD_ROUNDS,
+                                 linearized_friction=lin, device="cuda")
+        ql = read_counts()
+        print(f"quadruped main path [{card}]: {json.dumps(qres)} "
+              f"launches={ql}")
+        if not (qres["success_rate"] == 1.0 and qres["max_viol"] <= 1e-4):
+            raise AssertionError(f"quadruped quality: {qres}")
+        qiters = qres["loop_iterations"]
+        if not (qiters > 0 and ql["batched_riccati"] == qiters
+                and ql["batched_ls_rollout"] == qiters + qres["solves"]
+                and ql["fused_expand_backward"] == 0
+                and ql["batched_ls_rollout_al"] == 0):
+            raise AssertionError(f"quadruped launch counts {ql} do not match "
+                                 f"{qiters} solver-loop iterations of "
+                                 f"{qres['solves']} solves")
+        for k, v in ql.items():
+            qlaunches[k] = qlaunches.get(k, 0) + v
 
     # ---- 5a. agreement: f32 kernel path on the card vs f64 plain on the CPU
     s64 = flagship_setup(AGREE_B, AGREE_T, dtype=torch.float64, device="cpu")
@@ -416,9 +559,13 @@ def main() -> None:
     # ---- 5b. rocket agreement
     rocket_agreement(su32)
 
-    # kernel table: launches over both main paths, the largest float32
+    # ---- 5c. quadruped agreement
+    quadruped_agreement()
+
+    # kernel table: launches over the main paths, the largest float32
     # error over every parity check, times at the shapes of the path that
-    # the kernel serves per iteration (the rocket window for B and C)
+    # the kernel serves per iteration (the rocket window for B and C, the
+    # quadruped batch for D)
     sources = {
         "batched_ls_rollout": ("altro_tpu_torch/csrc/ls_rollout.cu",
                                "altro_tpu/ops/rollout.py:89", "flagship"),
@@ -427,10 +574,12 @@ def main() -> None:
                                   "rocket"),
         "batched_ls_rollout_al": ("altro_tpu_torch/csrc/ls_rollout_al.cu",
                                   "altro_tpu/ops/rollout.py:285", "rocket"),
+        "batched_riccati": ("altro_tpu_torch/csrc/riccati.cu",
+                            "altro_tpu/ops/riccati.py:204", "quadruped"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name] + rlaunches[name],
+         "launches": launches[name] + rlaunches[name] + qlaunches[name],
          "max_abs_err": max(v for shape in par if name in par[shape][0]
                             for v in par[shape][0][name][0].values()),
          "ms": par[timed][0][name][1], "plain_ms": par[timed][0][name][2]}

@@ -83,7 +83,8 @@ def cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.float64, 1e-12)])
-@pytest.mark.parametrize("shape", [(5, 3, 13, 7), (20, 9, 6, 3)])
+@pytest.mark.parametrize("shape", [(5, 3, 13, 7), (12, 12, 15, 9),
+                                   (20, 9, 6, 3)])
 @pytest.mark.parametrize("per_lane", [False, True], ids=["shared", "per_lane"])
 def test_kernel_matches_plain_version(cuda, per_lane, shape, dtype, tol):
     """Relative tolerance: float32 rounding over the horizon; float64 only
