@@ -74,7 +74,7 @@ def _sync(device) -> None:
 
 
 def rocket_setup(dtype=torch.float32, N_mpc: int = 21, track=None,
-                 device="cpu") -> RocketSetup:
+                 device="cuda") -> RocketSetup:
     """The rocket MPC problem, warm options and tracking reference.
     ``track=(X, U)`` skips the cold solve and tracks the given trajectory
     (so two runs in different precisions can solve the same windows)."""

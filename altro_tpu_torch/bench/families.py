@@ -60,7 +60,7 @@ class QuadrupedSetup:
 
 
 def quadruped_setup(B: int, linearized_friction: bool = True,
-                    dtype=torch.float32, device="cpu") -> QuadrupedSetup:
+                    dtype=torch.float32, device="cuda") -> QuadrupedSetup:
     """The flat batched quadruped instance: 8 contact schedules at
     t = i * cycle / 8 (i < 8), each linearized about x_des and repeated to
     B/8 lanes, the stance-force warm start, the benchmark's options and the

@@ -69,7 +69,7 @@ class FlagshipSetup:
     noise: torch.Tensor     # [T, B, n] standard normal
 
 
-def flagship_setup(B: int, T: int, *, dtype=torch.float32, device="cpu",
+def flagship_setup(B: int, T: int, *, dtype=torch.float32, device="cuda",
                    ls: int = 2) -> FlagshipSetup:
     """The flagship problem, options and noise from bench.py's numpy seed,
     in the order bench.py draws them."""

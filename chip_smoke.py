@@ -11,9 +11,12 @@ Phases, each printing its findings; any failure raises (non-zero exit):
    resource use;
 3. kernel parity, each CUDA kernel against its plain PyTorch version on the
    card, in float32 (gate: max|kernel - plain| <= 1e-3 max(1, max|plain|))
-   and in float64 (gate: 1e-9 max(1, max|plain|)), with both timed:
-   a. the flagship shapes (B=1024, n=12, m=6, N=30; ladders L=3 and L=1):
-      the ladder rollout and the fused expansion on a NONPOS block;
+   and in float64 (gate: 1e-9 max(1, max|plain|)), with both timed and the
+   kernel's bound beside them (inputs and bounds from
+   ``altro_tpu_torch/bench/kernels.py``):
+   a. the flagship shapes (B=1024, n=12, m=6, N=30; ladders L=3 and the
+      L=1 init form, each timed): the ladder rollout and the fused
+      expansion on a NONPOS block;
    b. the rocket MPC window (B=1024, n=6, m=3, N=21, three SOC blocks, all
       three cone cases and an apex lane-knot): the fused expansion's SOC
       branch, and the fused ladder + AL merit at L=6 (J gated per lane
@@ -47,7 +50,9 @@ Phases, each printing its findings; any failure raises (non-zero exit):
       each lane's controls (gates: at most one lane whose status differs,
       |mean gap| <= 1e-4, p99 |gap| <= 1e-3).
 
-The line before the last is the kernel table as JSON; the last line is
+The line before the last is the kernel table as JSON (with each kernel's
+bound_ms and bound_by at the shapes it was timed at, and library_ms null: no
+single PyTorch call computes these knot recursions); the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -60,12 +65,13 @@ import time
 import numpy as np
 import torch
 
+from altro_tpu_torch.bench.kernels import bound_ms, time_ms
+
 FLAG_B, FLAG_T = 1024, 20
 AGREE_B, AGREE_T = 64, 10
 F32_TOL, F64_TOL, AGREE_TOL = 1e-3, 1e-9, 1e-3
 ROCKET_B, ROCKET_T = 1024, 30
 ROCKET_AGREE_B, ROCKET_AGREE_T = 64, 5
-ROCKET_LADDER = (1.0, 0.5, 0.25, 0.125, 0.0625, 0.0)
 # rocket f32-vs-f64 true-cost gap gates. A float32 solve at the warm
 # options (cost tolerance 1e-6) stops where its own rounding hides further
 # decrease, so on these small tracking costs it lands up to ~16% (worst
@@ -78,23 +84,6 @@ ROCKET_LADDER = (1.0, 0.5, 0.25, 0.125, 0.0625, 0.0)
 GATE_BIAS, GATE_P99 = 5e-3, 1e-1
 QUAD_B, QUAD_ROUNDS, QUAD_AGREE_B = 1024, 5, 64
 QUAD_GATE_BIAS, QUAD_GATE_P99 = 1e-4, 1e-3
-
-
-def time_ms(fn, reps: int = 20) -> float:
-    """Device time of one call of ``fn``: CUDA events around ``reps``
-    back-to-back calls after a warm-up, divided by ``reps`` (the host
-    enqueues ahead of the device, so its own overhead hides unless it is
-    the longer of the two)."""
-    fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / reps
 
 
 def errors(got, ref, names, tol: float) -> dict:
@@ -113,53 +102,34 @@ def errors(got, ref, names, tol: float) -> dict:
 
 def parity(dtype, tol):
     """Kernel vs plain version at the flagship shapes; returns
-    {kernel: ({output: max_abs_err}, ms, plain_ms)}."""
-    from altro_tpu_torch.bench.flagship import flagship_setup
+    {kernel: ({output: max_abs_err}, ms, plain_ms, (bytes, flops))} and the
+    init form's ladder time beside it."""
+    from altro_tpu_torch.bench.kernels import flagship_inputs
     from altro_tpu_torch.ops import riccati_fused, rollout
-    from altro_tpu_torch.ops.blocks import pack_blocks
 
-    dev = torch.device("cuda")
-    setup = flagship_setup(FLAG_B, 1, dtype=dtype, device=dev)
-    prob = setup.prob_mpc
-    (con,) = prob.constraints
-    dyn = prob.dynamics
-    N, n, m, p = prob.N, prob.n, prob.m, con.p
-    rng = np.random.default_rng(7)
-
-    def t(a):
-        return torch.as_tensor(a, dtype=dtype, device=dev)
-
-    X = t(rng.standard_normal((FLAG_B, N, n)))
-    # |u| > 3 on about a third of the entries: active and inactive bound rows
-    U = t(3.0 * rng.standard_normal((FLAG_B, N - 1, m)))
-    lam = t(np.abs(rng.standard_normal((FLAG_B, N, p))))
-    rho = torch.full((FLAG_B, N), 1e3, dtype=dtype, device=dev)
-    reg = t(np.where(rng.random(FLAG_B) < 0.5, 0.0, 1e-2))
-    args = (prob.cost, dyn.A, dyn.B, prob.constraints, X, U, (lam,), (rho,),
-            reg)
-    packed = pack_blocks(prob.constraints, N, n, m, X)
+    fl = flagship_inputs(dtype, torch.device("cuda"))
+    args, packed, ref = fl["fused"], fl["packed"], fl["fused_ref"]
     fb = riccati_fused.fused_expand_backward
     fb_ref = riccati_fused.fused_expand_backward_reference
     out = fb(*args, packed=packed)
-    ref = fb_ref(*args)
     torch.cuda.synchronize()
     res = {"fused_expand_backward": (
         errors(out, ref, ("K", "d", "dV1", "dV2"), tol),
         time_ms(lambda: fb(*args, packed=packed)),
-        time_ms(lambda: fb_ref(*args)))}
+        time_ms(lambda: fb_ref(*args)), fl["fused_work"])}
 
-    K, dff = ref[0].contiguous(), ref[1].contiguous()
-    ladder = (1.0, 0.5, 0.0)
     ls = rollout.batched_ls_rollout
     ls_ref = rollout.batched_ls_rollout_reference
-    largs = (dyn.A, dyn.B, dyn.d, X, U, K, dff, ladder)
+    largs, cargs = fl["ladder"], fl["init"]
     errs = errors(ls(*largs), ls_ref(*largs), ("Xs L=3", "Us L=3"), tol)
     # the cold-start form: L=1, alpha=1, K=d=0
-    cargs = (dyn.A, dyn.B, dyn.d, X, U, torch.zeros_like(K),
-             torch.zeros_like(dff), (1.0,))
     errs.update(errors(ls(*cargs), ls_ref(*cargs), ("Xs L=1", "Us L=1"), tol))
     res["batched_ls_rollout"] = (errs, time_ms(lambda: ls(*largs)),
-                                 time_ms(lambda: ls_ref(*largs)))
+                                 time_ms(lambda: ls_ref(*largs)),
+                                 fl["ladder_work"])
+    res["batched_ls_rollout L=1"] = ({}, time_ms(lambda: ls(*cargs)),
+                                     time_ms(lambda: ls_ref(*cargs)),
+                                     fl["init_work"])
     return res
 
 
@@ -183,45 +153,21 @@ def soc_cases(blocks, X, U, lams, rhos):
 def rocket_parity(dtype, tol):
     """The fused expansion (SOC branch) and the fused ladder + merit against
     their plain versions on the rocket MPC window; returns
-    {kernel: ({output: max_abs_err}, ms, plain_ms)}."""
-    from altro_tpu_torch.bench.conic import rocket_setup
-    from altro_tpu_torch.models import rocket
+    {kernel: ({output: max_abs_err}, ms, plain_ms, (bytes, flops))}."""
+    from altro_tpu_torch.bench.kernels import ROCKET_LADDER, rocket_inputs
     from altro_tpu_torch.ops import riccati_fused, rollout_al
-    from altro_tpu_torch.ops.blocks import pack_blocks
     from altro_tpu_torch.solver.altro import _ladder_choice
 
     dev = torch.device("cuda")
-    # the window's blocks and shapes do not depend on the tracked
-    # trajectory: track the hover rollout (no cold solve here)
-    prob = rocket.rocket_problem(dtype=dtype, device=dev)
-    U_tr = rocket.hover_controls(prob)
-    X_tr = prob.dynamics.rollout(prob.x0, U_tr)
-    pm = rocket_setup(dtype, track=(X_tr, U_tr), device=dev).prob_mpc
-    blocks, dyn = pm.constraints, pm.dynamics
-    N, n, m, B = pm.N, pm.n, pm.m, ROCKET_B
-    rng = np.random.default_rng(8)
-
-    def t(a):
-        return torch.as_tensor(a, dtype=dtype, device=dev)
-
-    X = X_tr[None, :N] + t(rng.standard_normal((B, N, n)))
-    U = U_tr[None, :N - 1] + t(60.0 * rng.standard_normal((B, N - 1, m)))
-    # multipliers on the scale of rho c, so that every cone case occurs
-    lams = [3e4 * rng.standard_normal((B, N, c.p)) for c in blocks]
-    # the glideslope cone's apex at lane 0, knot N-3: x = y = 0, lam_v = 0
-    X[0, N - 3, :2] = 0.0
-    lams[2][0, N - 3, :-1] = 0.0
-    lams = tuple(t(lam) for lam in lams)
-    rhos = tuple(torch.full((B, N), 1e3, dtype=dtype, device=dev)
-                 for _ in blocks)
-    reg = t(np.where(rng.random(B) < 0.5, 0.0, 1e-2))
+    rk = rocket_inputs(dtype, dev, ROCKET_B)
+    pm, args, packed = rk["prob"], rk["fused"], rk["packed"]
+    blocks, dyn, (X, U, lams, rhos) = pm.constraints, pm.dynamics, args[4:8]
+    B = ROCKET_B
     cases = soc_cases(blocks, X, U, lams, rhos)
     print(f"rocket parity inputs ({dtype}): SOC cases {cases}")
     if min(cases.values()) == 0:
         raise AssertionError(f"rocket parity inputs miss an SOC case: {cases}")
 
-    args = (pm.cost, dyn.A, dyn.B, blocks, X, U, lams, rhos, reg)
-    packed = pack_blocks(blocks, N, n, m, X)
     fb = riccati_fused.fused_expand_backward
     fb_ref = riccati_fused.fused_expand_backward_reference
     out = fb(*args, packed=packed)
@@ -230,7 +176,7 @@ def rocket_parity(dtype, tol):
     res = {"fused_expand_backward": (
         errors(out, ref, ("K", "d", "dV1", "dV2"), tol),
         time_ms(lambda: fb(*args, packed=packed)),
-        time_ms(lambda: fb_ref(*args)))}
+        time_ms(lambda: fb_ref(*args)), rk["fused_work"])}
 
     K, dff, dV1, dV2 = ref
     cargs = (pm.cost, dyn.A, dyn.B, dyn.d, blocks, X, U, K.contiguous(),
@@ -257,58 +203,37 @@ def rocket_parity(dtype, tol):
         raise AssertionError(f"accepted rung differs on {differ} lanes")
     res["batched_ls_rollout_al"] = (errs,
                                     time_ms(lambda: la(*cargs, packed=packed)),
-                                    time_ms(lambda: la_ref(*cargs)))
+                                    time_ms(lambda: la_ref(*cargs)),
+                                    rk["ladder_al_work"])
     return res
 
 
 def quadruped_parity(dtype, tol):
     """The Riccati kernel and the ladder rollout with per-lane dynamics
     against their plain versions on the flat quadruped batch; returns
-    {kernel: ({output: max_abs_err}, ms, plain_ms)}."""
-    from altro_tpu_torch.bench.families import quadruped_setup
-    from altro_tpu_torch.constraints import DualState
+    {kernel: ({output: max_abs_err}, ms, plain_ms, (bytes, flops))}."""
+    from altro_tpu_torch.bench.kernels import quadruped_inputs
     from altro_tpu_torch.ops import riccati, rollout
-    from altro_tpu_torch.solver.altro import _al_expansion_cd
 
-    dev = torch.device("cuda")
-    su = quadruped_setup(QUAD_B, False, dtype, dev)
-    prob, dyn, B = su.prob, su.prob.dynamics, QUAD_B
-    N, n, m = prob.N, prob.n, prob.m
-    rng = np.random.default_rng(9)
-
-    def t(a):
-        return torch.as_tensor(a, dtype=dtype, device=dev)
-
-    x0 = su.draw_x0().to(device=dev, dtype=dtype)
-    # forces 10 N around the stance forces, states off the rollout, and
-    # multipliers on the scale of rho c: every cone case occurs
-    U = su.U0 + t(10.0 * rng.standard_normal((B, N - 1, m)))
-    X = dyn.rollout(x0, U) + t(0.05 * rng.standard_normal((B, N, n)))
-    duals = tuple(DualState(lam=t(5.0 * rng.standard_normal((B, N, c.p))),
-                            rho=torch.full((B, N), 1e2, dtype=dtype,
-                                           device=dev))
-                  for c in prob.constraints)
-    lx, lu, lxx, luu, lux = (a.contiguous() for a in _al_expansion_cd(
-        prob.cost, prob.constraints, duals, X, U))
-    reg = t(np.where(rng.random(B) < 0.5, 0.0, 1e-2))
-    args = (dyn.A, dyn.B, lx, lu, lxx, luu, lux, reg)
+    qd = quadruped_inputs(dtype, torch.device("cuda"), QUAD_B)
+    args, ref = qd["riccati"], qd["riccati_ref"]
     bp, bp_ref = riccati.batched_riccati, riccati.batched_riccati_reference
-    out, ref = bp(*args), bp_ref(*args)
+    out = bp(*args)
     torch.cuda.synchronize()
     if not all(bool(torch.isfinite(r).all()) for r in ref):
         raise AssertionError("quadruped parity inputs make Quu indefinite")
     res = {"batched_riccati": (errors(out, ref, ("K", "d", "dV1", "dV2"),
                                       tol),
                                time_ms(lambda: bp(*args)),
-                               time_ms(lambda: bp_ref(*args)))}
+                               time_ms(lambda: bp_ref(*args)),
+                               qd["riccati_work"])}
 
-    K, dff = ref[0].contiguous(), ref[1].contiguous()
-    ladder = tuple(0.5 ** i for i in range(10)) + (0.0,)
-    largs = (dyn.A, dyn.B, dyn.d, X, U, K, dff, ladder)
+    largs = qd["ladder"]
     ls, ls_ref = rollout.batched_ls_rollout, rollout.batched_ls_rollout_reference
     res["batched_ls_rollout"] = (
         errors(ls(*largs), ls_ref(*largs), ("Xs L=11", "Us L=11"), tol),
-        time_ms(lambda: ls(*largs)), time_ms(lambda: ls_ref(*largs)))
+        time_ms(lambda: ls(*largs)), time_ms(lambda: ls_ref(*largs)),
+        qd["ladder_work"])
     return res
 
 
@@ -449,12 +374,15 @@ def main() -> None:
                       ("quadruped", quadruped_parity)):
         par[shape] = (fn(torch.float32, F32_TOL), fn(torch.float64, F64_TOL))
         for name in par[shape][0]:
-            for label, (errs, ms, plain_ms) in zip(
+            for label, (errs, ms, plain_ms, work) in zip(
                     ("f32", "f64"), (p[name] for p in par[shape])):
                 errs_s = " ".join(f"{k}={v:.3e}" for k, v in errs.items())
+                bnd, by = bound_ms(*work, 4 if label == "f32" else 8)
                 print(f"parity {name} {shape} {label}: max|kernel - plain| "
-                      f"{errs_s}; kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-                      f"ms [{card}]")
+                      f"{errs_s or '(above)'}; kernel {ms:.4f} ms, plain "
+                      f"{plain_ms:.4f} ms, bound {bnd:.4f} ms ({by}: "
+                      f"{work[0] / 1e6:.2f} MB, {work[1] / 1e9:.4f} GFLOP) "
+                      f"[{card}]")
 
     def reset_counts():
         rollout.launch_count = 0
@@ -563,9 +491,10 @@ def main() -> None:
     quadruped_agreement()
 
     # kernel table: launches over the main paths, the largest float32
-    # error over every parity check, times at the shapes of the path that
-    # the kernel serves per iteration (the rocket window for B and C, the
-    # quadruped batch for D)
+    # error over every parity check, times and bounds at the shapes of the
+    # path that the kernel serves per iteration (the rocket window for B and
+    # C, the quadruped batch for D). No single PyTorch call computes any of
+    # these knot recursions, so library_ms is null.
     sources = {
         "batched_ls_rollout": ("altro_tpu_torch/csrc/ls_rollout.cu",
                                "altro_tpu/ops/rollout.py:89", "flagship"),
@@ -577,13 +506,18 @@ def main() -> None:
         "batched_riccati": ("altro_tpu_torch/csrc/riccati.cu",
                             "altro_tpu/ops/riccati.py:204", "quadruped"),
     }
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name] + rlaunches[name] + qlaunches[name],
-         "max_abs_err": max(v for shape in par if name in par[shape][0]
-                            for v in par[shape][0][name][0].values()),
-         "ms": par[timed][0][name][1], "plain_ms": par[timed][0][name][2]}
-        for name, (src, rep, timed) in sources.items()]}))
+    table = []
+    for name, (src, rep, timed) in sources.items():
+        _, ms, plain_ms, work = par[timed][0][name]
+        bnd, by = bound_ms(*work, 4)
+        table.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": launches[name] + rlaunches[name] + qlaunches[name],
+            "max_abs_err": max(v for shape in par if name in par[shape][0]
+                               for v in par[shape][0][name][0].values()),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+            "library_ms": None})
+    print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

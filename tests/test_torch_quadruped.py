@@ -206,7 +206,7 @@ def test_quadruped_setup_matches_jax(jax_schedules, lin):
     """The port's float64 benchmark setup: the JAX package's per-lane
     problem, the stance-force warm start and the seeded x0 draws."""
     B = 16
-    su = quadruped_setup(B, lin, torch.float64)
+    su = quadruped_setup(B, lin, torch.float64, "cpu")
     jprob = _jax_flat(jax_schedules, lin, B)
     for k in ("A", "B", "d"):
         close(getattr(su.prob.dynamics, k), getattr(jprob.dynamics, k))
@@ -227,7 +227,7 @@ def test_quadruped_setup_matches_jax(jax_schedules, lin):
     for _ in range(2):
         close(su.draw_x0(), np.asarray(su.x_des)[None]
               + rng.standard_normal((B, 12)) * scale, atol=0)
-    s32 = quadruped_setup(B, lin, torch.float32)
+    s32 = quadruped_setup(B, lin, torch.float32, "cpu")
     assert torch.equal(s32.prob.dynamics.A, su.prob.dynamics.A.float())
 
 

@@ -68,7 +68,7 @@ def _jax_problem(lin):
 def instance(request):
     lin = request.param
     jprob = _jax_problem(lin)
-    su = quadruped_setup(B, lin, torch.float64)
+    su = quadruped_setup(B, lin, torch.float64, "cpu")
     x0 = su.draw_x0()
     tprob = dataclasses.replace(
         convert.problem_from_numpy(convert.numpy_tree(jprob)), x0=x0)
@@ -109,7 +109,7 @@ def test_per_lane_route_matches_shared_route():
     """Per-lane dynamics equal on every lane take the unfused route
     (expansion, then the Riccati pass) and give what the fused route gives
     for the same shared dynamics, to round-off."""
-    su = quadruped_setup(8, True, torch.float64)
+    su = quadruped_setup(8, True, torch.float64, "cpu")
     x0 = su.draw_x0()
     lane0 = dataclasses.replace(
         su.prob, x0=x0,
@@ -134,7 +134,7 @@ def test_fused_kernels_refuse_per_lane_dynamics():
     """Kernels B and C take shared dynamics only: their wrappers' shape
     checks refuse per-lane stacks (the solver routes those to the Riccati
     pass and the ladder rollout)."""
-    su = quadruped_setup(8, True, torch.float64)
+    su = quadruped_setup(8, True, torch.float64, "cpu")
     p, dyn = su.prob, su.prob.dynamics
     X = p.dynamics.rollout(su.draw_x0(), su.U0)
     duals = p.init_duals(10.0)

@@ -131,10 +131,13 @@ def cuda():
 @pytest.mark.parametrize("widths,goal", [((5, 3, 7, 5), False),
                                          ((12, 6, 11, 9), False),
                                          ((12, 6, 11, 9), True),
-                                         ((20, 9, 6, 3), False)])
+                                         ((20, 9, 6, 3), False),
+                                         ((12, 6, 30, 1023), False)])
 def test_kernel_matches_plain_version(cuda, widths, goal, dtype, tol):
     """Relative tolerance: float32 rounding through the recursion (the dV
-    terms reach 1e3-1e4); float64 only summation order."""
+    terms reach 1e3-1e4); float64 only summation order. m = 9 takes the
+    kernel's shared-memory Cholesky, m <= 8 the per-thread one; Bt = 1023
+    leaves the last block's second group without a scenario."""
     targs = convert.tree_to(_case(*widths, seed=2, goal=goal, reg_scale=1e-2,
                                   u_scale=3.0), cuda, dtype)
     before = riccati_fused.launch_count
@@ -247,3 +250,87 @@ def test_kernel_matches_plain_version_soc(cuda, dtype, tol):
             assert torch.isfinite(g).all()
             assert float((g - r).abs().max()) <= tol * max(
                 1.0, float(r.abs().max()))
+
+
+def _limits_case(n, m, N, Bt, seed, p=4, nblocks=16):
+    """A random problem at the kernel's limits: n x m widths, nblocks blocks
+    of p rows (ZERO, NONPOS and SOC in turn; 64 rows at the defaults), each
+    active on a random 80% of the knots, with multipliers that put the SOC
+    residuals in all three cases. SPD cost Hessians with R >= 10 I keep
+    Quu + reg I positive definite for the plain version's Cholesky."""
+    from altro_tpu_torch.cones import Cone
+    from altro_tpu_torch.constraints import ConicConstraint
+    from altro_tpu_torch.costs import QuadCost
+
+    rng = np.random.default_rng(seed)
+    t = torch.as_tensor
+    Gq = rng.standard_normal((N, n, n)) / np.sqrt(n)
+    Gr = rng.standard_normal((N, m, m)) / np.sqrt(m)
+    cost = QuadCost(Q=t(Gq @ Gq.transpose(0, 2, 1) + np.eye(n)),
+                    q=t(rng.standard_normal((N, n))),
+                    R=t(Gr @ Gr.transpose(0, 2, 1) + 10.0 * np.eye(m)),
+                    r=t(rng.standard_normal((N, m))),
+                    H=t(0.1 * rng.standard_normal((N, m, n))),
+                    c=t(np.zeros(N)))
+    A = t(0.9 * np.eye(n) + 0.1 * rng.standard_normal((N - 1, n, n))
+          / np.sqrt(n))
+    B = t(rng.standard_normal((N - 1, n, m)) / np.sqrt(n))
+    cones = (Cone.ZERO, Cone.NONPOS, Cone.SOC)
+    blocks = tuple(ConicConstraint(
+        Cx=t(rng.standard_normal((N, p, n)) / np.sqrt(n)),
+        Cu=t(rng.standard_normal((N, p, m)) / np.sqrt(m)),
+        b=t(rng.standard_normal((N, p))),
+        mask=t((rng.random(N) < 0.8).astype(float)), cone=cones[i % 3])
+        for i in range(nblocks))
+    X = t(rng.standard_normal((Bt, N, n)))
+    U = t(rng.standard_normal((Bt, N - 1, m)))
+    lams = tuple(t(3.0 * rng.standard_normal((Bt, N, p)))
+                 for _ in blocks)
+    rhos = tuple(t(np.full((Bt, N), 10.0)) for _ in blocks)
+    reg = t(1e-2 * rng.random(Bt))
+    return cost, A, B, blocks, X, U, lams, rhos, reg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3),
+                                       (torch.float64, 1e-9)])
+@pytest.mark.parametrize("widths", [(32, 32, 6, 5), (32, 6, 6, 5),
+                                    (12, 6, 7, 9)],
+                         ids=["n=m=32", "n=32", "flagship-widths"])
+def test_kernel_at_width_limits(cuda, widths, dtype, tol):
+    """64 constraint rows in 16 blocks that mix ZERO, NONPOS and SOC; at
+    n = m = 32 also the widest state and control (the shared-memory
+    Cholesky), at n = 32, m = 6 the shuffle Cholesky with 33 solving
+    threads, past the first warp."""
+    targs = convert.tree_to(_limits_case(*widths, seed=11), cuda, dtype)
+    assert min(soc_case_counts(*(targs[i] for i in (3, 4, 5, 6, 7)))) > 0
+    got = riccati_fused.fused_expand_backward(*targs)
+    ref = riccati_fused.fused_expand_backward_reference(*targs)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert torch.isfinite(r).all()
+        assert float((g - r).abs().max()) <= tol * max(1.0,
+                                                      float(r.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3),
+                                       (torch.float64, 1e-9)])
+def test_kernel_nan_lane_stays_in_its_lane(cuda, dtype, tol):
+    """A NaN state of one lane makes that lane's outputs NaN; every other
+    lane, including the lanes that share its block, matches the plain
+    version."""
+    cost, A, B, blocks, X, U, lams, rhos, reg = _limits_case(12, 6, 7, 9,
+                                                             seed=12)
+    X[4, 3, 0] = float("nan")
+    targs = convert.tree_to((cost, A, B, blocks, X, U, lams, rhos, reg),
+                            cuda, dtype)
+    got = riccati_fused.fused_expand_backward(*targs)
+    ref = riccati_fused.fused_expand_backward_reference(*targs)
+    torch.cuda.synchronize()
+    keep = torch.arange(9, device=cuda) != 4
+    assert bool(torch.isnan(got[2][4]) | torch.isnan(got[3][4]))
+    for g, r in zip(got, ref):
+        assert torch.isfinite(g[keep]).all()
+        assert float((g[keep] - r[keep]).abs().max()) <= tol * max(
+            1.0, float(r[keep].abs().max()))

@@ -84,11 +84,11 @@ def cuda():
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.float64, 1e-12)])
 @pytest.mark.parametrize("shape", [(5, 3, 13, 7), (12, 12, 15, 9),
-                                   (20, 9, 6, 3)])
+                                   (20, 9, 6, 3), (12, 6, 30, 1023)])
 @pytest.mark.parametrize("per_lane", [False, True], ids=["shared", "per_lane"])
 def test_kernel_matches_plain_version(cuda, per_lane, shape, dtype, tol):
     """Relative tolerance: float32 rounding over the horizon; float64 only
-    summation order."""
+    summation order. Bt = 1023 leaves the last block one scenario short."""
     n, m, N, Bt = shape
     args = _args(_torch(_inputs(per_lane, n, m, N, Bt), dtype, cuda),
                  (1.0, 0.5, 0.25, 0.0))
@@ -99,3 +99,40 @@ def test_kernel_matches_plain_version(cuda, per_lane, shape, dtype, tol):
     for g, r in zip(got, rollout.batched_ls_rollout_reference(*args)):
         scale = max(1.0, float(r.abs().max()))
         assert float((g - r).abs().max()) <= tol * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.float64, 1e-12)])
+@pytest.mark.parametrize("per_lane", [False, True], ids=["shared", "per_lane"])
+def test_kernel_at_width_limits(cuda, per_lane, dtype, tol):
+    """n = m = 32 (groups of 32 lanes) and L = 32 rungs: 1024 threads per
+    block."""
+    args = _args(_torch(_inputs(per_lane, 32, 32, 5, 3), dtype, cuda),
+                 tuple(0.9 ** i for i in range(31)) + (0.0,))
+    got = rollout.batched_ls_rollout(*args)
+    torch.cuda.synchronize()
+    for g, r in zip(got, rollout.batched_ls_rollout_reference(*args)):
+        assert float((g - r).abs().max()) <= tol * max(1.0,
+                                                      float(r.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.float64, 1e-12)])
+def test_kernel_nan_lane_stays_in_its_lane(cuda, dtype, tol):
+    """A NaN gain of one lane at knot 2 makes that lane's later states NaN
+    on every rung; the other lanes, which share its block and its staged
+    dynamics, match the plain version."""
+    inp = _inputs(False, 12, 6, 8, 9)
+    inp["K"][4, 2, 1, 3] = np.nan
+    args = _args(_torch(inp, dtype, cuda), (1.0, 0.5, 0.0))
+    Xs, Us = rollout.batched_ls_rollout(*args)
+    Xr, Ur = rollout.batched_ls_rollout_reference(*args)
+    torch.cuda.synchronize()
+    keep = torch.arange(9, device=cuda) != 4
+    assert bool(torch.isnan(Xs[4, :, 3:]).all())
+    for g, r in ((Xs, Xr), (Us, Ur)):
+        assert torch.isfinite(g[keep]).all()
+        assert float((g[keep] - r[keep]).abs().max()) <= tol * max(
+            1.0, float(r[keep].abs().max()))
