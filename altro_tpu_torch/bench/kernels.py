@@ -1,19 +1,22 @@
 """Kernels A (ladder rollout) and B (fused AL expansion + Riccati) alone, at
 the main paths' shapes, timed on one card beside their bounds.
 
-    python -m altro_tpu_torch.bench.kernels [--against DIR] [--reps 20]
+    python -m altro_tpu_torch.bench.kernels [--against DIR]
 
-Prints one line per (kernel, shape, dtype): the kernel's device time (CUDA
-events around ``reps`` back-to-back launches after a warm-up, divided by
-``reps``) and its bound, the least time the card could take: the larger of
-the bytes the function must move (each input read once, each output written
-once) over 3.35 TB/s and its FLOPs over 67 TFLOP/s (float32) or 34 TFLOP/s
-(float64) outside the tensor cores (H100 SXM data sheet). ``--against DIR``
-names the root of another checkout of this repository (for example the
-parent commit, unpacked with ``git archive`` into ``build/``): each turn
-runs in a process of its own, in the order other, this, this, other, on the
-same inputs (numpy seeds), so two versions of the kernels compare on one
-card. The last line is the whole result as JSON.
+Prints one line per (kernel, shape, dtype): the kernel's device time (see
+:func:`time_ms`: CUDA events around REPS back-to-back launches queued behind
+a sleep on the stream, divided by REPS) and its bound, the least time the
+card could take: the larger of the bytes the function must move (each input
+read once, each output written once) over 3.35 TB/s and its FLOPs over 67
+TFLOP/s (float32) or 34 TFLOP/s (float64) outside the tensor cores (H100
+SXM data sheet). Kernel B is also timed on the flagship's random-linear
+model at widths that no main path uses (n, m) = (13, 6) and (7, 3), which
+take the kernel's generic instantiation. ``--against DIR`` names the root
+of another checkout of this repository (for example the parent commit,
+unpacked with ``git archive`` into ``build/``): each turn runs in a process
+of its own, in the order other, this, this, other, on the same inputs
+(numpy seeds), so two versions of the kernels compare on one card. The
+last line is the whole result as JSON.
 
 The input builders also serve ``chip_smoke.py``'s parity phase.
 """
@@ -29,47 +32,47 @@ import tempfile
 import numpy as np
 
 FLAG_B, ROCKET_B, QUAD_B = 1024, 1024, 1024
+FLAG_N = 30
 FLAG_LADDER = (1.0, 0.5, 0.0)
 QUAD_LADDER = tuple(0.5 ** i for i in range(10)) + (0.0,)
 ROCKET_LADDER = (1.0, 0.5, 0.25, 0.125, 0.0625, 0.0)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {4: 67e12, 8: 34e12}   # by element size: f32, f64
+# launches per timing, and the sleep they queue behind (cycles at the
+# H100's 1.98 GHz boost clock; a lower clock sleeps longer)
+REPS = 20
+HEAD_START_MS = 20
+HEAD_START_CYCLES = int(HEAD_START_MS * 1.98e6)
+# widths of kernel B that no main path uses, on the flagship's model
+OTHER_WIDTHS = ((13, 6), (7, 3))
 
 
-def time_ms(fn, reps: int = 20) -> float:
-    """Device time of one call of ``fn``: CUDA events around ``reps``
-    back-to-back calls after a warm-up, divided by ``reps``."""
+def time_ms(fn, kernel: bool = False) -> float:
+    """Time of one call of ``fn``: CUDA events around REPS back-to-back
+    calls after a warm-up, divided by REPS. The calls queue behind a
+    HEAD_START_MS sleep on the stream, so when the host enqueues them faster
+    than that, the events time the device alone: a kernel's wrapper (about
+    0.07 ms of host time per call) no longer hides a shorter kernel. A plain
+    PyTorch version whose calls take longer to enqueue is timed with its
+    host time. ``kernel``: raise if the sleep ended before the last call was
+    queued, so that a kernel's time never includes the host's."""
     import torch
     fn()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HEAD_START_CYCLES)
     a.record()
-    for _ in range(reps):
+    for _ in range(REPS):
         fn()
     b.record()
+    queued = not a.query()
     b.synchronize()
-    return a.elapsed_time(b) / reps
-
-
-def device_ms(fn, kernel: str, reps: int = 20) -> float:
-    """Device time of the kernel whose name contains ``kernel`` per call of
-    ``fn``, from a torch.profiler window over ``reps`` calls after a
-    warm-up: the kernel alone, without the host's launch gaps that
-    :func:`time_ms` includes when the host is the slower side."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = 0.0
-    for e in prof.key_averages():
-        if kernel in e.key and e.device_type == torch.autograd.DeviceType.CUDA:
-            us += getattr(e, "self_device_time_total", None) or 0.0
-    return us / 1e3 / reps
+    if kernel and not queued:
+        raise RuntimeError(f"the host took longer than {HEAD_START_MS} ms to "
+                           f"queue {REPS} launches: the kernel's time would "
+                           "include the host's")
+    return a.elapsed_time(b) / REPS
 
 
 def bound_ms(nbytes: float, flops: float, itemsize: int) -> tuple:
@@ -144,18 +147,25 @@ def riccati_work(Bt, N, n, m, per_lane, itemsize) -> tuple:
     return elems * itemsize, Bt * N1 * knot
 
 
-def flagship_inputs(dtype, dev, B: int = FLAG_B) -> dict:
+def flagship_inputs(dtype, dev, B: int = FLAG_B, widths=(12, 6)) -> dict:
     """Kernel B's and kernel A's arguments at the flagship shapes (B=1024,
-    n=12, m=6, N=30, one NONPOS block of 12 rows; seed 7): X, U off any
+    n=12, m=6, N=30, one NONPOS block of 2m rows; seed 7): X, U off any
     solve, |u| > 3 on a third of the entries (active and inactive rows),
     half the lanes regularised; the ladder at L=3 on the plain version's
-    gains, and the L=1 init form (K = d = 0, alpha = 1)."""
+    gains, and the L=1 init form (K = d = 0, alpha = 1). ``widths``: the
+    same random-linear model at another (n, m)."""
     import torch
-    from altro_tpu_torch.bench.flagship import flagship_setup
+    from altro_tpu_torch.models import random_linear as rl
     from altro_tpu_torch.ops import riccati_fused
     from altro_tpu_torch.ops.blocks import pack_blocks
 
-    prob = flagship_setup(B, 1, dtype=dtype, device=dev).prob_mpc
+    # the window as flagship_setup builds it (its seed, one step of track)
+    n_track = FLAG_N + 3
+    rng = np.random.default_rng(1)
+    full = rl.gen_random_linear(rng, *widths, n_track, dtype=dtype,
+                                device=dev)
+    prob = rl.gen_tracking_mpc(full, *rl.gen_trajectory(rng, full, n_track),
+                               FLAG_N)
     (con,) = prob.constraints
     dyn = prob.dynamics
     N, n, m, p = prob.N, prob.n, prob.m, con.p
@@ -269,7 +279,7 @@ def quadruped_inputs(dtype, dev, B: int = QUAD_B) -> dict:
                                  X.element_size()))
 
 
-def measure(reps: int) -> list:
+def measure() -> list:
     """Time kernels A and B at every shape, f32 and f64, in the checkout
     whose ``altro_tpu_torch`` is imported."""
     import torch
@@ -284,35 +294,37 @@ def measure(reps: int) -> list:
         fl = flagship_inputs(dtype, dev)
         rk = rocket_inputs(dtype, dev)
         qd = quadruped_inputs(dtype, dev)
+        other = [(w, flagship_inputs(dtype, dev, widths=w))
+                 for w in OTHER_WIDTHS]
         item = fl["fused"][4].element_size()
-        cases = (
-            ("B", "flagship", lambda: fb(*fl["fused"], packed=fl["packed"]),
-             fl["fused_work"]),
-            ("B", "rocket", lambda: fb(*rk["fused"], packed=rk["packed"]),
-             rk["fused_work"]),
+
+        def fused(inp):
+            return lambda: fb(*inp["fused"], packed=inp["packed"])
+        cases = [
+            ("B", "flagship", fused(fl), fl["fused_work"]),
+            ("B", "rocket", fused(rk), rk["fused_work"]),
+            *(("B", f"random-linear n={n} m={m}", fused(inp),
+               inp["fused_work"]) for (n, m), inp in other),
             ("A", "flagship L=3", lambda: ls(*fl["ladder"]),
              fl["ladder_work"]),
             ("A", "init L=1", lambda: ls(*fl["init"]), fl["init_work"]),
             ("A", "quadruped L=11 per-lane", lambda: ls(*qd["ladder"]),
-             qd["ladder_work"]))
-        names = {"A": "ls_rollout_kernel", "B": "fused_expand_backward"}
+             qd["ladder_work"])]
         for kernel, shape, fn, (nbytes, flops) in cases:
             bnd, by = bound_ms(nbytes, flops, item)
             rows.append(dict(kernel=kernel, shape=shape, dtype=label,
-                             ms=time_ms(fn, reps),
-                             device_ms=device_ms(fn, names[kernel], reps),
-                             bound_ms=bnd, bound_by=by, bytes=nbytes,
-                             flops=flops))
-        del fl, rk, qd
+                             ms=time_ms(fn, kernel=True), bound_ms=bnd,
+                             bound_by=by, bytes=nbytes, flops=flops))
+        del fl, rk, qd, other
         torch.cuda.empty_cache()
     return rows
 
 
-def _worker(root: str, out: str, reps: int) -> None:
+def _worker(root: str, out: str) -> None:
     # the checkout's root in place of this script's directory
     sys.path[0] = os.path.abspath(root)
     from altro_tpu_torch.ops import _build
-    rows = measure(reps)
+    rows = measure()
     ptxas = [line.split("ptxas info    :")[-1].strip()
              for line in _build.build_log().splitlines()
              if "Used" in line or "spill" in line or "Compiling entry" in line]
@@ -325,12 +337,11 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", help="root of another checkout to time in "
                     "turns with this one")
-    ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     ap.add_argument("--out", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        _worker(args.worker, args.out, args.reps)
+        _worker(args.worker, args.out)
         return
     import torch
     if not torch.cuda.is_available():
@@ -347,8 +358,7 @@ def main() -> None:
         for i, root in enumerate(turns):
             out = os.path.join(tmp, f"turn{i}.json")
             subprocess.run([sys.executable, os.path.abspath(__file__),
-                            "--worker", root, "--out", out, "--reps",
-                            str(args.reps)], check=True)
+                            "--worker", root, "--out", out], check=True)
             with open(out) as f:
                 results.append(json.load(f))
     card = power_limit()
@@ -359,10 +369,7 @@ def main() -> None:
     for j, row in enumerate(results[0]["rows"]):
         times = " ".join(f"{'this' if r['root'] == here else 'other'}="
                          f"{r['rows'][j]['ms']:.4f}" for r in results)
-        dev = " ".join(f"{'this' if r['root'] == here else 'other'}="
-                       f"{r['rows'][j]['device_ms']:.4f}" for r in results)
         print(f"{row['kernel']} {row['shape']} {row['dtype']}: ms {times}; "
-              f"device ms {dev}; "
               f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}: "
               f"{row['bytes'] / 1e6:.2f} MB, {row['flops'] / 1e9:.4f} "
               f"GFLOP) [{card}]")

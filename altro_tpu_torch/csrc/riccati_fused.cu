@@ -62,7 +62,10 @@
 //            are stored coalesced.
 //
 // Four group barriers per knot (six with SOC blocks) and one block barrier.
-// The flagship's and the rocket's widths compile as constants. The knot
+// Every m up to 8 (the register Cholesky's range) compiles as a constant in
+// the groups of 64, so the factor, the solves and the loops over m unroll
+// without guards; n stays a runtime width (a constant n as well gains far
+// less than a constant m: PERF.md, kernel B's constant widths). The knot
 // loop must stay small: unrolling each owned entry and each entry kind
 // separately takes ~20k instructions per instantiation, and the warps then
 // stall on instruction fetch.
@@ -70,8 +73,8 @@
 // What bounds it on the H100: at B=1024, N=30, n=12, m=6, p=12 it moves
 // ~13 MB (K 9 MB of it), 4 us at 3.35 TB/s, and does ~22 kFLOP per
 // scenario-knot, 0.69 GFLOP or 10 us at 67 TFLOP/s f32: the FLOPs bound it.
-// What it reaches is set by the knot chain: ~9 us per knot on the flagship
-// (0.26 ms over 30 knots), with 8 groups (16 warps) per SM at 128
+// What it reaches is set by the knot chain: ~10 us per knot on the
+// flagship (0.29 ms over 30 knots), with 8 groups (16 warps) per SM at 128
 // registers, so B=1024 runs in one wave (PERF.md, kernel table).
 #include <cstdint>
 
@@ -521,7 +524,7 @@ __device__ __forceinline__ void solve_column_smem(const Work<T>& wk,
   }
 }
 
-template <typename T, int TG, int NN, int MM>
+template <typename T, int TG, int MM>
 __global__ void __launch_bounds__(kBlockThreads, 2)
 fused_expand_backward_kernel(
     const T* __restrict__ Q, const T* __restrict__ q,
@@ -533,9 +536,8 @@ fused_expand_backward_kernel(
     const T* __restrict__ X, const T* __restrict__ U,
     const T* __restrict__ rho, const T* __restrict__ reg,
     T* __restrict__ Kout, T* __restrict__ dout, T* __restrict__ dV1out,
-    T* __restrict__ dV2out, int Bt, int N, int n_arg, int m_arg, int P) {
-  // NN, MM > 0: the widths as compile-time constants
-  const int n = NN > 0 ? NN : n_arg;
+    T* __restrict__ dV2out, int Bt, int N, int n, int m_arg, int P) {
+  // MM > 0: the control width as a compile-time constant
   const int m = MM > 0 ? MM : m_arg;
   // entries owned per thread: at most kSmallEntries in a group of 64, the
   // upper triangle of Qxx and Qx at n = 32 in a group of 128
@@ -799,7 +801,7 @@ fused_expand_backward_kernel(
   }
 }
 
-template <typename T, int TG, int NN, int MM>
+template <typename T, int TG, int MM>
 int launch_group(const void* Q, const void* q, const void* R, const void* r,
                  const void* H, const void* A, const void* Bm,
                  const void* Cx, const void* Cu, const void* cb,
@@ -809,7 +811,7 @@ int launch_group(const void* Q, const void* q, const void* R, const void* r,
                  int Bt, int N, int n, int m, int P, cudaStream_t stream) {
   cudaFuncAttributes attr;
   cudaError_t e =
-      cudaFuncGetAttributes(&attr, fused_expand_backward_kernel<T, TG, NN, MM>);
+      cudaFuncGetAttributes(&attr, fused_expand_backward_kernel<T, TG, MM>);
   if (e != cudaSuccess) return (int)e;
   const size_t cap = 232448 - attr.sharedSizeBytes;  // 227 KB opt-in limit
   // groups per block: 256 threads, halved until the work spaces fit
@@ -824,13 +826,13 @@ int launch_group(const void* Q, const void* q, const void* R, const void* r,
   }
   if (bytes > cap) return (int)cudaErrorInvalidValue;
   if (bytes > 48 * 1024 - attr.sharedSizeBytes) {
-    e = cudaFuncSetAttribute(fused_expand_backward_kernel<T, TG, NN, MM>,
+    e = cudaFuncSetAttribute(fused_expand_backward_kernel<T, TG, MM>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)bytes);
     if (e != cudaSuccess) return (int)e;
   }
   const unsigned blocks = (unsigned)((Bt + gpb - 1) / gpb);
-  fused_expand_backward_kernel<T, TG, NN, MM>
+  fused_expand_backward_kernel<T, TG, MM>
       <<<blocks, gpb * TG, bytes, stream>>>(
           (const T*)Q, (const T*)q, (const T*)R, (const T*)r, (const T*)H,
           (const T*)A, (const T*)Bm, (const T*)Cx, (const T*)Cu,
@@ -860,17 +862,24 @@ int launch_fused(const void* Q, const void* q, const void* R, const void* r,
   // B=1024 runs in one wave), 128 above
   const int entries = owned_entries(n) + shared_entries(m, n);
   cudaStream_t s = (cudaStream_t)stream;
-  // The flagship's widths (n = 12, m = 6) and the rocket's (6, 3) compile
-  // with constant widths, so their loops unroll with immediate offsets;
-  // every other width takes the generic instantiations.
-#define ALTRO_FUSED_LAUNCH(TG, NN, MM)                                      \
-  launch_group<T, TG, NN, MM>(Q, q, R, r, H, A, Bm, Cx, Cu, cb, cmask,      \
-                              table, X, U, rho, reg, K, d, dV1, dV2, Bt, N, \
-                              n, m, P, s)
-  if (entries > kSmallEntries) return ALTRO_FUSED_LAUNCH(128, 0, 0);
-  if (n == 12 && m == 6) return ALTRO_FUSED_LAUNCH(64, 12, 6);
-  if (n == 6 && m == 3) return ALTRO_FUSED_LAUNCH(64, 6, 3);
-  return ALTRO_FUSED_LAUNCH(64, 0, 0);
+  // in groups of 64, every m <= kRegM compiles as a constant; wider m and
+  // the groups of 128 take the generic instantiations
+#define ALTRO_FUSED_LAUNCH(TG, MM)                                          \
+  launch_group<T, TG, MM>(Q, q, R, r, H, A, Bm, Cx, Cu, cb, cmask, table,   \
+                          X, U, rho, reg, K, d, dV1, dV2, Bt, N, n, m, P, s)
+  if (entries > kSmallEntries) return ALTRO_FUSED_LAUNCH(128, 0);
+  static_assert(kRegM == 8, "one constant-m instantiation per m <= kRegM");
+  switch (m) {
+    case 1: return ALTRO_FUSED_LAUNCH(64, 1);
+    case 2: return ALTRO_FUSED_LAUNCH(64, 2);
+    case 3: return ALTRO_FUSED_LAUNCH(64, 3);
+    case 4: return ALTRO_FUSED_LAUNCH(64, 4);
+    case 5: return ALTRO_FUSED_LAUNCH(64, 5);
+    case 6: return ALTRO_FUSED_LAUNCH(64, 6);
+    case 7: return ALTRO_FUSED_LAUNCH(64, 7);
+    case 8: return ALTRO_FUSED_LAUNCH(64, 8);
+    default: return ALTRO_FUSED_LAUNCH(64, 0);
+  }
 #undef ALTRO_FUSED_LAUNCH
 }
 

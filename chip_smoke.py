@@ -12,8 +12,9 @@ Phases, each printing its findings; any failure raises (non-zero exit):
 3. kernel parity, each CUDA kernel against its plain PyTorch version on the
    card, in float32 (gate: max|kernel - plain| <= 1e-3 max(1, max|plain|))
    and in float64 (gate: 1e-9 max(1, max|plain|)), with both timed and the
-   kernel's bound beside them (inputs and bounds from
-   ``altro_tpu_torch/bench/kernels.py``):
+   kernel's bound beside them (inputs, bounds and the timing from
+   ``altro_tpu_torch/bench/kernels.py``: a kernel's launches queue behind a
+   sleep on the stream, so its time is the device's alone):
    a. the flagship shapes (B=1024, n=12, m=6, N=30; ladders L=3 and the
       L=1 init form, each timed): the ladder rollout and the fused
       expansion on a NONPOS block;
@@ -115,7 +116,7 @@ def parity(dtype, tol):
     torch.cuda.synchronize()
     res = {"fused_expand_backward": (
         errors(out, ref, ("K", "d", "dV1", "dV2"), tol),
-        time_ms(lambda: fb(*args, packed=packed)),
+        time_ms(lambda: fb(*args, packed=packed), kernel=True),
         time_ms(lambda: fb_ref(*args)), fl["fused_work"])}
 
     ls = rollout.batched_ls_rollout
@@ -124,12 +125,12 @@ def parity(dtype, tol):
     errs = errors(ls(*largs), ls_ref(*largs), ("Xs L=3", "Us L=3"), tol)
     # the cold-start form: L=1, alpha=1, K=d=0
     errs.update(errors(ls(*cargs), ls_ref(*cargs), ("Xs L=1", "Us L=1"), tol))
-    res["batched_ls_rollout"] = (errs, time_ms(lambda: ls(*largs)),
-                                 time_ms(lambda: ls_ref(*largs)),
-                                 fl["ladder_work"])
-    res["batched_ls_rollout L=1"] = ({}, time_ms(lambda: ls(*cargs)),
-                                     time_ms(lambda: ls_ref(*cargs)),
-                                     fl["init_work"])
+    res["batched_ls_rollout"] = (
+        errs, time_ms(lambda: ls(*largs), kernel=True),
+        time_ms(lambda: ls_ref(*largs)), fl["ladder_work"])
+    res["batched_ls_rollout L=1"] = (
+        {}, time_ms(lambda: ls(*cargs), kernel=True),
+        time_ms(lambda: ls_ref(*cargs)), fl["init_work"])
     return res
 
 
@@ -175,7 +176,7 @@ def rocket_parity(dtype, tol):
     torch.cuda.synchronize()
     res = {"fused_expand_backward": (
         errors(out, ref, ("K", "d", "dV1", "dV2"), tol),
-        time_ms(lambda: fb(*args, packed=packed)),
+        time_ms(lambda: fb(*args, packed=packed), kernel=True),
         time_ms(lambda: fb_ref(*args)), rk["fused_work"])}
 
     K, dff, dV1, dV2 = ref
@@ -202,7 +203,8 @@ def rocket_parity(dtype, tol):
     if differ > (0 if dtype == torch.float64 else B // 100):
         raise AssertionError(f"accepted rung differs on {differ} lanes")
     res["batched_ls_rollout_al"] = (errs,
-                                    time_ms(lambda: la(*cargs, packed=packed)),
+                                    time_ms(lambda: la(*cargs, packed=packed),
+                                            kernel=True),
                                     time_ms(lambda: la_ref(*cargs)),
                                     rk["ladder_al_work"])
     return res
@@ -224,7 +226,7 @@ def quadruped_parity(dtype, tol):
         raise AssertionError("quadruped parity inputs make Quu indefinite")
     res = {"batched_riccati": (errors(out, ref, ("K", "d", "dV1", "dV2"),
                                       tol),
-                               time_ms(lambda: bp(*args)),
+                               time_ms(lambda: bp(*args), kernel=True),
                                time_ms(lambda: bp_ref(*args)),
                                qd["riccati_work"])}
 
@@ -232,7 +234,8 @@ def quadruped_parity(dtype, tol):
     ls, ls_ref = rollout.batched_ls_rollout, rollout.batched_ls_rollout_reference
     res["batched_ls_rollout"] = (
         errors(ls(*largs), ls_ref(*largs), ("Xs L=11", "Us L=11"), tol),
-        time_ms(lambda: ls(*largs)), time_ms(lambda: ls_ref(*largs)),
+        time_ms(lambda: ls(*largs), kernel=True),
+        time_ms(lambda: ls_ref(*largs)),
         qd["ladder_work"])
     return res
 

@@ -132,12 +132,20 @@ def cuda():
                                          ((12, 6, 11, 9), False),
                                          ((12, 6, 11, 9), True),
                                          ((20, 9, 6, 3), False),
-                                         ((12, 6, 30, 1023), False)])
+                                         ((12, 6, 30, 1023), False),
+                                         ((7, 1, 6, 5), False),
+                                         ((9, 2, 6, 5), False),
+                                         ((8, 4, 6, 5), False),
+                                         ((10, 5, 6, 5), False),
+                                         ((13, 7, 6, 5), False),
+                                         ((11, 8, 6, 5), False)])
 def test_kernel_matches_plain_version(cuda, widths, goal, dtype, tol):
     """Relative tolerance: float32 rounding through the recursion (the dV
     terms reach 1e3-1e4); float64 only summation order. m = 9 takes the
-    kernel's shared-memory Cholesky, m <= 8 the per-thread one; Bt = 1023
-    leaves the last block's second group without a scenario."""
+    kernel's shared-memory Cholesky and its generic instantiation, every
+    m <= 8 the shuffle Cholesky and an instantiation of its own with m
+    constant; Bt = 1023 leaves the last block's second group without a
+    scenario."""
     targs = convert.tree_to(_case(*widths, seed=2, goal=goal, reg_scale=1e-2,
                                   u_scale=3.0), cuda, dtype)
     before = riccati_fused.launch_count
