@@ -1,30 +1,40 @@
-"""Where the flagship's device time goes: one torch.profiler window over warm
-MPC steps on one card.
+"""Where the device time of the three main paths goes: one torch.profiler
+window over warm work on one card, per path.
 
-    python -m altro_tpu_torch.bench.device_profile
+    python -m altro_tpu_torch.bench.device_profile [flagship] [rocket]
+                                                   [quadruped]
 
-Builds the flagship setup (B=1024, float32), runs the cold solve and two
-warm steps, then STEPS warm steps unprofiled and STEPS more under the
-profiler (CPU and CUDA activities). Prints, per solver-loop iteration (the
-batch loop's passes: each step's lane-max iteration count), the device time
-and launches of each hand-written kernel and of the rest of the device work
-by kind, and the device busy share: the profiled window's device time per
-iteration (one stream, so kernels do not overlap) over the unprofiled
-window's wall clock per iteration. The profiler's own host overhead
-stretches the profiled window's wall, which is printed beside it but is not
-the denominator. The last line is the result as JSON.
+Paths (all of them when none is named), each at B=1024 in float32:
+
+- flagship: the cold solve and two warm MPC steps, then windows of 10 warm
+  steps;
+- rocket: the cold N=301 solve, the batched initial solve and one warm-up
+  step, then windows of 3 warm steps;
+- quadruped, in both friction modes: one warm-up solve, then windows of 2
+  cold batch solves, each with a fresh x0 draw.
+
+Each path runs one window unprofiled and the next under the profiler (CPU
+and CUDA activities). Printed per solver-loop iteration (the batch loop's
+passes: each solve's lane-max iteration count): the device time and launches
+of each hand-written kernel and of the rest of the device work by kind, and
+the device busy share: the profiled window's device time per iteration (one
+stream, so kernels do not overlap) over the unprofiled window's wall clock
+per iteration. The profiler's own host overhead stretches the profiled
+window's wall, which is printed beside it but is not the denominator. The
+last line is the result of every path as JSON.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import sys
 import time
 
 import torch
 
-from altro_tpu_torch.bench.kernels import FLAG_B
+from altro_tpu_torch.bench.kernels import FLAG_B, QUAD_B, ROCKET_B
 
-STEPS = 10
+FLAG_STEPS, ROCKET_STEPS, QUAD_SOLVES = 10, 3, 2
 KINDS = (("kernel B (fused_expand_backward)", ("fused_expand_backward",)),
          ("kernel C (ls_rollout_al)", ("ls_rollout_al",)),
          ("kernel A (ls_rollout)", ("ls_rollout",)),
@@ -43,39 +53,22 @@ def kind_of(name: str) -> str:
     return "other"
 
 
-def profile_flagship() -> dict:
-    from altro_tpu_torch.bench.flagship import flagship_setup
-    from altro_tpu_torch.mpc import make_mpc_step
-    from altro_tpu_torch.solver.altro import solve
-
-    B = FLAG_B
-    setup = flagship_setup(B, 2 * STEPS + 2, dtype=torch.float32,
-                           device="cuda")
-    pm = setup.prob_mpc
-    step, _ = make_mpc_step(pm, setup.opts, setup.X_track, setup.U_track)
-    x0 = pm.x0.expand(B, pm.n).contiguous()
-    sol = solve(dataclasses.replace(pm, x0=x0), setup.opts)
-    carry = (x0, sol.X, sol.U, sol.duals)
-    for t in range(2):
-        carry, _ = step(carry, setup.noise[t], t)
-    torch.cuda.synchronize()
-
-    def window(first):
-        """STEPS warm steps from step ``first``: (wall ms, iterations)."""
-        nonlocal carry
-        iters = []
-        t0 = time.perf_counter()
-        for t in range(first, first + STEPS):
-            carry, out = step(carry, setup.noise[t], t)
-            iters.append(out.iters.max())
+def profile(window) -> dict:
+    """``window()`` runs one window of warm work and returns its solver-loop
+    iterations; it is called twice, unprofiled and then under the
+    profiler."""
+    def timed():
         torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3, int(sum(iters))
+        t0 = time.perf_counter()
+        iters = window()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, iters
 
-    wall_ms, iters_plain = window(2)
+    wall_ms, iters_plain = timed()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        prof_wall_ms, iters = window(2 + STEPS)
+        prof_wall_ms, iters = timed()
     per_kind = {}
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -89,34 +82,127 @@ def profile_flagship() -> dict:
     device_ms = sum(ms for ms, _ in per_kind.values())
     if device_ms == 0.0:
         raise RuntimeError("the profiler recorded no device time")
-    return {"B": B, "steps": STEPS, "loop_iterations": iters,
-            "device_ms": device_ms, "profiled_wall_ms": prof_wall_ms,
-            "unprofiled_wall_ms": wall_ms,
+    return {"loop_iterations": iters, "device_ms": device_ms,
+            "profiled_wall_ms": prof_wall_ms, "unprofiled_wall_ms": wall_ms,
             "unprofiled_loop_iterations": iters_plain,
             "busy_share": (device_ms / iters) / (wall_ms / iters_plain),
             "per_iteration": {k: {"ms": ms / iters, "launches": n / iters}
                               for k, (ms, n) in sorted(per_kind.items())}}
 
 
+def _step_window(step, carry, noise, first, steps):
+    """A window function over ``steps`` MPC steps at a time, from step
+    ``first`` on."""
+    state = {"carry": carry, "t": first}
+
+    def window():
+        iters = []
+        for _ in range(steps):
+            t = state["t"]
+            state["carry"], out = step(state["carry"], noise[t], t)
+            iters.append(out.iters.max())
+            state["t"] = t + 1
+        return int(sum(iters))
+    return window
+
+
+def flagship_window(B: int = FLAG_B, device="cuda"):
+    from altro_tpu_torch.bench.flagship import flagship_setup
+    from altro_tpu_torch.mpc import make_mpc_step
+    from altro_tpu_torch.solver.altro import solve
+
+    setup = flagship_setup(B, 2 * FLAG_STEPS + 2, dtype=torch.float32,
+                           device=device)
+    pm = setup.prob_mpc
+    step, _ = make_mpc_step(pm, setup.opts, setup.X_track, setup.U_track)
+    x0 = pm.x0.expand(B, pm.n).contiguous()
+    sol = solve(dataclasses.replace(pm, x0=x0), setup.opts)
+    carry = (x0, sol.X, sol.U, sol.duals)
+    for t in range(2):
+        carry, _ = step(carry, setup.noise[t], t)
+    return _step_window(step, carry, setup.noise, 2, FLAG_STEPS)
+
+
+def rocket_window(B: int = ROCKET_B, device="cuda"):
+    import numpy as np
+
+    from altro_tpu_torch.bench.conic import rocket_setup
+    from altro_tpu_torch.mpc import make_mpc_step
+    from altro_tpu_torch.solver.altro import solve
+
+    setup = rocket_setup(torch.float32, device=device)
+    pm = setup.prob_mpc
+    noise = torch.as_tensor(np.random.default_rng(1).standard_normal(
+        (2 * ROCKET_STEPS + 1, B, 6)), dtype=torch.float32, device=device)
+    step, _ = make_mpc_step(pm, setup.opts, setup.X_track, setup.U_track,
+                            noise_model=setup.noise_model, shared_k=True,
+                            warm_start="track")
+    x0 = pm.x0.expand(B, 6).contiguous()
+    sol = solve(dataclasses.replace(pm, x0=x0), setup.opts)
+    carry, _ = step((x0, sol.X, sol.U, sol.duals), noise[0], 0)
+    return _step_window(step, carry, noise, 1, ROCKET_STEPS)
+
+
+def quadruped_window(linearized_friction: bool, B: int = QUAD_B,
+                     device="cuda"):
+    from altro_tpu_torch.bench.families import quadruped_setup
+    from altro_tpu_torch.solver.altro import solve
+
+    su = quadruped_setup(B, linearized_friction, torch.float32, device)
+
+    def window(solves=QUAD_SOLVES):
+        iters = []
+        for _ in range(solves):
+            x0 = su.draw_x0().to(device=device, dtype=torch.float32)
+            sol = solve(dataclasses.replace(su.prob, x0=x0), su.opts,
+                        U0=su.U0)
+            iters.append(sol.stats.iterations.max())
+        return int(sum(iters))
+
+    window(1)                                              # warm-up
+    return window
+
+
+# path: ((label, batch, window's description, its maker), ...)
+PATHS = {
+    "flagship": (("flagship", FLAG_B, f"{FLAG_STEPS} warm steps",
+                  flagship_window),),
+    "rocket": (("rocket", ROCKET_B, f"{ROCKET_STEPS} warm steps",
+                rocket_window),),
+    "quadruped": (("quadruped qp", QUAD_B, f"{QUAD_SOLVES} cold solves",
+                   lambda: quadruped_window(True)),
+                  ("quadruped socp", QUAD_B, f"{QUAD_SOLVES} cold solves",
+                   lambda: quadruped_window(False))),
+}
+
+
 def main() -> None:
+    names = sys.argv[1:] or list(PATHS)
+    unknown = [n for n in names if n not in PATHS]
+    if unknown:
+        raise SystemExit(f"unknown path {unknown}; choose from {list(PATHS)}")
     if not torch.cuda.is_available():
         raise SystemExit("the profile measures a CUDA device; none is "
                          "available")
     from altro_tpu_torch.bench.flagship import power_limit
-    res = profile_flagship()
     card = power_limit()
-    print(f"flagship B={res['B']} f32 [{card}]: unprofiled {res['steps']} "
-          f"warm steps = {res['unprofiled_loop_iterations']} solver "
-          f"iterations in {res['unprofiled_wall_ms']:.3f} ms; profiled "
-          f"{res['steps']} = {res['loop_iterations']} iterations in "
-          f"{res['profiled_wall_ms']:.3f} ms with {res['device_ms']:.3f} ms "
-          f"of device time; busy {100 * res['busy_share']:.1f}% (device ms "
-          f"per iteration over unprofiled wall ms per iteration)")
-    for kind, v in res["per_iteration"].items():
-        print(f"  per iteration: {kind}: {v['ms']:.4f} ms device, "
-              f"{v['launches']:.1f} launches")
-    res["card"] = card
-    print(json.dumps(res))
+    results = []
+    for name in names:
+        for label, B, desc, make_window in PATHS[name]:
+            res = dict(profile(make_window()), path=label, B=B, window=desc)
+            print(f"{res['path']} B={res['B']} f32 [{card}]: unprofiled "
+                  f"{res['window']} = {res['unprofiled_loop_iterations']} "
+                  f"solver iterations in {res['unprofiled_wall_ms']:.3f} ms; "
+                  f"profiled {res['window']} = {res['loop_iterations']} "
+                  f"iterations in {res['profiled_wall_ms']:.3f} ms with "
+                  f"{res['device_ms']:.3f} ms of device time; busy "
+                  f"{100 * res['busy_share']:.1f}% (device ms per iteration "
+                  f"over unprofiled wall ms per iteration)")
+            for kind, v in res["per_iteration"].items():
+                print(f"  per iteration: {kind}: {v['ms']:.4f} ms device, "
+                      f"{v['launches']:.1f} launches")
+            results.append(res)
+    print(json.dumps({"card": card, "paths": results}))
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
-"""Kernels A (ladder rollout) and B (fused AL expansion + Riccati) alone, at
-the main paths' shapes, timed on one card beside their bounds.
+"""Kernels A (ladder rollout), B (fused AL expansion + Riccati), C (ladder +
+AL merit) and D (Riccati pass from an expansion) alone, at the main paths'
+shapes, timed on one card beside their bounds.
 
     python -m altro_tpu_torch.bench.kernels [--against DIR]
 
@@ -9,9 +10,13 @@ a sleep on the stream, divided by REPS) and its bound, the least time the
 card could take: the larger of the bytes the function must move (each input
 read once, each output written once) over 3.35 TB/s and its FLOPs over 67
 TFLOP/s (float32) or 34 TFLOP/s (float64) outside the tensor cores (H100
-SXM data sheet). Kernel B is also timed on the flagship's random-linear
-model at widths that no main path uses (n, m) = (13, 6) and (7, 3), which
-take the kernel's generic instantiation. ``--against DIR`` names the root
+SXM data sheet). A runs at the flagship's L=3 and L=1 and the quadruped's
+per-lane L=11, B on the flagship and the rocket window, C on the rocket
+window at L=6, D on the quadruped's per-lane expansion. Kernels B and D are
+also timed on the flagship's random-linear model (shared dynamics; D on the
+solver's AL expansion of the inputs B expands itself) at the flagship's
+widths and at (n, m) = (13, 6) and (7, 3), which no main path uses.
+``--against DIR`` names the root
 of another checkout of this repository (for example the parent commit,
 unpacked with ``git archive`` into ``build/``): each turn runs in a process
 of its own, in the order other, this, this, other, on the same inputs
@@ -43,7 +48,7 @@ PEAK_FLOPS = {4: 67e12, 8: 34e12}   # by element size: f32, f64
 REPS = 20
 HEAD_START_MS = 20
 HEAD_START_CYCLES = int(HEAD_START_MS * 1.98e6)
-# widths of kernel B that no main path uses, on the flagship's model
+# widths of kernels B and D that no main path uses, on the flagship's model
 OTHER_WIDTHS = ((13, 6), (7, 3))
 
 
@@ -152,12 +157,16 @@ def flagship_inputs(dtype, dev, B: int = FLAG_B, widths=(12, 6)) -> dict:
     n=12, m=6, N=30, one NONPOS block of 2m rows; seed 7): X, U off any
     solve, |u| > 3 on a third of the entries (active and inactive rows),
     half the lanes regularised; the ladder at L=3 on the plain version's
-    gains, and the L=1 init form (K = d = 0, alpha = 1). ``widths``: the
-    same random-linear model at another (n, m)."""
+    gains, and the L=1 init form (K = d = 0, alpha = 1); and kernel D's, the
+    shared dynamics with the solver's AL expansion of the same X, U and
+    multipliers. ``widths``: the same random-linear model at another
+    (n, m)."""
     import torch
+    from altro_tpu_torch.constraints import DualState
     from altro_tpu_torch.models import random_linear as rl
     from altro_tpu_torch.ops import riccati_fused
     from altro_tpu_torch.ops.blocks import pack_blocks
+    from altro_tpu_torch.solver.altro import _al_expansion_cd
 
     # the window as flagship_setup builds it (its seed, one step of track)
     n_track = FLAG_N + 3
@@ -183,10 +192,14 @@ def flagship_inputs(dtype, dev, B: int = FLAG_B, widths=(12, 6)) -> dict:
              (rho,), reg)
     ref = riccati_fused.fused_expand_backward_reference(*fused)
     K, d = ref[0].contiguous(), ref[1].contiguous()
+    expansion = (a.contiguous() for a in _al_expansion_cd(
+        prob.cost, prob.constraints, (DualState(lam=lam, rho=rho),), X, U))
     return dict(
         fused=fused, fused_ref=ref,
         packed=pack_blocks(prob.constraints, N, n, m, X),
         fused_work=fused_work(B, N, n, m, p, (), X.element_size()),
+        riccati=(dyn.A, dyn.B, *expansion, reg),
+        riccati_work=riccati_work(B, N, n, m, False, X.element_size()),
         ladder=(dyn.A, dyn.B, dyn.d, X, U, K, d, FLAG_LADDER),
         ladder_work=rollout_work(B, N, n, m, len(FLAG_LADDER), False,
                                  X.element_size()),
@@ -200,10 +213,12 @@ def rocket_inputs(dtype, dev, B: int = ROCKET_B) -> dict:
     N=21, three SOC blocks of 4, 4 and 7 rows; seed 8): states 1 m and
     controls 60 N off the hover rollout, multipliers on the scale of rho c
     so that every cone case occurs, and the glideslope cone's apex at lane
-    0, knot N-3 (x = y = 0, lambda_v = 0)."""
+    0, knot N-3 (x = y = 0, lambda_v = 0); and kernel C's at the solver's
+    L=6 ladder on the plain version's gains."""
     import torch
     from altro_tpu_torch.bench.conic import rocket_setup
     from altro_tpu_torch.models import rocket
+    from altro_tpu_torch.ops import riccati_fused
     from altro_tpu_torch.ops.blocks import pack_blocks
 
     # the window's blocks and shapes do not depend on the tracked
@@ -229,9 +244,13 @@ def rocket_inputs(dtype, dev, B: int = ROCKET_B) -> dict:
                  for _ in blocks)
     reg = t(np.where(rng.random(B) < 0.5, 0.0, 1e-2))
     packed = pack_blocks(blocks, N, n, m, X)
+    fused = (pm.cost, dyn.A, dyn.B, blocks, X, U, lams, rhos, reg)
+    ref = riccati_fused.fused_expand_backward_reference(*fused)
     return dict(
-        prob=pm, fused=(pm.cost, dyn.A, dyn.B, blocks, X, U, lams, rhos, reg),
-        packed=packed,
+        prob=pm, fused=fused, fused_ref=ref, packed=packed,
+        ladder_al=(pm.cost, dyn.A, dyn.B, dyn.d, blocks, X, U,
+                   ref[0].contiguous(), ref[1].contiguous(), lams, rhos[0],
+                   ROCKET_LADDER),
         fused_work=fused_work(B, N, n, m, packed.P,
                               tuple(c.p for c in blocks), X.element_size()),
         ladder_al_work=rollout_al_work(B, N, n, m, packed.P,
@@ -280,14 +299,16 @@ def quadruped_inputs(dtype, dev, B: int = QUAD_B) -> dict:
 
 
 def measure() -> list:
-    """Time kernels A and B at every shape, f32 and f64, in the checkout
-    whose ``altro_tpu_torch`` is imported."""
+    """Time kernels A, B, C and D at every shape, f32 and f64, in the
+    checkout whose ``altro_tpu_torch`` is imported."""
     import torch
-    from altro_tpu_torch.ops import _build, riccati_fused, rollout
+    from altro_tpu_torch.ops import (_build, riccati, riccati_fused, rollout,
+                                     rollout_al)
 
     _build.library()
     dev = torch.device("cuda")
     fb, ls = riccati_fused.fused_expand_backward, rollout.batched_ls_rollout
+    la, bp = rollout_al.batched_ls_rollout_al, riccati.batched_riccati
     rows = []
     for dtype in (torch.float32, torch.float64):
         label = "f32" if dtype == torch.float32 else "f64"
@@ -300,6 +321,9 @@ def measure() -> list:
 
         def fused(inp):
             return lambda: fb(*inp["fused"], packed=inp["packed"])
+
+        def pass_d(inp):
+            return lambda: bp(*inp["riccati"])
         cases = [
             ("B", "flagship", fused(fl), fl["fused_work"]),
             ("B", "rocket", fused(rk), rk["fused_work"]),
@@ -309,7 +333,14 @@ def measure() -> list:
              fl["ladder_work"]),
             ("A", "init L=1", lambda: ls(*fl["init"]), fl["init_work"]),
             ("A", "quadruped L=11 per-lane", lambda: ls(*qd["ladder"]),
-             qd["ladder_work"])]
+             qd["ladder_work"]),
+            ("C", "rocket L=6",
+             lambda: la(*rk["ladder_al"], packed=rk["packed"]),
+             rk["ladder_al_work"]),
+            ("D", "quadruped per-lane", pass_d(qd), qd["riccati_work"]),
+            ("D", "flagship shared", pass_d(fl), fl["riccati_work"]),
+            *(("D", f"random-linear shared n={n} m={m}", pass_d(inp),
+               inp["riccati_work"]) for (n, m), inp in other)]
         for kernel, shape, fn, (nbytes, flops) in cases:
             bnd, by = bound_ms(nbytes, flops, item)
             rows.append(dict(kernel=kernel, shape=shape, dtype=label,

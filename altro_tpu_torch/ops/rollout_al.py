@@ -9,7 +9,9 @@ rollout of ``ops/rollout.py`` and returns the rung's merit
 
 (the AL cost without the rung-independent -|lam|^2/(2 rho) term), with rho
 the first block's penalty schedule [Bt, N], shared by every block as the
-solver keeps it.
+solver keeps it. The kernel sums the merit in double precision whatever
+the tensors' dtype (the line search compares merits whose terms cancel) and
+rounds J once; the plain version sums in the tensors' dtype.
 
 Dispatch: a CPU tensor goes to :func:`batched_ls_rollout_al_reference`; a
 CUDA tensor goes to the kernel, or raises on what the kernel does not take.
@@ -23,12 +25,11 @@ import torch
 
 from . import _build
 from .blocks import PackedBlocks, pack_blocks, table_args
-from .rollout import MAX_DIM, _check_args, batched_ls_rollout_reference
+from .rollout import (MAX_DIM, MAX_RUNGS, _check_args,
+                      batched_ls_rollout_reference)
 
 # Kernel launches since the last reset (see ops/rollout.py).
 launch_count = 0
-
-MAX_RUNGS = 16
 
 
 def batched_ls_rollout_al_reference(cost, dynA, dynB, dynd, blocks, Xbar,

@@ -162,7 +162,8 @@ def rocket_parity(dtype, tol):
     dev = torch.device("cuda")
     rk = rocket_inputs(dtype, dev, ROCKET_B)
     pm, args, packed = rk["prob"], rk["fused"], rk["packed"]
-    blocks, dyn, (X, U, lams, rhos) = pm.constraints, pm.dynamics, args[4:8]
+    ref = rk["fused_ref"]
+    blocks, (X, U, lams, rhos) = pm.constraints, args[4:8]
     B = ROCKET_B
     cases = soc_cases(blocks, X, U, lams, rhos)
     print(f"rocket parity inputs ({dtype}): SOC cases {cases}")
@@ -172,16 +173,14 @@ def rocket_parity(dtype, tol):
     fb = riccati_fused.fused_expand_backward
     fb_ref = riccati_fused.fused_expand_backward_reference
     out = fb(*args, packed=packed)
-    ref = fb_ref(*args)
     torch.cuda.synchronize()
     res = {"fused_expand_backward": (
         errors(out, ref, ("K", "d", "dV1", "dV2"), tol),
         time_ms(lambda: fb(*args, packed=packed), kernel=True),
         time_ms(lambda: fb_ref(*args)), rk["fused_work"])}
 
-    K, dff, dV1, dV2 = ref
-    cargs = (pm.cost, dyn.A, dyn.B, dyn.d, blocks, X, U, K.contiguous(),
-             dff.contiguous(), lams, rhos[0], ROCKET_LADDER)
+    _, _, dV1, dV2 = ref
+    cargs = rk["ladder_al"]
     la = rollout_al.batched_ls_rollout_al
     la_ref = rollout_al.batched_ls_rollout_al_reference
     Xs, Us, J = la(*cargs, packed=packed)

@@ -1,0 +1,40 @@
+"""The device profile's windows (``altro_tpu_torch/bench/device_profile.py``)
+on the CPU at a small batch: each path's window runs warm work through the
+solver and counts its solver-loop iterations, and device kernels are sorted
+into the kinds the profile reports. The profile itself needs a CUDA device."""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from altro_tpu_torch.bench import device_profile as dp  # noqa: E402
+
+torch.set_num_threads(1)
+
+
+def test_flagship_window_counts_iterations():
+    window = dp.flagship_window(B=4, device="cpu")
+    first, second = window(), window()
+    assert first >= dp.FLAG_STEPS and second >= dp.FLAG_STEPS
+
+
+@pytest.mark.parametrize("linearized", [True, False], ids=["qp", "socp"])
+def test_quadruped_window_counts_iterations(linearized):
+    window = dp.quadruped_window(linearized, B=8, device="cpu")
+    assert window() >= dp.QUAD_SOLVES
+
+
+@pytest.mark.parametrize("name,kind", [
+    ("void (anonymous namespace)::riccati_kernel<float, 64, 12>(float "
+     "const*)", "kernel D (riccati)"),
+    ("void (anonymous namespace)::ls_rollout_al_kernel<float, 16, 1>(float "
+     "const*)", "kernel C (ls_rollout_al)"),
+    ("void (anonymous namespace)::ls_rollout_kernel<float, 16>(float const*)",
+     "kernel A (ls_rollout)"),
+    ("void (anonymous namespace)::fused_expand_backward_kernel<float, 64, 6>",
+     "kernel B (fused_expand_backward)"),
+    ("void at::native::vectorized_elementwise_kernel<4, at::native::"
+     "AddFunctor<float>>", "elementwise"),
+    ("Memset (Device)", "other"),
+])
+def test_kernel_names_sort_into_kinds(name, kind):
+    assert dp.kind_of(name) == kind

@@ -8,8 +8,10 @@ plain ``batched_riccati_reference`` against the JAX package
   atol 1e-10, with per-lane and with shared A/B, at the quadruped's widths
   n = m = 12, N = 15;
 
-the wrapper's CPU dispatch and its shape, dtype and contiguity checks; and,
-on a CUDA device, the kernel against the plain version and its width limit.
+the wrapper's CPU dispatch and its shape, dtype and contiguity checks; the
+byte and FLOP counts that the kernel's bound is computed from; and, on a
+CUDA device, the kernel against the plain version at every width of its
+thread mapping, and its width limit.
 
 The inputs are made by numpy from a seed: A near the identity, SPD lxx and
 luu, so that Quu + reg I stays positive definite (where it is not, the
@@ -151,6 +153,35 @@ def test_wrapper_checks():
         riccati.batched_riccati(*(a.to(torch.float16) for a in args))
 
 
+def test_work_counts_at_the_quadruped_shape():
+    """The yardstick of the kernel's bound (bench/kernels.py): 53.5 MB and
+    0.52 GFLOP at B=1024, N=15, n=m=12 with per-lane dynamics in float32;
+    shared dynamics save all but one copy of A and B."""
+    from altro_tpu_torch.bench.kernels import bound_ms, riccati_work
+
+    nbytes, flops = riccati_work(1024, 15, 12, 12, True, 4)
+    assert (nbytes, flops) == (53_489_664, 518_160_384)
+    ms, by = bound_ms(nbytes, flops, 4)
+    assert by == "bytes" and abs(ms - 0.01597) < 1e-5
+    shared = riccati_work(1024, 15, 12, 12, False, 4)
+    assert nbytes - shared[0] == 1023 * 14 * 2 * 144 * 4
+    assert shared[1] == flops
+
+
+def test_bench_inputs_match_the_fused_kernels_plain_version():
+    """The flagship arguments that the benchmark times the kernel on (shared
+    dynamics, the solver's AL expansion of the inputs the fused kernel
+    expands itself): the pass gives the fused kernel's plain version's
+    gains."""
+    from altro_tpu_torch.bench.kernels import flagship_inputs
+
+    fl = flagship_inputs(torch.float64, torch.device("cpu"), B=3)
+    assert fl["riccati"][0].shape == (29, 12, 12)          # shared A
+    assert fl["riccati"][4].shape == (3, 30, 12, 12)       # per-lane lxx
+    _close(riccati.batched_riccati(*fl["riccati"]), fl["fused_ref"],
+           atol=1e-12, rtol=1e-12)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -161,8 +192,16 @@ def cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3),
                                        (torch.float64, 1e-9)])
+# (Bt, N, n, m): the quadruped's shape; every padded width of the
+# factorization (m up to 4, 8, 12, 16) with n < m and n > m, a tail block
+# (Bt = 1023) and a single scenario; m + n at the warp's limit (15 + 16 + 1
+# lanes) and one past it, which takes the generic body as n or m above 16 do.
 @pytest.mark.parametrize("dims", [(1024, 15, 12, 12), (37, 7, 5, 3),
-                                  (9, 6, 32, 32)])
+                                  (9, 6, 32, 32), (1, 5, 3, 4), (33, 6, 9, 6),
+                                  (35, 5, 4, 7), (1023, 5, 7, 11),
+                                  (21, 6, 12, 14), (5, 4, 15, 16),
+                                  (6, 5, 16, 16), (7, 5, 20, 9),
+                                  (7, 5, 9, 20)])
 @pytest.mark.parametrize("per_lane", [True, False],
                          ids=["per_lane", "shared"])
 def test_kernel_matches_plain_version(cuda, per_lane, dims, dtype, tol):
@@ -177,6 +216,29 @@ def test_kernel_matches_plain_version(cuda, per_lane, dims, dtype, tol):
     for g, r in zip(got, riccati.batched_riccati_reference(*args)):
         assert float((g - r).abs().max()) <= tol * max(1.0,
                                                       float(r.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3),
+                                       (torch.float64, 1e-9)])
+@pytest.mark.parametrize("per_lane", [True, False],
+                         ids=["per_lane", "shared"])
+def test_kernel_nan_lane_stays_in_its_lane(cuda, per_lane, dtype, tol):
+    """A NaN gradient of one lane at a middle knot makes that lane's gains
+    NaN from that knot back to the first, and its dV; every other lane
+    matches the plain version."""
+    inp = _inputs(40, 8, 7, 6, per_lane=per_lane, seed=7, reg_scale=1e-2)
+    inp["lx"][4, 5, 2] = np.nan
+    args = _torch(inp, dtype, cuda)
+    got = riccati.batched_riccati(*args)
+    ref = riccati.batched_riccati_reference(*args)
+    assert bool(torch.isnan(got[1][4, :5]).all())
+    assert bool(torch.isfinite(got[1][4, 5:]).all())
+    assert bool(torch.isnan(got[2][4]) & torch.isnan(got[3][4]))
+    keep = torch.arange(40, device=cuda) != 4
+    for g, r in zip(got, ref):
+        assert float((g[keep] - r[keep]).abs().max()) <= tol * max(
+            1.0, float(r[keep].abs().max()))
 
 
 @pytest.mark.cuda

@@ -2,8 +2,10 @@
 ``batched_ls_rollout_al_reference`` against the JAX package's Pallas kernel
 in interpret mode on the rocket MPC window (three SOC blocks) and on a
 ZERO + NONPOS pair in float64 (Xs/Us rtol 1e-9, J rtol 1e-8); the
-wrapper's CPU dispatch; and, on a CUDA device, the kernel against the plain
-version in float32 and float64, and the wrapper's limits.
+wrapper's CPU dispatch; the byte and FLOP counts that the kernel's bound is
+computed from; and, on a CUDA device, the kernel against the plain version
+in float32 and float64 (the rocket window, and random problems at the edges
+of its thread mapping), and the wrapper's limits.
 
 JAX is imported only by the tests that compare with it, so the kernel tests
 also run where JAX is not installed:
@@ -141,6 +143,104 @@ def test_merit_is_al_cost_without_the_lambda_term():
                                rtol=1e-12)
 
 
+def test_work_counts_at_the_rocket_shape():
+    """The yardstick of the kernel's bound (bench/kernels.py): 8.5 MB and
+    0.089 GFLOP at B=1024, N=21, n=6, m=3, 15 rows, L=6 in float32."""
+    from altro_tpu_torch.bench.kernels import bound_ms, rollout_al_work
+
+    nbytes, flops = rollout_al_work(1024, 21, 6, 3, 15, 6, 4)
+    assert (nbytes, flops) == (8_478_936, 88_805_376)
+    assert rollout_al_work(1024, 21, 6, 3, 15, 6, 8)[0] == 2 * nbytes
+    ms, by = bound_ms(nbytes, flops, 4)
+    assert by == "bytes" and abs(ms - 0.00253) < 1e-5
+
+
+def test_bench_inputs_run_through_the_wrapper():
+    """The rocket-window arguments that the benchmark and the smoke run time
+    the kernel on: the shapes of a B=3 batch, and a finite merit."""
+    from altro_tpu_torch.bench.kernels import ROCKET_LADDER, rocket_inputs
+
+    rk = rocket_inputs(torch.float64, torch.device("cpu"), B=3)
+    assert rk["ladder_al"][-1] == ROCKET_LADDER
+    Xs, Us, J = rollout_al.batched_ls_rollout_al(*rk["ladder_al"],
+                                                 packed=rk["packed"])
+    assert Xs.shape == (3, 6, 21, 6) and Us.shape == (3, 6, 20, 3)
+    assert J.shape == (3, 6) and bool(torch.isfinite(J).all())
+
+
+MIXED = (("zero", 4), ("nonpos", 4), ("soc", 5), ("soc", 3))
+
+
+def _random_case(n, m, N, Bt, spec, seed, masked=()):
+    """Port arguments (without the ladder) of a random problem: shared cost,
+    dynamics near the identity and constraint blocks ``spec`` = ((cone, p),
+    ...), the blocks ``masked`` switched off on the even knots; per-lane
+    Xbar, Ubar, gains, multipliers and rho in [1, 100]."""
+    rng = np.random.default_rng(seed)
+    t = torch.as_tensor
+
+    def spd(N_, d):
+        M = 0.3 * rng.standard_normal((N_, d, d))
+        return np.einsum("kij,klj->kil", M, M) + np.eye(d)
+
+    R, r = spd(N, m), rng.standard_normal((N, m))
+    H = 0.1 * rng.standard_normal((N, m, n))
+    R[-1], r[-1], H[-1] = 0.0, 0.0, 0.0
+    cost = tt.QuadCost(Q=t(spd(N, n)), q=t(rng.standard_normal((N, n))),
+                       R=t(R), r=t(r), H=t(H), c=t(rng.standard_normal(N)))
+    A = 0.9 * np.eye(n) + 0.05 * rng.standard_normal((N - 1, n, n))
+    B = 0.3 * rng.standard_normal((N - 1, n, m))
+    dd = 0.1 * rng.standard_normal((N - 1, n))
+    blocks = []
+    for i, (cone, p) in enumerate(spec):
+        mask = np.ones(N)
+        if i in masked:
+            mask[::2] = 0.0
+        blocks.append(tt.ConicConstraint(
+            Cx=t(0.3 * rng.standard_normal((N, p, n))),
+            Cu=t(0.3 * rng.standard_normal((N, p, m))),
+            b=t(rng.standard_normal((N, p))), mask=t(mask),
+            cone=tt.Cone(cone)))
+    X = rng.standard_normal((Bt, N, n))
+    U = rng.standard_normal((Bt, N - 1, m))
+    K = 0.1 * rng.standard_normal((Bt, N - 1, m, n))
+    d = rng.standard_normal((Bt, N - 1, m))
+    lams = tuple(t(3.0 * rng.standard_normal((Bt, N, p))) for _, p in spec)
+    rho = 10.0 ** rng.uniform(0, 2, (Bt, N))
+    return (cost, t(A), t(B), t(dd), tuple(blocks), t(X), t(U), t(K), t(d),
+            lams, t(rho))
+
+
+def _assert_matches(got, ref, tol):
+    """Xs, Us against max(1, max|plain|); J per lane against
+    max(1, |J_plain|)."""
+    for g, r in zip(got[:2], ref[:2]):
+        assert float((g - r).abs().max()) <= tol * max(1.0,
+                                                      float(r.abs().max()))
+    assert bool(((got[2] - ref[2]).abs()
+                 <= tol * torch.clamp(ref[2].abs(), min=1.0)).all())
+
+
+def test_random_case_reference_is_consistent():
+    """The edge tests' generator on the CPU: the wrapper's plain route takes
+    16 mixed blocks of 64 rows, and a block masked off on every knot adds
+    nothing to the merit."""
+    args = _random_case(5, 3, 4, 2, MIXED * 4, seed=11)
+    Xs, Us, J = rollout_al.batched_ls_rollout_al(*args, (1.0, 0.0))
+    assert J.shape == (2, 2) and bool(torch.isfinite(J).all())
+    blocks = list(args[4])
+    off = tt.ConicConstraint(Cx=blocks[2].Cx, Cu=blocks[2].Cu, b=blocks[2].b,
+                             mask=torch.zeros_like(blocks[2].mask),
+                             cone=blocks[2].cone)
+    with_off = rollout_al.batched_ls_rollout_al(
+        *args[:4], tuple(blocks[:2] + [off] + blocks[3:]), *args[5:],
+        (1.0, 0.0))[2]
+    without = rollout_al.batched_ls_rollout_al(
+        *args[:4], tuple(blocks[:2] + blocks[3:]), *args[5:9],
+        args[9][:2] + args[9][3:], args[10], (1.0, 0.0))[2]
+    np.testing.assert_allclose(with_off.numpy(), without.numpy(), rtol=1e-12)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -162,19 +262,73 @@ def test_kernel_matches_plain_version(cuda, kind, N, Bt, dtype, tol):
     torch.cuda.synchronize()
     assert rollout_al.launch_count == before + 1
     ref = rollout_al.batched_ls_rollout_al_reference(*args, LADDER)
+    _assert_matches(got, ref, tol)
+
+
+# The edges of the kernel's thread mapping: (n, m, N, Bt, blocks, ladder
+# length, masked blocks). 16 lanes per (scenario, rung) up to n, m = 16 with
+# 1, 2 or 4 constraint rows per lane, 32 lanes above with 1 or 2; a tail block
+# of scenarios and a single scenario; the longest ladder (split into chunks
+# of rungs at 32 lanes) and the shortest; a block masked off on even knots.
+EDGES = {
+    "bt1023": (6, 3, 9, 1023, MIXED[1:], 6, ()),
+    "bt1": (6, 3, 9, 1, MIXED[1:], 6, ()),
+    "rows2": (8, 4, 6, 17, MIXED * 2, 3, ()),
+    "rows4_16_blocks": (8, 4, 6, 17, MIXED * 4, 3, ()),
+    "wide_16_blocks": (32, 32, 5, 9, MIXED * 4, 3, ()),
+    "wide_rows1": (20, 5, 6, 7, MIXED * 2, 2, ()),
+    "no_blocks": (5, 2, 6, 4, (), 2, ()),
+    "longest_ladder": (6, 3, 6, 5, MIXED[1:], 32, ()),
+    "longest_ladder_wide": (20, 5, 5, 3, MIXED, 32, ()),
+    "one_rung": (6, 3, 6, 5, MIXED[1:], 1, ()),
+    "masked": (6, 3, 9, 33, MIXED, 4, (1, 2)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3),
+                                       (torch.float64, 1e-9)])
+@pytest.mark.parametrize("edge", sorted(EDGES))
+def test_kernel_matches_plain_version_at_its_edges(cuda, edge, dtype, tol):
+    n, m, N, Bt, spec, L, masked = EDGES[edge]
+    args = convert.tree_to(_random_case(n, m, N, Bt, spec, 5, masked), cuda,
+                           dtype)
+    ladder = tuple(0.5 ** i for i in range(L - 1)) + (0.0,)
+    got = rollout_al.batched_ls_rollout_al(*args, ladder)
+    torch.cuda.synchronize()
+    assert got[2].shape == (Bt, L)
+    _assert_matches(got, rollout_al.batched_ls_rollout_al_reference(
+        *args, ladder), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3),
+                                       (torch.float64, 1e-9)])
+def test_kernel_nan_lane_stays_in_its_lane(cuda, dtype, tol):
+    """A NaN multiplier of one lane makes that lane's merit NaN on every
+    rung and leaves its rollout alone; every other lane matches the plain
+    version."""
+    args = list(convert.tree_to(_random_case(6, 3, 7, 40, MIXED, 6), cuda,
+                                dtype))
+    args[9][2][4, 3, 1] = float("nan")               # an SOC block's row
+    got = rollout_al.batched_ls_rollout_al(*args, LADDER)
+    ref = rollout_al.batched_ls_rollout_al_reference(*args, LADDER)
+    assert bool(torch.isnan(got[2][4]).all())
+    keep = torch.arange(40, device=cuda) != 4
+    _assert_matches(tuple(g[keep] for g in got), tuple(r[keep] for r in ref),
+                    tol)
     for g, r in zip(got[:2], ref[:2]):
-        assert float((g - r).abs().max()) <= tol * max(1.0,
-                                                      float(r.abs().max()))
-    assert bool(((got[2] - ref[2]).abs()
-                 <= tol * torch.clamp(ref[2].abs(), min=1.0)).all())
+        assert float((g[4] - r[4]).abs().max()) <= tol * max(
+            1.0, float(r.abs().max()))
 
 
 @pytest.mark.cuda
 def test_kernel_refuses_past_its_limits(cuda):
     args = convert.tree_to(_case("rocket", 9, 2, seed=4), cuda,
                            torch.float64)
-    with pytest.raises(ValueError):                 # L > 16
-        rollout_al.batched_ls_rollout_al(*args, (0.5,) * 17)
+    with pytest.raises(ValueError):                 # L > MAX_RUNGS = 32
+        rollout_al.batched_ls_rollout_al(*args,
+                                         (0.5,) * (rollout_al.MAX_RUNGS + 1))
     many = args[4] * 6                              # 18 blocks, 90 rows
     lams = args[9] * 6
     with pytest.raises(ValueError):
