@@ -1,9 +1,10 @@
 """altro_tpu_torch: the PyTorch and CUDA port of altro_tpu.
 
 The augmented-Lagrangian iLQR solver with ZERO, NONPOS and second-order-cone
-constraint blocks, its warm-started receding-horizon MPC step and the
-random-linear, rocket soft-landing and quadruped trot benchmark models,
-batched over scenarios (with shared or per-scenario dynamics), with
+constraint blocks, its warm-started receding-horizon MPC step (plain or
+with straggler compaction) and the random-linear, rocket soft-landing, grasp
+and quadruped trot benchmark models, batched over scenarios (with shared or
+per-scenario dynamics), with
 hand-written Hopper kernels for the fused AL expansion + Riccati backward
 pass, the Riccati backward pass from a per-scenario expansion, the
 line-search ladder rollout and the ladder rollout fused with the AL merit
@@ -29,6 +30,7 @@ from .constraints import (  # noqa: E402
     bound_constraint,
     friction_cone,
     goal_constraint,
+    linear_constraint,
     linearized_friction,
     norm_constraint,
     norm_constraint2,
@@ -41,7 +43,13 @@ from .costs import (  # noqa: E402
 )
 from .dynamics import LTVDynamics, lti_dynamics, zoh_discretize  # noqa: E402
 from .problem import Problem  # noqa: E402
-from .solver.altro import Solution, Stats, solve  # noqa: E402
+from .solver.altro import (  # noqa: E402
+    Solution,
+    Stats,
+    solve,
+    solve_partial,
+    solve_resume,
+)
 from .solver.options import SolverOptions  # noqa: E402
 
 __version__ = "0.1.0"

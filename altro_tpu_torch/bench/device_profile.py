@@ -1,27 +1,30 @@
-"""Where the device time of the three main paths goes: one torch.profiler
-window over warm work on one card, per path.
+"""Where the device time of the main paths goes: one torch.profiler window
+over warm work on one card, per path.
 
     python -m altro_tpu_torch.bench.device_profile [flagship] [rocket]
-                                                   [quadruped]
+                                                   [grasp] [quadruped]
 
 Paths (all of them when none is named), each at B=1024 in float32:
 
 - flagship: the cold solve and two warm MPC steps, then windows of 10 warm
   steps;
-- rocket: the cold N=301 solve, the batched initial solve and one warm-up
-  step, then windows of 3 warm steps;
+- rocket and grasp, each in the plain step and in the straggler-compacted
+  step of its shipped schedule (``bench/conic.py: SCHEDULES``): the cold
+  solve of the long problem, the batched initial solve
+  and one warm-up step, then windows of 3 (rocket) or 5 (grasp) warm steps;
 - quadruped, in both friction modes: one warm-up solve, then windows of 2
   cold batch solves, each with a fresh x0 draw.
 
 Each path runs one window unprofiled and the next under the profiler (CPU
-and CUDA activities). Printed per solver-loop iteration (the batch loop's
-passes: each solve's lane-max iteration count): the device time and launches
-of each hand-written kernel and of the rest of the device work by kind, and
-the device busy share: the profiled window's device time per iteration (one
-stream, so kernels do not overlap) over the unprofiled window's wall clock
-per iteration. The profiler's own host overhead stretches the profiled
-window's wall, which is printed beside it but is not the denominator. The
-last line is the result of every path as JSON.
+and CUDA activities). Printed per solver-loop pass (``solver.altro.
+pass_count``: the loop-body passes of every batch the window ran, a
+compacted step's gathered blocks included) and per step or solve: the
+device time and launches of each hand-written kernel and of the rest of the
+device work by kind, and the device busy share: the profiled window's
+device time per pass (one stream, so kernels do not overlap) over the
+unprofiled window's wall clock per pass. The profiler's own host overhead
+stretches the profiled window's wall, which is printed beside it but is not
+the denominator. The last line is the result of every path as JSON.
 """
 from __future__ import annotations
 
@@ -32,9 +35,10 @@ import time
 
 import torch
 
-from altro_tpu_torch.bench.kernels import FLAG_B, QUAD_B, ROCKET_B
+from altro_tpu_torch.bench.kernels import FLAG_B, GRASP_B, QUAD_B, ROCKET_B
+from altro_tpu_torch.solver import altro
 
-FLAG_STEPS, ROCKET_STEPS, QUAD_SOLVES = 10, 3, 2
+FLAG_STEPS, ROCKET_STEPS, GRASP_STEPS, QUAD_SOLVES = 10, 3, 5, 2
 KINDS = (("kernel B (fused_expand_backward)", ("fused_expand_backward",)),
          ("kernel C (ls_rollout_al)", ("ls_rollout_al",)),
          ("kernel A (ls_rollout)", ("ls_rollout",)),
@@ -55,14 +59,13 @@ def kind_of(name: str) -> str:
 
 def profile(window) -> dict:
     """``window()`` runs one window of warm work and returns its solver-loop
-    iterations; it is called twice, unprofiled and then under the
-    profiler."""
+    passes; it is called twice, unprofiled and then under the profiler."""
     def timed():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        iters = window()
+        passes = window()
         torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3, iters
+        return (time.perf_counter() - t0) * 1e3, passes
 
     wall_ms, iters_plain = timed()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -92,17 +95,16 @@ def profile(window) -> dict:
 
 def _step_window(step, carry, noise, first, steps):
     """A window function over ``steps`` MPC steps at a time, from step
-    ``first`` on."""
+    ``first`` on; it returns the solver-loop passes it ran."""
     state = {"carry": carry, "t": first}
 
     def window():
-        iters = []
+        passes = altro.pass_count
         for _ in range(steps):
             t = state["t"]
-            state["carry"], out = step(state["carry"], noise[t], t)
-            iters.append(out.iters.max())
+            state["carry"], _ = step(state["carry"], noise[t], t)
             state["t"] = t + 1
-        return int(sum(iters))
+        return altro.pass_count - passes
     return window
 
 
@@ -123,24 +125,23 @@ def flagship_window(B: int = FLAG_B, device="cuda"):
     return _step_window(step, carry, setup.noise, 2, FLAG_STEPS)
 
 
-def rocket_window(B: int = ROCKET_B, device="cuda"):
+def conic_window(family: str, compact: bool, B: int = ROCKET_B,
+                 device="cuda"):
+    """Windows of the rocket's or grasp's MPC steps, plain or in the
+    family's shipped compaction schedule."""
     import numpy as np
 
-    from altro_tpu_torch.bench.conic import rocket_setup
-    from altro_tpu_torch.mpc import make_mpc_step
-    from altro_tpu_torch.solver.altro import solve
+    from altro_tpu_torch.bench import conic
 
-    setup = rocket_setup(torch.float32, device=device)
-    pm = setup.prob_mpc
-    noise = torch.as_tensor(np.random.default_rng(1).standard_normal(
-        (2 * ROCKET_STEPS + 1, B, 6)), dtype=torch.float32, device=device)
-    step, _ = make_mpc_step(pm, setup.opts, setup.X_track, setup.U_track,
-                            noise_model=setup.noise_model, shared_k=True,
-                            warm_start="track")
-    x0 = pm.x0.expand(B, 6).contiguous()
-    sol = solve(dataclasses.replace(pm, x0=x0), setup.opts)
-    carry, _ = step((x0, sol.X, sol.U, sol.duals), noise[0], 0)
-    return _step_window(step, carry, noise, 1, ROCKET_STEPS)
+    setup = conic.SETUPS[family](torch.float32, device=device)
+    steps = {"rocket": ROCKET_STEPS, "grasp": GRASP_STEPS}[family]
+    sched = conic.SCHEDULES[family] if compact else (0, 256, ())
+    step, init_carry = conic.make_step(setup, *sched)
+    noise = torch.as_tensor(np.random.default_rng(setup.noise_seed)
+                            .standard_normal((2 * steps + 1, B, 6)),
+                            dtype=torch.float32, device=device)
+    carry, _ = step(init_carry(B), noise[0], 0)
+    return _step_window(step, carry, noise, 1, steps)
 
 
 def quadruped_window(linearized_friction: bool, B: int = QUAD_B,
@@ -151,28 +152,34 @@ def quadruped_window(linearized_friction: bool, B: int = QUAD_B,
     su = quadruped_setup(B, linearized_friction, torch.float32, device)
 
     def window(solves=QUAD_SOLVES):
-        iters = []
+        passes = altro.pass_count
         for _ in range(solves):
             x0 = su.draw_x0().to(device=device, dtype=torch.float32)
-            sol = solve(dataclasses.replace(su.prob, x0=x0), su.opts,
-                        U0=su.U0)
-            iters.append(sol.stats.iterations.max())
-        return int(sum(iters))
+            solve(dataclasses.replace(su.prob, x0=x0), su.opts, U0=su.U0)
+        return altro.pass_count - passes
 
     window(1)                                              # warm-up
     return window
 
 
-# path: ((label, batch, window's description, its maker), ...)
+# path: ((label, batch, window's description, steps or solves per window,
+# its maker), ...)
 PATHS = {
     "flagship": (("flagship", FLAG_B, f"{FLAG_STEPS} warm steps",
-                  flagship_window),),
-    "rocket": (("rocket", ROCKET_B, f"{ROCKET_STEPS} warm steps",
-                rocket_window),),
+                  FLAG_STEPS, flagship_window),),
+    "rocket": tuple((label, ROCKET_B, f"{ROCKET_STEPS} warm steps",
+                     ROCKET_STEPS,
+                     lambda c=compact: conic_window("rocket", c))
+                    for label, compact in (("rocket", False),
+                                           ("rocket compacted", True))),
+    "grasp": tuple((label, GRASP_B, f"{GRASP_STEPS} warm steps", GRASP_STEPS,
+                    lambda c=compact: conic_window("grasp", c, GRASP_B))
+                   for label, compact in (("grasp", False),
+                                          ("grasp compacted", True))),
     "quadruped": (("quadruped qp", QUAD_B, f"{QUAD_SOLVES} cold solves",
-                   lambda: quadruped_window(True)),
+                   QUAD_SOLVES, lambda: quadruped_window(True)),
                   ("quadruped socp", QUAD_B, f"{QUAD_SOLVES} cold solves",
-                   lambda: quadruped_window(False))),
+                   QUAD_SOLVES, lambda: quadruped_window(False))),
 }
 
 
@@ -188,18 +195,25 @@ def main() -> None:
     card = power_limit()
     results = []
     for name in names:
-        for label, B, desc, make_window in PATHS[name]:
+        for label, B, desc, units, make_window in PATHS[name]:
             res = dict(profile(make_window()), path=label, B=B, window=desc)
+            res["device_ms_per_unit"] = res["device_ms"] / units
+            res["unprofiled_wall_ms_per_unit"] = (res["unprofiled_wall_ms"]
+                                                  / units)
+            res["passes_per_unit"] = res["unprofiled_loop_iterations"] / units
             print(f"{res['path']} B={res['B']} f32 [{card}]: unprofiled "
                   f"{res['window']} = {res['unprofiled_loop_iterations']} "
-                  f"solver iterations in {res['unprofiled_wall_ms']:.3f} ms; "
-                  f"profiled {res['window']} = {res['loop_iterations']} "
-                  f"iterations in {res['profiled_wall_ms']:.3f} ms with "
+                  f"solver-loop passes in {res['unprofiled_wall_ms']:.3f} ms;"
+                  f" profiled {res['window']} = {res['loop_iterations']} "
+                  f"passes in {res['profiled_wall_ms']:.3f} ms with "
                   f"{res['device_ms']:.3f} ms of device time; busy "
-                  f"{100 * res['busy_share']:.1f}% (device ms per iteration "
-                  f"over unprofiled wall ms per iteration)")
+                  f"{100 * res['busy_share']:.1f}% (device ms per pass over "
+                  f"unprofiled wall ms per pass); per step or solve: "
+                  f"{res['device_ms_per_unit']:.3f} ms device, "
+                  f"{res['unprofiled_wall_ms_per_unit']:.3f} ms wall, "
+                  f"{res['passes_per_unit']:.2f} passes")
             for kind, v in res["per_iteration"].items():
-                print(f"  per iteration: {kind}: {v['ms']:.4f} ms device, "
+                print(f"  per pass: {kind}: {v['ms']:.4f} ms device, "
                       f"{v['launches']:.1f} launches")
             results.append(res)
     print(json.dumps({"card": card, "paths": results}))

@@ -12,11 +12,12 @@ read once, each output written once) over 3.35 TB/s and its FLOPs over 67
 TFLOP/s (float32) or 34 TFLOP/s (float64) outside the tensor cores (H100
 SXM data sheet). A runs at the flagship's L=3 and L=1 and the quadruped's
 per-lane L=11, B on the flagship and the rocket window, C on the rocket
-window at L=6, D on the quadruped's per-lane expansion. Kernels B and D are
-also timed on the flagship's random-linear model (shared dynamics; D on the
-solver's AL expansion of the inputs B expands itself) at the flagship's
-widths and at (n, m) = (13, 6) and (7, 3), which no main path uses.
-``--against DIR`` names the root
+window at L=6, D on the quadruped's per-lane expansion; B also on grasp's
+window (13 rows in 4 blocks) and cold problem (19 rows in 5), C on grasp's
+window at L=3. Kernels B and D are also timed on the flagship's
+random-linear model (shared dynamics; D on the solver's AL expansion of the
+inputs B expands itself) at the flagship's widths and at (n, m) = (13, 6)
+and (7, 3), which no main path uses. ``--against DIR`` names the root
 of another checkout of this repository (for example the parent commit,
 unpacked with ``git archive`` into ``build/``): each turn runs in a process
 of its own, in the order other, this, this, other, on the same inputs
@@ -36,11 +37,12 @@ import tempfile
 
 import numpy as np
 
-FLAG_B, ROCKET_B, QUAD_B = 1024, 1024, 1024
+FLAG_B, ROCKET_B, QUAD_B, GRASP_B = 1024, 1024, 1024, 1024
 FLAG_N = 30
 FLAG_LADDER = (1.0, 0.5, 0.0)
 QUAD_LADDER = tuple(0.5 ** i for i in range(10)) + (0.0,)
 ROCKET_LADDER = (1.0, 0.5, 0.25, 0.125, 0.0625, 0.0)
+GRASP_LADDER = (1.0, 0.5, 0.0)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {4: 67e12, 8: 34e12}   # by element size: f32, f64
 # launches per timing, and the sleep they queue behind (cycles at the
@@ -257,6 +259,72 @@ def rocket_inputs(dtype, dev, B: int = ROCKET_B) -> dict:
                                        len(ROCKET_LADDER), X.element_size()))
 
 
+def grasp_inputs(dtype, dev, B: int = GRASP_B, cold: bool = False,
+                 N: int = None) -> dict:
+    """Kernel B's arguments on the grasp MPC window (B=1024, n = m = 6,
+    N=21; torque balance ZERO p=3, max force NONPOS p=2 and two SOC friction
+    cones p=4: 13 rows in 4 blocks) or, with ``cold``, on the cold problem
+    (N=61, a goal ZERO block p=6 in front: 19 rows in 5 blocks); seed 10.
+    States 0.1 and forces 0.5 N off the hover rollout, multipliers on the
+    scale of rho c so that every cone case occurs, and one apex lane-knot
+    (lane 0, knot 1: the first contact force zero and lambda's vector part
+    zero, so z = (0, lambda_s) with lambda_s = 500); and kernel C's at the
+    warm solves' L=3 ladder on the plain version's gains. ``N``: the same
+    form at a shorter horizon."""
+    import torch
+    from altro_tpu_torch.bench.conic import GRASP_N, GRASP_TF, grasp_setup
+    from altro_tpu_torch.models import grasp
+    from altro_tpu_torch.ops import riccati_fused
+    from altro_tpu_torch.ops.blocks import pack_blocks
+
+    N = (GRASP_N if cold else 21) if N is None else N
+    if cold:
+        o = grasp.make_grasp_object(N, GRASP_TF * (N - 1) / (GRASP_N - 1),
+                                    dtype=dtype, device=dev)
+        pm = grasp.grasp_problem(o, N, GRASP_TF * (N - 1) / (GRASP_N - 1))
+        U_tr = grasp.hover_controls(o, N)
+        X_tr = pm.dynamics.rollout(pm.x0, U_tr)
+    else:
+        # the window's blocks and shapes do not depend on the tracked
+        # trajectory: track the hover rollout (no cold solve here)
+        o = grasp.make_grasp_object(GRASP_N, GRASP_TF, dtype=dtype,
+                                    device=dev)
+        prob = grasp.grasp_problem(o, GRASP_N, GRASP_TF)
+        U_tr = grasp.hover_controls(o, GRASP_N)
+        X_tr = prob.dynamics.rollout(prob.x0, U_tr)
+        pm = grasp_setup(dtype, N, track=(X_tr, U_tr), device=dev).prob_mpc
+    blocks, dyn = pm.constraints, pm.dynamics
+    n, m = pm.n, pm.m
+    rng = np.random.default_rng(10)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=dev)
+
+    X = X_tr[None, :N] + t(0.1 * rng.standard_normal((B, N, n)))
+    U = U_tr[None, :N - 1] + t(0.5 * rng.standard_normal((B, N - 1, m)))
+    lams = [1e3 * rng.standard_normal((B, N, c.p)) for c in blocks]
+    first_cone = len(blocks) - 2
+    U[0, 1, :3] = 0.0
+    lams[first_cone][0, 1, :-1] = 0.0
+    lams[first_cone][0, 1, -1] = 500.0
+    lams = tuple(t(lam) for lam in lams)
+    rhos = tuple(torch.full((B, N), 1e3, dtype=dtype, device=dev)
+                 for _ in blocks)
+    reg = t(np.where(rng.random(B) < 0.5, 0.0, 1.0))
+    packed = pack_blocks(blocks, N, n, m, X)
+    fused = (pm.cost, dyn.A, dyn.B, blocks, X, U, lams, rhos, reg)
+    ref = riccati_fused.fused_expand_backward_reference(*fused)
+    soc_p = tuple(c.p for c in blocks if c.cone.name == "SOC")
+    return dict(
+        prob=pm, fused=fused, fused_ref=ref, packed=packed,
+        ladder_al=(pm.cost, dyn.A, dyn.B, dyn.d, blocks, X, U,
+                   ref[0].contiguous(), ref[1].contiguous(), lams, rhos[0],
+                   GRASP_LADDER),
+        fused_work=fused_work(B, N, n, m, packed.P, soc_p, X.element_size()),
+        ladder_al_work=rollout_al_work(B, N, n, m, packed.P,
+                                       len(GRASP_LADDER), X.element_size()))
+
+
 def quadruped_inputs(dtype, dev, B: int = QUAD_B) -> dict:
     """Kernel D's arguments on the flat quadruped batch (B=1024, n=m=12,
     N=15, per-lane dynamics of 8 contact schedules; seed 9): the solver's own
@@ -314,6 +382,8 @@ def measure() -> list:
         label = "f32" if dtype == torch.float32 else "f64"
         fl = flagship_inputs(dtype, dev)
         rk = rocket_inputs(dtype, dev)
+        gw = grasp_inputs(dtype, dev)
+        gc = grasp_inputs(dtype, dev, cold=True)
         qd = quadruped_inputs(dtype, dev)
         other = [(w, flagship_inputs(dtype, dev, widths=w))
                  for w in OTHER_WIDTHS]
@@ -327,6 +397,8 @@ def measure() -> list:
         cases = [
             ("B", "flagship", fused(fl), fl["fused_work"]),
             ("B", "rocket", fused(rk), rk["fused_work"]),
+            ("B", "grasp window", fused(gw), gw["fused_work"]),
+            ("B", "grasp cold", fused(gc), gc["fused_work"]),
             *(("B", f"random-linear n={n} m={m}", fused(inp),
                inp["fused_work"]) for (n, m), inp in other),
             ("A", "flagship L=3", lambda: ls(*fl["ladder"]),
@@ -337,6 +409,9 @@ def measure() -> list:
             ("C", "rocket L=6",
              lambda: la(*rk["ladder_al"], packed=rk["packed"]),
              rk["ladder_al_work"]),
+            ("C", "grasp L=3",
+             lambda: la(*gw["ladder_al"], packed=gw["packed"]),
+             gw["ladder_al_work"]),
             ("D", "quadruped per-lane", pass_d(qd), qd["riccati_work"]),
             ("D", "flagship shared", pass_d(fl), fl["riccati_work"]),
             *(("D", f"random-linear shared n={n} m={m}", pass_d(inp),
@@ -346,7 +421,7 @@ def measure() -> list:
             rows.append(dict(kernel=kernel, shape=shape, dtype=label,
                              ms=time_ms(fn, kernel=True), bound_ms=bnd,
                              bound_by=by, bytes=nbytes, flops=flops))
-        del fl, rk, qd, other
+        del fl, rk, gw, gc, qd, other
         torch.cuda.empty_cache()
     return rows
 

@@ -161,3 +161,9 @@ def violation(cone: Cone, c):
     """Elementwise infeasibility vector c - proj_K(c); its inf-norm is the
     constraint violation used for AL termination."""
     return c - project(cone, c)
+
+
+def in_cone(cone: Cone, c, tol: float = 0.0):
+    """Boolean [...]: whether c [..., p] lies within ``tol`` (inf-norm) of
+    the cone."""
+    return torch.amax(torch.abs(violation(cone, c)), dim=-1) <= tol

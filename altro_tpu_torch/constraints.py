@@ -50,11 +50,19 @@ class ConicConstraint:
         del X, U
         return self.Cx, self.Cu
 
+    @property
+    def is_affine(self) -> bool:
+        return True
+
     def violations(self, X, U):
         """[..., N, p] infeasibility (c - proj_K(c)), zeroed at inactive
         knots."""
         c = self.evaluate(X, U)
         return violation(self.cone, c) * self.mask[:, None]
+
+    def max_violation(self, X, U):
+        """[...] largest |violation| over the knots and rows."""
+        return torch.amax(torch.abs(self.violations(X, U)), dim=(-2, -1))
 
 
 @dataclass
@@ -260,6 +268,31 @@ def norm_constraint2(N: int, n: int, m: int, A, c, on: str = "control",
         mask = _range_mask(N, start, stop, dtype, device)
     return ConicConstraint(Cx=Cx.contiguous(), Cu=Cu.contiguous(), b=b,
                            mask=mask, cone=Cone.SOC, name="norm_soc")
+
+
+def linear_constraint(N: int, n: int, m: int, Ax, Au, rhs, cone: Cone,
+                      start: int = 0, stop: Optional[int] = None, mask=None,
+                      name: str = "linear", dtype=torch.float32,
+                      device=None) -> ConicConstraint:
+    """General affine rows ``Ax x + Au u - rhs in K`` (K = ZERO or NONPOS).
+    Ax [p, n] or per knot [N, p, n], Au [p, m] or [N, p, m], rhs [p] or
+    [N, p]; the default mask covers knots [start, stop) with stop = N - 1."""
+    kw = dict(dtype=dtype, device=device)
+    Ax = torch.as_tensor(Ax, **kw)
+    Au = torch.as_tensor(Au, **kw)
+    rhs = torch.as_tensor(rhs, **kw)
+    if Ax.dim() == 2:
+        Ax = Ax.expand((N,) + tuple(Ax.shape))
+    if Au.dim() == 2:
+        Au = Au.expand((N,) + tuple(Au.shape))
+    if rhs.dim() == 1:
+        rhs = rhs.expand(N, rhs.shape[0])
+    if mask is None:
+        stop = N - 1 if stop is None else stop
+        mask = _range_mask(N, start, stop, dtype, device)
+    return ConicConstraint(Cx=Ax.contiguous(), Cu=Au.contiguous(),
+                           b=(-rhs).contiguous(), mask=mask, cone=cone,
+                           name=name)
 
 
 def friction_cone(N: int, n: int, m: int, mu, foot_inds,

@@ -28,7 +28,11 @@ Loop control: a host ``while`` over one flat AL + iLQR loop. Each pass
 computes the per-lane ``live`` mask, stops when no lane is live (one host
 sync per iteration) and applies the body under ``torch.where(live, new,
 old)``, so a lane freezes as soon as its own condition is false, as under
-``vmap`` of the JAX ``lax.while_loop``.
+``vmap`` of the JAX ``lax.while_loop``. The loop may stop at an absolute
+iteration cap and resume from its state (:func:`solve_partial`,
+:func:`solve_resume`): a lane's iterates do not depend on where the loop
+paused or on which other lanes share its batch, which straggler compaction
+(``mpc.make_mpc_step_device_compacted``) relies on.
 """
 from __future__ import annotations
 
@@ -47,6 +51,11 @@ from ..ops.rollout import batched_ls_rollout
 from ..ops.rollout_al import batched_ls_rollout_al
 from ..problem import Problem
 from .options import SolverOptions
+
+# Loop-body passes since the last reset, whatever the batch they ran on: with
+# straggler compaction a step's passes are no longer its lanes' largest
+# iteration count, and the kernels of a pass launch once per body pass.
+pass_count = 0
 
 
 @dataclass
@@ -245,6 +254,30 @@ def solve(prob: Problem, opts: SolverOptions,
     return _finalize(prob, _flat_while(prob, opts, s0))
 
 
+@torch.no_grad()
+def solve_partial(prob: Problem, opts: SolverOptions,
+                  U0: Optional[torch.Tensor] = None,
+                  duals: Optional[Tuple[DualState, ...]] = None,
+                  X0: Optional[torch.Tensor] = None, *, it_cap: int):
+    """Run :func:`solve` for at most ``it_cap`` iterations of every lane and
+    return the raw loop state (a tuple with the batch leading on every
+    per-lane leaf), to be continued by :func:`solve_resume`. Each lane's
+    iterates are those of the uncapped solve: a lane freezes on its own
+    condition, so gathering unconverged lanes into a smaller batch and
+    resuming them gives the uncapped result."""
+    s0 = _warmstart_state(prob, opts, U0, duals, X0)
+    return _flat_while(prob, opts, s0, it_cap)
+
+
+@torch.no_grad()
+def solve_resume(prob: Problem, opts: SolverOptions, state) -> Solution:
+    """Continue a :func:`solve_partial` state to completion. Resuming a
+    converged state is a no-op (one evaluation of the loop condition and no
+    body pass). ``prob.x0`` is not read: the state carries the
+    trajectory."""
+    return _finalize(prob, _flat_while(prob, opts, state))
+
+
 def _warmstart_state(prob: Problem, opts: SolverOptions,
                      U0: Optional[torch.Tensor],
                      duals: Optional[Tuple[DualState, ...]],
@@ -294,10 +327,12 @@ def _warmstart_state(prob: Problem, opts: SolverOptions,
             torch.zeros(Bt, dtype=torch.bool, device=x0.device))
 
 
-def _flat_while(prob: Problem, opts: SolverOptions, s):
+def _flat_while(prob: Problem, opts: SolverOptions, s,
+                it_cap: Optional[int] = None):
     """The flat AL + iLQR loop from state ``s``, driven from the host until
-    no lane is live."""
-    cond, body = _loop_fns(prob, opts, s)
+    no lane is live (or every live lane has reached the absolute iteration
+    count ``it_cap``)."""
+    cond, body = loop_fns(prob, opts, s, it_cap)
     while bool(cond(s).any()):
         s = body(s)
     return s
@@ -329,9 +364,15 @@ def _ladder_choice(Jts, alphas, dV1, dV2, ls_min_ratio):
     return idx, oks.any(dim=-1), expected, ratio
 
 
-def _loop_fns(prob: Problem, opts: SolverOptions, s0):
-    """(cond, body) of the flat AL + iLQR loop. ``body`` freezes every lane
-    whose own ``cond`` is false."""
+def loop_fns(prob: Problem, opts: SolverOptions, s0,
+             it_cap: Optional[int] = None):
+    """(cond, body) of the flat AL + iLQR loop for the batch of state
+    ``s0``: ``cond(s)`` is the per-lane live mask [B] and ``body(s)`` one
+    pass, which freezes every lane whose own ``cond`` is false, so passes
+    beyond a lane's end change nothing. ``it_cap``: lanes stop being live at
+    that absolute iteration count. The batch's lane index and packed
+    constraint stacks are built from ``s0``, so a gathered block of lanes
+    runs the kernels at its own batch size."""
     X_0 = s0[0]
     lanes = torch.arange(X_0.shape[0], device=X_0.device)
     dyn = prob.dynamics
@@ -375,10 +416,15 @@ def _loop_fns(prob: Problem, opts: SolverOptions, s0):
         return viol_r, converged, new_duals
 
     def cond(s):
-        done, rounds = s[10], s[9]
-        return (~done) & (rounds < opts.iterations_outer)
+        it, rounds, done = s[8], s[9], s[10]
+        live = (~done) & (rounds < opts.iterations_outer)
+        if it_cap is not None:
+            live = live & (it < it_cap)
+        return live
 
     def body(s):
+        global pass_count
+        pass_count += 1
         X, U, K, duals, reg, grad, viol, it_rd, it, rounds, done = s
         lams = tuple(d.lam for d in duals)
         rhos = tuple(d.rho for d in duals)
@@ -481,8 +527,8 @@ def _loop_fns(prob: Problem, opts: SolverOptions, s0):
 
         out = (Xn, Un, Knew, duals_new, reg_new, grad_new, viol_new,
                it_rd_new, it + 1, rounds_new, done_new)
-        # freeze a lane as soon as ITS OWN cond is false (done, or the
-        # outer-round cap without convergence)
+        # freeze a lane as soon as ITS OWN cond is false (done, the
+        # outer-round cap without convergence, or the iteration cap)
         return _where_tree(cond(s), out, s)
 
     return cond, body

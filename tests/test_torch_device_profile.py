@@ -1,6 +1,6 @@
 """The device profile's windows (``altro_tpu_torch/bench/device_profile.py``)
 on the CPU at a small batch: each path's window runs warm work through the
-solver and counts its solver-loop iterations, and device kernels are sorted
+solver and counts its solver-loop passes, and device kernels are sorted
 into the kinds the profile reports. The profile itself needs a CUDA device."""
 import pytest
 
@@ -21,6 +21,15 @@ def test_flagship_window_counts_iterations():
 def test_quadruped_window_counts_iterations(linearized):
     window = dp.quadruped_window(linearized, B=8, device="cpu")
     assert window() >= dp.QUAD_SOLVES
+
+
+@pytest.mark.parametrize("compact", [False, True], ids=["plain", "compacted"])
+def test_grasp_window_counts_passes(compact):
+    """Grasp's window on the CPU at B=8, plain and in its shipped schedule
+    (the blocks of 256 and 128 clamp to the batch): every step runs at
+    least one solver-loop pass."""
+    window = dp.conic_window("grasp", compact, B=8, device="cpu")
+    assert window() >= dp.GRASP_STEPS
 
 
 @pytest.mark.parametrize("name,kind", [

@@ -18,7 +18,8 @@ from altro_tpu.mpc import make_mpc_step as j_make_mpc_step  # noqa: E402
 
 import altro_tpu_torch as tt  # noqa: E402
 from altro_tpu_torch import convert  # noqa: E402
-from altro_tpu_torch.mpc import _xws_corrector, make_mpc_step, shift_fill  # noqa: E402
+from altro_tpu_torch.mpc import (_xws_corrector, gen_tracking_mpc,  # noqa: E402
+                                 make_mpc_step, shift_fill)
 from altro_tpu_torch.ops import riccati_fused, rollout  # noqa: E402
 
 torch.set_num_threads(1)
@@ -133,3 +134,36 @@ def test_xws_corrector_is_exact_rollout():
     A_tv = dyn.A.clone()
     A_tv[0] *= 1.5
     assert _xws_corrector(dataclasses.replace(dyn, A=A_tv)) is None
+
+
+def test_per_lane_dynamics_window_and_no_corrector():
+    """Per-lane stacks [B, N-1, ...] (B=4, one LTI model per lane): the MPC
+    window cuts the knot axis, not the batch axis, and the exact seam
+    corrector declines them (it holds only for stacks shared by the
+    batch)."""
+    prob_mpc, X_track, U_track, _ = _mpc_setup(N_mpc=11, seed=4)
+    tp = convert.problem_from_numpy(convert.numpy_tree(prob_mpc))
+    dyn = tp.dynamics
+    B, N_long, N_mpc = 4, tp.N, 7
+    rng = np.random.default_rng(8)
+    scale = torch.as_tensor(1.0 + 0.1 * rng.standard_normal((B, 1, 1, 1)))
+    A = dyn.A[None] * scale                     # lane-constant along knots
+    Bm = dyn.B[None].expand(B, -1, -1, -1) * scale
+    d = dyn.d[None].expand(B, -1, -1) * scale[..., 0]
+    lanes = tt.LTVDynamics(A=A.contiguous(), B=Bm.contiguous(),
+                           d=d.contiguous())
+    assert lanes.per_lane and lanes.A.shape[:2] == (B, N_long - 1)
+    long = dataclasses.replace(tp, dynamics=lanes)
+    X_tr = torch.tensor(np.asarray(X_track))
+    U_tr = torch.tensor(np.asarray(U_track))
+    win = gen_tracking_mpc(long, X_tr, U_tr, N_mpc).dynamics
+    assert win.per_lane and win.N == N_mpc
+    assert win.A.shape == (B, N_mpc - 1, tp.n, tp.n)
+    assert win.B.shape == (B, N_mpc - 1, tp.n, tp.m)
+    assert win.d.shape == (B, N_mpc - 1, tp.n)
+    for got, full in ((win.A, A), (win.B, Bm), (win.d, d)):
+        assert torch.equal(got, full[:, :N_mpc - 1])
+    assert _xws_corrector(win) is None
+    assert _xws_corrector(lanes) is None
+    # the shared window of the same model keeps its corrector
+    assert _xws_corrector(gen_tracking_mpc(tp, X_tr, U_tr, N_mpc).dynamics)

@@ -6,10 +6,13 @@
   flagship's widths n=12, m=6 on N=11 with NONPOS multipliers |lambda| and a
   nonzero per-lane regularization (atol 1e-9), and with a second, ZERO block;
 - its Pallas kernel in interpret mode on the rocket MPC window's three SOC
-  blocks at N=13, B=4 (1e-10 of each output's scale);
+  blocks at N=13, B=4, and on grasp's ZERO + NONPOS + two SOC blocks at
+  n = m = 6 in the cold problem's form (a goal block in front) at N=7, B=3
+  (1e-10 of each output's scale);
 
 the wrapper's CPU dispatch; and, on a CUDA device, the kernel against the
-plain version, on ZERO/NONPOS and on SOC blocks.
+plain version, on ZERO/NONPOS blocks, on the rocket's SOC blocks and on
+grasp's mix.
 
 JAX is imported only by the tests that compare with it, so the kernel tests
 also run where JAX is not installed:
@@ -233,6 +236,68 @@ def test_soc_reference_matches_jax_pallas_interpret():
         w = np.asarray(w)
         np.testing.assert_allclose(g.numpy(), w, rtol=0,
                                    atol=1e-10 * max(1.0, np.abs(w).max()))
+
+
+def _jax_fused_args(targs):
+    """The JAX package's arguments of kernel B from the port's."""
+    import jax.numpy as jnp
+
+    from altro_tpu.constraints import ConicConstraint
+    from altro_tpu.costs import QuadCost
+    from altro_tpu.cones import Cone
+    cost, A, B, blocks, X, U, lams, rhos, reg = targs
+    a = lambda v: jnp.asarray(v.numpy())            # noqa: E731
+    jcost = QuadCost(**{k: a(v) for k, v in vars(cost).items()})
+    jblocks = tuple(ConicConstraint(Cx=a(c.Cx), Cu=a(c.Cu), b=a(c.b),
+                                    mask=a(c.mask), cone=Cone(c.cone.value),
+                                    name=c.name) for c in blocks)
+    return (jcost, a(A), a(B), jblocks, a(X), a(U), tuple(map(a, lams)),
+            tuple(map(a, rhos)), a(reg))
+
+
+def test_grasp_reference_matches_jax_pallas_interpret():
+    """Grasp's mix at n = m = 6 in the cold problem's form: a goal ZERO
+    block, torque balance ZERO, max force NONPOS and two SOC friction cones
+    (19 rows in 5 blocks; the MPC window's are the last four), at N=7, B=3
+    with every cone case and an apex lane-knot whose s is not 0: the port's
+    plain version against the Pallas kernel in interpret mode, 1e-10 of
+    each output's largest entry. (One interpret run of this kernel takes
+    ~90 s on the CPU, whatever N.)"""
+    from altro_tpu.ops.riccati_fused import fused_expand_backward as j_fused
+    from altro_tpu_torch.bench.kernels import grasp_inputs
+
+    g = grasp_inputs(torch.float64, torch.device("cpu"), B=3, cold=True, N=7)
+    targs = g["fused"]
+    assert g["packed"].P == 19
+    assert min(soc_case_counts(*(targs[i] for i in (3, 4, 5, 6, 7)))) > 0
+    want = j_fused(*_jax_fused_args(targs), interpret=True)
+    for got, w in zip(riccati_fused.fused_expand_backward_reference(*targs),
+                      want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(got.numpy(), w, rtol=0,
+                                   atol=1e-10 * max(1.0, np.abs(w).max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3),
+                                       (torch.float64, 1e-9)])
+@pytest.mark.parametrize("cold,Bt", [(False, 1024), (False, 131),
+                                     (True, 1024)],
+                         ids=["window", "window-131", "cold"])
+def test_kernel_matches_plain_version_grasp(cuda, cold, Bt, dtype, tol):
+    """Grasp's window (N=21, 13 rows in 4 blocks) and cold form (N=61, 19
+    rows in 5 blocks) at the bench's batch and at an odd one."""
+    from altro_tpu_torch.bench.kernels import grasp_inputs
+
+    g = grasp_inputs(dtype, cuda, B=Bt, cold=cold)
+    before = riccati_fused.launch_count
+    got = riccati_fused.fused_expand_backward(*g["fused"], packed=g["packed"])
+    torch.cuda.synchronize()
+    assert riccati_fused.launch_count == before + 1
+    for o, r in zip(got, g["fused_ref"]):
+        assert torch.isfinite(o).all()
+        assert float((o - r).abs().max()) <= tol * max(1.0,
+                                                      float(r.abs().max()))
 
 
 @pytest.mark.cuda

@@ -1,11 +1,12 @@
 """Fused ladder rollout + AL merit: the port's plain
 ``batched_ls_rollout_al_reference`` against the JAX package's Pallas kernel
-in interpret mode on the rocket MPC window (three SOC blocks) and on a
-ZERO + NONPOS pair in float64 (Xs/Us rtol 1e-9, J rtol 1e-8); the
+in interpret mode on the rocket MPC window (three SOC blocks), on a
+ZERO + NONPOS pair and on the grasp window (ZERO, NONPOS and two SOC
+blocks at n = m = 6) in float64 (Xs/Us rtol 1e-9, J rtol 1e-8); the
 wrapper's CPU dispatch; the byte and FLOP counts that the kernel's bound is
 computed from; and, on a CUDA device, the kernel against the plain version
-in float32 and float64 (the rocket window, and random problems at the edges
-of its thread mapping), and the wrapper's limits.
+in float32 and float64 (the rocket and grasp windows, and random problems at
+the edges of its thread mapping), and the wrapper's limits.
 
 JAX is imported only by the tests that compare with it, so the kernel tests
 also run where JAX is not installed:
@@ -47,7 +48,16 @@ def _window(kind, N):
 def _case(kind, N, Bt, seed):
     """Port arguments (without the ladder) for per-lane inputs around the
     window's track: rho varies over lanes and knots; lane 0 sits at the
-    thrust-angle cone's apex (v = 0) at knot 0 for the rocket blocks."""
+    thrust-angle cone's apex (v = 0) at knot 0 for the rocket blocks.
+    'grasp': the grasp window's ZERO, NONPOS and two SOC blocks at
+    n = m = 6 with the kernel benchmark's inputs (an apex lane-knot with
+    s = 500), rho varied the same way."""
+    if kind == "grasp":
+        from altro_tpu_torch.bench.kernels import grasp_inputs
+
+        g = grasp_inputs(torch.float64, torch.device("cpu"), B=Bt, N=N)
+        rho = 10.0 ** np.random.default_rng(seed).uniform(0, 3, (Bt, N))
+        return g["ladder_al"][:10] + (torch.as_tensor(rho),)
     pm, X_tr, U_tr = _window(kind, N)
     rng = np.random.default_rng(seed)
     n, m = pm.n, pm.m
@@ -92,13 +102,13 @@ def interpret_cases():
     from altro_tpu.ops.rollout import batched_ls_rollout_al as j_al
 
     out = {}
-    for kind, N in (("rocket", 13), ("zero_nonpos", 7)):
+    for kind, N in (("rocket", 13), ("zero_nonpos", 7), ("grasp", 7)):
         args = _case(kind, N, 4, seed=1)
         out[kind] = (args, j_al(*_to_jax(args), LADDER[::2], interpret=True))
     return out
 
 
-@pytest.mark.parametrize("kind", ["rocket", "zero_nonpos"])
+@pytest.mark.parametrize("kind", ["rocket", "zero_nonpos", "grasp"])
 def test_reference_matches_jax_pallas_interpret(interpret_cases, kind):
     args, (Xj, Uj, Jj) = interpret_cases[kind]
     Xs, Us, J = rollout_al.batched_ls_rollout_al_reference(*args,
@@ -252,7 +262,9 @@ def cuda():
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3),
                                        (torch.float64, 1e-9)])
 @pytest.mark.parametrize("kind,N,Bt", [("rocket", 21, 67),
-                                       ("zero_nonpos", 9, 5)])
+                                       ("zero_nonpos", 9, 5),
+                                       ("grasp", 21, 1024),
+                                       ("grasp", 21, 131)])
 def test_kernel_matches_plain_version(cuda, kind, N, Bt, dtype, tol):
     """Xs, Us against max(1, max|plain|); J per lane against
     max(1, |J_plain|): the merit reaches 1e6 with rho up to 1e3."""
