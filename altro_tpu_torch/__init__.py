@@ -8,7 +8,9 @@ per-scenario dynamics), with
 hand-written Hopper kernels for the fused AL expansion + Riccati backward
 pass, the Riccati backward pass from a per-scenario expansion, the
 line-search ladder rollout and the ladder rollout fused with the AL merit
-(``csrc/``). The JAX package ``altro_tpu``
+(``csrc/``). On a CUDA device a solve's start, loop and finish run as CUDA
+graphs, replayed with one host sync per k loop passes (``solver/graph.py``;
+``graphed=False`` keeps the host-driven loop). The JAX package ``altro_tpu``
 is the reference it is checked against; this package imports neither it
 nor JAX.
 

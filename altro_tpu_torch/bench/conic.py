@@ -26,11 +26,16 @@ init rollout.
 Run as a script on a CUDA machine:
 
     python -m altro_tpu_torch.bench.conic [rocket] [grasp] [--plain]
+                                          [--eager] [--check-every K]
 
 It prints ONE JSON line {"metric", "value", "unit", "vs_baseline"} per
 family on stdout and a diagnostics line per family on stderr (the power
 limit, then the whole result as JSON). ``--plain`` runs the plain step.
-Knobs: BENCH_BATCH (1024), BENCH_STEPS (30 rocket, 15 grasp).
+The steps and the cold solves run as CUDA graphs (``solver/graph.py``)
+with K body passes per replay (1 by default, the fastest of 1, 2, 4 and 8
+on the card);
+``--eager`` runs the host-driven loop instead. Knobs: BENCH_BATCH (1024),
+BENCH_STEPS (30 rocket, 15 grasp).
 """
 from __future__ import annotations
 
@@ -50,8 +55,7 @@ from ..models import grasp, rocket
 from ..mpc import (default_noise_model, gen_tracking_mpc, make_mpc_step,
                    make_mpc_step_device_compacted)
 from ..problem import Problem
-from ..solver import altro
-from ..solver.altro import solve
+from ..solver import altro, graph
 from ..solver.options import SolverOptions
 from .flagship import power_limit
 
@@ -112,13 +116,14 @@ def _sync(device) -> None:
         torch.cuda.synchronize()
 
 
-def _cold_solve(prob: Problem, opts: SolverOptions, U0, device):
-    """One cold B=1 solve of the long-horizon problem: (X, U) and the cold
-    fields of :class:`ConicSetup`."""
+def _cold_solve(prob: Problem, opts: SolverOptions, U0, device, graphed):
+    """One cold B=1 solve of the long-horizon problem (on CUDA graphs when
+    ``graphed``, None: on a CUDA device): (X, U) and the cold fields of
+    :class:`ConicSetup`."""
     t0 = time.perf_counter()
     passes = altro.pass_count
-    sol = solve(dataclasses.replace(prob, x0=prob.x0[None]), opts,
-                U0=U0[None])
+    sol = graph.solve(dataclasses.replace(prob, x0=prob.x0[None]), opts,
+                      U0=U0[None], graphed=graphed)
     _sync(device)
     return (sol.X[0], sol.U[0]), dict(
         cold_status=int(sol.stats.status[0]),
@@ -131,7 +136,7 @@ NO_COLD = dict(cold_status=None, cold_viol=None, cold_iters=0, cold_s=None)
 
 
 def rocket_setup(dtype=torch.float32, N_mpc: int = 21, track=None,
-                 device="cuda") -> ConicSetup:
+                 device="cuda", graphed: Optional[bool] = None) -> ConicSetup:
     """The rocket MPC problem, warm options and tracking reference.
     ``track=(X, U)`` skips the cold solve and tracks the given trajectory
     (so two runs in different precisions can solve the same windows)."""
@@ -140,7 +145,8 @@ def rocket_setup(dtype=torch.float32, N_mpc: int = 21, track=None,
     cold = NO_COLD
     if track is None:
         track, cold = _cold_solve(prob, SolverOptions(**COLD_OPTS),
-                                  rocket.hover_controls(prob), device)
+                                  rocket.hover_controls(prob), device,
+                                  graphed)
     X_track, U_track = track
     prob_mpc = gen_tracking_mpc(prob, X_track, U_track, N_mpc, dt=DT)
     return ConicSetup(family="rocket", prob_mpc=prob_mpc,
@@ -152,7 +158,7 @@ def rocket_setup(dtype=torch.float32, N_mpc: int = 21, track=None,
 
 
 def grasp_setup(dtype=torch.float32, N_mpc: int = 21, track=None,
-                device="cuda") -> ConicSetup:
+                device="cuda", graphed: Optional[bool] = None) -> ConicSetup:
     """The grasp MPC problem, warm options, tracking reference and
     constraint windows; ``track`` as in :func:`rocket_setup`."""
     o = grasp.make_grasp_object(GRASP_N, GRASP_TF, dtype=dtype,
@@ -161,7 +167,8 @@ def grasp_setup(dtype=torch.float32, N_mpc: int = 21, track=None,
     cold = NO_COLD
     if track is None:
         track, cold = _cold_solve(prob, SolverOptions(**GRASP_COLD_OPTS),
-                                  grasp.hover_controls(o, GRASP_N), device)
+                                  grasp.hover_controls(o, GRASP_N), device,
+                                  graphed)
     X_track, U_track = track
     pm = gen_tracking_mpc(prob, X_track, U_track, N_mpc, Qk=1e3, Rk=1.0,
                           Qfk=10.0, dt=GRASP_TF / (GRASP_N - 1))
@@ -181,14 +188,17 @@ SETUPS = {"rocket": rocket_setup, "grasp": grasp_setup}
 
 def make_step(setup: ConicSetup, compact_cap: int = 0,
               compact_block: int = 256, compact_levels: tuple = (),
-              opts: Optional[SolverOptions] = None):
+              opts: Optional[SolverOptions] = None,
+              graphed: Optional[bool] = None, check_every: int = 1):
     """(step, init_carry) of the family's MPC step: compacted with the
     schedule (``compact_cap``, ``compact_block``, ``compact_levels``), or
     the plain step when ``compact_cap`` is 0. ``opts`` replaces the setup's
-    warm options."""
+    warm options; ``graphed`` and ``check_every`` as in
+    ``mpc.make_mpc_step``."""
     kw = dict(noise_model=setup.noise_model,
               constraints_fn=setup.constraints_fn,
-              warm_start=setup.warm_start)
+              warm_start=setup.warm_start, graphed=graphed,
+              check_every=check_every)
     args = (setup.prob_mpc, setup.opts if opts is None else opts,
             setup.X_track, setup.U_track)
     if compact_cap:
@@ -228,25 +238,34 @@ def grasp_baseline_solves_per_s(path: str = None) -> float:
 
 def conic_batched(setup: ConicSetup, B: int = 1024, T: int = 30,
                   device="cuda", compact_cap: int = 0,
-                  compact_block: int = 256,
-                  compact_levels: tuple = ()) -> dict:
+                  compact_block: int = 256, compact_levels: tuple = (),
+                  graphed: Optional[bool] = None,
+                  check_every: int = 1) -> dict:
     """Throughput and latency of a family's MPC loop on ``device``, measured
     as the JAX package's conic benchmark does: one cold batched solve builds
-    the initial carry, one warm-up step runs, a throughput pass of T steps
-    is timed whole, and a latency pass times min(T, 10) single steps.
+    the initial carry, one warm-up step runs (it captures the step's graphs:
+    ``capture_s``, outside every timed window), a throughput pass of T
+    steps is timed whole, and a latency pass times min(T, 10) single steps.
+    ``graphed`` (None: on a CUDA device) and ``check_every`` as in
+    ``mpc.make_mpc_step``.
 
     ``loop_iterations`` counts the solver-loop body passes of every solve
-    that ran (``solver.altro.pass_count``), the cold solve of the setup
-    included when it ran; ``solves`` counts those solves and
-    ``cold_solves`` those among them that had no states to start from (the
-    setup's cold solve and the batched initial solve). ``passes_per_step``
-    is the throughput pass's passes per step."""
+    that ran (``solver.altro.pass_count``, the frozen passes of a replay
+    included), the cold solve of the setup included when it ran; ``solves``
+    counts those solves and ``cold_solves`` those among them that had no
+    states to start from (the setup's cold solve and the batched initial
+    solve). ``passes_per_step`` is the throughput pass's passes per step,
+    ``iters_max_per_step_mean`` its steps' mean largest lane iteration
+    count and ``graph_replays_per_step`` its loop-graph replays per
+    step."""
     dev = torch.device(device)
+    graphed = graph.use_graphs(graphed, dev)
     noise = torch.as_tensor(np.random.default_rng(setup.noise_seed)
                             .standard_normal((T, B, 6)),
                             dtype=setup.prob_mpc.x0.dtype, device=dev)
     step, init_carry = make_step(setup, compact_cap, compact_block,
-                                 compact_levels)
+                                 compact_levels, graphed=graphed,
+                                 check_every=check_every)
     ran_cold = setup.cold_status is not None
     passes0 = altro.pass_count - setup.cold_iters
 
@@ -255,7 +274,8 @@ def conic_batched(setup: ConicSetup, B: int = 1024, T: int = 30,
     _sync(dev)
     init_s = time.perf_counter() - t0
 
-    step(carry0, noise[0], 0)                           # warm-up
+    step(carry0, noise[0], 0)                           # warm-up, capture
+    replays = getattr(step, "loop_replays", 0)
 
     carry, outs = carry0, []
     _sync(dev)
@@ -267,6 +287,7 @@ def conic_batched(setup: ConicSetup, B: int = 1024, T: int = 30,
     _sync(dev)
     wall = time.perf_counter() - ts
     passes_T = altro.pass_count - p0
+    replays_T = getattr(step, "loop_replays", 0) - replays
 
     step_ms = []
     carry = carry0
@@ -283,10 +304,12 @@ def conic_batched(setup: ConicSetup, B: int = 1024, T: int = 30,
     p50, p99 = np.percentile(step_ms, [50, 99])
     return {
         "family": setup.family, "B": B, "T": T, "device": str(dev),
+        "graphed": graphed, "check_every": check_every,
         "compaction": ([compact_cap, compact_block,
                         [list(lv) for lv in compact_levels]]
                        if compact_cap else None),
         "solves_per_s": B * T / wall, "wall_s": wall, "init_s": init_s,
+        "capture_s": getattr(step, "capture_s", 0.0),
         "cold_N": setup.cold_N,
         "cold_status": setup.cold_status, "cold_viol": setup.cold_viol,
         "cold_iters": setup.cold_iters, "cold_s": setup.cold_s,
@@ -300,6 +323,7 @@ def conic_batched(setup: ConicSetup, B: int = 1024, T: int = 30,
         "iters_p50": float(np.percentile(iters, 50)),
         "iters_p99": float(np.percentile(iters, 99)),
         "passes_per_step": passes_T / T,
+        "graph_replays_per_step": replays_T / T,
         "loop_iterations": altro.pass_count - passes0,
         "solves": int(ran_cold) + 2 + T + min(T, 10),
         "cold_solves": int(ran_cold) + 1,
@@ -309,25 +333,29 @@ def conic_batched(setup: ConicSetup, B: int = 1024, T: int = 30,
 def rocket_batched(B: int = 1024, T: int = 30, N_mpc: int = 21,
                    device="cuda", setup: Optional[ConicSetup] = None,
                    compact_cap: int = 0, compact_block: int = 256,
-                   compact_levels: tuple = ()) -> dict:
+                   compact_levels: tuple = (), graphed: Optional[bool] = None,
+                   check_every: int = 1) -> dict:
     """:func:`conic_batched` of the rocket in float32; ``setup`` (a float32
     :func:`rocket_setup` on ``device``) is built here when not given."""
     if setup is None:
-        setup = rocket_setup(torch.float32, N_mpc, device=device)
+        setup = rocket_setup(torch.float32, N_mpc, device=device,
+                             graphed=graphed)
     return conic_batched(setup, B, T, device, compact_cap, compact_block,
-                         compact_levels)
+                         compact_levels, graphed, check_every)
 
 
 def grasp_batched(B: int = 1024, T: int = 15, N_mpc: int = 21,
                   device="cuda", setup: Optional[ConicSetup] = None,
                   compact_cap: int = 0, compact_block: int = 256,
-                  compact_levels: tuple = ()) -> dict:
+                  compact_levels: tuple = (), graphed: Optional[bool] = None,
+                  check_every: int = 1) -> dict:
     """:func:`conic_batched` of grasp in float32; ``setup`` (a float32
     :func:`grasp_setup` on ``device``) is built here when not given."""
     if setup is None:
-        setup = grasp_setup(torch.float32, N_mpc, device=device)
+        setup = grasp_setup(torch.float32, N_mpc, device=device,
+                            graphed=graphed)
     return conic_batched(setup, B, T, device, compact_cap, compact_block,
-                         compact_levels)
+                         compact_levels, graphed, check_every)
 
 
 FAMILIES = {"rocket": (rocket_batched, 30, "rocket_mpc_solves_per_s_chip_N21",
@@ -342,6 +370,10 @@ def main():
                     help=f"of {list(FAMILIES)} (default: all)")
     ap.add_argument("--plain", action="store_true",
                     help="the plain step instead of the shipped compaction")
+    ap.add_argument("--eager", action="store_true",
+                    help="the host-driven loop instead of CUDA graphs")
+    ap.add_argument("--check-every", type=int, default=1,
+                    help="body passes per replay of the loop graphs")
     args = ap.parse_args()
     unknown = [f for f in args.families if f not in FAMILIES]
     if unknown:
@@ -356,7 +388,8 @@ def main():
         T = int(os.environ.get("BENCH_STEPS", T))
         cap, block, levels = (0, 256, ()) if args.plain else SCHEDULES[family]
         res = run(B=B, T=T, device="cuda", compact_cap=cap,
-                  compact_block=block, compact_levels=levels)
+                  compact_block=block, compact_levels=levels,
+                  graphed=not args.eager, check_every=args.check_every)
         print(json.dumps({
             "metric": metric, "value": round(res["solves_per_s"], 1),
             "unit": "solves/s",

@@ -3,8 +3,11 @@ over warm work on one card, per path.
 
     python -m altro_tpu_torch.bench.device_profile [flagship] [rocket]
                                                    [grasp] [quadruped]
+                                                   [--forms graphed,eager]
 
-Paths (all of them when none is named), each at B=1024 in float32:
+Paths (all of them when none is named), each at B=1024 in float32 and in
+both forms (``--forms``): on CUDA graphs (``solver/graph.py``, one body
+pass per replay) and on the host-driven loop:
 
 - flagship: the cold solve and two warm MPC steps, then windows of 10 warm
   steps;
@@ -24,19 +27,25 @@ device work by kind, and the device busy share: the profiled window's
 device time per pass (one stream, so kernels do not overlap) over the
 unprofiled window's wall clock per pass. The profiler's own host overhead
 stretches the profiled window's wall, which is printed beside it but is not
-the denominator. The last line is the result of every path as JSON.
+the denominator. For the graphed rocket and grasp it also times each level
+batch's loop graph alone (``pass_ms_by_batch``: device ms per body pass at
+1024, 256 and 128 lanes, CUDA events around 20 replays queued behind a
+sleep), and, in a compacted step, the host ms of a gather and a scatter
+between two levels as a graph replay and as the same function run eagerly
+(``compaction_ms_by_level``). The last line is the result of every path as
+JSON.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
-import sys
 import time
 
 import torch
 
 from altro_tpu_torch.bench.kernels import FLAG_B, GRASP_B, QUAD_B, ROCKET_B
-from altro_tpu_torch.solver import altro
+from altro_tpu_torch.solver import altro, graph
 
 FLAG_STEPS, ROCKET_STEPS, GRASP_STEPS, QUAD_SOLVES = 10, 3, 5, 2
 KINDS = (("kernel B (fused_expand_backward)", ("fused_expand_backward",)),
@@ -108,86 +117,152 @@ def _step_window(step, carry, noise, first, steps):
     return window
 
 
-def flagship_window(B: int = FLAG_B, device="cuda"):
+def flagship_window(B: int = FLAG_B, device="cuda", graphed=None):
     from altro_tpu_torch.bench.flagship import flagship_setup
     from altro_tpu_torch.mpc import make_mpc_step
-    from altro_tpu_torch.solver.altro import solve
 
     setup = flagship_setup(B, 2 * FLAG_STEPS + 2, dtype=torch.float32,
                            device=device)
     pm = setup.prob_mpc
-    step, _ = make_mpc_step(pm, setup.opts, setup.X_track, setup.U_track)
-    x0 = pm.x0.expand(B, pm.n).contiguous()
-    sol = solve(dataclasses.replace(pm, x0=x0), setup.opts)
-    carry = (x0, sol.X, sol.U, sol.duals)
+    step, init_carry = make_mpc_step(pm, setup.opts, setup.X_track,
+                                     setup.U_track, graphed=graphed)
+    carry = init_carry(B)
     for t in range(2):
         carry, _ = step(carry, setup.noise[t], t)
     return _step_window(step, carry, setup.noise, 2, FLAG_STEPS)
 
 
 def conic_window(family: str, compact: bool, B: int = ROCKET_B,
-                 device="cuda"):
+                 device="cuda", graphed=None):
     """Windows of the rocket's or grasp's MPC steps, plain or in the
-    family's shipped compaction schedule."""
+    family's shipped compaction schedule; the window function carries the
+    step as ``window.step``."""
     import numpy as np
 
     from altro_tpu_torch.bench import conic
 
-    setup = conic.SETUPS[family](torch.float32, device=device)
+    setup = conic.SETUPS[family](torch.float32, device=device,
+                                 graphed=graphed)
     steps = {"rocket": ROCKET_STEPS, "grasp": GRASP_STEPS}[family]
     sched = conic.SCHEDULES[family] if compact else (0, 256, ())
-    step, init_carry = conic.make_step(setup, *sched)
+    step, init_carry = conic.make_step(setup, *sched, graphed=graphed)
     noise = torch.as_tensor(np.random.default_rng(setup.noise_seed)
                             .standard_normal((2 * steps + 1, B, 6)),
                             dtype=torch.float32, device=device)
     carry, _ = step(init_carry(B), noise[0], 0)
-    return _step_window(step, carry, noise, 1, steps)
+    window = _step_window(step, carry, noise, 1, steps)
+    window.step = step
+    return window
 
 
 def quadruped_window(linearized_friction: bool, B: int = QUAD_B,
-                     device="cuda"):
+                     device="cuda", graphed=None):
     from altro_tpu_torch.bench.families import quadruped_setup
-    from altro_tpu_torch.solver.altro import solve
 
     su = quadruped_setup(B, linearized_friction, torch.float32, device)
+    gs = (graph.GraphedSolve(su.prob, su.opts)
+          if graph.use_graphs(graphed, device) else None)
 
     def window(solves=QUAD_SOLVES):
         passes = altro.pass_count
         for _ in range(solves):
             x0 = su.draw_x0().to(device=device, dtype=torch.float32)
-            solve(dataclasses.replace(su.prob, x0=x0), su.opts, U0=su.U0)
+            if gs is not None:
+                gs(x0, su.U0)
+            else:
+                altro.solve(dataclasses.replace(su.prob, x0=x0), su.opts,
+                            U0=su.U0)
         return altro.pass_count - passes
 
     window(1)                                              # warm-up
     return window
 
 
+def pass_ms_by_batch(step, replays: int = 20) -> dict:
+    """{lanes: device ms per body pass} of each level batch's loop graph of
+    a graphed step that has run: CUDA events around ``replays`` replays
+    queued behind a 20 ms sleep, so the time is the device's alone (every
+    lane is frozen by then, which changes no kernel's work)."""
+    out = {}
+    for g in step.sets.values():
+        for loop in g.loops:
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(20_000_000)
+            start.record()
+            for _ in range(replays):
+                loop.replay()
+            end.record()
+            end.synchronize()
+            out[int(loop.state[0].shape[0])] = (start.elapsed_time(end)
+                                                / (replays
+                                                   * loop.check_every))
+    return out
+
+
+def compaction_ms_by_level(step, calls: int = 20) -> list:
+    """Per level of a graphed compacted step that has run: the host ms of
+    one gather and one scatter between two levels, each as a replay of its
+    graph and as the same function run eagerly (``calls`` calls each,
+    every call synchronised)."""
+    def per_call(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / calls
+
+    out = []
+    for g in step.sets.values():
+        for gather, scatter in zip(g.gathers, g.scatters):
+            with torch.no_grad():
+                out.append({"gather_graph_ms": per_call(gather.replay),
+                            "gather_eager_ms": per_call(gather.fn),
+                            "scatter_graph_ms": per_call(scatter.replay),
+                            "scatter_eager_ms": per_call(scatter.fn)})
+    return out
+
+
 # path: ((label, batch, window's description, steps or solves per window,
-# its maker), ...)
+# its maker taking `graphed`), ...)
 PATHS = {
     "flagship": (("flagship", FLAG_B, f"{FLAG_STEPS} warm steps",
-                  FLAG_STEPS, flagship_window),),
+                  FLAG_STEPS, lambda g: flagship_window(graphed=g)),),
     "rocket": tuple((label, ROCKET_B, f"{ROCKET_STEPS} warm steps",
                      ROCKET_STEPS,
-                     lambda c=compact: conic_window("rocket", c))
+                     lambda g, c=compact: conic_window("rocket", c,
+                                                       graphed=g))
                     for label, compact in (("rocket", False),
                                            ("rocket compacted", True))),
     "grasp": tuple((label, GRASP_B, f"{GRASP_STEPS} warm steps", GRASP_STEPS,
-                    lambda c=compact: conic_window("grasp", c, GRASP_B))
+                    lambda g, c=compact: conic_window("grasp", c, GRASP_B,
+                                                      graphed=g))
                    for label, compact in (("grasp", False),
                                           ("grasp compacted", True))),
     "quadruped": (("quadruped qp", QUAD_B, f"{QUAD_SOLVES} cold solves",
-                   QUAD_SOLVES, lambda: quadruped_window(True)),
+                   QUAD_SOLVES, lambda g: quadruped_window(True, graphed=g)),
                   ("quadruped socp", QUAD_B, f"{QUAD_SOLVES} cold solves",
-                   QUAD_SOLVES, lambda: quadruped_window(False))),
+                   QUAD_SOLVES,
+                   lambda g: quadruped_window(False, graphed=g))),
 }
 
 
 def main() -> None:
-    names = sys.argv[1:] or list(PATHS)
-    unknown = [n for n in names if n not in PATHS]
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("paths", nargs="*", help=f"of {list(PATHS)} (default: "
+                    "all)")
+    ap.add_argument("--forms", default="graphed,eager",
+                    help="comma-separated forms: graphed, eager")
+    args = ap.parse_args()
+    names = args.paths or list(PATHS)
+    forms = args.forms.split(",")
+    unknown = ([n for n in names if n not in PATHS]
+               + [f for f in forms if f not in ("graphed", "eager")])
     if unknown:
-        raise SystemExit(f"unknown path {unknown}; choose from {list(PATHS)}")
+        raise SystemExit(f"unknown path or form {unknown}; choose from "
+                         f"{list(PATHS)} and graphed, eager")
     if not torch.cuda.is_available():
         raise SystemExit("the profile measures a CUDA device; none is "
                          "available")
@@ -196,26 +271,39 @@ def main() -> None:
     results = []
     for name in names:
         for label, B, desc, units, make_window in PATHS[name]:
-            res = dict(profile(make_window()), path=label, B=B, window=desc)
-            res["device_ms_per_unit"] = res["device_ms"] / units
-            res["unprofiled_wall_ms_per_unit"] = (res["unprofiled_wall_ms"]
-                                                  / units)
-            res["passes_per_unit"] = res["unprofiled_loop_iterations"] / units
-            print(f"{res['path']} B={res['B']} f32 [{card}]: unprofiled "
-                  f"{res['window']} = {res['unprofiled_loop_iterations']} "
-                  f"solver-loop passes in {res['unprofiled_wall_ms']:.3f} ms;"
-                  f" profiled {res['window']} = {res['loop_iterations']} "
-                  f"passes in {res['profiled_wall_ms']:.3f} ms with "
-                  f"{res['device_ms']:.3f} ms of device time; busy "
-                  f"{100 * res['busy_share']:.1f}% (device ms per pass over "
-                  f"unprofiled wall ms per pass); per step or solve: "
-                  f"{res['device_ms_per_unit']:.3f} ms device, "
-                  f"{res['unprofiled_wall_ms_per_unit']:.3f} ms wall, "
-                  f"{res['passes_per_unit']:.2f} passes")
-            for kind, v in res["per_iteration"].items():
-                print(f"  per pass: {kind}: {v['ms']:.4f} ms device, "
-                      f"{v['launches']:.1f} launches")
-            results.append(res)
+            for form in forms:
+                window = make_window(form == "graphed")
+                res = dict(profile(window), path=label, form=form, B=B,
+                           window=desc)
+                res["device_ms_per_unit"] = res["device_ms"] / units
+                res["unprofiled_wall_ms_per_unit"] = (
+                    res["unprofiled_wall_ms"] / units)
+                res["passes_per_unit"] = (res["unprofiled_loop_iterations"]
+                                          / units)
+                if form == "graphed" and hasattr(window, "step"):
+                    res["pass_ms_by_batch"] = pass_ms_by_batch(window.step)
+                    res["compaction_ms_by_level"] = compaction_ms_by_level(
+                        window.step)
+                print(f"{res['path']} [{form}] B={res['B']} f32 [{card}]: "
+                      f"unprofiled {res['window']} = "
+                      f"{res['unprofiled_loop_iterations']} solver-loop "
+                      f"passes in {res['unprofiled_wall_ms']:.3f} ms; "
+                      f"profiled {res['window']} = {res['loop_iterations']} "
+                      f"passes in {res['profiled_wall_ms']:.3f} ms with "
+                      f"{res['device_ms']:.3f} ms of device time; busy "
+                      f"{100 * res['busy_share']:.1f}% (device ms per pass "
+                      f"over unprofiled wall ms per pass); per step or "
+                      f"solve: {res['device_ms_per_unit']:.3f} ms device, "
+                      f"{res['unprofiled_wall_ms_per_unit']:.3f} ms wall, "
+                      f"{res['passes_per_unit']:.2f} passes"
+                      + (f"; graphed pass device ms by batch "
+                         f"{res['pass_ms_by_batch']}; gather and scatter "
+                         f"host ms by level {res['compaction_ms_by_level']}"
+                         if "pass_ms_by_batch" in res else ""), flush=True)
+                for kind, v in res["per_iteration"].items():
+                    print(f"  per pass: {kind}: {v['ms']:.4f} ms device, "
+                          f"{v['launches']:.1f} launches")
+                results.append(res)
     print(json.dumps({"card": card, "paths": results}))
 
 

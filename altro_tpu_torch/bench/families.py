@@ -15,21 +15,26 @@ rollout.
 
 Run as a script on a CUDA machine (both friction modes, B=1024, f32):
 
-    python -m altro_tpu_torch.bench.families
+    python -m altro_tpu_torch.bench.families [qp] [socp] [--eager]
+                                             [--check-every K]
 
 It prints one JSON line per mode with the JAX package's row keys (label,
 batch, rounds, solves_per_s, success_rate, max_viol, mean_iters, iters_max,
-iters_p99, wall_s) plus the device, solver-loop iterations and kernel
-launches. Knobs: BENCH_BATCH (1024), BENCH_ROUNDS (10).
+iters_p99, wall_s) plus the device, per-round ms, solver-loop passes,
+graph replays, capture seconds and kernel launches. Every round replays
+one ``solver.graph.GraphedSolve`` (K body passes per loop replay, 1 by
+default, the fastest of 1, 2, 4 and 8 on the card); ``--eager`` runs the
+host-driven loop instead. Knobs: BENCH_BATCH (1024), BENCH_ROUNDS (10).
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import os
 import time
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -40,7 +45,7 @@ from ..models.quadruped import config, controller, planner
 from ..models.quadruped.gait import GAITS
 from ..ops import riccati, riccati_fused, rollout, rollout_al
 from ..problem import Problem
-from ..solver.altro import solve
+from ..solver import altro, graph
 from ..solver.options import SolverOptions
 from .flagship import power_limit
 
@@ -121,60 +126,94 @@ def _launches() -> dict:
 
 
 def quadruped_batched(B: int = 1024, rounds: int = 10,
-                      linearized_friction: bool = True,
-                      device="cuda") -> dict:
+                      linearized_friction: bool = True, device="cuda",
+                      graphed: Optional[bool] = None,
+                      check_every: int = 1) -> dict:
     """Per-solve throughput of the flat batched quadruped MPC in float32
-    (the JAX benchmark's precision): one warm-up
-    solve, then ``rounds`` timed batch solves, each cold from the stance
-    forces with a fresh x0 draw. ``loop_iterations`` counts the solver-loop
-    passes of every solve that ran, the warm-up included (a batch solve's
-    passes are its lanes' maximum iteration count); ``solves`` counts those
-    solves; ``launches`` are the kernel launches of this call."""
+    (the JAX benchmark's precision): one warm-up solve (which captures the
+    solve's graphs: ``capture_s``), then ``rounds`` timed batch solves, each
+    cold from the stance forces with a fresh x0 draw, each synchronised and
+    timed (``round_ms_p50``/``p99``). ``graphed`` (None: on a CUDA device):
+    every solve replays one ``solver.graph.GraphedSolve`` with
+    ``check_every`` body passes per loop replay; else the host-driven loop.
+    ``loop_iterations`` counts the solver-loop body passes of every solve
+    that ran, the warm-up included (``solver.altro.pass_count``, the frozen
+    passes of a replay included), ``lane_max_iters`` the sum of each
+    solve's largest lane iteration count and ``graph_replays`` the loop
+    graph's replays; ``solves`` counts the solves; ``launches`` are the
+    kernel launches of this call."""
     dev, dtype = torch.device(device), torch.float32
+    graphed = graph.use_graphs(graphed, dev)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     su = quadruped_setup(B, linearized_friction, dtype, dev)
-    before = _launches()
+    before, passes0 = _launches(), altro.pass_count
+    gs = (graph.GraphedSolve(su.prob, su.opts, check_every=check_every)
+          if graphed else None)
 
     def solve_batch():
         x0 = su.draw_x0().to(device=dev, dtype=dtype)
-        sol = solve(dataclasses.replace(su.prob, x0=x0), su.opts, U0=su.U0)
+        if gs is not None:
+            return gs(x0, su.U0).stats
+        sol = altro.solve(dataclasses.replace(su.prob, x0=x0), su.opts,
+                          U0=su.U0)
         return sol.stats
 
     st = solve_batch()                                     # warm-up
-    passes = [int(st.iterations.max())]
-    stats = []
+    lane_max = [int(st.iterations.max())]
+    stats, round_ms = [], []
     sync()
     t0 = time.perf_counter()
     for _ in range(rounds):
+        ts = time.perf_counter()
         stats.append(solve_batch())
-    sync()
+        sync()
+        round_ms.append((time.perf_counter() - ts) * 1e3)
     wall = time.perf_counter() - t0
     status = torch.cat([s.status for s in stats]).cpu().numpy()
     viol = torch.cat([s.viol for s in stats]).double().cpu().numpy()
     iters = torch.stack([s.iterations for s in stats]).cpu().numpy()
-    passes += [int(i.max()) for i in iters]
+    lane_max += [int(i.max()) for i in iters]
     mode = "qp" if linearized_friction else "socp"
     after = _launches()
+    p50, p99 = np.percentile(round_ms, [50, 99])
     return dict(label=f"quadruped_trot_mpc_N15_{mode}", batch=B,
                 rounds=rounds, solves_per_s=B * rounds / wall,
                 success_rate=float(status.mean()),
                 max_viol=float(np.nanmax(viol)),
                 mean_iters=float(iters.mean()), iters_max=int(iters.max()),
                 iters_p99=float(np.percentile(iters, 99)), wall_s=wall,
-                device=str(dev), loop_iterations=sum(passes),
-                solves=len(passes),
+                round_ms_p50=float(p50), round_ms_p99=float(p99),
+                device=str(dev), graphed=graphed, check_every=check_every,
+                capture_s=gs.capture_s if gs is not None else 0.0,
+                loop_iterations=altro.pass_count - passes0,
+                lane_max_iters=sum(lane_max),
+                graph_replays=gs.replays if gs is not None else 0,
+                solves=len(lane_max),
                 launches={k: after[k] - before[k] for k in after})
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("modes", nargs="*",
+                    help="friction modes of ['qp', 'socp'] (default: both)")
+    ap.add_argument("--eager", action="store_true",
+                    help="the host-driven loop instead of CUDA graphs")
+    ap.add_argument("--check-every", type=int, default=1,
+                    help="body passes per replay of the loop graph")
+    args = ap.parse_args()
+    if set(args.modes) - {"qp", "socp"}:
+        ap.error(f"unknown mode in {args.modes}; choose from qp, socp")
     if not torch.cuda.is_available():
         raise SystemExit("the quadruped benchmark measures a CUDA device; "
                          "none is available")
     B = int(os.environ.get("BENCH_BATCH", 1024))
     rounds = int(os.environ.get("BENCH_ROUNDS", 10))
     card = power_limit()
-    for lin in (True, False):
-        res = quadruped_batched(B=B, rounds=rounds, linearized_friction=lin)
+    for mode in args.modes or ["qp", "socp"]:
+        res = quadruped_batched(B=B, rounds=rounds,
+                                linearized_friction=mode == "qp",
+                                graphed=not args.eager,
+                                check_every=args.check_every)
         res["device"] = f"{torch.cuda.get_device_name(0)} [{card}]"
         print(json.dumps(res), flush=True)
 

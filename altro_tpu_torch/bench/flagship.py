@@ -7,15 +7,20 @@ receding-horizon loop on one device, and reports throughput.
 
 Run as a script on a CUDA machine:
 
-    python -m altro_tpu_torch.bench.flagship
+    python -m altro_tpu_torch.bench.flagship [--eager] [--check-every K]
 
 It prints ONE JSON line {"metric", "value", "unit", "vs_baseline"} on
-stdout and a diagnostics line (device, power limit, latency, success,
-iterations) on stderr. Knobs: BENCH_BATCH (1024), BENCH_STEPS (100),
-BENCH_LS (2, the ladder length before the alpha=0 rung).
+stdout and a diagnostics line (device, power limit, then the whole result
+as JSON) on stderr. The steps and the cold solve run as CUDA graphs
+(``solver/graph.py``) with K body passes per replay (1 by default, the
+fastest of 1, 2, 4 and 8 on the card); ``--eager`` runs the host-driven
+loop instead. Knobs:
+BENCH_BATCH (1024), BENCH_STEPS (100), BENCH_LS (2, the ladder length
+before the alpha=0 rung).
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import os
@@ -24,6 +29,7 @@ import subprocess
 import sys
 import time
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
@@ -31,7 +37,7 @@ import torch
 from ..models import random_linear as rl
 from ..mpc import make_mpc_step
 from ..problem import Problem
-from ..solver.altro import solve
+from ..solver import altro, graph
 from ..solver.options import SolverOptions
 
 N_MPC, N_STATE, N_CONTROL = 30, 12, 6
@@ -115,50 +121,68 @@ def power_limit() -> str:
     return proc.stdout.strip()
 
 
-def run_flagship(B: int = 1024, T: int = 100, device="cuda",
-                 ls: int = 2) -> dict:
+def run_flagship(B: int = 1024, T: int = 100, device="cuda", ls: int = 2,
+                 graphed: Optional[bool] = None,
+                 check_every: int = 1) -> dict:
     """Throughput and latency of the flagship MPC loop, in float32 on
-    ``device``.
+    ``device``, on CUDA graphs (``graphed``, None: on a CUDA device) or on
+    the host-driven loop.
 
-    One cold batched solve builds the initial carry; one warm-up step runs;
-    three throughput passes of T steps each start from the same carry and
-    are timed whole (median reported); a latency pass times min(T, 10)
-    single steps. ``loop_iterations`` counts the solver-loop
-    passes over every solve that ran (the batch loop runs while any lane is
-    live, so a solve's passes are its lanes' maximum iteration count);
-    ``cold_solves`` counts solves that began with an open-loop rollout.
-    """
+    One cold batched solve builds the initial carry; one warm-up step runs
+    (it captures the step's graphs: ``capture_s``, outside every timed
+    window); three throughput passes of T steps each start from the same
+    carry and are timed whole (median reported); a latency pass times
+    min(T, 10) single steps. ``passes`` counts the solver-loop body passes
+    of every solve that ran (``solver.altro.pass_count``, the frozen passes
+    of a replay included), ``lane_max_iters`` the sum of each solve's
+    largest lane iteration count, ``graph_replays`` the loop graphs'
+    replays; ``cold_solves`` counts solves that began with an open-loop
+    rollout."""
     dev = torch.device(device)
+    graphed = graph.use_graphs(graphed, dev)
     sync = (torch.cuda.synchronize if dev.type == "cuda" else (lambda: None))
     setup = flagship_setup(B, T, dtype=torch.float32, device=dev, ls=ls)
     step, _ = make_mpc_step(setup.prob_mpc, setup.opts, setup.X_track,
-                            setup.U_track)
+                            setup.U_track, graphed=graphed,
+                            check_every=check_every)
     iters_all = []
+    passes0 = altro.pass_count
 
     t0 = time.perf_counter()
     # the cold batched solve of init_carry, kept whole to read its stats
     x0 = setup.prob_mpc.x0.expand(B, N_STATE).contiguous()
-    sol0 = solve(dataclasses.replace(setup.prob_mpc, x0=x0), setup.opts)
+    cold_prob = dataclasses.replace(setup.prob_mpc, x0=x0)
+    cold_replays, capture_s = 0, 0.0
+    if graphed:
+        cold = graph.GraphedSolve(cold_prob, setup.opts,
+                                  check_every=check_every)
+        sol0 = cold()
+        cold_replays, capture_s = cold.replays, cold.capture_s
+    else:
+        sol0 = altro.solve(cold_prob, setup.opts)
     carry0 = (x0, sol0.X, sol0.U, sol0.duals)
     iters_all.append(sol0.stats.iterations)
     sync()
     init_s = time.perf_counter() - t0
 
-    _, out = step(carry0, setup.noise[0], 0)            # warm-up
+    _, out = step(carry0, setup.noise[0], 0)            # warm-up, capture
     iters_all.append(out.iters)
     sync()
+    capture_s += getattr(step, "capture_s", 0.0)
 
-    walls = []
+    walls, passes_T = [], []
     for _ in range(3):
         carry = carry0
         outs = []
         sync()
+        p0 = altro.pass_count
         ts = time.perf_counter()
         for t in range(T):
             carry, out = step(carry, setup.noise[t], t)
             outs.append(out)
         sync()
         walls.append(time.perf_counter() - ts)
+        passes_T.append(altro.pass_count - p0)
         iters_all += [o.iters for o in outs]
 
     step_ms = []
@@ -176,38 +200,47 @@ def run_flagship(B: int = 1024, T: int = 100, device="cuda",
     wall = float(np.median(walls))
     p50, p99 = np.percentile(step_ms, [50, 99])
     return {
-        "B": B, "T": T, "device": str(dev),
+        "B": B, "T": T, "device": str(dev), "graphed": graphed,
+        "check_every": check_every,
         "solves_per_s": B * T / wall,
         "wall_s": walls,
         "init_s": init_s,
+        "capture_s": capture_s,
         "step_ms_p50": float(p50), "step_ms_p99": float(p99),
         "success_rate": float(status.mean()),
         "max_viol": float(viol.max()),
         "mean_iters": float(iters.mean()),
-        "loop_iterations": int(sum(int(i.max()) for i in iters_all)),
+        "passes": altro.pass_count - passes0,
+        "passes_per_step": float(np.mean(passes_T)) / T,
+        "lane_max_iters": int(sum(int(i.max()) for i in iters_all)),
+        "lane_max_iters_per_step": float(iters.max(dim=1).values.mean()),
+        "graph_replays": cold_replays + getattr(step, "loop_replays", 0),
         "cold_solves": 1,
     }
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--eager", action="store_true",
+                    help="the host-driven loop instead of CUDA graphs")
+    ap.add_argument("--check-every", type=int, default=1,
+                    help="body passes per replay of the loop graph")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("the flagship benchmark measures a CUDA device; "
                          "none is available")
     B = int(os.environ.get("BENCH_BATCH", 1024))
     T = int(os.environ.get("BENCH_STEPS", 100))
     ls = int(os.environ.get("BENCH_LS", 2))
-    res = run_flagship(B=B, T=T, device="cuda", ls=ls)
+    res = run_flagship(B=B, T=T, device="cuda", ls=ls,
+                       graphed=not args.eager, check_every=args.check_every)
     print(json.dumps({
         "metric": "mpc_solves_per_s_chip_N30",
         "value": round(res["solves_per_s"], 1),
         "unit": "solves/s",
         "vs_baseline": round(res["solves_per_s"] / baseline_solves_per_s(), 2),
     }))
-    print(f"# {power_limit()} B={B} T={T} success_rate="
-          f"{res['success_rate']:.4f} max_viol={res['max_viol']:.2e} "
-          f"mean_iters={res['mean_iters']:.2f} step_ms_p50="
-          f"{res['step_ms_p50']:.2f} p99={res['step_ms_p99']:.2f}",
-          file=sys.stderr)
+    print(f"# {power_limit()} {json.dumps(res)}", file=sys.stderr)
 
 
 if __name__ == "__main__":

@@ -17,11 +17,20 @@ gathered into a smaller batch that finishes alone (through nested levels of
 caps and blocks), and the results are scattered back. A lane's iterates do
 not depend on the batch it runs in, so the results are those of the plain
 step; only the batch size of the late passes changes.
+
+Every step factory runs on CUDA graphs on a CUDA device (``graphed``;
+``solver/graph.py``): per batch size a start graph (propagation, noise,
+retarget, constraint window, shift, seam corrector, warm-start state), a
+loop graph per level batch and a finish graph, replayed with one host sync
+per k loop passes; ``graphed=False`` keeps the host-driven loop.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from dataclasses import dataclass
+from types import SimpleNamespace
+from typing import Optional
 
 import numpy as np
 import torch
@@ -29,7 +38,9 @@ import torch
 from .costs import retarget_tracking, tracking_objective
 from .dynamics import LTVDynamics
 from .problem import Problem
-from .solver.altro import _finalize, _flat_while, _warmstart_state, solve
+from .solver import graph
+from .solver.altro import _finalize, _flat_while, _warmstart_state
+from .solver.graph import LoopGraph, Replayable, clone_tree, copy_into, tensors
 from .solver.options import SolverOptions
 
 
@@ -133,63 +144,248 @@ def _xws_corrector(dyn):
     return correct
 
 
-def _step_pieces(prob_mpc: Problem, opts: SolverOptions, X_track, U_track,
-                 noise_model, constraints_fn, warm_start: str):
-    """The parts of a batched MPC step that every form of it shares:
-    ``prob_at(k_new, x0)``, the window's problem; ``start(carry, noise_i,
-    k)``, which propagates the carry and returns (the window's problem, the
-    solver's initial state, x0_new); ``finish(prob_k, state, x0_new)``,
-    which returns (the next carry, MPCResults); and ``init_carry(batch)``."""
-    if warm_start not in ("shift", "track"):
-        raise ValueError(f"warm_start must be 'shift' or 'track', got "
-                         f"{warm_start!r}")
-    N = prob_mpc.N
-    dyn = prob_mpc.dynamics
-    xws = _xws_corrector(dyn)
+class _StepPieces:
+    """The parts of a batched MPC step that every form of it shares.
 
-    def prob_at(k_new: int, x0):
-        Xw, Uw = track_window(X_track, U_track, k_new, N)
-        prob_k = dataclasses.replace(
-            prob_mpc, cost=retarget_tracking(prob_mpc.cost, Xw, Uw), x0=x0)
-        if constraints_fn is not None:
-            # time-varying constraint window, cut from full-horizon stacks
-            prob_k = dataclasses.replace(prob_k,
-                                         constraints=constraints_fn(k_new))
-        return prob_k, Uw
+    ``window(k_new)`` is the host's part, which depends on the Python step
+    index: the tracking window (Xw, Uw) and the constraint window (None:
+    ``prob_mpc``'s blocks). The rest is a function of tensors alone:
+    ``start_from(carry, noise_i, Xw, Uw, cons)`` propagates the carry and
+    returns (the window's problem, the solver's initial state, x0_new);
+    ``finish(prob_k, state, x0_new)`` returns (the next carry,
+    MPCResults)."""
 
-    def start(carry, noise_i, k: int):
+    def __init__(self, prob_mpc: Problem, opts: SolverOptions, X_track,
+                 U_track, noise_model, constraints_fn, warm_start: str):
+        if warm_start not in ("shift", "track"):
+            raise ValueError(f"warm_start must be 'shift' or 'track', got "
+                             f"{warm_start!r}")
+        self.prob_mpc, self.opts = prob_mpc, opts
+        self.X_track, self.U_track = X_track, U_track
+        self.noise_model, self.constraints_fn = noise_model, constraints_fn
+        self.warm_start = warm_start
+        self.xws = _xws_corrector(prob_mpc.dynamics)
+
+    def window(self, k_new: int):
+        Xw, Uw = track_window(self.X_track, self.U_track, k_new,
+                              self.prob_mpc.N)
+        # time-varying constraint window, cut from full-horizon stacks
+        cons = (None if self.constraints_fn is None
+                else tuple(self.constraints_fn(k_new)))
+        return Xw, Uw, cons
+
+    def prob_from(self, Xw, Uw, cons, x0) -> Problem:
+        pm = self.prob_mpc
+        return dataclasses.replace(
+            pm, cost=retarget_tracking(pm.cost, Xw, Uw), x0=x0,
+            constraints=pm.constraints if cons is None else cons)
+
+    def prob_at(self, k_new: int, x0):
+        Xw, Uw, cons = self.window(k_new)
+        return self.prob_from(Xw, Uw, cons, x0), Uw
+
+    def start_from(self, carry, noise_i, Xw, Uw, cons):
         x0, X, U, duals = carry
-        x0_new = noise_model(dyn.step(x0, U[:, 0], 0), noise_i)
-        prob_k, Uw = prob_at(k + 1, x0_new)
-        if warm_start == "shift":
+        x0_new = self.noise_model(
+            self.prob_mpc.dynamics.step(x0, U[:, 0], 0), noise_i)
+        prob_k = self.prob_from(Xw, Uw, cons, x0_new)
+        if self.warm_start == "shift":
             U_ws = shift_fill(U)
-            X_ws = None if xws is None else xws(X, U_ws, x0_new)
+            X_ws = None if self.xws is None else self.xws(X, U_ws, x0_new)
         else:
             U_ws = Uw.expand(U.shape).contiguous()
             X_ws = None
         duals_ws = tuple(d.shift() for d in duals)
-        return (prob_k, _warmstart_state(prob_k, opts, U_ws, duals_ws, X_ws),
+        return (prob_k,
+                _warmstart_state(prob_k, self.opts, U_ws, duals_ws, X_ws),
                 x0_new)
 
-    def finish(prob_k, state, x0_new):
+    def start(self, carry, noise_i, k: int):
+        return self.start_from(carry, noise_i, *self.window(k + 1))
+
+    def finish(self, prob_k, state, x0_new):
         sol = _finalize(prob_k, state)
         out = MPCResults(X=sol.X, U=sol.U, iters=sol.stats.iterations,
                          status=sol.stats.status, viol=sol.stats.viol,
                          x0=x0_new)
         return (x0_new, sol.X, sol.U, sol.duals), out
 
-    def init_carry(batch: int):
+    def init_carry(self, batch: int, graphed: bool, check_every: int):
         """Cold batched solve of the first window from X_track[0]."""
-        x0 = prob_mpc.x0.expand(batch, prob_mpc.n).contiguous()
-        sol0 = solve(dataclasses.replace(prob_mpc, x0=x0), opts)
+        pm = self.prob_mpc
+        x0 = pm.x0.expand(batch, pm.n).contiguous()
+        sol0 = graph.solve(dataclasses.replace(pm, x0=x0), self.opts,
+                           graphed=graphed, check_every=check_every)
         return (x0, sol0.X, sol0.U, sol0.duals)
 
-    return prob_at, start, finish, init_carry
+
+def _gather_fn(parent: LoopGraph, child: LoopGraph, blk: int):
+    """Gather the ``blk`` unconverged-first lanes of ``parent``'s state (a
+    stable argsort of the done flags) into ``child``'s; returns the lane
+    index."""
+    def gather():
+        take = torch.argsort(parent.state[10].to(torch.int32),
+                             stable=True)[:blk]
+        child.load(state=_state_map(lambda a: a[take], parent.state))
+        return take
+    return gather
+
+
+def _scatter_fn(parent: LoopGraph, child: LoopGraph, gather: Replayable):
+    """Scatter ``child``'s state back into the lanes of ``parent``'s that
+    ``gather`` took, in place."""
+    def scatter():
+        for a, b in zip(tensors(parent.state), tensors(child.state)):
+            a.index_copy_(0, gather.out, b)
+    return scatter
+
+
+class _GraphedStep:
+    """An MPC step factory's graphs, one set per batch size, sharing one
+    CUDA graph memory pool: the start graph, one loop graph per level batch
+    of the compaction schedule ``sched`` (``((it_cap, block), (extra_cap,
+    sub_block), ...)``; empty for the plain step) with a gather and a
+    scatter graph between two levels, and the finish graph. The host copies
+    each step's carry, noise row, tracking window and (with
+    ``constraints_fn``) constraint window into the start graph's input
+    buffers, replays start, each loop graph until no lane is live (one host
+    sync per k passes, every catch-all one replay and one sync), and
+    finish, and returns clones of the finish graph's results.
+
+    Called as ``step(carry, noise_i, k)``. ``loop_replays`` counts the loop
+    graphs' replays and ``capture_s`` the host seconds spent capturing."""
+
+    def __init__(self, pieces: _StepPieces, opts: SolverOptions, sched,
+                 check_every: int):
+        self.pieces, self.opts = pieces, opts
+        self.sched, self.check_every = tuple(sched), check_every
+        self.sets, self.resumes = {}, {}
+        self.pool = None
+        self.loop_replays = 0
+        self.capture_s = 0.0
+
+    def _pool(self, device):
+        if device.type == "cuda" and self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        return self.pool
+
+    def _graphs(self, inputs):
+        batch = inputs[0][0].shape[0]
+        if batch not in self.sets:
+            self.sets[batch] = self._build(inputs)
+        return self.sets[batch]
+
+    @torch.no_grad()
+    @graph.capturing()
+    def _build(self, inputs):
+        t0 = time.perf_counter()
+        dev = inputs[0][0].device
+        pool = self._pool(dev)
+        ins = clone_tree(inputs)
+        with graph.uncounted():
+            prob_k, s0, _ = self.pieces.start_from(*ins)
+        # the loop graphs' buffers first; then every graph captured in the
+        # order of its first replay (start, level 0's loop, gather, level
+        # 1's loop, ..., the scatters from the innermost out, finish), so
+        # that a result one graph hands to another (x0_new, the gathered
+        # lane index) lives where no graph captured before it computes
+        loops = [LoopGraph(prob_k, self.opts, s0,
+                           check_every=self.check_every, pool=pool,
+                           capture=False)]
+        for _, block in self.sched:
+            blk = min(block, loops[-1].state[0].shape[0])
+            loops.append(LoopGraph(
+                None, self.opts,
+                _state_map(lambda a: a[:blk], loops[-1].state),
+                check_every=self.check_every, pool=pool, share=loops[-1],
+                capture=False))
+
+        def start_fn():
+            p, s, x0_new = self.pieces.start_from(*ins)
+            loops[0].load(p, s)
+            return x0_new
+
+        start = Replayable(start_fn, dev, pool)
+        loops[0].capture()
+        gathers = []
+        for parent, child in zip(loops, loops[1:]):
+            gathers.append(Replayable(
+                _gather_fn(parent, child, child.state[0].shape[0]), dev,
+                pool))
+            child.capture()
+        scatters = [None] * len(gathers)
+        for lvl in reversed(range(len(gathers))):
+            scatters[lvl] = Replayable(_scatter_fn(
+                loops[lvl], loops[lvl + 1], gathers[lvl]), dev, pool)
+        finish = Replayable(lambda: self.pieces.finish(
+            loops[0].prob, loops[0].state, start.out), dev, pool)
+        self.capture_s += time.perf_counter() - t0
+        return SimpleNamespace(inputs=ins, start=start, loops=loops,
+                               gathers=gathers, scatters=scatters,
+                               finish=finish)
+
+    def _run(self, loop: LoopGraph, it_cap) -> None:
+        loop.set_cap(it_cap)
+        self.loop_replays += loop.run()
+
+    def _compact(self, g, lvl: int, cum: int) -> None:
+        # the level's batch has run to the absolute cap `cum`: gather its
+        # block of stragglers, finish them (through the deeper levels),
+        # scatter them back, then catch-all to completion
+        g.gathers[lvl].replay()
+        if lvl + 1 < len(self.sched):
+            extra = self.sched[lvl + 1][0]
+            self._run(g.loops[lvl + 1], cum + extra)
+            self._compact(g, lvl + 1, cum + extra)
+        else:
+            self._run(g.loops[lvl + 1], None)
+        g.scatters[lvl].replay()
+        self._run(g.loops[lvl], None)
+
+    def _start(self, carry, noise_i, k: int):
+        inputs = (carry, noise_i) + self.pieces.window(k + 1)
+        g = self._graphs(inputs)
+        copy_into(g.inputs, inputs, "step inputs")
+        g.start.replay()
+        return g
+
+    @torch.no_grad()
+    def __call__(self, carry, noise_i, k: int):
+        g = self._start(carry, noise_i, k)
+        if self.sched:
+            self._run(g.loops[0], self.sched[0][0])
+            self._compact(g, 0, self.sched[0][0])
+        else:
+            self._run(g.loops[0], None)
+        g.finish.replay()
+        return clone_tree(g.finish.out)
+
+    @torch.no_grad()
+    def partial(self, carry, noise_i, k: int, it_cap: int):
+        g = self._start(carry, noise_i, k)
+        self._run(g.loops[0], it_cap)
+        return clone_tree(g.loops[0].state), clone_tree(g.start.out)
+
+    @torch.no_grad()
+    def resume(self, state, k: int, it_cap=None):
+        prob_k, _ = self.pieces.prob_at(k + 1, self.pieces.prob_mpc.x0)
+        batch = state[0].shape[0]
+        if batch not in self.resumes:
+            t0 = time.perf_counter()
+            self.resumes[batch] = LoopGraph(
+                prob_k, self.opts, state, check_every=self.check_every,
+                pool=self._pool(state[0].device))
+            self.capture_s += time.perf_counter() - t0
+        loop = self.resumes[batch]
+        loop.load(prob_k, state)
+        self._run(loop, it_cap)
+        return clone_tree(loop.state)
 
 
 def make_mpc_step(prob_mpc: Problem, opts: SolverOptions, X_track, U_track,
                   noise_model=default_noise_model, constraints_fn=None,
-                  shared_k: bool = True, warm_start: str = "shift"):
+                  shared_k: bool = True, warm_start: str = "shift",
+                  graphed: Optional[bool] = None, check_every: int = 1):
     """Build the batched warm-started MPC step
     ``step(carry, noise [B, n], k) -> (carry, MPCResults)`` and
     ``init_carry(batch) -> carry`` with carry = (x0, X, U, duals), all
@@ -205,17 +401,32 @@ def make_mpc_step(prob_mpc: Problem, opts: SolverOptions, X_track, U_track,
     one knot, duals shifted, states seam-corrected by
     :func:`_xws_corrector`); "track" seeds every solve from the tracking
     window's controls, with no states (the solve runs its init rollout),
-    while the duals still shift (``opts.reset_duals`` then zeroes them)."""
+    while the duals still shift (``opts.reset_duals`` then zeroes them).
+
+    ``graphed`` (None: on a CUDA device): the step runs as CUDA graphs,
+    captured at its first call for each batch size (start, loop, finish;
+    ``solver/graph.py``; on the CPU the same route over fixed buffers,
+    without capture), and ``init_carry``'s cold solve as a
+    ``graph.GraphedSolve``; else the host-driven loop. ``check_every``:
+    body passes between two tests of the live mask."""
     if not shared_k:
         raise NotImplementedError("only shared_k=True is ported")
-    _, start, finish, init_carry = _step_pieces(
-        prob_mpc, opts, X_track, U_track, noise_model, constraints_fn,
-        warm_start)
+    pieces = _StepPieces(prob_mpc, opts, X_track, U_track, noise_model,
+                         constraints_fn, warm_start)
+    graphed = graph.use_graphs(graphed, prob_mpc.x0.device)
+
+    def init_carry(batch: int):
+        return pieces.init_carry(batch, graphed, check_every)
+
+    if graphed:
+        return _GraphedStep(pieces, opts, (), check_every), init_carry
 
     @torch.no_grad()
     def step(carry, noise_i, k: int):
-        prob_k, state, x0_new = start(carry, noise_i, k)
-        return finish(prob_k, _flat_while(prob_k, opts, state), x0_new)
+        prob_k, state, x0_new = pieces.start(carry, noise_i, k)
+        return pieces.finish(prob_k, _flat_while(prob_k, opts, state,
+                                                 check_every=check_every),
+                             x0_new)
 
     return step, init_carry
 
@@ -224,7 +435,9 @@ def make_mpc_step_compacted(prob_mpc: Problem, opts: SolverOptions,
                             X_track, U_track,
                             noise_model=default_noise_model,
                             constraints_fn=None, it_cap: int = 24,
-                            warm_start: str = "shift"):
+                            warm_start: str = "shift",
+                            graphed: Optional[bool] = None,
+                            check_every: int = 1):
     """The batched MPC step in three pieces, for straggler compaction:
 
     ``partial(carry, noise_i, k) -> (state, x0_new)``
@@ -238,24 +451,37 @@ def make_mpc_step_compacted(prob_mpc: Problem, opts: SolverOptions,
         the next carry and the step's records.
 
     With ``init_carry(batch)`` as :func:`make_mpc_step`'s. ``prob.x0`` is
-    not read on resume: the state carries the trajectory."""
-    prob_at, start, finish, init_carry = _step_pieces(
-        prob_mpc, opts, X_track, U_track, noise_model, constraints_fn,
-        warm_start)
+    not read on resume: the state carries the trajectory. ``graphed`` and
+    ``check_every`` as in :func:`make_mpc_step`: graphed, ``partial`` is
+    the start and loop graphs of the state's batch and ``resume`` a loop
+    graph per batch size, into which it copies the window's problem and
+    the state."""
+    pieces = _StepPieces(prob_mpc, opts, X_track, U_track, noise_model,
+                         constraints_fn, warm_start)
+    graphed = graph.use_graphs(graphed, prob_mpc.x0.device)
+    runner = _GraphedStep(pieces, opts, (), check_every) if graphed else None
 
     @torch.no_grad()
     def partial(carry, noise_i, k: int):
-        prob_k, state, x0_new = start(carry, noise_i, k)
-        return _flat_while(prob_k, opts, state, it_cap), x0_new
+        if runner is not None:
+            return runner.partial(carry, noise_i, k, it_cap)
+        prob_k, state, x0_new = pieces.start(carry, noise_i, k)
+        return _flat_while(prob_k, opts, state, it_cap,
+                           check_every), x0_new
 
     @torch.no_grad()
     def resume(state, k: int, it_cap=None):
-        prob_k, _ = prob_at(k + 1, prob_mpc.x0)
-        return _flat_while(prob_k, opts, state, it_cap)
+        if runner is not None:
+            return runner.resume(state, k, it_cap)
+        prob_k, _ = pieces.prob_at(k + 1, prob_mpc.x0)
+        return _flat_while(prob_k, opts, state, it_cap, check_every)
 
     def extract(state, x0_new, k: int):
-        prob_k, _ = prob_at(k + 1, prob_mpc.x0)
-        return finish(prob_k, state, x0_new)
+        prob_k, _ = pieces.prob_at(k + 1, prob_mpc.x0)
+        return pieces.finish(prob_k, state, x0_new)
+
+    def init_carry(batch: int):
+        return pieces.init_carry(batch, graphed, check_every)
 
     return partial, resume, extract, init_carry
 
@@ -278,7 +504,9 @@ def make_mpc_step_device_compacted(prob_mpc: Problem, opts: SolverOptions,
                                    noise_model=default_noise_model,
                                    constraints_fn=None, it_cap: int = 24,
                                    block: int = 128, levels: tuple = (),
-                                   warm_start: str = "shift"):
+                                   warm_start: str = "shift",
+                                   graphed: Optional[bool] = None,
+                                   check_every: int = 1):
     """The batched MPC step with straggler compaction on the device:
 
     run every lane to ``it_cap`` iterations, gather the ``block``
@@ -293,14 +521,26 @@ def make_mpc_step_device_compacted(prob_mpc: Problem, opts: SolverOptions,
     stage runs to completion, and every stage ends with its own catch-all.
 
     A lane's iterates are the plain step's whatever the schedule. Returns
-    ``(step, init_carry)`` with the signatures of :func:`make_mpc_step`."""
+    ``(step, init_carry)`` with the signatures of :func:`make_mpc_step`;
+    ``graphed`` and ``check_every`` as there (graphed, each level's batch
+    has a loop graph of its own, and the gathers and scatters between
+    levels are graphs too)."""
     if prob_mpc.dynamics.per_lane:
         raise NotImplementedError("compaction gathers the solver state "
                                   "only, not per-lane dynamics stacks")
-    _, start, finish, init_carry = _step_pieces(
-        prob_mpc, opts, X_track, U_track, noise_model, constraints_fn,
-        warm_start)
+    pieces = _StepPieces(prob_mpc, opts, X_track, U_track, noise_model,
+                         constraints_fn, warm_start)
     sched = ((it_cap, block),) + tuple(levels)
+    graphed = graph.use_graphs(graphed, prob_mpc.x0.device)
+
+    def init_carry(batch: int):
+        return pieces.init_carry(batch, graphed, check_every)
+
+    if graphed:
+        return _GraphedStep(pieces, opts, sched, check_every), init_carry
+
+    def flat_while(prob_k, state, cap=None):
+        return _flat_while(prob_k, opts, state, cap, check_every)
 
     def compact(prob_k, states, lvl: int, cum: int):
         # `states` has run to the absolute iteration cap `cum`: gather this
@@ -312,18 +552,19 @@ def make_mpc_step_device_compacted(prob_mpc: Problem, opts: SolverOptions,
         sub = _state_map(lambda a: a[take], states)
         if lvl + 1 < len(sched):
             extra = sched[lvl + 1][0]
-            sub = _flat_while(prob_k, opts, sub, cum + extra)
+            sub = flat_while(prob_k, sub, cum + extra)
             sub = compact(prob_k, sub, lvl + 1, cum + extra)
         else:
-            sub = _flat_while(prob_k, opts, sub)
+            sub = flat_while(prob_k, sub)
         states = _state_map(lambda a, b: a.index_copy(0, take, b), states,
                             sub)
-        return _flat_while(prob_k, opts, states)
+        return flat_while(prob_k, states)
 
     @torch.no_grad()
     def step(carry, noise_i, k: int):
-        prob_k, state, x0_new = start(carry, noise_i, k)
-        state = _flat_while(prob_k, opts, state, it_cap)
-        return finish(prob_k, compact(prob_k, state, 0, it_cap), x0_new)
+        prob_k, state, x0_new = pieces.start(carry, noise_i, k)
+        state = flat_while(prob_k, state, it_cap)
+        return pieces.finish(prob_k, compact(prob_k, state, 0, it_cap),
+                             x0_new)
 
     return step, init_carry

@@ -24,15 +24,18 @@ stacks are shared or per scenario. Each iteration runs
 - the AL round bookkeeping (dual update by polar-cone projection, penalty
   scaling, violation check) inline under a per-lane mask.
 
-Loop control: a host ``while`` over one flat AL + iLQR loop. Each pass
-computes the per-lane ``live`` mask, stops when no lane is live (one host
-sync per iteration) and applies the body under ``torch.where(live, new,
-old)``, so a lane freezes as soon as its own condition is false, as under
-``vmap`` of the JAX ``lax.while_loop``. The loop may stop at an absolute
-iteration cap and resume from its state (:func:`solve_partial`,
-:func:`solve_resume`): a lane's iterates do not depend on where the loop
-paused or on which other lanes share its batch, which straggler compaction
-(``mpc.make_mpc_step_device_compacted``) relies on.
+Loop control: one flat AL + iLQR loop. Each pass computes the per-lane
+``live`` mask and applies the body under ``torch.where(live, new, old)``,
+so a lane freezes as soon as its own condition is false, as under ``vmap``
+of the JAX ``lax.while_loop``; passes past a lane's end change nothing, so
+the loop may test whether any lane is live once every k passes. Here the
+test is a host ``while`` (:func:`_flat_while`, one host sync per k
+passes); ``solver/graph.py`` replays k passes as a CUDA graph. The loop may
+stop at an absolute iteration cap and resume from its state
+(:func:`solve_partial`, :func:`solve_resume`): a lane's iterates do not
+depend on where the loop paused or on which other lanes share its batch,
+which straggler compaction (``mpc.make_mpc_step_device_compacted``) relies
+on.
 """
 from __future__ import annotations
 
@@ -44,7 +47,7 @@ import torch
 
 from ..cones import project_polar, violation
 from ..constraints import DualState, al_terms_structured
-from ..ops.blocks import pack_blocks
+from ..ops.blocks import PackedBlocks, pack_blocks
 from ..ops.riccati import batched_riccati
 from ..ops.riccati_fused import fused_expand_backward
 from ..ops.rollout import batched_ls_rollout
@@ -55,7 +58,12 @@ from .options import SolverOptions
 # Loop-body passes since the last reset, whatever the batch they ran on: with
 # straggler compaction a step's passes are no longer its lanes' largest
 # iteration count, and the kernels of a pass launch once per body pass.
+# Passes checked every k (``check_every``) include the frozen ones past the
+# last lane's end.
 pass_count = 0
+# Entries into the host-driven loop (:func:`_flat_while`) since the last
+# reset: a run on CUDA graphs (solver/graph.py) never enters it.
+eager_loop_count = 0
 
 
 @dataclass
@@ -328,13 +336,20 @@ def _warmstart_state(prob: Problem, opts: SolverOptions,
 
 
 def _flat_while(prob: Problem, opts: SolverOptions, s,
-                it_cap: Optional[int] = None):
+                it_cap: Optional[int] = None, check_every: int = 1):
     """The flat AL + iLQR loop from state ``s``, driven from the host until
     no lane is live (or every live lane has reached the absolute iteration
-    count ``it_cap``)."""
-    cond, body = loop_fns(prob, opts, s, it_cap)
+    count ``it_cap``), with ``check_every`` body passes between two tests of
+    the live mask (the passes past the last lane's end are frozen
+    no-ops)."""
+    global eager_loop_count
+    if check_every < 1:
+        raise ValueError(f"check_every must be >= 1, got {check_every}")
+    eager_loop_count += 1
+    _, cond, body = loop_fns(prob, opts, s, it_cap)
     while bool(cond(s).any()):
-        s = body(s)
+        for _ in range(check_every):
+            s = body(s)
     return s
 
 
@@ -364,31 +379,62 @@ def _ladder_choice(Jts, alphas, dV1, dV2, ls_min_ratio):
     return idx, oks.any(dim=-1), expected, ratio
 
 
-def loop_fns(prob: Problem, opts: SolverOptions, s0,
-             it_cap: Optional[int] = None):
-    """(cond, body) of the flat AL + iLQR loop for the batch of state
-    ``s0``: ``cond(s)`` is the per-lane live mask [B] and ``body(s)`` one
-    pass, which freezes every lane whose own ``cond`` is false, so passes
-    beyond a lane's end change nothing. ``it_cap``: lanes stop being live at
-    that absolute iteration count. The batch's lane index and packed
-    constraint stacks are built from ``s0``, so a gathered block of lanes
-    runs the kernels at its own batch size."""
-    X_0 = s0[0]
-    lanes = torch.arange(X_0.shape[0], device=X_0.device)
-    dyn = prob.dynamics
-    # the alpha ladder plus the trailing alpha = 0 rung, whose rollout
-    # reproduces the current trajectory: Jts[:, -1] is the current AL cost
+@dataclass
+class LoopContext:
+    """What the loop body reads besides the problem and the state, built
+    once per loop entry: the lane index [B], the line-search ladder (as
+    floats, which the kernels take by value, and as a tensor) and, on the
+    kernels' route with shared dynamics, the constraint stacks packed for
+    them."""
+
+    lanes: torch.Tensor
+    alphas_t: Tuple[float, ...]
+    alphas: torch.Tensor
+    packed: Optional[PackedBlocks]
+
+
+def loop_context(prob: Problem, opts: SolverOptions,
+                 X_0: torch.Tensor) -> LoopContext:
+    """The loop's per-entry host work for a batch shaped as ``X_0``
+    [B, N, n]: the lane index, the alpha ladder plus the trailing alpha = 0
+    rung (whose rollout reproduces the current trajectory: Jts[:, -1] is the
+    current AL cost) and the fused kernels' row-concatenated constraint
+    stacks (per-lane dynamics take the unfused route, which reads none)."""
     alphas_t = tuple(opts.ls_decrease ** i
                      for i in range(opts.iterations_linesearch)) + (0.0,)
-    alphas = torch.tensor(alphas_t, dtype=X_0.dtype, device=X_0.device)
+    packed = (pack_blocks(prob.constraints, prob.N, prob.n, prob.m, X_0)
+              if X_0.device.type == "cuda" and not prob.dynamics.per_lane
+              else None)
+    return LoopContext(
+        lanes=torch.arange(X_0.shape[0], device=X_0.device),
+        alphas_t=alphas_t,
+        alphas=torch.tensor(alphas_t, dtype=X_0.dtype, device=X_0.device),
+        packed=packed)
+
+
+def loop_fns(prob: Problem, opts: SolverOptions, s0, it_cap=None,
+             ctx: Optional[LoopContext] = None):
+    """(ctx, cond, body) of the flat AL + iLQR loop for the batch of state
+    ``s0``: ``ctx`` is the loop's :class:`LoopContext` (built from ``s0``
+    unless given), ``cond(s)`` the per-lane live mask [B] and ``body(s)``
+    one pass, which freezes every lane whose own ``cond`` is false, so
+    passes beyond a lane's end change nothing. ``it_cap``: lanes stop being
+    live at that absolute iteration count (an int, or a 0-d int32 tensor on
+    the batch's device, read at every pass). ``body`` reads nothing but the
+    tensors of ``prob``, ``ctx``, ``it_cap`` and its state and makes no host
+    sync, so it can be captured in a CUDA graph (solver/graph.py); a
+    gathered block of lanes runs the kernels at its own batch size."""
+    X_0 = s0[0]
+    if ctx is None:
+        ctx = loop_context(prob, opts, X_0)
+    lanes, alphas_t, alphas = ctx.lanes, ctx.alphas_t, ctx.alphas
+    packed = ctx.packed
+    dyn = prob.dynamics
     fused_ladder = _uses_fused_ladder(opts, prob, X_0)
     # per-lane dynamics take the unfused route: expansion in PyTorch, then
     # the Riccati pass; the line search's fused branch then runs the ladder
     # rollout and the merit in PyTorch
     per_lane = dyn.per_lane
-    # the fused kernels' row-concatenated constraint stacks, once per solve
-    packed = (pack_blocks(prob.constraints, prob.N, prob.n, prob.m, X_0)
-              if X_0.device.type == "cuda" and not per_lane else None)
 
     def round_end_update(cs, cts, duals, lam_ok):
         """AL round bookkeeping from the adopted trajectory's residuals (cs)
@@ -531,7 +577,7 @@ def loop_fns(prob: Problem, opts: SolverOptions, s0,
         # outer-round cap without convergence, or the iteration cap)
         return _where_tree(cond(s), out, s)
 
-    return cond, body
+    return ctx, cond, body
 
 
 def _finalize(prob: Problem, s) -> Solution:

@@ -31,8 +31,12 @@ Phases, each printing its findings; any failure raises (non-zero exit):
       rows in 4 blocks) and on the cold problem (N=61, a goal ZERO block
       in front: 19 rows in 5), and the fused ladder + merit on the window
       at L=3 (J and the accepted rung as in b);
-4. main paths, each with the launch counters and the solver-loop pass
-   counter reset just before and read just after:
+4. main paths, each on CUDA graphs (``altro_tpu_torch/solver/graph.py``:
+   every MPC step, batch solve and cold solve as start, loop and finish
+   graphs, the loop replayed with one host sync per k passes), with the
+   launch counters, the solver-loop pass counter (both counted per replay)
+   and the counter of entries into the host-driven loop reset just before
+   and read just after (gate: no entry over 4a-4e):
    a. the flagship MPC benchmark (B=1024, T=20, float32): success,
       violation and counter gates;
    b. the rocket MPC benchmark in its shipped straggler-compaction schedule
@@ -52,6 +56,13 @@ Phases, each printing its findings; any failure raises (non-zero exit):
       success >= 0.999, violation of the succeeded solves <= 1e-4, B and C
       once per counted pass, A once per cold solve, D never (run before d,
       which compares on its setup);
+   f. graphed against eager on the card, every run from one carry: the
+      flagship (B=1024, 10 steps), the rocket and grasp in their shipped
+      schedules (5 steps), the quadruped (2 rounds in each friction mode)
+      (gate: equal status and iterations on every lane-step; max|dU| and
+      the bit-equality of X, U and the duals printed, and per path the step
+      ms p50 of both forms, passes and replays per step and the capture
+      seconds);
 5. agreement of the float32 kernel path on the card with the float64 plain
    path on the CPU:
    a. flagship, the same 64 lanes for 10 steps (gate: equal status,
@@ -108,6 +119,9 @@ GRASP_GATE_BIAS, GRASP_GATE_P99 = 1e-3, 1e-2
 COMPARE_B, COMPARE_T = 1024, 5
 QUAD_B, QUAD_ROUNDS, QUAD_AGREE_B = 1024, 5, 64
 QUAD_GATE_BIAS, QUAD_GATE_P99 = 1e-4, 1e-3
+# graphed-against-eager comparison: flagship steps, conic steps, quadruped
+# rounds per friction mode
+FORMS_FLAG_T, FORMS_CONIC_T, FORMS_QUAD_ROUNDS = 10, 5, 2
 
 
 def errors(got, ref, names, tol: float) -> dict:
@@ -407,6 +421,118 @@ def compacted_against_plain(su):
                              f"plain one on {differ} lane-steps")
 
 
+def _timed(fn):
+    """(fn(), host ms of fn up to a device synchronise)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _compare(label, g_runs, e_runs, card, stats):
+    """Gate and print one path's graphed-against-eager comparison.
+    ``g_runs``/``e_runs``: per lane-step group, (trees, status, iters, U)
+    of the graphed and the eager form; ``stats``: per form, (step ms list,
+    passes, replays, steps, capture s)."""
+    differ, dU, bit_equal = 0, 0.0, True
+    for (gt, gs, gi, gU), (et, es, ei, eU) in zip(g_runs, e_runs):
+        differ += int(((gs != es) | (gi != ei)).sum())
+        dU = max(dU, float((gU - eU).abs().max()))
+        bit_equal &= all(torch.equal(a, b) for a, b in
+                         zip(graph_tensors(gt), graph_tensors(et)))
+    line = []
+    for form, (ms, passes, replays, steps, cap_s) in stats.items():
+        line.append(f"{form}: step ms p50 {float(np.median(ms)):.3f}, "
+                    f"passes/step {passes / steps:.2f}, replays/step "
+                    f"{replays / steps:.2f}, capture {cap_s:.3f} s")
+    print(f"graphed vs eager [{label}] [{card}]: status or iterations "
+          f"differ on {differ} lane-steps; max|dU| {dU:.3e}; bit-equal X, "
+          f"U, duals: {bit_equal}; " + "; ".join(line))
+    if differ:
+        raise AssertionError(f"{label}: graphed and eager differ on "
+                             f"{differ} lane-steps")
+
+
+def graph_tensors(tree):
+    from altro_tpu_torch.solver.graph import tensors
+    return tensors(tree)
+
+
+def graphed_against_eager(card, su32, gsu32):
+    """Phase 4f: every path graphed and eager on the card from one carry
+    (or the same initial states): equal status and iterations on every
+    lane-step."""
+    from altro_tpu_torch.bench.conic import SCHEDULES, make_step
+    from altro_tpu_torch.bench.families import quadruped_setup
+    from altro_tpu_torch.bench.flagship import flagship_setup
+    from altro_tpu_torch.mpc import make_mpc_step
+    from altro_tpu_torch.solver import altro, graph
+
+    def steps_of(step, carry, noise, T):
+        runs, ms = [], []
+        p0, r0 = altro.pass_count, getattr(step, "loop_replays", 0)
+        for t in range(T):
+            (carry, out), t_ms = _timed(lambda: step(carry, noise[t], t))
+            runs.append(((carry[1], carry[2], carry[3]), out.status,
+                         out.iters, out.U))
+            ms.append(t_ms)
+        return runs, (ms, altro.pass_count - p0,
+                      getattr(step, "loop_replays", 0) - r0, T,
+                      getattr(step, "capture_s", 0.0))
+
+    def compare_steps(label, make, carry, noise, T):
+        runs, stats = {}, {}
+        for form in ("graphed", "eager"):
+            step, _ = make(form == "graphed")
+            step(carry, noise[0], 0)                       # capture, warm
+            runs[form], stats[form] = steps_of(step, carry, noise, T)
+        _compare(label, runs["graphed"], runs["eager"], card, stats)
+
+    su = flagship_setup(FLAG_B, FORMS_FLAG_T, device="cuda")
+    make = (lambda g: make_mpc_step(su.prob_mpc, su.opts, su.X_track,
+                                    su.U_track, graphed=g))
+    compare_steps("flagship", make, make(False)[1](FLAG_B), su.noise,
+                  FORMS_FLAG_T)
+    for csu in (su32, gsu32):
+        cap, block, levels = SCHEDULES[csu.family]
+        noise = torch.as_tensor(np.random.default_rng(csu.noise_seed)
+                                .standard_normal((FORMS_CONIC_T, COMPARE_B,
+                                                  6)),
+                                dtype=torch.float32, device="cuda")
+        make = (lambda g, c=csu, cap=cap, block=block, levels=levels:
+                make_step(c, cap, block, levels, graphed=g))
+        compare_steps(f"{csu.family} compacted", make,
+                      make(False)[1](COMPARE_B), noise, FORMS_CONIC_T)
+    for lin in (True, False):
+        qsu = quadruped_setup(QUAD_B, lin, torch.float32, "cuda")
+        x0s = [qsu.draw_x0().to("cuda", torch.float32)
+               for _ in range(FORMS_QUAD_ROUNDS)]
+        gs = graph.GraphedSolve(qsu.prob, qsu.opts)
+        gs(x0s[0], qsu.U0)                                 # capture, warm
+        runs, stats = {}, {}
+        for form in ("graphed", "eager"):
+            ms, rows = [], []
+            p0, r0 = altro.pass_count, gs.replays
+            for x0 in x0s:
+                if form == "graphed":
+                    sol, t_ms = _timed(lambda: gs(x0, qsu.U0))
+                else:
+                    sol, t_ms = _timed(lambda: altro.solve(
+                        dataclasses.replace(qsu.prob, x0=x0), qsu.opts,
+                        U0=qsu.U0))
+                rows.append(((sol.X, sol.U, sol.duals), sol.stats.status,
+                             sol.stats.iterations, sol.U))
+                ms.append(t_ms)
+            runs[form] = rows
+            stats[form] = (ms, altro.pass_count - p0,
+                           (gs.replays - r0) if form == "graphed" else 0,
+                           len(x0s), gs.capture_s if form == "graphed"
+                           else 0.0)
+        _compare(f"quadruped {'qp' if lin else 'socp'}", runs["graphed"],
+                 runs["eager"], card, stats)
+
+
 def main() -> None:
     # ---- 1. device
     if not torch.cuda.is_available():
@@ -463,6 +589,7 @@ def main() -> None:
         rollout_al.launch_count = 0
         riccati.launch_count = 0
         altro.pass_count = 0
+        altro.eager_loop_count = 0
 
     def read_counts():
         return {"batched_ls_rollout": rollout.launch_count,
@@ -473,18 +600,24 @@ def main() -> None:
     # Each main path's launches are gated against the solver-loop body
     # passes counted in the same window (solver.altro.pass_count): B and D
     # launch once per pass, A and C once per pass of the paths that take
-    # them, A once more per solve that starts without states.
+    # them, A once more per solve that starts without states. The main
+    # paths run on CUDA graphs, whose replays add to both counters, and
+    # never enter the host-driven loop (solver.altro.eager_loop_count).
+    eager_entries = 0
 
     # ---- 4a. main path: flagship
     reset_counts()
     res = run_flagship(B=FLAG_B, T=FLAG_T, device="cuda")
     launches, passes = read_counts(), altro.pass_count
+    eager_entries += altro.eager_loop_count
     print(f"main path [{card}]: solves/s={res['solves_per_s']:.1f} "
           f"step_ms p50={res['step_ms_p50']:.3f} p99={res['step_ms_p99']:.3f} "
           f"mean_iters={res['mean_iters']:.3f} success_rate="
           f"{res['success_rate']:.4f} max_viol={res['max_viol']:.3e} "
           f"walls_s={['%.4f' % w for w in res['wall_s']]} "
-          f"loop_iterations={res['loop_iterations']} passes={passes} "
+          f"lane_max_iters={res['lane_max_iters']} passes={passes} "
+          f"graph_replays={res['graph_replays']} check_every="
+          f"{res['check_every']} capture_s={res['capture_s']:.3f} "
           f"launches={launches}")
     if res["success_rate"] != 1.0 or not res["max_viol"] <= 1e-4:
         raise AssertionError(f"flagship quality: {res}")
@@ -514,7 +647,9 @@ def main() -> None:
               f"{res['success_rate']:.5f} max_viol={res['max_viol']:.3e} "
               f"max_viol_succeeded={res['max_viol_succeeded']:.3e} wall_s="
               f"{res['wall_s']:.4f} solves={res['solves']} passes={passes} "
-              f"launches={launches}")
+              f"replays_per_step={res['graph_replays_per_step']:.3f} "
+              f"check_every={res['check_every']} capture_s="
+              f"{res['capture_s']:.3f} launches={launches}")
         if not (res["success_rate"] >= 0.999
                 and res["max_viol_succeeded"] <= 1e-4):
             raise AssertionError(f"{family} quality: {res}")
@@ -537,6 +672,7 @@ def main() -> None:
                           compact_cap=cap, compact_block=block,
                           compact_levels=levels)
     rlaunches = read_counts()
+    eager_entries += altro.eager_loop_count
     conic_main_path(rres, rlaunches, altro.pass_count, rres["solves"])
 
     # ---- 4c. main path: the flat quadruped batch, both friction modes
@@ -546,6 +682,7 @@ def main() -> None:
         qres = quadruped_batched(B=QUAD_B, rounds=QUAD_ROUNDS,
                                  linearized_friction=lin, device="cuda")
         ql, qpasses = read_counts(), altro.pass_count
+        eager_entries += altro.eager_loop_count
         print(f"quadruped main path [{card}]: {json.dumps(qres)} "
               f"passes={qpasses} launches={ql}")
         if not (qres["success_rate"] == 1.0 and qres["max_viol"] <= 1e-4):
@@ -571,11 +708,21 @@ def main() -> None:
                          compact_cap=cap, compact_block=block,
                          compact_levels=levels)
     glaunches = read_counts()
+    eager_entries += altro.eager_loop_count
     conic_main_path(gres, glaunches, altro.pass_count, gres["cold_solves"])
 
     # ---- 4d. compacted against plain on the card: rocket and grasp
+    reset_counts()
     compacted_against_plain(su32)
     compacted_against_plain(gsu32)
+    eager_entries += altro.eager_loop_count
+    print(f"entries into the host-driven loop over 4a-4e: {eager_entries}")
+    if eager_entries:
+        raise AssertionError(f"the main paths entered the host-driven loop "
+                             f"{eager_entries} times")
+
+    # ---- 4f. graphed against eager on the card
+    graphed_against_eager(card, su32, gsu32)
 
     # ---- 5a. agreement: f32 kernel path on the card vs f64 plain on the CPU
     s64 = flagship_setup(AGREE_B, AGREE_T, dtype=torch.float64, device="cpu")

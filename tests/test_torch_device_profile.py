@@ -47,3 +47,13 @@ def test_grasp_window_counts_passes(compact):
 ])
 def test_kernel_names_sort_into_kinds(name, kind):
     assert dp.kind_of(name) == kind
+
+
+def test_graphed_grasp_window_counts_passes():
+    """Grasp's compacted window on the fixed-buffer route (the graphed form
+    on the CPU, B=8): the step keeps its loop graphs per level batch, and
+    every step runs at least one pass per loop entry."""
+    window = dp.conic_window("grasp", True, B=8, device="cpu", graphed=True)
+    assert window() >= 5 * dp.GRASP_STEPS
+    (levels,) = window.step.sets.values()
+    assert [loop.state[0].shape[0] for loop in levels.loops] == [8, 8, 8]
