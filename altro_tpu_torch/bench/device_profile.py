@@ -2,7 +2,8 @@
 over warm work on one card, per path.
 
     python -m altro_tpu_torch.bench.device_profile [flagship] [rocket]
-                                                   [grasp] [quadruped]
+                                                   [grasp] [flexsat]
+                                                   [quadruped]
                                                    [--forms graphed,eager]
 
 Paths (all of them when none is named), each at B=1024 in float32 and in
@@ -15,6 +16,9 @@ pass per replay) and on the host-driven loop:
   step of its shipped schedule (``bench/conic.py: SCHEDULES``): the cold
   solve of the long problem, the batched initial solve
   and one warm-up step, then windows of 3 (rocket) or 5 (grasp) warm steps;
+- flexsat, in the plain step and in the compacted step of its shipped
+  schedule (``bench/families.py: FLEXSAT_SCHEDULE``): the cold solve and
+  one warm-up step, then windows of 5 regulator steps;
 - quadruped, in both friction modes: one warm-up solve, then windows of 2
   cold batch solves, each with a fresh x0 draw.
 
@@ -27,7 +31,8 @@ device work by kind, and the device busy share: the profiled window's
 device time per pass (one stream, so kernels do not overlap) over the
 unprofiled window's wall clock per pass. The profiler's own host overhead
 stretches the profiled window's wall, which is printed beside it but is not
-the denominator. For the graphed rocket and grasp it also times each level
+the denominator. For the graphed rocket, grasp and flexsat it also times
+each level
 batch's loop graph alone (``pass_ms_by_batch``: device ms per body pass at
 1024, 256 and 128 lanes, CUDA events around 20 replays queued behind a
 sleep), and, in a compacted step, the host ms of a gather and a scatter
@@ -44,10 +49,12 @@ import time
 
 import torch
 
-from altro_tpu_torch.bench.kernels import FLAG_B, GRASP_B, QUAD_B, ROCKET_B
+from altro_tpu_torch.bench.kernels import (FLAG_B, FLEX_B, GRASP_B, QUAD_B,
+                                           ROCKET_B)
 from altro_tpu_torch.solver import altro, graph
 
-FLAG_STEPS, ROCKET_STEPS, GRASP_STEPS, QUAD_SOLVES = 10, 3, 5, 2
+FLAG_STEPS, ROCKET_STEPS, GRASP_STEPS, FLEX_STEPS, QUAD_SOLVES = (10, 3, 5,
+                                                                  5, 2)
 KINDS = (("kernel B (fused_expand_backward)", ("fused_expand_backward",)),
          ("kernel C (ls_rollout_al)", ("ls_rollout_al",)),
          ("kernel A (ls_rollout)", ("ls_rollout",)),
@@ -155,6 +162,23 @@ def conic_window(family: str, compact: bool, B: int = ROCKET_B,
     return window
 
 
+def flexsat_window(compact: bool, B: int = FLEX_B, device="cuda",
+                   graphed=None):
+    """Windows of the flexsat regulator's steps, plain or in its shipped
+    compaction schedule; the window function carries the step as
+    ``window.step``."""
+    from altro_tpu_torch.bench import families
+
+    su = families.flexsat_setup(B, 2 * FLEX_STEPS + 1, torch.float32,
+                                device)
+    sched = families.FLEXSAT_SCHEDULE if compact else (0, 256, ())
+    step, init_carry = families.flexsat_step(su, *sched, graphed=graphed)
+    carry, _ = step(init_carry(B), su.noise[0], 0)
+    window = _step_window(step, carry, su.noise, 1, FLEX_STEPS)
+    window.step = step
+    return window
+
+
 def quadruped_window(linearized_friction: bool, B: int = QUAD_B,
                      device="cuda", graphed=None):
     from altro_tpu_torch.bench.families import quadruped_setup
@@ -241,6 +265,10 @@ PATHS = {
                                                       graphed=g))
                    for label, compact in (("grasp", False),
                                           ("grasp compacted", True))),
+    "flexsat": tuple((label, FLEX_B, f"{FLEX_STEPS} warm steps", FLEX_STEPS,
+                      lambda g, c=compact: flexsat_window(c, graphed=g))
+                     for label, compact in (("flexsat", False),
+                                            ("flexsat compacted", True))),
     "quadruped": (("quadruped qp", QUAD_B, f"{QUAD_SOLVES} cold solves",
                    QUAD_SOLVES, lambda g: quadruped_window(True, graphed=g)),
                   ("quadruped socp", QUAD_B, f"{QUAD_SOLVES} cold solves",

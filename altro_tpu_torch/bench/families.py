@@ -1,8 +1,23 @@
-"""Batched quadruped trot-MPC benchmark of the port (the counterpart of
-``quadruped_setup`` and the flat per-lane layout of ``quadruped_batched`` in
-``altro_tpu/bench/batched_families.py``).
+"""Batched benchmarks of the port's remaining families (the counterpart of
+``altro_tpu/bench/batched_families.py``): the quadruped trot MPC in its flat
+per-lane layout (``quadruped_setup``, ``quadruped_batched``) and the
+flexible-satellite regulator MPC (``flexsat_setup``, ``flexsat_batched``).
 
-The instances: the Woofer trot MPC at N=15 (n = m = 12; four friction blocks
+Flexsat: the N=80 regulator (n=12, m=3, one NONPOS block of 6 control-bound
+rows; ``models/flexible_satellite.py``), one cold solve from its x0 copied
+to B scenarios, then T regulator steps (``mpc.make_regulator_step``: x0
+propagated through the first control plus 2e-4 process noise, the same
+problem re-solved from the carried controls, duals and exactly re-based
+states), in float32 with the benchmark's options (cost and constraint
+tolerance 1e-4, penalty 1e3 x 100, the exact-step stop at 1e-3, an L=5
+ladder plus the alpha=0 rung, the fused ladder + merit) and the straggler
+compaction schedule the JAX package ships (cap 8, block 256, one level
+(8, 128)). On a CUDA device every solver iteration runs the fused expansion
++ Riccati kernel (ops/riccati_fused.py) and the fused ladder + AL-merit
+kernel (ops/rollout_al.py); the cold solve runs the ladder-rollout kernel
+once for its init rollout, and the warm solves none.
+
+Quadruped: the Woofer trot MPC at N=15 (n = m = 12; four friction blocks
 and one vertical-force bound block), linearized about 8 contact schedules
 sampled across one trot cycle, B/8 lanes each, every lane with its own
 dynamics stack and an initial state x_des + noise (2 cm / 0.05 rad scale).
@@ -13,18 +28,25 @@ ladder-rollout kernel (ops/rollout.py) with the line-search merit in
 PyTorch; every solve runs the ladder-rollout kernel once more for its init
 rollout.
 
-Run as a script on a CUDA machine (both friction modes, B=1024, f32):
+Run as a script on a CUDA machine (B=1024, f32):
 
-    python -m altro_tpu_torch.bench.families [qp] [socp] [--eager]
-                                             [--check-every K]
+    python -m altro_tpu_torch.bench.families [qp] [socp] [flexsat]
+        [--flexsat-compact-cap C] [--eager] [--check-every K]
 
-It prints one JSON line per mode with the JAX package's row keys (label,
-batch, rounds, solves_per_s, success_rate, max_viol, mean_iters, iters_max,
-iters_p99, wall_s) plus the device, per-round ms, solver-loop passes,
-graph replays, capture seconds and kernel launches. Every round replays
-one ``solver.graph.GraphedSolve`` (K body passes per loop replay, 1 by
-default, the fastest of 1, 2, 4 and 8 on the card); ``--eager`` runs the
-host-driven loop instead. Knobs: BENCH_BATCH (1024), BENCH_ROUNDS (10).
+It prints one JSON line per mode (default: qp and socp) with the JAX
+package's row keys: for the quadruped label, batch, rounds, solves_per_s,
+success_rate, max_viol, mean_iters, iters_max, iters_p99, wall_s plus the
+device, per-round ms, solver-loop passes, graph replays, capture seconds
+and kernel launches; for flexsat label, batch, steps, solves_per_s,
+success_rate, max_viol, mean_iters, iters_p99, wall_s plus step ms p50 and
+p99, the steps' mean lane-max iterations, loop passes and graph replays per
+step, the cold solve, capture seconds and kernel launches. Every quadruped
+round replays one ``solver.graph.GraphedSolve`` and every flexsat step its
+graphs (K body passes per loop replay, 1 by default, the fastest of 1, 2, 4
+and 8 on the card); ``--eager`` runs the host-driven loop instead.
+``--flexsat-compact-cap``: -1 (default) the shipped schedule, 0 the plain
+step, C > 0 cap C, block 128 and no level (as the JAX benchmark reads it).
+Knobs: BENCH_BATCH (1024), BENCH_ROUNDS (10), BENCH_STEPS (45, flexsat).
 """
 from __future__ import annotations
 
@@ -41,8 +63,10 @@ import torch
 
 from ..convert import tree_to
 from ..dynamics import LTVDynamics
+from ..models import flexible_satellite as fs
 from ..models.quadruped import config, controller, planner
 from ..models.quadruped.gait import GAITS
+from ..mpc import make_regulator_step
 from ..ops import riccati, riccati_fused, rollout, rollout_al
 from ..problem import Problem
 from ..solver import altro, graph
@@ -192,28 +216,176 @@ def quadruped_batched(B: int = 1024, rounds: int = 10,
                 launches={k: after[k] - before[k] for k in after})
 
 
+# the flexible satellite's warm solves (batched_families.py:69-72): the
+# flagship's penalty schedule, the exact-step stop, an L=5 ladder plus the
+# alpha=0 rung, and the fused ladder + merit on its single block
+FLEXSAT_OPTS = dict(cost_tolerance=1e-4, constraint_tolerance=1e-4,
+                    penalty_initial=1e3, penalty_scaling=100.0,
+                    early_exact_tol=1e-3, iterations_linesearch=5,
+                    ls_fused="on")
+# the compaction schedule the JAX package ships: (it_cap, block, levels)
+FLEXSAT_SCHEDULE = (8, 256, ((8, 128),))
+FLEXSAT_NOISE_SEED = 0
+
+
+@dataclass
+class FlexsatSetup:
+    prob: Problem            # the N=80 regulator, x0 [12]
+    opts: SolverOptions
+    noise: torch.Tensor      # [T, B, 12] standard normal
+
+
+def flexsat_setup(B: int, T: int, dtype=torch.float32,
+                  device="cuda") -> FlexsatSetup:
+    """The flexsat regulator (built in float64 and cast), the benchmark's
+    options and the process noise of T steps for B scenarios
+    (``numpy.random.default_rng(0)``, drawn as one [T, B, 12] array)."""
+    noise = np.random.default_rng(FLEXSAT_NOISE_SEED).standard_normal(
+        (T, B, 12))
+    return FlexsatSetup(
+        prob=fs.flexsat_problem(dtype=dtype, device=device),
+        opts=SolverOptions(**FLEXSAT_OPTS),
+        noise=torch.as_tensor(noise, dtype=dtype, device=device))
+
+
+def flexsat_step(su: FlexsatSetup, compact_cap: int = FLEXSAT_SCHEDULE[0],
+                 compact_block: int = FLEXSAT_SCHEDULE[1],
+                 compact_levels: tuple = FLEXSAT_SCHEDULE[2],
+                 graphed: Optional[bool] = None, check_every: int = 1):
+    """(step, init_carry) of the regulator step, in the schedule
+    (``compact_cap``, ``compact_block``, ``compact_levels``; cap 0: the
+    plain step)."""
+    return make_regulator_step(su.prob, su.opts,
+                               it_cap=compact_cap, block=compact_block,
+                               levels=compact_levels, graphed=graphed,
+                               check_every=check_every)
+
+
+def flexsat_batched(B: int = 1024, T: int = 45, device="cuda",
+                    compact_cap: int = FLEXSAT_SCHEDULE[0],
+                    compact_block: int = FLEXSAT_SCHEDULE[1],
+                    compact_levels: tuple = FLEXSAT_SCHEDULE[2],
+                    graphed: Optional[bool] = None,
+                    check_every: int = 1) -> dict:
+    """Throughput and latency of the flexsat regulator MPC in float32,
+    measured as the JAX package's benchmark does: one cold solve of the
+    problem (B=1, on CUDA graphs when ``graphed``, None: on a CUDA device)
+    copied to B lanes, one warm-up step (which captures the step's graphs:
+    ``capture_s``, outside every timed window), a throughput pass of T
+    steps timed whole, and a latency pass timing min(T, 10) single steps
+    from the same carry. ``compact_cap`` 0 runs the plain step.
+
+    ``loop_iterations`` counts the solver-loop body passes of every solve
+    that ran (``solver.altro.pass_count``, the cold solve's and the frozen
+    passes of a replay included); ``passes_per_step``,
+    ``iters_max_per_step_mean`` (the steps' mean largest lane iteration
+    count) and ``graph_replays_per_step`` are the throughput pass's;
+    ``launches`` are the kernel launches of this call."""
+    dev = torch.device(device)
+    graphed = graph.use_graphs(graphed, dev)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    su = flexsat_setup(B, T, torch.float32, dev)
+    before, passes0 = _launches(), altro.pass_count
+    step, init_carry = flexsat_step(su, compact_cap, compact_block,
+                                    compact_levels, graphed=graphed,
+                                    check_every=check_every)
+
+    t0 = time.perf_counter()
+    sol0 = graph.solve(dataclasses.replace(su.prob, x0=su.prob.x0[None]),
+                       su.opts, graphed=graphed, check_every=check_every)
+    cold_passes = altro.pass_count - passes0
+    carry0 = init_carry(B, sol0)
+    sync()
+    init_s = time.perf_counter() - t0
+
+    step(carry0, su.noise[0], 0)                          # warm-up, capture
+    replays = getattr(step, "loop_replays", 0)
+    carry, outs = carry0, []
+    sync()
+    p0 = altro.pass_count
+    ts = time.perf_counter()
+    for t in range(T):
+        carry, out = step(carry, su.noise[t], t)
+        outs.append(out)
+    sync()
+    wall = time.perf_counter() - ts
+    passes_T = altro.pass_count - p0
+    replays_T = getattr(step, "loop_replays", 0) - replays
+
+    step_ms = []
+    carry = carry0
+    for t in range(min(T, 10)):
+        ts = time.perf_counter()
+        carry, _ = step(carry, su.noise[t], t)
+        sync()
+        step_ms.append((time.perf_counter() - ts) * 1e3)
+
+    status = torch.stack([o.status for o in outs]).cpu().numpy()
+    viol = torch.stack([o.viol for o in outs]).double().cpu().numpy()
+    iters = torch.stack([o.iters for o in outs]).cpu().numpy()
+    after = _launches()
+    p50, p99 = np.percentile(step_ms, [50, 99])
+    return dict(
+        label="flexsat_regulator_N80", batch=B, steps=T,
+        solves_per_s=B * T / wall, success_rate=float(status.mean()),
+        max_viol=float(np.nanmax(viol)), mean_iters=float(iters.mean()),
+        iters_p99=float(np.percentile(iters, 99)), wall_s=wall,
+        step_ms_p50=float(p50), step_ms_p99=float(p99),
+        iters_max=int(iters.max()),
+        iters_max_per_step_mean=float(iters.max(axis=1).mean()),
+        passes_per_step=passes_T / T,
+        graph_replays_per_step=replays_T / T,
+        compaction=([compact_cap, compact_block,
+                     [list(lv) for lv in compact_levels]]
+                    if compact_cap else None),
+        device=str(dev), graphed=graphed, check_every=check_every,
+        init_s=init_s, capture_s=getattr(step, "capture_s", 0.0),
+        cold_status=int(sol0.stats.status[0]),
+        cold_iters=int(sol0.stats.iterations[0]), cold_passes=cold_passes,
+        cold_viol=float(sol0.stats.viol[0]),
+        loop_iterations=altro.pass_count - passes0,
+        solves=2 + T + min(T, 10), cold_solves=1,
+        launches={k: after[k] - before[k] for k in after})
+
+
+MODES = ("qp", "socp", "flexsat")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("modes", nargs="*",
-                    help="friction modes of ['qp', 'socp'] (default: both)")
+                    help=f"of {list(MODES)} (default: qp and socp)")
+    ap.add_argument("--flexsat-compact-cap", type=int, default=-1,
+                    help="flexsat: -1 the shipped schedule, 0 the plain "
+                    "step, C > 0 cap C, block 128, no level")
     ap.add_argument("--eager", action="store_true",
                     help="the host-driven loop instead of CUDA graphs")
     ap.add_argument("--check-every", type=int, default=1,
                     help="body passes per replay of the loop graph")
     args = ap.parse_args()
-    if set(args.modes) - {"qp", "socp"}:
-        ap.error(f"unknown mode in {args.modes}; choose from qp, socp")
+    if set(args.modes) - set(MODES):
+        ap.error(f"unknown mode in {args.modes}; choose from {MODES}")
     if not torch.cuda.is_available():
-        raise SystemExit("the quadruped benchmark measures a CUDA device; "
+        raise SystemExit("the families benchmark measures a CUDA device; "
                          "none is available")
     B = int(os.environ.get("BENCH_BATCH", 1024))
     rounds = int(os.environ.get("BENCH_ROUNDS", 10))
     card = power_limit()
     for mode in args.modes or ["qp", "socp"]:
-        res = quadruped_batched(B=B, rounds=rounds,
-                                linearized_friction=mode == "qp",
-                                graphed=not args.eager,
-                                check_every=args.check_every)
+        if mode == "flexsat":
+            cap = args.flexsat_compact_cap
+            sched = (FLEXSAT_SCHEDULE if cap == -1
+                     else (cap, 128, ()))
+            res = flexsat_batched(
+                B=B, T=int(os.environ.get("BENCH_STEPS", 45)),
+                compact_cap=sched[0], compact_block=sched[1],
+                compact_levels=sched[2], graphed=not args.eager,
+                check_every=args.check_every)
+        else:
+            res = quadruped_batched(B=B, rounds=rounds,
+                                    linearized_friction=mode == "qp",
+                                    graphed=not args.eager,
+                                    check_every=args.check_every)
         res["device"] = f"{torch.cuda.get_device_name(0)} [{card}]"
         print(json.dumps(res), flush=True)
 

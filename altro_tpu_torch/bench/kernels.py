@@ -13,8 +13,9 @@ TFLOP/s (float32) or 34 TFLOP/s (float64) outside the tensor cores (H100
 SXM data sheet). A runs at the flagship's L=3 and L=1 and the quadruped's
 per-lane L=11, B on the flagship and the rocket window, C on the rocket
 window at L=6, D on the quadruped's per-lane expansion; B also on grasp's
-window (13 rows in 4 blocks) and cold problem (19 rows in 5), C on grasp's
-window at L=3. Kernels B and D are also timed on the flagship's
+window (13 rows in 4 blocks) and cold problem (19 rows in 5) and on the
+flexsat regulator (N=80, one NONPOS block of 6 rows), C on grasp's window
+at L=3 and on flexsat at L=6. Kernels B and D are also timed on the flagship's
 random-linear model (shared dynamics; D on the solver's AL expansion of the
 inputs B expands itself) at the flagship's widths and at (n, m) = (13, 6)
 and (7, 3), which no main path uses. ``--against DIR`` names the root
@@ -37,12 +38,13 @@ import tempfile
 
 import numpy as np
 
-FLAG_B, ROCKET_B, QUAD_B, GRASP_B = 1024, 1024, 1024, 1024
+FLAG_B, ROCKET_B, QUAD_B, GRASP_B, FLEX_B = 1024, 1024, 1024, 1024, 1024
 FLAG_N = 30
 FLAG_LADDER = (1.0, 0.5, 0.0)
 QUAD_LADDER = tuple(0.5 ** i for i in range(10)) + (0.0,)
 ROCKET_LADDER = (1.0, 0.5, 0.25, 0.125, 0.0625, 0.0)
 GRASP_LADDER = (1.0, 0.5, 0.0)
+FLEX_LADDER = (1.0, 0.5, 0.25, 0.125, 0.0625, 0.0)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {4: 67e12, 8: 34e12}   # by element size: f32, f64
 # launches per timing, and the sleep they queue behind (cycles at the
@@ -325,6 +327,46 @@ def grasp_inputs(dtype, dev, B: int = GRASP_B, cold: bool = False,
                                        len(GRASP_LADDER), X.element_size()))
 
 
+def flexsat_inputs(dtype, dev, B: int = FLEX_B, N: int = 80) -> dict:
+    """Kernel B's arguments on the flexsat regulator (B=1024, n=12, m=3,
+    N=80, one NONPOS block of 6 control-bound rows at +-0.01; seed 11):
+    states 0.05 and controls 0.015 around the origin, so that about half of
+    the rows are violated, multipliers |N(0, 5)| and rho 1e3, so that
+    lam + rho c is positive on some rows and negative on others, half the
+    lanes regularised; and kernel C's at the solver's L=6 ladder on the
+    plain version's gains. ``N``: the same form at a shorter horizon."""
+    import torch
+    from altro_tpu_torch.models import flexible_satellite as fs
+    from altro_tpu_torch.ops import riccati_fused
+    from altro_tpu_torch.ops.blocks import pack_blocks
+
+    pm = fs.flexsat_problem(N=N, dtype=dtype, device=dev)
+    (con,) = pm.constraints
+    dyn = pm.dynamics
+    n, m, p = pm.n, pm.m, con.p
+    rng = np.random.default_rng(11)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=dev)
+
+    X = t(0.05 * rng.standard_normal((B, N, n)))
+    U = t(0.015 * rng.standard_normal((B, N - 1, m)))
+    lams = (t(5.0 * np.abs(rng.standard_normal((B, N, p)))),)
+    rhos = (torch.full((B, N), 1e3, dtype=dtype, device=dev),)
+    reg = t(np.where(rng.random(B) < 0.5, 0.0, 1e-2))
+    packed = pack_blocks(pm.constraints, N, n, m, X)
+    fused = (pm.cost, dyn.A, dyn.B, pm.constraints, X, U, lams, rhos, reg)
+    ref = riccati_fused.fused_expand_backward_reference(*fused)
+    return dict(
+        prob=pm, fused=fused, fused_ref=ref, packed=packed,
+        ladder_al=(pm.cost, dyn.A, dyn.B, dyn.d, pm.constraints, X, U,
+                   ref[0].contiguous(), ref[1].contiguous(), lams, rhos[0],
+                   FLEX_LADDER),
+        fused_work=fused_work(B, N, n, m, p, (), X.element_size()),
+        ladder_al_work=rollout_al_work(B, N, n, m, p, len(FLEX_LADDER),
+                                       X.element_size()))
+
+
 def quadruped_inputs(dtype, dev, B: int = QUAD_B) -> dict:
     """Kernel D's arguments on the flat quadruped batch (B=1024, n=m=12,
     N=15, per-lane dynamics of 8 contact schedules; seed 9): the solver's own
@@ -384,6 +426,7 @@ def measure() -> list:
         rk = rocket_inputs(dtype, dev)
         gw = grasp_inputs(dtype, dev)
         gc = grasp_inputs(dtype, dev, cold=True)
+        fx = flexsat_inputs(dtype, dev)
         qd = quadruped_inputs(dtype, dev)
         other = [(w, flagship_inputs(dtype, dev, widths=w))
                  for w in OTHER_WIDTHS]
@@ -399,6 +442,7 @@ def measure() -> list:
             ("B", "rocket", fused(rk), rk["fused_work"]),
             ("B", "grasp window", fused(gw), gw["fused_work"]),
             ("B", "grasp cold", fused(gc), gc["fused_work"]),
+            ("B", "flexsat", fused(fx), fx["fused_work"]),
             *(("B", f"random-linear n={n} m={m}", fused(inp),
                inp["fused_work"]) for (n, m), inp in other),
             ("A", "flagship L=3", lambda: ls(*fl["ladder"]),
@@ -412,6 +456,9 @@ def measure() -> list:
             ("C", "grasp L=3",
              lambda: la(*gw["ladder_al"], packed=gw["packed"]),
              gw["ladder_al_work"]),
+            ("C", "flexsat L=6",
+             lambda: la(*fx["ladder_al"], packed=fx["packed"]),
+             fx["ladder_al_work"]),
             ("D", "quadruped per-lane", pass_d(qd), qd["riccati_work"]),
             ("D", "flagship shared", pass_d(fl), fl["riccati_work"]),
             *(("D", f"random-linear shared n={n} m={m}", pass_d(inp),
@@ -421,7 +468,7 @@ def measure() -> list:
             rows.append(dict(kernel=kernel, shape=shape, dtype=label,
                              ms=time_ms(fn, kernel=True), bound_ms=bnd,
                              bound_by=by, bytes=nbytes, flops=flops))
-        del fl, rk, gw, gc, qd, other
+        del fl, rk, gw, gc, fx, qd, other
         torch.cuda.empty_cache()
     return rows
 

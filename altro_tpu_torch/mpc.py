@@ -18,6 +18,11 @@ caps and blocks), and the results are scattered back. A lane's iterates do
 not depend on the batch it runs in, so the results are those of the plain
 step; only the batch size of the late passes changes.
 
+:func:`make_regulator_step` is the step of a regulator MPC (the flexible
+satellite's), plain or compacted: the window never moves, so every step
+re-solves one problem from the propagated x0, warm-started from the carried
+controls, duals and exactly re-based states.
+
 Every step factory runs on CUDA graphs on a CUDA device (``graphed``;
 ``solver/graph.py``): per batch size a start graph (propagation, noise,
 retarget, constraint window, shift, seam corrector, warm-start state), a
@@ -35,6 +40,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .constraints import DualState
 from .costs import retarget_tracking, tracking_objective
 from .dynamics import LTVDynamics
 from .problem import Problem
@@ -144,7 +150,23 @@ def _xws_corrector(dyn):
     return correct
 
 
-class _StepPieces:
+class _Pieces:
+    """What the step pieces share: ``start(carry, noise_i, k)`` runs the
+    host part for step ``k`` and then the tensor part; ``finish(prob_k,
+    state, x0_new)`` returns (the next carry, MPCResults)."""
+
+    def start(self, carry, noise_i, k: int):
+        return self.start_from(carry, noise_i, *self.window(k + 1))
+
+    def finish(self, prob_k, state, x0_new):
+        sol = _finalize(prob_k, state)
+        out = MPCResults(X=sol.X, U=sol.U, iters=sol.stats.iterations,
+                         status=sol.stats.status, viol=sol.stats.viol,
+                         x0=x0_new)
+        return (x0_new, sol.X, sol.U, sol.duals), out
+
+
+class _StepPieces(_Pieces):
     """The parts of a batched MPC step that every form of it shares.
 
     ``window(k_new)`` is the host's part, which depends on the Python step
@@ -200,16 +222,6 @@ class _StepPieces:
                 _warmstart_state(prob_k, self.opts, U_ws, duals_ws, X_ws),
                 x0_new)
 
-    def start(self, carry, noise_i, k: int):
-        return self.start_from(carry, noise_i, *self.window(k + 1))
-
-    def finish(self, prob_k, state, x0_new):
-        sol = _finalize(prob_k, state)
-        out = MPCResults(X=sol.X, U=sol.U, iters=sol.stats.iterations,
-                         status=sol.stats.status, viol=sol.stats.viol,
-                         x0=x0_new)
-        return (x0_new, sol.X, sol.U, sol.duals), out
-
     def init_carry(self, batch: int, graphed: bool, check_every: int):
         """Cold batched solve of the first window from X_track[0]."""
         pm = self.prob_mpc
@@ -217,6 +229,69 @@ class _StepPieces:
         sol0 = graph.solve(dataclasses.replace(pm, x0=x0), self.opts,
                            graphed=graphed, check_every=check_every)
         return (x0, sol0.X, sol0.U, sol0.duals)
+
+
+# the regulator's process noise per step, times a standard normal draw
+# (the flexible satellite's, flexible_sat_mpc.jl:261-276)
+REGULATOR_NOISE = 2e-4
+
+
+class _RegulatorPieces(_Pieces):
+    """The step of a regulator MPC (the flexible satellite's), in the form
+    of :class:`_StepPieces`: the window never moves, so the host part
+    (``window``) is empty and every step solves the one problem ``prob``
+    from a new x0. ``start_from(carry, noise_i)`` propagates x0 through the
+    first control plus REGULATOR_NOISE times the noise row and seeds the
+    solve with the carried controls, the carried duals (unshifted) and the
+    carried states re-based exactly onto the new x0: with LTI dynamics the
+    rollout of U from x0_new is X + A^k (x0_new - X[0]), so the solve
+    linearizes its first iteration there without an init rollout."""
+
+    def __init__(self, prob: Problem, opts: SolverOptions):
+        dyn = prob.dynamics
+        if not isinstance(dyn, LTVDynamics) or dyn.per_lane:
+            raise ValueError("the regulator step takes shared LTI dynamics")
+        self.prob_mpc, self.opts = prob, opts
+        # Phi[k] = A^k, built in float64 from the problem's own A and cast
+        A0 = dyn.A[0].double().cpu().numpy()
+        Ph = np.empty((prob.N,) + A0.shape)
+        Ph[0] = np.eye(A0.shape[0])
+        for k in range(1, prob.N):
+            Ph[k] = A0 @ Ph[k - 1]
+        self.Phis = torch.as_tensor(Ph, dtype=dyn.A.dtype,
+                                    device=dyn.A.device)
+
+    def window(self, k_new: int):
+        return ()
+
+    def prob_at(self, k_new: int, x0):
+        return dataclasses.replace(self.prob_mpc, x0=x0), None
+
+    def start_from(self, carry, noise_i):
+        x0, X, U, duals = carry
+        x0_new = (self.prob_mpc.dynamics.step(x0, U[:, 0], 0)
+                  + REGULATOR_NOISE * noise_i)
+        X0 = X + torch.einsum("kij,bj->bki", self.Phis, x0_new - X[:, 0])
+        prob_k = dataclasses.replace(self.prob_mpc, x0=x0_new)
+        return (prob_k, _warmstart_state(prob_k, self.opts, U, duals, X0),
+                x0_new)
+
+    def init_carry(self, batch: int, graphed: bool, check_every: int,
+                   sol0=None):
+        """``sol0`` (a solution of ``prob`` from its x0 as one scenario)
+        copied to ``batch`` lanes; None: the cold solve of ``prob`` as one
+        scenario."""
+        pm = self.prob_mpc
+        if sol0 is None:
+            sol0 = graph.solve(dataclasses.replace(pm, x0=pm.x0[None]),
+                               self.opts, graphed=graphed,
+                               check_every=check_every)
+
+        def lanes(a):
+            return a.repeat((batch,) + (1,) * (a.dim() - 1))
+        return (lanes(pm.x0[None]), lanes(sol0.X), lanes(sol0.U),
+                tuple(DualState(lam=lanes(d.lam), rho=lanes(d.rho))
+                      for d in sol0.duals))
 
 
 def _gather_fn(parent: LoopGraph, child: LoopGraph, blk: int):
@@ -413,22 +488,9 @@ def make_mpc_step(prob_mpc: Problem, opts: SolverOptions, X_track, U_track,
         raise NotImplementedError("only shared_k=True is ported")
     pieces = _StepPieces(prob_mpc, opts, X_track, U_track, noise_model,
                          constraints_fn, warm_start)
-    graphed = graph.use_graphs(graphed, prob_mpc.x0.device)
-
-    def init_carry(batch: int):
-        return pieces.init_carry(batch, graphed, check_every)
-
-    if graphed:
-        return _GraphedStep(pieces, opts, (), check_every), init_carry
-
-    @torch.no_grad()
-    def step(carry, noise_i, k: int):
-        prob_k, state, x0_new = pieces.start(carry, noise_i, k)
-        return pieces.finish(prob_k, _flat_while(prob_k, opts, state,
-                                                 check_every=check_every),
-                             x0_new)
-
-    return step, init_carry
+    return _make_step(pieces, opts, (),
+                      graph.use_graphs(graphed, prob_mpc.x0.device),
+                      check_every)
 
 
 def make_mpc_step_compacted(prob_mpc: Problem, opts: SolverOptions,
@@ -530,9 +592,17 @@ def make_mpc_step_device_compacted(prob_mpc: Problem, opts: SolverOptions,
                                   "only, not per-lane dynamics stacks")
     pieces = _StepPieces(prob_mpc, opts, X_track, U_track, noise_model,
                          constraints_fn, warm_start)
-    sched = ((it_cap, block),) + tuple(levels)
-    graphed = graph.use_graphs(graphed, prob_mpc.x0.device)
+    return _make_step(pieces, opts, ((it_cap, block),) + tuple(levels),
+                      graph.use_graphs(graphed, prob_mpc.x0.device),
+                      check_every)
 
+
+def _make_step(pieces: _Pieces, opts: SolverOptions, sched, graphed: bool,
+               check_every: int):
+    """``(step, init_carry)`` of the step that ``pieces`` describe, in the
+    compaction schedule ``sched`` (``((it_cap, block), (extra_cap,
+    sub_block), ...)``; empty for the plain step): a :class:`_GraphedStep`
+    when ``graphed``, else the host-driven loop."""
     def init_carry(batch: int):
         return pieces.init_carry(batch, graphed, check_every)
 
@@ -563,8 +633,65 @@ def make_mpc_step_device_compacted(prob_mpc: Problem, opts: SolverOptions,
     @torch.no_grad()
     def step(carry, noise_i, k: int):
         prob_k, state, x0_new = pieces.start(carry, noise_i, k)
-        state = flat_while(prob_k, state, it_cap)
-        return pieces.finish(prob_k, compact(prob_k, state, 0, it_cap),
-                             x0_new)
+        if sched:
+            state = flat_while(prob_k, state, sched[0][0])
+            state = compact(prob_k, state, 0, sched[0][0])
+        else:
+            state = flat_while(prob_k, state)
+        return pieces.finish(prob_k, state, x0_new)
 
     return step, init_carry
+
+
+def make_regulator_step(prob: Problem, opts: SolverOptions,
+                        it_cap: int = 0, block: int = 128,
+                        levels: tuple = (), graphed: Optional[bool] = None,
+                        check_every: int = 1):
+    """The batched regulator MPC step (the flexible satellite's benchmark
+    step): ``step(carry, noise [B, n], k) -> (carry, MPCResults)`` with
+    carry = (x0, X, U, duals), every step solving ``prob`` from x0_new =
+    A x0 + B U[:, 0] + d + REGULATOR_NOISE * noise, seeded with the carried
+    controls, the carried duals and the carried states re-based exactly
+    onto x0_new (:class:`_RegulatorPieces`; ``k`` is not read). With
+    ``it_cap`` > 0 the step runs with straggler compaction in the schedule
+    (``it_cap``, ``block``, ``levels``) of
+    :func:`make_mpc_step_device_compacted` (``prob.x0`` is not read on
+    resume: the level batches share the one problem); 0: the plain step.
+    ``init_carry(batch, sol0=None)``: ``sol0``, a solution of ``prob``
+    from its x0 as one scenario, or (None) a cold solve of ``prob`` as one
+    scenario, copied to ``batch`` lanes. ``graphed`` and
+    ``check_every`` as in :func:`make_mpc_step`."""
+    pieces = _RegulatorPieces(prob, opts)
+    sched = ((it_cap, block),) + tuple(levels) if it_cap else ()
+    graphed = graph.use_graphs(graphed, prob.x0.device)
+    step, _ = _make_step(pieces, opts, sched, graphed, check_every)
+
+    def init_carry(batch: int, sol0=None):
+        return pieces.init_carry(batch, graphed, check_every, sol0)
+
+    return step, init_carry
+
+
+def stack_results(outs) -> MPCResults:
+    """Per-step MPCResults stacked on a leading step axis."""
+    return MPCResults(**{f.name: torch.stack([getattr(o, f.name)
+                                              for o in outs])
+                         for f in dataclasses.fields(MPCResults)})
+
+
+def run_mpc(prob_mpc: Problem, opts: SolverOptions, X_track, U_track, noise,
+            start_k: int = 0, noise_model=default_noise_model,
+            constraints_fn=None) -> MPCResults:
+    """Closed-loop MPC of a batch tracking (X_track, U_track): the cold
+    batched solve of ``prob_mpc`` from its x0, then one
+    :func:`make_mpc_step` step (``shared_k=True``; on CUDA graphs on a CUDA
+    device) per row of ``noise`` [T, B, n], the t-th at window
+    ``start_k + t + 1``. Returns the per-step MPCResults stacked
+    ([T, B, ...])."""
+    step, init_carry = make_mpc_step(prob_mpc, opts, X_track, U_track,
+                                     noise_model, constraints_fn)
+    carry, outs = init_carry(noise.shape[1]), []
+    for t in range(noise.shape[0]):
+        carry, out = step(carry, noise[t], start_k + t)
+        outs.append(out)
+    return stack_results(outs)

@@ -50,8 +50,13 @@ def batched_ls_rollout_reference(A, B, dd, Xbar, Ubar, K, d,
             x = (torch.einsum("bij,blj->bli", Ak, x)
                  + torch.einsum("bij,blj->bli", Bk, u)) + ddk[:, None, :]
         else:
-            x = (torch.einsum("ij,blj->bli", Ak, x)
-                 + torch.einsum("ij,blj->bli", Bk, u)) + ddk
+            # one small product per scenario (bmm), so that a lane's bits
+            # do not depend on the batch it runs in (straggler compaction
+            # gathers lanes): an einsum folds the batch into the rows of
+            # one product, whose rounding depends on the batch size
+            Bt = x.shape[0]
+            x = (torch.bmm(x, Ak.mT.expand(Bt, -1, -1))
+                 + torch.bmm(u, Bk.mT.expand(Bt, -1, -1))) + ddk
         xs.append(x)
         us.append(u)
     return torch.stack(xs, dim=2), torch.stack(us, dim=2)

@@ -31,12 +31,16 @@ Phases, each printing its findings; any failure raises (non-zero exit):
       rows in 4 blocks) and on the cold problem (N=61, a goal ZERO block
       in front: 19 rows in 5), and the fused ladder + merit on the window
       at L=3 (J and the accepted rung as in b);
+   e. the flexsat regulator (B=1024, n=12, m=3, N=80, one NONPOS block of
+      6 rows, both signs of lam + rho c on its rows): the fused expansion,
+      and the fused ladder + merit at L=6 (J and the accepted rung as in
+      b);
 4. main paths, each on CUDA graphs (``altro_tpu_torch/solver/graph.py``:
    every MPC step, batch solve and cold solve as start, loop and finish
    graphs, the loop replayed with one host sync per k passes), with the
    launch counters, the solver-loop pass counter (both counted per replay)
    and the counter of entries into the host-driven loop reset just before
-   and read just after (gate: no entry over 4a-4e):
+   and read just after (gate: no entry over 4a-4e and 4g):
    a. the flagship MPC benchmark (B=1024, T=20, float32): success,
       violation and counter gates;
    b. the rocket MPC benchmark in its shipped straggler-compaction schedule
@@ -48,17 +52,25 @@ Phases, each printing its findings; any failure raises (non-zero exit):
       QUAD_ROUNDS cold rounds after a warm-up solve): success 1.0,
       violation <= 1e-4, the Riccati kernel once and the ladder rollout once
       per counted pass (plus once per solve), kernels B and C never;
-   d. the compacted step against the plain step on the card, rocket and
-      grasp, B=1024, 5 steps from one carry (gate: equal status and
-      iterations on every lane-step; max|dU| and bit-equality printed);
+   d. the compacted step against the plain step on the card, rocket,
+      grasp and flexsat, B=1024, 5 steps from one carry (gate: equal
+      status and iterations on every lane-step; max|dU| and bit-equality
+      printed);
    e. the grasp MPC benchmark in its shipped schedule (cold N=61 solve,
       then B=1024, T=15, float32; cap 8, block 256, one level (8, 128)):
       success >= 0.999, violation of the succeeded solves <= 1e-4, B and C
       once per counted pass, A once per cold solve, D never (run before d,
       which compares on its setup);
+   g. the flexsat regulator MPC benchmark in its shipped schedule (one
+      cold N=80 solve copied to B=1024 lanes, then T=45 regulator steps
+      with re-based states, float32; cap 8, block 256, one level
+      (8, 128)): success 1.0, violation <= 1e-4, B and C once per counted
+      pass, A once (the cold solve's init rollout: the warm solves start
+      from the re-based states), D never;
    f. graphed against eager on the card, every run from one carry: the
-      flagship (B=1024, 10 steps), the rocket and grasp in their shipped
-      schedules (5 steps), the quadruped (2 rounds in each friction mode)
+      flagship (B=1024, 10 steps), the rocket, grasp and flexsat in their
+      shipped schedules (5 steps), the quadruped (2 rounds in each friction
+      mode)
       (gate: equal status and iterations on every lane-step; max|dU| and
       the bit-equality of X, U and the duals printed, and per path the step
       ms p50 of both forms, passes and replays per step and the capture
@@ -76,7 +88,14 @@ Phases, each printing its findings; any failure raises (non-zero exit):
       each lane's controls (gates: at most one lane whose status differs,
       |mean gap| <= 1e-4, p99 |gap| <= 1e-3);
    d. grasp, 64 lanes x 5 steps as in b (gates: at most one lane-step whose
-      status differs, |mean gap| <= 1e-3, p99 |gap| <= 1e-2).
+      status differs, |mean gap| <= 1e-3, p99 |gap| <= 1e-2);
+   e. flexsat (``altro_tpu_torch/bench/agreement_flexsat.py``): the plain
+      float32 regulator step on the card, B=1024, 20 steps; 16 lanes of
+      steps 5, 12 and 20 against float64 truth solves at 1e-7 on the CPU,
+      every lane of those steps against a tight float64 re-solve on the
+      card (gates: float32 success 1.0 and violation <= 1e-4, every truth
+      solve succeeds, full-batch true-cost gap |mean| <= 1e-3 and p99
+      |gap| <= 1e-2; the largest gap printed).
 
 The line before the last is the kernel table as JSON (with each kernel's
 bound_ms and bound_by at the shapes it was timed at, and library_ms null: no
@@ -119,9 +138,10 @@ GRASP_GATE_BIAS, GRASP_GATE_P99 = 1e-3, 1e-2
 COMPARE_B, COMPARE_T = 1024, 5
 QUAD_B, QUAD_ROUNDS, QUAD_AGREE_B = 1024, 5, 64
 QUAD_GATE_BIAS, QUAD_GATE_P99 = 1e-4, 1e-3
-# graphed-against-eager comparison: flagship steps, conic steps, quadruped
-# rounds per friction mode
+# graphed-against-eager comparison: flagship steps, conic and flexsat
+# steps, quadruped rounds per friction mode
 FORMS_FLAG_T, FORMS_CONIC_T, FORMS_QUAD_ROUNDS = 10, 5, 2
+FLEX_B, FLEX_T, FLEX_AGREE_B = 1024, 45, 1024
 
 
 def errors(got, ref, names, tol: float) -> dict:
@@ -171,9 +191,18 @@ def parity(dtype, tol):
     return res
 
 
-def soc_cases(blocks, X, U, lams, rhos):
+def row_cases(blocks, X, U, lams, rhos):
     """Counts of the SOC blocks' masked residuals z = lam + rho c by case:
-    inside, polar, boundary, and at the apex (v = 0)."""
+    inside, polar, boundary, and at the apex (v = 0); without an SOC block,
+    of the NONPOS rows' by sign (active: z > 0)."""
+    if all(c.cone.value != "soc" for c in blocks):
+        counts = dict(active=0, inactive=0)
+        for c, lam, rho in zip(blocks, lams, rhos):
+            z = lam + rho[..., None] * c.evaluate(X, U)
+            act = (c.mask > 0)[..., None]
+            counts["active"] += int(((z > 0) & act).sum())
+            counts["inactive"] += int(((z <= 0) & act).sum())
+        return counts
     counts = dict(inside=0, polar=0, boundary=0, apex=0)
     for c, lam, rho in zip(blocks, lams, rhos):
         if c.cone.value != "soc":
@@ -191,11 +220,13 @@ def soc_cases(blocks, X, U, lams, rhos):
 
 
 def conic_parity(family, dtype, tol, cold=False):
-    """The fused expansion (SOC branch) and the fused ladder + merit against
-    their plain versions on the rocket's or grasp's MPC window (``cold``:
-    the fused expansion alone, on grasp's cold problem); returns
+    """The fused expansion and the fused ladder + merit against their plain
+    versions on the rocket's or grasp's MPC window (the SOC branch) or on
+    the flexsat regulator (one NONPOS block) (``cold``: the fused
+    expansion alone, on grasp's cold problem); returns
     {kernel: ({output: max_abs_err}, ms, plain_ms, (bytes, flops))}."""
-    from altro_tpu_torch.bench.kernels import (GRASP_LADDER, ROCKET_LADDER,
+    from altro_tpu_torch.bench.kernels import (FLEX_LADDER, GRASP_LADDER,
+                                               ROCKET_LADDER, flexsat_inputs,
                                                grasp_inputs, rocket_inputs)
     from altro_tpu_torch.ops import riccati_fused, rollout_al
     from altro_tpu_torch.solver.altro import _ladder_choice
@@ -204,6 +235,9 @@ def conic_parity(family, dtype, tol, cold=False):
     if family == "rocket":
         B, ladder = ROCKET_B, ROCKET_LADDER
         rk = rocket_inputs(dtype, dev, B)
+    elif family == "flexsat":
+        B, ladder = FLEX_B, FLEX_LADDER
+        rk = flexsat_inputs(dtype, dev, B)
     else:
         B, ladder = GRASP_B, GRASP_LADDER
         rk = grasp_inputs(dtype, dev, B, cold=cold)
@@ -211,11 +245,11 @@ def conic_parity(family, dtype, tol, cold=False):
     pm, args, packed = rk["prob"], rk["fused"], rk["packed"]
     ref = rk["fused_ref"]
     blocks, (X, U, lams, rhos) = pm.constraints, args[4:8]
-    cases = soc_cases(blocks, X, U, lams, rhos)
+    cases = row_cases(blocks, X, U, lams, rhos)
     print(f"{label} parity inputs ({dtype}): {len(blocks)} blocks, "
-          f"{packed.P} rows; SOC cases {cases}")
+          f"{packed.P} rows; row cases {cases}")
     if min(cases.values()) == 0:
-        raise AssertionError(f"{label} parity inputs miss an SOC case: "
+        raise AssertionError(f"{label} parity inputs miss a row case: "
                              f"{cases}")
 
     fb = riccati_fused.fused_expand_backward
@@ -390,18 +424,22 @@ def conic_agreement(su32, Bn, T, gate_bias, gate_p99):
                              f", p99 {p99:.3e}")
 
 
-def compacted_against_plain(su):
-    """The family's shipped compaction schedule against its plain step on
-    the card: COMPARE_B lanes, COMPARE_T steps from one carry. Gate: equal
-    status and equal iterations on every lane-step."""
-    from altro_tpu_torch.bench.conic import SCHEDULES, make_step
+def conic_noise(su, T):
+    """A conic family's benchmark noise for T steps of COMPARE_B lanes."""
+    return torch.as_tensor(np.random.default_rng(su.noise_seed)
+                           .standard_normal((T, COMPARE_B, 6)),
+                           dtype=torch.float32, device="cuda")
 
-    cap, block, levels = SCHEDULES[su.family]
-    pstep, init = make_step(su)
-    cstep, _ = make_step(su, cap, block, levels)
-    noise = torch.as_tensor(np.random.default_rng(su.noise_seed)
-                            .standard_normal((COMPARE_T, COMPARE_B, 6)),
-                            dtype=torch.float32, device="cuda")
+
+def compacted_against_plain(label, make, sched, noise):
+    """A family's shipped compaction schedule ``sched`` (cap, block,
+    levels) against its plain step on the card (``make(cap, block,
+    levels)`` -> (step, init_carry); cap 0: the plain step): COMPARE_B
+    lanes, COMPARE_T steps from one carry. Gate: equal status and equal
+    iterations on every lane-step."""
+    cap, block, levels = sched
+    pstep, init = make(0, 256, ())
+    cstep, _ = make(cap, block, levels)
     pc = cc = init(COMPARE_B)
     dU, bit_equal, differ = 0.0, True, 0
     for t in range(COMPARE_T):
@@ -412,12 +450,12 @@ def compacted_against_plain(su):
         dU = max(dU, float((co.U - po.U).abs().max()))
         bit_equal &= all(torch.equal(getattr(co, k), getattr(po, k))
                          for k in ("X", "U", "viol"))
-    print(f"{su.family} compacted {(cap, block, levels)} vs plain, "
+    print(f"{label} compacted {(cap, block, levels)} vs plain, "
           f"{COMPARE_B} lanes x {COMPARE_T} steps on the card: status or "
           f"iterations differ on {differ} lane-steps; max|dU| {dU:.3e}; "
           f"bit-equal X, U, viol: {bit_equal}")
     if differ:
-        raise AssertionError(f"{su.family} compacted step differs from the "
+        raise AssertionError(f"{label} compacted step differs from the "
                              f"plain one on {differ} lane-steps")
 
 
@@ -459,12 +497,14 @@ def graph_tensors(tree):
     return tensors(tree)
 
 
-def graphed_against_eager(card, su32, gsu32):
+def graphed_against_eager(card, su32, gsu32, fsu):
     """Phase 4f: every path graphed and eager on the card from one carry
     (or the same initial states): equal status and iterations on every
     lane-step."""
     from altro_tpu_torch.bench.conic import SCHEDULES, make_step
-    from altro_tpu_torch.bench.families import quadruped_setup
+    from altro_tpu_torch.bench.families import (FLEXSAT_SCHEDULE,
+                                                flexsat_step,
+                                                quadruped_setup)
     from altro_tpu_torch.bench.flagship import flagship_setup
     from altro_tpu_torch.mpc import make_mpc_step
     from altro_tpu_torch.solver import altro, graph
@@ -496,14 +536,14 @@ def graphed_against_eager(card, su32, gsu32):
                   FORMS_FLAG_T)
     for csu in (su32, gsu32):
         cap, block, levels = SCHEDULES[csu.family]
-        noise = torch.as_tensor(np.random.default_rng(csu.noise_seed)
-                                .standard_normal((FORMS_CONIC_T, COMPARE_B,
-                                                  6)),
-                                dtype=torch.float32, device="cuda")
         make = (lambda g, c=csu, cap=cap, block=block, levels=levels:
                 make_step(c, cap, block, levels, graphed=g))
         compare_steps(f"{csu.family} compacted", make,
-                      make(False)[1](COMPARE_B), noise, FORMS_CONIC_T)
+                      make(False)[1](COMPARE_B),
+                      conic_noise(csu, FORMS_CONIC_T), FORMS_CONIC_T)
+    make = (lambda g: flexsat_step(fsu, *FLEXSAT_SCHEDULE, graphed=g))
+    compare_steps("flexsat compacted", make, make(False)[1](COMPARE_B),
+                  fsu.noise, FORMS_CONIC_T)
     for lin in (True, False):
         qsu = quadruped_setup(QUAD_B, lin, torch.float32, "cuda")
         x0s = [qsu.draw_x0().to("cuda", torch.float32)
@@ -540,9 +580,13 @@ def main() -> None:
     from altro_tpu_torch.bench.flagship import (flagship_setup, power_limit,
                                                 run_flagship, run_steps)
     from altro_tpu_torch.bench.conic import (SCHEDULES, grasp_batched,
-                                             grasp_setup, rocket_batched,
-                                             rocket_setup)
-    from altro_tpu_torch.bench.families import quadruped_batched
+                                             grasp_setup, make_step,
+                                             rocket_batched, rocket_setup)
+    from altro_tpu_torch.bench import agreement_flexsat
+    from altro_tpu_torch.bench.families import (FLEXSAT_SCHEDULE,
+                                                flexsat_batched,
+                                                flexsat_setup, flexsat_step,
+                                                quadruped_batched)
     from altro_tpu_torch.convert import tree_to
     from altro_tpu_torch.ops import (_build, riccati, riccati_fused, rollout,
                                      rollout_al)
@@ -563,14 +607,16 @@ def main() -> None:
             print("  ptxas:", line.split("ptxas info    :")[-1].strip())
 
     # ---- 3. kernel parity: (a) flagship shapes, (b) the rocket window,
-    # (c) the flat quadruped batch, (d) grasp's window and cold problem
+    # (c) the flat quadruped batch, (d) grasp's window and cold problem,
+    # (e) the flexsat regulator
     par = {}
     for shape, fn in (
             ("flagship", parity),
             ("rocket", lambda *a: conic_parity("rocket", *a)),
             ("quadruped", quadruped_parity),
             ("grasp", lambda *a: conic_parity("grasp", *a)),
-            ("grasp cold", lambda *a: conic_parity("grasp", *a, cold=True))):
+            ("grasp cold", lambda *a: conic_parity("grasp", *a, cold=True)),
+            ("flexsat", lambda *a: conic_parity("flexsat", *a))):
         par[shape] = (fn(torch.float32, F32_TOL), fn(torch.float64, F64_TOL))
         for name in par[shape][0]:
             for label, (errs, ms, plain_ms, work) in zip(
@@ -711,18 +757,60 @@ def main() -> None:
     eager_entries += altro.eager_loop_count
     conic_main_path(gres, glaunches, altro.pass_count, gres["cold_solves"])
 
-    # ---- 4d. compacted against plain on the card: rocket and grasp
+    # ---- 4g. main path: flexsat (one cold N=80 solve copied to B=1024
+    # lanes, then T=45 regulator steps) in the shipped compaction schedule;
+    # the warm solves start from the re-based states, so A runs once
     reset_counts()
-    compacted_against_plain(su32)
-    compacted_against_plain(gsu32)
+    fres = flexsat_batched(B=FLEX_B, T=FLEX_T, device="cuda")
+    flaunches, fpasses = read_counts(), altro.pass_count
     eager_entries += altro.eager_loop_count
-    print(f"entries into the host-driven loop over 4a-4e: {eager_entries}")
+    print(f"flexsat main path [{card}]: compaction {fres['compaction']}; "
+          f"cold N=80 solve status={fres['cold_status']} iterations="
+          f"{fres['cold_iters']} viol={fres['cold_viol']:.3e}; batched init "
+          f"{fres['init_s']:.3f} s; solves/s={fres['solves_per_s']:.1f} "
+          f"step_ms p50={fres['step_ms_p50']:.3f} p99="
+          f"{fres['step_ms_p99']:.3f} mean_iters={fres['mean_iters']:.3f} "
+          f"lane_max_iters_per_step={fres['iters_max_per_step_mean']:.3f} "
+          f"passes_per_step={fres['passes_per_step']:.3f} iters_p99="
+          f"{fres['iters_p99']:.1f} iters_max={fres['iters_max']} "
+          f"success_rate={fres['success_rate']:.5f} max_viol="
+          f"{fres['max_viol']:.3e} wall_s={fres['wall_s']:.4f} passes="
+          f"{fpasses} replays_per_step={fres['graph_replays_per_step']:.3f}"
+          f" check_every={fres['check_every']} capture_s="
+          f"{fres['capture_s']:.3f} launches={flaunches}")
+    if not (fres["success_rate"] == 1.0 and fres["max_viol"] <= 1e-4):
+        raise AssertionError(f"flexsat quality: {fres}")
+    if not (fpasses > 0 and fpasses == fres["loop_iterations"]
+            and flaunches["fused_expand_backward"] == fpasses
+            and flaunches["batched_ls_rollout_al"] == fpasses
+            and flaunches["batched_ls_rollout"] == 1
+            and flaunches["batched_riccati"] == 0):
+        raise AssertionError(f"flexsat launch counts {flaunches} do not "
+                             f"match {fpasses} solver-loop passes and one "
+                             f"cold solve")
+
+    # ---- 4d. compacted against plain on the card: rocket, grasp, flexsat
+    reset_counts()
+    for csu in (su32, gsu32):
+        compacted_against_plain(
+            csu.family,
+            lambda cap, block, levels, c=csu: make_step(c, cap, block,
+                                                        levels),
+            SCHEDULES[csu.family], conic_noise(csu, COMPARE_T))
+    fsu = flexsat_setup(COMPARE_B, COMPARE_T, torch.float32, "cuda")
+    compacted_against_plain(
+        "flexsat", lambda cap, block, levels: flexsat_step(fsu, cap, block,
+                                                           levels),
+        FLEXSAT_SCHEDULE, fsu.noise)
+    eager_entries += altro.eager_loop_count
+    print(f"entries into the host-driven loop over 4a-4e and 4g: "
+          f"{eager_entries}")
     if eager_entries:
         raise AssertionError(f"the main paths entered the host-driven loop "
                              f"{eager_entries} times")
 
     # ---- 4f. graphed against eager on the card
-    graphed_against_eager(card, su32, gsu32)
+    graphed_against_eager(card, su32, gsu32, fsu)
 
     # ---- 5a. agreement: f32 kernel path on the card vs f64 plain on the CPU
     s64 = flagship_setup(AGREE_B, AGREE_T, dtype=torch.float64, device="cpu")
@@ -751,6 +839,29 @@ def main() -> None:
     conic_agreement(gsu32, GRASP_AGREE_B, GRASP_AGREE_T, GRASP_GATE_BIAS,
                     GRASP_GATE_P99)
 
+    # ---- 5e. flexsat agreement: float32 on the card against float64
+    # truth solves (16 lanes per checked step, on the CPU) and tight
+    # float64 re-solves of every lane (on the card)
+    fag = agreement_flexsat.run(FLEX_AGREE_B, "cuda")
+    fb = fag["fullbatch"]
+    print(f"flexsat agreement [{card}] {FLEX_AGREE_B} lanes x "
+          f"{agreement_flexsat.T_STEPS} steps, f32 kernels: success "
+          f"{fag['f32_success_rate']:.5f}, max_viol "
+          f"{fag['f32_max_viol']:.3e}; {agreement_flexsat.SAMPLE} lanes x "
+          f"steps {fag['config']['window_ks']} against f64 truth at 1e-7 "
+          f"(CPU): truth success {fag['truth_success']}, max|dU| "
+          f"{fag['err_U_max']:.3e} (mean {fag['err_U_mean']:.3e}), cost gap"
+          f" max {fag['cost_rel_gap_max']:.3e} mean "
+          f"{fag['cost_rel_gap_mean']:.3e}; every lane against a tight f64 "
+          f"re-solve (card, f64 kernels), {fb['lanes_x_windows']} "
+          f"lane-steps: gap mean {fb['gap_mean']:.3e}, p99 |gap| "
+          f"{fb['gap_abs_p99']:.3e}, max {fb['gap_max']:.3e}, min "
+          f"{fb['gap_min']:.3e}, tight success {fb['tight_success']:.5f}, "
+          f"tight vs truth max|gap| {fb['tight_vs_truth_gap_max_abs']:.3e}"
+          f"; gates |mean| <= {agreement_flexsat.GATE_BIAS:.0e}, p99 <= "
+          f"{agreement_flexsat.GATE_P99:.0e}")
+    agreement_flexsat.check(fag)
+
     # kernel table: launches over the main paths, the largest float32
     # error over every parity check, times and bounds at the shapes of the
     # path that the kernel serves per iteration (the rocket window for B and
@@ -774,7 +885,7 @@ def main() -> None:
         table.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": (launches[name] + rlaunches[name] + qlaunches[name]
-                         + glaunches[name]),
+                         + glaunches[name] + flaunches[name]),
             "max_abs_err": max(v for shape in par if name in par[shape][0]
                                for v in par[shape][0][name][0].values()),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,

@@ -57,3 +57,12 @@ def test_graphed_grasp_window_counts_passes():
     assert window() >= 5 * dp.GRASP_STEPS
     (levels,) = window.step.sets.values()
     assert [loop.state[0].shape[0] for loop in levels.loops] == [8, 8, 8]
+
+
+@pytest.mark.parametrize("compact", [False, True], ids=["plain", "compacted"])
+def test_flexsat_window_counts_passes(compact):
+    """Flexsat's window on the CPU at B=8, plain and in its shipped
+    schedule (the blocks clamp to the batch): every regulator step runs at
+    least one solver-loop pass."""
+    window = dp.flexsat_window(compact, B=8, device="cpu")
+    assert window() >= dp.FLEX_STEPS

@@ -1,7 +1,9 @@
 """The slice as a whole against the JAX package in float64: a cold solve of
 a bound-constrained LQR problem (same iterations and status, X/U/K to
-atol 1e-8) and the warm-started random-linear MPC step with shared_k=True
-(per-step iterations and status equal, X/U/viol to atol 1e-8)."""
+atol 1e-8), the warm-started random-linear MPC step with shared_k=True
+(per-step iterations and status equal, X/U/viol to atol 1e-8) and the
+closed loop ``run_mpc`` of two lanes against the JAX package's run of each
+lane (the same)."""
 import dataclasses
 
 import numpy as np
@@ -15,11 +17,12 @@ import jax.numpy as jnp  # noqa: E402
 import altro_tpu as at  # noqa: E402
 from altro_tpu.models import random_linear as jrl  # noqa: E402
 from altro_tpu.mpc import make_mpc_step as j_make_mpc_step  # noqa: E402
+from altro_tpu.mpc import run_mpc as j_run_mpc  # noqa: E402
 
 import altro_tpu_torch as tt  # noqa: E402
 from altro_tpu_torch import convert  # noqa: E402
 from altro_tpu_torch.mpc import (_xws_corrector, gen_tracking_mpc,  # noqa: E402
-                                 make_mpc_step, shift_fill)
+                                 make_mpc_step, run_mpc, shift_fill)
 from altro_tpu_torch.ops import riccati_fused, rollout  # noqa: E402
 
 torch.set_num_threads(1)
@@ -118,6 +121,34 @@ def test_mpc_steps_match_jax(early_tol):
         assert int(tout.status.sum()) == B
         for k in ("X", "U", "viol", "x0"):
             close(getattr(tout, k), getattr(jout, k))
+
+
+@pytest.mark.parametrize("start_k", [0, 2])
+def test_run_mpc_matches_jax_per_lane(start_k):
+    """3 closed-loop steps on 2 lanes from window ``start_k`` on, each lane
+    against the JAX package's ``run_mpc`` of that lane's noise."""
+    T, B = 3, 2
+    prob_mpc, X_track, U_track, noise = _mpc_setup(T=T + start_k, B=B)
+    noise = noise[:T]
+    kw = dict(cost_tolerance=1e-4, gradient_tolerance=1e-4,
+              constraint_tolerance=1e-4, penalty_initial=1e3,
+              penalty_scaling=100.0, iterations_linesearch=2,
+              early_exact_tol=1e-3)
+    jrun = jax.jit(j_run_mpc, static_argnames=("start_k",))
+    jres = [jrun(prob_mpc, at.SolverOptions(**kw), X_track, U_track,
+                 jnp.asarray(noise[:, b]), start_k=start_k)
+            for b in range(B)]
+    tres = run_mpc(convert.problem_from_numpy(convert.numpy_tree(prob_mpc)),
+                   tt.SolverOptions(**kw), torch.tensor(np.asarray(X_track)),
+                   torch.tensor(np.asarray(U_track)), torch.as_tensor(noise),
+                   start_k=start_k)
+    assert tres.X.shape == (T, B, prob_mpc.N, 6)
+    for b, jr in enumerate(jres):
+        assert tres.iters[:, b].tolist() == np.asarray(jr.iters).tolist()
+        assert tres.status[:, b].tolist() == np.asarray(jr.status).tolist()
+        for k in ("X", "U", "viol", "x0"):
+            close(getattr(tres, k)[:, b], getattr(jr, k))
+    assert int(tres.status.sum()) == T * B
 
 
 def test_xws_corrector_is_exact_rollout():

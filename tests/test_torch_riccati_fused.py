@@ -11,8 +11,8 @@
   (1e-10 of each output's scale);
 
 the wrapper's CPU dispatch; and, on a CUDA device, the kernel against the
-plain version, on ZERO/NONPOS blocks, on the rocket's SOC blocks and on
-grasp's mix.
+plain version, on ZERO/NONPOS blocks, on the rocket's SOC blocks, on
+grasp's mix and on the flexsat regulator's single NONPOS block at N=80.
 
 JAX is imported only by the tests that compare with it, so the kernel tests
 also run where JAX is not installed:
@@ -295,6 +295,27 @@ def test_kernel_matches_plain_version_grasp(cuda, cold, Bt, dtype, tol):
     torch.cuda.synchronize()
     assert riccati_fused.launch_count == before + 1
     for o, r in zip(got, g["fused_ref"]):
+        assert torch.isfinite(o).all()
+        assert float((o - r).abs().max()) <= tol * max(1.0,
+                                                      float(r.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3),
+                                       (torch.float64, 1e-9)])
+@pytest.mark.parametrize("Bt", [1024, 131])
+def test_kernel_matches_plain_version_flexsat(cuda, Bt, dtype, tol):
+    """The flexsat regulator (n=12, m=3, N=80, one NONPOS block of 6
+    control-bound rows, both signs of lam + rho c) at the bench's batch and
+    at an odd one."""
+    from altro_tpu_torch.bench.kernels import flexsat_inputs
+
+    f = flexsat_inputs(dtype, cuda, B=Bt)
+    before = riccati_fused.launch_count
+    got = riccati_fused.fused_expand_backward(*f["fused"], packed=f["packed"])
+    torch.cuda.synchronize()
+    assert riccati_fused.launch_count == before + 1
+    for o, r in zip(got, f["fused_ref"]):
         assert torch.isfinite(o).all()
         assert float((o - r).abs().max()) <= tol * max(1.0,
                                                       float(r.abs().max()))

@@ -1,12 +1,14 @@
 """Fused ladder rollout + AL merit: the port's plain
 ``batched_ls_rollout_al_reference`` against the JAX package's Pallas kernel
 in interpret mode on the rocket MPC window (three SOC blocks), on a
-ZERO + NONPOS pair and on the grasp window (ZERO, NONPOS and two SOC
-blocks at n = m = 6) in float64 (Xs/Us rtol 1e-9, J rtol 1e-8); the
+ZERO + NONPOS pair, on the grasp window (ZERO, NONPOS and two SOC blocks at
+n = m = 6) and on the flexsat regulator's single NONPOS block (n=12, m=3)
+in float64 (Xs/Us rtol 1e-9, J rtol 1e-8); the
 wrapper's CPU dispatch; the byte and FLOP counts that the kernel's bound is
 computed from; and, on a CUDA device, the kernel against the plain version
-in float32 and float64 (the rocket and grasp windows, and random problems at
-the edges of its thread mapping), and the wrapper's limits.
+in float32 and float64 (the rocket and grasp windows, flexsat at its
+bench shapes N=80, n=12, m=3, p=6, L=6, B=1024, and random problems at the
+edges of its thread mapping), and the wrapper's limits.
 
 JAX is imported only by the tests that compare with it, so the kernel tests
 also run where JAX is not installed:
@@ -51,11 +53,15 @@ def _case(kind, N, Bt, seed):
     thrust-angle cone's apex (v = 0) at knot 0 for the rocket blocks.
     'grasp': the grasp window's ZERO, NONPOS and two SOC blocks at
     n = m = 6 with the kernel benchmark's inputs (an apex lane-knot with
-    s = 500), rho varied the same way."""
-    if kind == "grasp":
-        from altro_tpu_torch.bench.kernels import grasp_inputs
+    s = 500), rho varied the same way; 'flexsat': the flexsat regulator's
+    one NONPOS block (n=12, m=3) with the kernel benchmark's inputs, rho
+    varied the same way."""
+    if kind in ("grasp", "flexsat"):
+        from altro_tpu_torch.bench.kernels import (flexsat_inputs,
+                                                   grasp_inputs)
 
-        g = grasp_inputs(torch.float64, torch.device("cpu"), B=Bt, N=N)
+        inputs = grasp_inputs if kind == "grasp" else flexsat_inputs
+        g = inputs(torch.float64, torch.device("cpu"), B=Bt, N=N)
         rho = 10.0 ** np.random.default_rng(seed).uniform(0, 3, (Bt, N))
         return g["ladder_al"][:10] + (torch.as_tensor(rho),)
     pm, X_tr, U_tr = _window(kind, N)
@@ -102,13 +108,15 @@ def interpret_cases():
     from altro_tpu.ops.rollout import batched_ls_rollout_al as j_al
 
     out = {}
-    for kind, N in (("rocket", 13), ("zero_nonpos", 7), ("grasp", 7)):
+    for kind, N in (("rocket", 13), ("zero_nonpos", 7), ("grasp", 7),
+                    ("flexsat", 7)):
         args = _case(kind, N, 4, seed=1)
         out[kind] = (args, j_al(*_to_jax(args), LADDER[::2], interpret=True))
     return out
 
 
-@pytest.mark.parametrize("kind", ["rocket", "zero_nonpos", "grasp"])
+@pytest.mark.parametrize("kind", ["rocket", "zero_nonpos", "grasp",
+                                  "flexsat"])
 def test_reference_matches_jax_pallas_interpret(interpret_cases, kind):
     args, (Xj, Uj, Jj) = interpret_cases[kind]
     Xs, Us, J = rollout_al.batched_ls_rollout_al_reference(*args,
@@ -264,7 +272,8 @@ def cuda():
 @pytest.mark.parametrize("kind,N,Bt", [("rocket", 21, 67),
                                        ("zero_nonpos", 9, 5),
                                        ("grasp", 21, 1024),
-                                       ("grasp", 21, 131)])
+                                       ("grasp", 21, 131),
+                                       ("flexsat", 80, 1024)])
 def test_kernel_matches_plain_version(cuda, kind, N, Bt, dtype, tol):
     """Xs, Us against max(1, max|plain|); J per lane against
     max(1, |J_plain|): the merit reaches 1e6 with rho up to 1e3."""
