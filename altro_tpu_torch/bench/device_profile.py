@@ -20,7 +20,16 @@ pass per replay) and on the host-driven loop:
   schedule (``bench/families.py: FLEXSAT_SCHEDULE``): the cold solve and
   one warm-up step, then windows of 5 regulator steps;
 - quadruped, in both friction modes: one warm-up solve, then windows of 2
-  cold batch solves, each with a fresh x0 draw.
+  cold batch solves, each with a fresh x0 draw;
+- closed_loop, the quadruped closed loop of one robot in float64, in both
+  friction forms: two warm-up periods, then windows of 10 periods, each
+  fenced into its three sections (prep: the schedule and the
+  relinearization; solve; ticks: adopting the solution and the 30 control
+  ticks). Printed per period and section: the wall ms of the unprofiled
+  window and the device ms of the profiled one, each kernel attributed to
+  the section whose host range (which ends in a device synchronise)
+  contains its start, with the device time and launches of the rest by
+  kind per section.
 
 Each path runs one window unprofiled and the next under the profiler (CPU
 and CUDA activities). Printed per solver-loop pass (``solver.altro.
@@ -55,6 +64,8 @@ from altro_tpu_torch.solver import altro, graph
 
 FLAG_STEPS, ROCKET_STEPS, GRASP_STEPS, FLEX_STEPS, QUAD_SOLVES = (10, 3, 5,
                                                                   5, 2)
+LOOP_PERIODS = 10
+LOOP_SECTIONS = ("prep", "solve", "ticks")
 KINDS = (("kernel B (fused_expand_backward)", ("fused_expand_backward",)),
          ("kernel C (ls_rollout_al)", ("ls_rollout_al",)),
          ("kernel A (ls_rollout)", ("ls_rollout",)),
@@ -249,6 +260,91 @@ def compaction_ms_by_level(step, calls: int = 20) -> list:
     return out
 
 
+def closed_loop_sections(linearized_friction: bool,
+                         periods: int = LOOP_PERIODS, graphed=None) -> dict:
+    """Wall and device ms per period by section of the closed loop (see
+    the module docstring): periods 2 .. 2 + periods unprofiled, the next
+    ``periods`` under the profiler."""
+    from altro_tpu_torch.bench.drivers import QUAD_OPTS
+    from altro_tpu_torch.models.quadruped import config, controller
+    from altro_tpu_torch.solver.options import SolverOptions
+
+    loop = controller.ClosedLoop(
+        config.MPCConfig(linearized_friction=linearized_friction),
+        SolverOptions(**QUAD_OPTS), device="cuda", graphed=graphed)
+    for k in range(2):                                 # warm-up, capture
+        loop.period(k)
+
+    def window(k0, label):
+        wall = dict.fromkeys(LOOP_SECTIONS, 0.0)
+        passes = altro.pass_count
+        for k in range(k0, k0 + periods):
+            loop.set_time(k)
+            held = {}
+
+            def prep():
+                held["dyn"], held["fl"] = loop.prep()
+
+            def solve():
+                held["U"], held["duals"], _ = loop.solve(held["dyn"])
+
+            def ticks():
+                loop.adopt(held["U"], held["duals"], held["fl"])
+                loop.ticks()
+            for name, fn in zip(LOOP_SECTIONS, (prep, solve, ticks)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with torch.profiler.record_function(f"{label}:{name}"):
+                    fn()
+                    torch.cuda.synchronize()
+                wall[name] += (time.perf_counter() - t0) * 1e3
+        return ({k: v / periods for k, v in wall.items()},
+                (altro.pass_count - passes) / periods)
+
+    wall, passes = window(2, "unprofiled")
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        prof_wall, _ = window(2 + periods, "section")
+    ranges, kernels = [], []
+    for e in prof.events():
+        if e.name.startswith("section:"):
+            # the range on the host; its copy on the device's timeline (a
+            # user annotation spanning the section's device work) is no
+            # kernel
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                continue
+            ranges.append((e.time_range.start, e.time_range.end,
+                           e.name.split(":", 1)[1]))
+        elif e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels.append(e)
+    device = {s: {} for s in LOOP_SECTIONS}
+    unplaced = 0
+    for e in kernels:
+        t = e.time_range.start
+        name = next((n for a, b, n in ranges if a <= t <= b), None)
+        if name is None:
+            unplaced += 1
+            continue
+        kind = kind_of(e.name)
+        ms, n = device[name].get(kind, (0.0, 0))
+        device[name][kind] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    per_section = {
+        s: {"wall_ms": wall[s], "profiled_wall_ms": prof_wall[s],
+            "device_ms": sum(ms for ms, _ in device[s].values()) / periods,
+            "launches": sum(n for _, n in device[s].values()) / periods,
+            "by_kind": {k: {"ms": ms / periods, "launches": n / periods}
+                        for k, (ms, n) in sorted(device[s].items())}}
+        for s in LOOP_SECTIONS}
+    if sum(v["device_ms"] for v in per_section.values()) == 0.0:
+        raise RuntimeError("the profiler recorded no device time")
+    return {"path": "closed loop " + ("qp" if linearized_friction
+                                      else "socp"),
+            "form": "graphed" if loop.graphed else "eager",
+            "periods": periods, "passes_per_period": passes,
+            "unplaced_kernels": unplaced, "per_period": per_section}
+
+
 # path: ((label, batch, window's description, steps or solves per window,
 # its maker taking `graphed`), ...)
 PATHS = {
@@ -279,14 +375,14 @@ PATHS = {
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("paths", nargs="*", help=f"of {list(PATHS)} (default: "
-                    "all)")
+    ap.add_argument("paths", nargs="*", help=f"of {list(PATHS)} and "
+                    "closed_loop (default: all)")
     ap.add_argument("--forms", default="graphed,eager",
                     help="comma-separated forms: graphed, eager")
     args = ap.parse_args()
-    names = args.paths or list(PATHS)
+    names = args.paths or list(PATHS) + ["closed_loop"]
     forms = args.forms.split(",")
-    unknown = ([n for n in names if n not in PATHS]
+    unknown = ([n for n in names if n not in PATHS and n != "closed_loop"]
                + [f for f in forms if f not in ("graphed", "eager")])
     if unknown:
         raise SystemExit(f"unknown path or form {unknown}; choose from "
@@ -298,6 +394,25 @@ def main() -> None:
     card = power_limit()
     results = []
     for name in names:
+        if name == "closed_loop":
+            for lin in (True, False):
+                for form in forms:
+                    res = closed_loop_sections(lin, graphed=form == "graphed")
+                    print(f"{res['path']} [{form}] f64 [{card}], per period "
+                          f"over {res['periods']} periods "
+                          f"({res['passes_per_period']:.2f} solver-loop "
+                          f"passes; {res['unplaced_kernels']} kernels "
+                          "outside the sections):", flush=True)
+                    for sec, v in res["per_period"].items():
+                        print(f"  {sec}: wall {v['wall_ms']:.3f} ms "
+                              f"(profiled {v['profiled_wall_ms']:.3f}), "
+                              f"device {v['device_ms']:.3f} ms in "
+                              f"{v['launches']:.1f} kernels; " + "; ".join(
+                                  f"{k} {kv['ms']:.4f} ms "
+                                  f"({kv['launches']:.1f})"
+                                  for k, kv in v["by_kind"].items()))
+                    results.append(res)
+            continue
         for label, B, desc, units, make_window in PATHS[name]:
             for form in forms:
                 window = make_window(form == "graphed")

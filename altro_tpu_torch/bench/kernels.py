@@ -15,7 +15,9 @@ per-lane L=11, B on the flagship and the rocket window, C on the rocket
 window at L=6, D on the quadruped's per-lane expansion; B also on grasp's
 window (13 rows in 4 blocks) and cold problem (19 rows in 5) and on the
 flexsat regulator (N=80, one NONPOS block of 6 rows), C on grasp's window
-at L=3 and on flexsat at L=6. Kernels B and D are also timed on the flagship's
+at L=3 and on flexsat at L=6; B, C at L=11 and A's init form at the
+quadruped closed loop's one robot (B=1, N=15, 24 NONPOS rows or 4 cones
+and 8 NONPOS rows in 5 blocks). Kernels B and D are also timed on the flagship's
 random-linear model (shared dynamics; D on the solver's AL expansion of the
 inputs B expands itself) at the flagship's widths and at (n, m) = (13, 6)
 and (7, 3), which no main path uses. ``--against DIR`` names the root
@@ -408,6 +410,70 @@ def quadruped_inputs(dtype, dev, B: int = QUAD_B) -> dict:
                                  X.element_size()))
 
 
+def quadloop_inputs(dtype, dev, linearized_friction: bool = True) -> dict:
+    """Kernels B, C and A at the quadruped closed loop's shapes: one robot
+    (B=1), n = m = 12, N=15, the MPC problem linearized about the contact
+    schedule at t = 0.25 s (legs 1 and 2 in swing), built in float64 on the
+    CPU and cast (as ``families.quadruped_setup``); the friction pyramids
+    (24 rows in 5 blocks) or cones (20 rows in 5). Seed 12: forces 10 N
+    around the stance forces, states off their rollout, rho 100 and
+    multipliers of rho (|c| + 1) times a normal draw, so that lam + rho c
+    takes both signs on the NONPOS rows and the cones land inside, on the
+    polar side and between. B's arguments, C's at the solver's L=11 ladder
+    on the plain version's gains, and A's init form (L=1, K = d = 0)."""
+    import torch
+    from altro_tpu_torch.convert import tree_to
+    from altro_tpu_torch.models.quadruped import config, controller, planner
+    from altro_tpu_torch.models.quadruped.gait import GAITS
+    from altro_tpu_torch.ops import riccati_fused
+    from altro_tpu_torch.ops.blocks import pack_blocks
+
+    f64 = torch.float64
+    cfg = config.MPCConfig(linearized_friction=linearized_friction)
+    gait = GAITS[cfg.gait_type](cfg.stance_time, cfg.swing_time)
+    prob, x_des = controller.build_mpc_problem(cfg, f64)
+    N, n, m, dt = cfg.N, 12, 12, cfg.dynamics_discretization
+    feet0 = x_des[0:3][None, :] + planner.nominal_foot_locations()
+    feet0[:, 2] = config.woofer.geometry.foot_radius
+    x_ref = x_des.expand(N, 12)
+    contacts, foot_locs, _ = planner.foot_history(
+        torch.tensor(0.25, dtype=f64), x_ref, feet0, feet0, gait, x_des, N,
+        dt)
+    pm = controller._linearized_problem(prob, x_des[None], x_ref, contacts,
+                                        foot_locs, dt)
+    rng = np.random.default_rng(12)
+    U = torch.zeros((1, N - 1, m), dtype=f64)
+    U[:, :, 2::3] = controller.SPRUNG_MASS * 9.81 / 4.0
+    U = U + torch.as_tensor(10.0 * rng.standard_normal((1, N - 1, m)))
+    X = pm.dynamics.rollout(pm.x0, U) + torch.as_tensor(
+        0.05 * rng.standard_normal((1, N, n)))
+    rho = torch.full((1, N), 100.0, dtype=f64)
+    lams = tuple(
+        rho[..., None] * (c.evaluate(X, U).abs() + 1.0)
+        * torch.as_tensor(rng.standard_normal((1, N, c.p)))
+        for c in pm.constraints)
+    pm, X, U, lams, rho = tree_to((pm, X, U, lams, rho), dev, dtype)
+    blocks, dyn = pm.constraints, pm.dynamics
+    rhos = (rho,) * len(blocks)
+    reg = torch.zeros(1, dtype=dtype, device=dev)
+    packed = pack_blocks(blocks, N, n, m, X)
+    fused = (pm.cost, dyn.A, dyn.B, blocks, X, U, lams, rhos, reg)
+    ref = riccati_fused.fused_expand_backward_reference(*fused)
+    K, d = ref[0].contiguous(), ref[1].contiguous()
+    soc_p = tuple(c.p for c in blocks if c.cone.name == "SOC")
+    item = X.element_size()
+    return dict(
+        prob=pm, fused=fused, fused_ref=ref, packed=packed,
+        ladder_al=(pm.cost, dyn.A, dyn.B, dyn.d, blocks, X, U, K, d, lams,
+                   rho, QUAD_LADDER),
+        init=(dyn.A, dyn.B, dyn.d, X, U, torch.zeros_like(K),
+              torch.zeros_like(d), (1.0,)),
+        fused_work=fused_work(1, N, n, m, packed.P, soc_p, item),
+        ladder_al_work=rollout_al_work(1, N, n, m, packed.P,
+                                       len(QUAD_LADDER), item),
+        init_work=rollout_work(1, N, n, m, 1, False, item))
+
+
 def measure() -> list:
     """Time kernels A, B, C and D at every shape, f32 and f64, in the
     checkout whose ``altro_tpu_torch`` is imported."""
@@ -428,6 +494,8 @@ def measure() -> list:
         gc = grasp_inputs(dtype, dev, cold=True)
         fx = flexsat_inputs(dtype, dev)
         qd = quadruped_inputs(dtype, dev)
+        lq = quadloop_inputs(dtype, dev, True)
+        ls_ = quadloop_inputs(dtype, dev, False)
         other = [(w, flagship_inputs(dtype, dev, widths=w))
                  for w in OTHER_WIDTHS]
         item = fl["fused"][4].element_size()
@@ -443,6 +511,8 @@ def measure() -> list:
             ("B", "grasp window", fused(gw), gw["fused_work"]),
             ("B", "grasp cold", fused(gc), gc["fused_work"]),
             ("B", "flexsat", fused(fx), fx["fused_work"]),
+            ("B", "closed loop qp B=1", fused(lq), lq["fused_work"]),
+            ("B", "closed loop socp B=1", fused(ls_), ls_["fused_work"]),
             *(("B", f"random-linear n={n} m={m}", fused(inp),
                inp["fused_work"]) for (n, m), inp in other),
             ("A", "flagship L=3", lambda: ls(*fl["ladder"]),
@@ -450,6 +520,8 @@ def measure() -> list:
             ("A", "init L=1", lambda: ls(*fl["init"]), fl["init_work"]),
             ("A", "quadruped L=11 per-lane", lambda: ls(*qd["ladder"]),
              qd["ladder_work"]),
+            ("A", "closed loop init L=1 B=1", lambda: ls(*lq["init"]),
+             lq["init_work"]),
             ("C", "rocket L=6",
              lambda: la(*rk["ladder_al"], packed=rk["packed"]),
              rk["ladder_al_work"]),
@@ -459,6 +531,10 @@ def measure() -> list:
             ("C", "flexsat L=6",
              lambda: la(*fx["ladder_al"], packed=fx["packed"]),
              fx["ladder_al_work"]),
+            *(("C", f"closed loop {mode} L=11 B=1",
+               (lambda q=q: la(*q["ladder_al"], packed=q["packed"])),
+               q["ladder_al_work"]) for mode, q in (("qp", lq),
+                                                     ("socp", ls_))),
             ("D", "quadruped per-lane", pass_d(qd), qd["riccati_work"]),
             ("D", "flagship shared", pass_d(fl), fl["riccati_work"]),
             *(("D", f"random-linear shared n={n} m={m}", pass_d(inp),
@@ -468,7 +544,7 @@ def measure() -> list:
             rows.append(dict(kernel=kernel, shape=shape, dtype=label,
                              ms=time_ms(fn, kernel=True), bound_ms=bnd,
                              bound_by=by, bytes=nbytes, flops=flops))
-        del fl, rk, gw, gc, fx, qd, other
+        del fl, rk, gw, gc, fx, qd, lq, ls_, other
         torch.cuda.empty_cache()
     return rows
 

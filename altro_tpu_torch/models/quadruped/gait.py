@@ -2,7 +2,10 @@
 (PyTorch counterpart of ``altro_tpu/models/quadruped/gait.py``).
 
 Tables are float64, as in the JAX package; a phase at time t is found by a
-search over the cumulative phase times of t mod the gait's length.
+search over the cumulative phase times of t mod the gait's length. A gait's
+tables live on one device (:meth:`Gait.to`), and every lookup stays there:
+phases index the tables through ``index_select``, never through a host read,
+so a lookup can be captured in a CUDA graph.
 """
 from __future__ import annotations
 
@@ -17,6 +20,14 @@ def _mod(x, y):
     fmod, then shifted by y where the signs differ)."""
     r = torch.fmod(x, y)
     return torch.where((r != 0) & ((r < 0) != (y < 0)), r + y, r)
+
+
+def take(table, idx):
+    """``table[idx]`` for an integer tensor ``idx`` of any shape (0-d
+    included), on the device: ``index_select`` reads no index to the
+    host."""
+    return table.index_select(0, idx.reshape(-1)).reshape(
+        idx.shape + table.shape[1:])
 
 
 @dataclass
@@ -34,27 +45,40 @@ class Gait:
     def phase_length(self):
         return torch.sum(self.phase_times)
 
+    def to(self, device) -> "Gait":
+        """The same gait with its tables on ``device``."""
+        return Gait(contact_phases=self.contact_phases.to(device),
+                    phase_times=self.phase_times.to(device),
+                    alpha=self.alpha, beta=self.beta)
+
+    def _time(self, t):
+        """t mod the gait's length, on the tables' device."""
+        return _mod(torch.as_tensor(t, dtype=self.phase_times.dtype,
+                                    device=self.phase_times.device),
+                    self.phase_length)
+
     def phase_at(self, t):
         """Phase index at time t (a tensor of any shape)."""
-        pt = _mod(torch.as_tensor(t, dtype=self.phase_times.dtype),
-                  self.phase_length)
+        pt = self._time(t)
         ends = torch.cumsum(self.phase_times, 0)
         return torch.searchsorted(ends, pt.reshape(-1),
                                   right=True).reshape(pt.shape)
 
     def phase_time(self, t, phase):
         """Time elapsed within ``phase``."""
-        pt = _mod(torch.as_tensor(t, dtype=self.phase_times.dtype),
-                  self.phase_length)
-        starts = torch.cat([torch.zeros(1, dtype=self.phase_times.dtype),
+        starts = torch.cat([torch.zeros_like(self.phase_times[:1]),
                             torch.cumsum(self.phase_times, 0)[:-1]])
-        return pt - starts[phase]
+        return self._time(t) - take(starts, phase)
 
     def next_phase(self, phase):
         return torch.remainder(phase + 1, self.num_phases)
 
+    def contacts(self, phase):
+        """Contact flags [..., 4] of ``phase``."""
+        return take(self.contact_phases, phase)
+
     def contacts_at(self, t):
-        return self.contact_phases[self.phase_at(t)]
+        return self.contacts(self.phase_at(t))
 
 
 def _mk(table, times) -> Gait:

@@ -1,13 +1,19 @@
-"""Single-rigid-body dynamics of the quadruped MPC (PyTorch counterpart of
-``altro_tpu/models/quadruped/srb.py``, without the RK4 plant).
+"""Single-rigid-body dynamics of the quadruped MPC and of its closed-loop
+plant (PyTorch counterpart of ``altro_tpu/models/quadruped/srb.py``).
 
 State x = [p(3), mrp(3), v(3), omega_body(3)], control u = 4 world-frame
 contact forces (12). The MPC's per-knot dynamics are the Euler-discretized
 linearization A_d = I + A_c dt, B_d = B_c dt, d = (f(xbar, ubar) - A_c xbar
 - B_c ubar) dt, with A_c and B_c by forward-mode autodiff
-(``torch.func.jacfwd``, vmapped over knots).
+(``torch.func.jacfwd``, vmapped over knots). The plant of the closed loop
+integrates the same nonlinear dynamics with RK4 (:func:`rk4_plant`), with
+mass and inertia scales for a plant that differs from the controller's
+model. The body constants are taken onto the input's device and dtype once
+per pair, so no call copies from the host.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -21,6 +27,15 @@ J_BODY = torch.tensor(_w.inertial.body_inertia, dtype=torch.float64)
 J_INV = torch.tensor(np.linalg.inv(_w.inertial.body_inertia),
                      dtype=torch.float64)
 GRAVITY = 9.81
+
+
+@functools.lru_cache(maxsize=None)
+def _body(device, dtype):
+    """(J_BODY, J_INV, the gravity vector [0, 0, -g]) on ``device`` in
+    ``dtype``."""
+    kw = dict(device=device, dtype=dtype)
+    return (J_BODY.to(**kw), J_INV.to(**kw),
+            torch.tensor([0.0, 0.0, -GRAVITY], **kw))
 
 
 def skew(a):
@@ -58,10 +73,21 @@ def mrp_kinematics(phi, omega):
     return 0.25 * M @ omega
 
 
-def continuous_dynamics(x, u, foot_locs, contacts):
-    """Nonlinear SRB xdot [12] of the nominal model. foot_locs [4, 3]
-    world-frame foot positions, contacts [4] {0,1}."""
-    kw = dict(dtype=x.dtype, device=x.device)
+def mrp_from_quat(q):
+    """MRP [3] of a quaternion (w, x, y, z), taking the shorter rotation
+    (the sign of w flipped to non-negative)."""
+    q = torch.where(q[0] < 0, -q, q)
+    return q[1:] / (1.0 + q[0])
+
+
+def continuous_dynamics(x, u, foot_locs, contacts, mass_scale=1.0,
+                        inertia_scale=1.0):
+    """Nonlinear SRB xdot [12]. foot_locs [4, 3] world-frame foot
+    positions, contacts [4] {0,1}; ``mass_scale`` and ``inertia_scale``
+    (floats or 0-d tensors) scale the body's mass and inertia away from the
+    nominal model (the MPC always linearizes scale 1, which keeps the
+    nominal arithmetic bit for bit)."""
+    J_body, J_inv, gravity = _body(x.device, x.dtype)
     p = x[0:3]
     phi = x[3:6]
     v = x[6:9]
@@ -72,16 +98,15 @@ def continuous_dynamics(x, u, foot_locs, contacts):
     phid = mrp_kinematics(phi, omega)
 
     F = u.reshape(4, 3) * contacts[:, None]
-    force_sum = (torch.tensor([0.0, 0.0, -GRAVITY], **kw)
-                 + torch.sum(F, dim=0) / SPRUNG_MASS)
+    force_sum = gravity + torch.sum(F, dim=0) / (SPRUNG_MASS * mass_scale)
 
     r_b = torch.einsum("ji,kj->ki", rot, foot_locs - p)   # rot' (r - p)
     F_b = torch.einsum("ji,kj->ki", rot, F)               # rot' F
     torque_sum = torch.sum(torch.einsum("kij,kj->ki", _skew_batch(r_b), F_b),
                            dim=0)
 
-    omegad = J_INV.to(**kw) @ (-skew(omega) @ (J_BODY.to(**kw) @ omega)
-                               + torque_sum)
+    omegad = (J_inv / inertia_scale) @ (
+        -skew(omega) @ ((J_body * inertia_scale) @ omega) + torque_sum)
     return torch.cat([pd, phid, force_sum, omegad])
 
 
@@ -100,4 +125,21 @@ def linearize_horizon(x_ref, u_ref, foot_locs, contacts, dt) -> LTVDynamics:
 
     A, B, d = vmap(one)(x_ref[:-1], u_ref[:-1], foot_locs[:-1],
                         contacts[:-1])
-    return LTVDynamics(A=A, B=B, d=d)
+    return LTVDynamics(A=A.contiguous(), B=B.contiguous(),
+                       d=d.contiguous())
+
+
+def rk4_plant(x, u, foot_locs, contacts, dt, mass_scale=1.0,
+              inertia_scale=1.0):
+    """One RK4 step of length dt of the nonlinear SRB under the contact
+    forces u [12] at the feet foot_locs [4, 3] in contact (contacts [4]):
+    the closed loop's plant. ``mass_scale``/``inertia_scale`` != 1 give the
+    plant other parameters than the controller's model."""
+    def f(xx):
+        return continuous_dynamics(xx, u, foot_locs, contacts, mass_scale,
+                                   inertia_scale)
+    k1 = f(x)
+    k2 = f(x + 0.5 * dt * k1)
+    k3 = f(x + 0.5 * dt * k2)
+    k4 = f(x + dt * k3)
+    return x + (dt / 6.0) * (k1 + 2 * k2 + 2 * k3 + k4)

@@ -23,6 +23,10 @@ satellite's), plain or compacted: the window never moves, so every step
 re-solves one problem from the propagated x0, warm-started from the carried
 controls, duals and exactly re-based states.
 
+:func:`make_relinearized_step` is the warm solve of a controller whose
+dynamics change at every call (the quadruped's closed loop): the new
+dynamics and x0 come in with the carry, the controls and duals shift.
+
 Every step factory runs on CUDA graphs on a CUDA device (``graphed``;
 ``solver/graph.py``): per batch size a start graph (propagation, noise,
 retarget, constraint window, shift, seam corrector, warm-start state), a
@@ -294,6 +298,35 @@ class _RegulatorPieces(_Pieces):
                       for d in sol0.duals))
 
 
+class _RelinearizedPieces(_Pieces):
+    """The warm solve of a problem whose dynamics change at every call (a
+    controller that relinearizes about its contact schedule, as the
+    quadruped's), in the form of :class:`_StepPieces` with an empty host
+    part. ``start_from(carry, dyn)``, carry = (x0 [B, n], U [B, N-1, m],
+    duals), solves ``prob`` with the dynamics ``dyn`` from x0, seeded with
+    the controls shifted one knot (``shift_fill``) and the shifted duals and
+    without states, so the solve starts with its init rollout;
+    ``finish`` returns (the next carry (x0, U, duals), MPCResults)."""
+
+    def __init__(self, prob: Problem, opts: SolverOptions):
+        self.prob_mpc, self.opts = prob, opts
+
+    def window(self, k_new: int):
+        return ()
+
+    def start_from(self, carry, dyn):
+        x0, U, duals = carry
+        prob_k = dataclasses.replace(self.prob_mpc, dynamics=dyn, x0=x0)
+        return (prob_k,
+                _warmstart_state(prob_k, self.opts, shift_fill(U),
+                                 tuple(d.shift() for d in duals)),
+                x0)
+
+    def finish(self, prob_k, state, x0_new):
+        (x0, _, U, duals), out = super().finish(prob_k, state, x0_new)
+        return (x0, U, duals), out
+
+
 def _gather_fn(parent: LoopGraph, child: LoopGraph, blk: int):
     """Gather the ``blk`` unconverged-first lanes of ``parent``'s state (a
     stable argsort of the done flags) into ``child``'s; returns the lane
@@ -321,11 +354,12 @@ class _GraphedStep:
     of the compaction schedule ``sched`` (``((it_cap, block), (extra_cap,
     sub_block), ...)``; empty for the plain step) with a gather and a
     scatter graph between two levels, and the finish graph. The host copies
-    each step's carry, noise row, tracking window and (with
-    ``constraints_fn``) constraint window into the start graph's input
-    buffers, replays start, each loop graph until no lane is live (one host
-    sync per k passes, every catch-all one replay and one sync), and
-    finish, and returns clones of the finish graph's results.
+    each step's carry, step input (a noise row; the relinearized step's
+    dynamics), tracking window and (with ``constraints_fn``) constraint
+    window into the start graph's input buffers, replays start, each loop
+    graph until no lane is live (one host sync per k passes, every
+    catch-all one replay and one sync), and finish, and returns clones of
+    the finish graph's results.
 
     Called as ``step(carry, noise_i, k)``. ``loop_replays`` counts the loop
     graphs' replays and ``capture_s`` the host seconds spent capturing."""
@@ -670,6 +704,23 @@ def make_regulator_step(prob: Problem, opts: SolverOptions,
         return pieces.init_carry(batch, graphed, check_every, sol0)
 
     return step, init_carry
+
+
+def make_relinearized_step(prob: Problem, opts: SolverOptions,
+                           graphed: Optional[bool] = None):
+    """The warm-started solve of a controller that relinearizes its
+    dynamics at every call: ``step(carry, dyn, k) -> (carry, MPCResults)``
+    with carry = (x0 [B, n], U [B, N-1, m], duals), solving ``prob`` with
+    the dynamics ``dyn`` (an LTVDynamics of ``prob``'s shapes) from x0,
+    seeded with the shifted controls and duals (:class:`_RelinearizedPieces`;
+    ``k`` is not read). The next carry holds the solution's controls and
+    duals, unshifted. ``graphed`` as in :func:`make_mpc_step` (one body
+    pass per replay): graphed, the start graph copies the dynamics, x0,
+    the shifted controls and duals into the loop's buffers and runs the
+    init rollout."""
+    step, _ = _make_step(_RelinearizedPieces(prob, opts), opts, (),
+                         graph.use_graphs(graphed, prob.x0.device), 1)
+    return step
 
 
 def stack_results(outs) -> MPCResults:

@@ -35,12 +35,19 @@ Phases, each printing its findings; any failure raises (non-zero exit):
       6 rows, both signs of lam + rho c on its rows): the fused expansion,
       and the fused ladder + merit at L=6 (J and the accepted rung as in
       b);
+   f. the quadruped closed loop's one robot (B=1, n = m = 12, N=15, the
+      MPC problem linearized about a schedule with two legs in swing), in
+      both friction forms (24 NONPOS rows in 5 blocks; 4 cones of 3 rows
+      and 8 NONPOS rows), both signs of lam + rho c on the NONPOS rows and
+      cones inside, polar and between: the fused expansion, the fused
+      ladder + merit at the solver's L=11 (J and the accepted rung as in
+      b) and the ladder rollout's init form (L=1);
 4. main paths, each on CUDA graphs (``altro_tpu_torch/solver/graph.py``:
    every MPC step, batch solve and cold solve as start, loop and finish
    graphs, the loop replayed with one host sync per k passes), with the
    launch counters, the solver-loop pass counter (both counted per replay)
    and the counter of entries into the host-driven loop reset just before
-   and read just after (gate: no entry over 4a-4e and 4g):
+   and read just after (gate: no entry over 4a-4e and 4g-4i):
    a. the flagship MPC benchmark (B=1024, T=20, float32): success,
       violation and counter gates;
    b. the rocket MPC benchmark in its shipped straggler-compaction schedule
@@ -67,10 +74,26 @@ Phases, each printing its findings; any failure raises (non-zero exit):
       (8, 128)): success 1.0, violation <= 1e-4, B and C once per counted
       pass, A once (the cold solve's init rollout: the warm solves start
       from the re-based states), D never;
+   h. the quadruped closed loop (``models/quadruped/controller.py:
+      simulate_host``): a 2 s trot of one robot, 67 MPC periods of 30 ms,
+      each the schedule and relinearization, the warm-started solve and 30
+      ticks at 1 kHz of the swing legs and the RK4 plant, float64, nominal
+      plant, both friction forms, every piece on CUDA graphs; prints the
+      per-period solve, prep and tick ms (p50, p99, mean), iterations,
+      passes and replays (gates, as the JAX package's closed-loop test:
+      status 1 on every period, final height within 0.05 m of the stance
+      height, |roll|, |pitch| < 0.2, vertical forces in [-1e-6, max + 1e-4];
+      B and C once per counted pass, A once per solve, the warm-up
+      period's included, D never);
+   i. the closed loop against a mismatched plant (+10% mass, -10%
+      inertia, a 3 mm / 1.5 mm foot-position error and a 0.1 m/s lateral
+      kick at 0.9 s; 2 s, QP): status 1 on every period, final height
+      within 0.07 m, |roll|, |pitch| < 0.15, final lateral velocity
+      < 0.15 m/s;
    f. graphed against eager on the card, every run from one carry: the
       flagship (B=1024, 10 steps), the rocket, grasp and flexsat in their
       shipped schedules (5 steps), the quadruped (2 rounds in each friction
-      mode)
+      mode), the closed loop (10 periods in each friction form)
       (gate: equal status and iterations on every lane-step; max|dU| and
       the bit-equality of X, U and the duals printed, and per path the step
       ms p50 of both forms, passes and replays per step and the capture
@@ -142,6 +165,10 @@ QUAD_GATE_BIAS, QUAD_GATE_P99 = 1e-4, 1e-3
 # steps, quadruped rounds per friction mode
 FORMS_FLAG_T, FORMS_CONIC_T, FORMS_QUAD_ROUNDS = 10, 5, 2
 FLEX_B, FLEX_T, FLEX_AGREE_B = 1024, 45, 1024
+# the quadruped closed loop: seconds of the main path, of the graphed-vs-eager
+# and card-vs-CPU comparisons (10 periods), and the card-vs-CPU gates
+LOOP_TF, LOOP_COMPARE_TF = 2.0, 0.3
+LOOP_DX, LOOP_DFORCE = 1e-4, 1e-3
 
 
 def errors(got, ref, names, tol: float) -> dict:
@@ -221,18 +248,25 @@ def row_cases(blocks, X, U, lams, rhos):
 
 def conic_parity(family, dtype, tol, cold=False):
     """The fused expansion and the fused ladder + merit against their plain
-    versions on the rocket's or grasp's MPC window (the SOC branch) or on
-    the flexsat regulator (one NONPOS block) (``cold``: the fused
-    expansion alone, on grasp's cold problem); returns
+    versions on the rocket's or grasp's MPC window (the SOC branch), on
+    the flexsat regulator (one NONPOS block) or on the quadruped closed
+    loop's one robot ("closed loop qp" / "closed loop socp", with the
+    ladder rollout's init form too) (``cold``: the fused expansion alone,
+    on grasp's cold problem); returns
     {kernel: ({output: max_abs_err}, ms, plain_ms, (bytes, flops))}."""
     from altro_tpu_torch.bench.kernels import (FLEX_LADDER, GRASP_LADDER,
-                                               ROCKET_LADDER, flexsat_inputs,
-                                               grasp_inputs, rocket_inputs)
-    from altro_tpu_torch.ops import riccati_fused, rollout_al
+                                               QUAD_LADDER, ROCKET_LADDER,
+                                               flexsat_inputs, grasp_inputs,
+                                               quadloop_inputs, rocket_inputs)
+    from altro_tpu_torch.ops import riccati_fused, rollout, rollout_al
     from altro_tpu_torch.solver.altro import _ladder_choice
 
     dev = torch.device("cuda")
-    if family == "rocket":
+    loop = family.startswith("closed loop")
+    if loop:
+        B, ladder = 1, QUAD_LADDER
+        rk = quadloop_inputs(dtype, dev, family.endswith("qp"))
+    elif family == "rocket":
         B, ladder = ROCKET_B, ROCKET_LADDER
         rk = rocket_inputs(dtype, dev, B)
     elif family == "flexsat":
@@ -248,7 +282,8 @@ def conic_parity(family, dtype, tol, cold=False):
     cases = row_cases(blocks, X, U, lams, rhos)
     print(f"{label} parity inputs ({dtype}): {len(blocks)} blocks, "
           f"{packed.P} rows; row cases {cases}")
-    if min(cases.values()) == 0:
+    # the closed loop's inputs hold no apex (a cone's z = 0 exactly)
+    if min(v for k, v in cases.items() if not (loop and k == "apex")) == 0:
         raise AssertionError(f"{label} parity inputs miss a row case: "
                              f"{cases}")
 
@@ -290,6 +325,14 @@ def conic_parity(family, dtype, tol, cold=False):
                                             kernel=True),
                                     time_ms(lambda: la_ref(*cargs)),
                                     rk["ladder_al_work"])
+    if loop:
+        ls = rollout.batched_ls_rollout
+        ls_ref = rollout.batched_ls_rollout_reference
+        iargs = rk["init"]
+        res["batched_ls_rollout"] = (
+            errors(ls(*iargs), ls_ref(*iargs), ("Xs L=1", "Us L=1"), tol),
+            time_ms(lambda: ls(*iargs), kernel=True),
+            time_ms(lambda: ls_ref(*iargs)), rk["init_work"])
     return res
 
 
@@ -573,6 +616,189 @@ def graphed_against_eager(card, su32, gsu32, fsu):
                  runs["eager"], card, stats)
 
 
+def _loop_setup(lin: bool = True):
+    from altro_tpu_torch.bench.drivers import QUAD_OPTS
+    from altro_tpu_torch.models.quadruped import config
+    from altro_tpu_torch.solver.options import SolverOptions
+    return (config.MPCConfig(linearized_friction=lin),
+            SolverOptions(**QUAD_OPTS))
+
+
+def _pct(a, q):
+    return float(np.percentile(np.asarray(a), q))
+
+
+def closed_loop_main(card, lin, counts):
+    """Phase 4h for one friction form: the 2 s closed loop through
+    ``simulate_host`` on graphs; ``counts()`` returns (launches, passes,
+    eager-loop entries) since the caller's reset. Gates its quality and its
+    launches; returns the launches."""
+    from altro_tpu_torch.models.quadruped import controller
+    cfg, opts = _loop_setup(lin)
+    res = controller.simulate_host(cfg, opts, tf=LOOP_TF, device="cuda")
+    launches, passes, eager = counts()
+    status = res["status"].cpu()
+    xs = res["x"].cpu()
+    fz = res["forces"].cpu().reshape(-1, 4, 3)[:, :, 2]
+    iters = res["iters"].cpu()
+    periods = int(status.numel())
+    solves = periods + 1                  # the warm-up period's solve
+    mode = "qp" if lin else "socp"
+    mpc, prep, tick = res["mpc_ms"], res["prep_ms"], res["tick_ms"]
+    height = abs(float(xs[-1, 2]) - cfg.stance_height)
+    att = float(xs[:, 3:5].abs().max())
+    print(f"closed loop [{mode}] main path [{card}]: {periods} periods of "
+          f"{cfg.update_dt * 1e3:.0f} ms, float64, graphs; solve ms p50 "
+          f"{_pct(mpc, 50):.3f} p99 {_pct(mpc, 99):.3f} mean "
+          f"{float(np.mean(mpc)):.3f}; prep ms p50 {_pct(prep, 50):.3f} mean "
+          f"{float(np.mean(prep)):.3f}; tick ms (30 ticks) p50 "
+          f"{_pct(tick, 50):.3f} mean {float(np.mean(tick)):.3f}; period ms "
+          f"mean {float(np.mean(mpc) + np.mean(prep) + np.mean(tick)):.3f}; "
+          f"iterations mean {float(iters.double().mean()):.3f} max "
+          f"{int(iters.max())}; success {float(status.double().mean()):.4f}"
+          f"; passes {passes} ({passes / solves:.3f} per solve); loop "
+          f"replays {res['loop_replays']}; set-up {res['setup_s']:.3f} s, "
+          f"of which capture {res['capture_s']:.3f} s; final height error "
+          f"{height:.4f} m, max |roll|,|pitch| {att:.4f}, vertical forces "
+          f"[{float(fz.min()):.3e}, {float(fz.max()):.3f}] N; launches "
+          f"{launches}")
+    if not _loop_physical(cfg, res):
+        raise AssertionError(f"closed loop [{mode}] quality: status "
+                             f"{status.tolist()}, height error {height}, "
+                             f"attitude {att}, forces "
+                             f"[{float(fz.min())}, {float(fz.max())}]")
+    if not (passes > 0 and launches["fused_expand_backward"] == passes
+            and launches["batched_ls_rollout_al"] == passes
+            and launches["batched_ls_rollout"] == solves
+            and launches["batched_riccati"] == 0 and eager == 0):
+        raise AssertionError(f"closed loop [{mode}] launch counts {launches}"
+                             f" do not match {passes} passes of {solves} "
+                             f"solves, or the host-driven loop ran ({eager})")
+    return launches
+
+
+def closed_loop_mismatch(card, counts):
+    """Phase 4i: the closed loop against the mismatched plant (the JAX
+    package's model-mismatch test), 2 s, QP, on graphs."""
+    from altro_tpu_torch.models.quadruped import controller
+    cfg, opts = _loop_setup(True)
+    kw = dict(dtype=torch.float64, device="cuda")
+    plant = controller.PlantParams(
+        mass_scale=torch.tensor(1.10, **kw),
+        inertia_scale=torch.tensor(0.90, **kw),
+        foot_offset=torch.tensor([0.003, 0.0015, 0.0], **kw),
+        kick_impulse=torch.tensor([0.0, 0.1, 0.0], **kw),
+        kick_t=torch.tensor(0.9, **kw))
+    res, ms = _timed(lambda: controller.simulate(cfg, opts, tf=LOOP_TF,
+                                                 plant=plant, device="cuda"))
+    launches, passes, eager = counts()
+    status, xs = res["status"].cpu(), res["x"].cpu()
+    height = abs(float(xs[-1, 2]) - cfg.stance_height)
+    att = float(xs[:, 3:5].abs().max())
+    vy = abs(float(xs[-1, 7]))
+    print(f"closed loop mismatch [{card}]: {status.numel()} periods in "
+          f"{ms:.1f} ms (capture included); success "
+          f"{float(status.double().mean()):.4f}, iterations mean "
+          f"{float(res['iters'].double().mean()):.3f}; final height error "
+          f"{height:.4f} m, max |roll|,|pitch| {att:.4f}, final lateral "
+          f"velocity {vy:.4f} m/s; passes {passes}; launches {launches}")
+    if not (int(status.min()) == 1 and height < 0.07 and att < 0.15
+            and vy < 0.15):
+        raise AssertionError(f"closed loop mismatch: status "
+                             f"{status.tolist()}, height error {height}, "
+                             f"attitude {att}, lateral velocity {vy}")
+    if not (passes > 0 and launches["fused_expand_backward"] == passes
+            and launches["batched_ls_rollout_al"] == passes
+            and launches["batched_ls_rollout"] == status.numel()
+            and launches["batched_riccati"] == 0 and eager == 0):
+        raise AssertionError(f"closed loop mismatch launch counts {launches}"
+                             f" do not match {passes} passes")
+    return launches
+
+
+def closed_loop_forms(card):
+    """Phase 4f's closed loop: 10 periods graphed against eager on the card,
+    each friction form (gate: equal status and iterations per period)."""
+    from altro_tpu_torch.models.quadruped import controller
+    for lin in (True, False):
+        cfg, opts = _loop_setup(lin)
+        runs, ms = {}, {}
+        for form in ("graphed", "eager"):
+            runs[form], ms[form] = _timed(lambda: controller.simulate(
+                cfg, opts, tf=LOOP_COMPARE_TF, device="cuda",
+                graphed=form == "graphed"))
+        g, e = runs["graphed"], runs["eager"]
+        differ = int(((g["status"] != e["status"])
+                      | (g["iters"] != e["iters"])).sum())
+        dx = float((g["x"] - e["x"]).abs().max())
+        mode = "qp" if lin else "socp"
+        print(f"graphed vs eager [closed loop {mode}] [{card}]: "
+              f"{g['status'].numel()} periods, status or iterations differ "
+              f"on {differ}; max|dx| {dx:.3e}; bit-equal x, forces: "
+              f"{torch.equal(g['x'], e['x'])}, "
+              f"{torch.equal(g['forces'], e['forces'])}; run ms graphed "
+              f"{ms['graphed']:.1f} (capture included), eager "
+              f"{ms['eager']:.1f}")
+        if differ:
+            raise AssertionError(f"closed loop {mode}: graphed and eager "
+                                 f"differ on {differ} periods")
+
+
+def _loop_physical(cfg, res) -> bool:
+    """The JAX package's closed-loop gates on one run: status 1 on every
+    period, final height within 0.05 m, |roll|, |pitch| < 0.2, vertical
+    forces in [-1e-6, max + 1e-4]."""
+    xs = res["x"].cpu()
+    fz = res["forces"].cpu().reshape(-1, 4, 3)[:, :, 2]
+    return (int(res["status"].min()) == 1
+            and abs(float(xs[-1, 2]) - cfg.stance_height) < 0.05
+            and float(xs[:, 3:5].abs().max()) < 0.2
+            and float(fz.min()) >= -1e-6
+            and float(fz.max()) <= cfg.max_vert_force + 1e-4)
+
+
+def closed_loop_agreement(card):
+    """Phase 5f: the closed loop on the card (float64 kernels) against the
+    port's own float64 run on the CPU (plain versions), 10 periods of each
+    friction form. Gates: equal status on every period; max|dx| and
+    max|d forces| within LOOP_DX and LOOP_DFORCE over the periods before
+    the first whose iteration count differs (a split: a decision taken at
+    round-off, such as the sign of lam + rho c on a NONPOS row whose
+    residual and multiplier are both ~1e-30, which sets whether the row
+    carries curvature); from the split on, the JAX package's physical gates
+    on both runs. The split's period and the differences over all periods
+    are printed."""
+    from altro_tpu_torch.models.quadruped import controller
+    for lin in (True, False):
+        cfg, opts = _loop_setup(lin)
+        c = controller.simulate(cfg, opts, tf=LOOP_COMPARE_TF, device="cuda")
+        h = controller.simulate(cfg, opts, tf=LOOP_COMPARE_TF, device="cpu")
+        same = bool(torch.equal(c["status"].cpu(), h["status"]))
+        it_c, it_h = c["iters"].cpu(), h["iters"]
+        split = next((k for k in range(len(it_h)) if it_c[k] != it_h[k]),
+                     len(it_h))
+        dx_k = (c["x"].cpu() - h["x"]).abs().amax(-1)
+        df_k = (c["forces"].cpu() - h["forces"]).abs().amax(-1)
+        dx = float(dx_k[:split].max()) if split else 0.0
+        df = float(df_k[:split].max()) if split else 0.0
+        phys = _loop_physical(cfg, c) and _loop_physical(cfg, h)
+        mode = "qp" if lin else "socp"
+        print(f"closed loop agreement [{mode}] [{card}], {len(it_h)} "
+              f"periods, card f64 kernels vs CPU f64 plain: equal status "
+              f"{same}; iterations card {it_c.tolist()}, CPU "
+              f"{it_h.tolist()}; first split at period "
+              f"{split if split < len(it_h) else 'none'}; before it max|dx| "
+              f"{dx:.3e} (gate {LOOP_DX:.0e}), max|d forces| {df:.3e} N "
+              f"(gate {LOOP_DFORCE:.0e}); over all periods max|dx| "
+              f"{float(dx_k.max()):.3e}, max|d forces| "
+              f"{float(df_k.max()):.3e} N; physical gates on both: {phys}")
+        if not (same and dx <= LOOP_DX and df <= LOOP_DFORCE and phys):
+            raise AssertionError(f"closed loop [{mode}] card vs CPU: status "
+                                 f"equal {same}, before the split at "
+                                 f"{split}: max|dx| {dx:.3e}, max|dF| "
+                                 f"{df:.3e}; physical gates {phys}")
+
+
 def main() -> None:
     # ---- 1. device
     if not torch.cuda.is_available():
@@ -608,7 +834,7 @@ def main() -> None:
 
     # ---- 3. kernel parity: (a) flagship shapes, (b) the rocket window,
     # (c) the flat quadruped batch, (d) grasp's window and cold problem,
-    # (e) the flexsat regulator
+    # (e) the flexsat regulator, (f) the closed loop's one robot
     par = {}
     for shape, fn in (
             ("flagship", parity),
@@ -616,7 +842,11 @@ def main() -> None:
             ("quadruped", quadruped_parity),
             ("grasp", lambda *a: conic_parity("grasp", *a)),
             ("grasp cold", lambda *a: conic_parity("grasp", *a, cold=True)),
-            ("flexsat", lambda *a: conic_parity("flexsat", *a))):
+            ("flexsat", lambda *a: conic_parity("flexsat", *a)),
+            ("closed loop qp",
+             lambda *a: conic_parity("closed loop qp", *a)),
+            ("closed loop socp",
+             lambda *a: conic_parity("closed loop socp", *a))):
         par[shape] = (fn(torch.float32, F32_TOL), fn(torch.float64, F64_TOL))
         for name in par[shape][0]:
             for label, (errs, ms, plain_ms, work) in zip(
@@ -789,6 +1019,24 @@ def main() -> None:
                              f"match {fpasses} solver-loop passes and one "
                              f"cold solve")
 
+    # ---- 4h. main path: the quadruped closed loop, both friction forms;
+    # A once per solve (each starts without states), B and C once per pass
+    def loop_counts():
+        return read_counts(), altro.pass_count, altro.eager_loop_count
+
+    llaunches = {}
+    for lin in (True, False):
+        reset_counts()
+        for k, v in closed_loop_main(card, lin, loop_counts).items():
+            llaunches[k] = llaunches.get(k, 0) + v
+        eager_entries += altro.eager_loop_count
+
+    # ---- 4i. main path: the closed loop against a mismatched plant
+    reset_counts()
+    for k, v in closed_loop_mismatch(card, loop_counts).items():
+        llaunches[k] = llaunches.get(k, 0) + v
+    eager_entries += altro.eager_loop_count
+
     # ---- 4d. compacted against plain on the card: rocket, grasp, flexsat
     reset_counts()
     for csu in (su32, gsu32):
@@ -803,7 +1051,7 @@ def main() -> None:
                                                            levels),
         FLEXSAT_SCHEDULE, fsu.noise)
     eager_entries += altro.eager_loop_count
-    print(f"entries into the host-driven loop over 4a-4e and 4g: "
+    print(f"entries into the host-driven loop over 4a-4e and 4g-4i: "
           f"{eager_entries}")
     if eager_entries:
         raise AssertionError(f"the main paths entered the host-driven loop "
@@ -811,6 +1059,7 @@ def main() -> None:
 
     # ---- 4f. graphed against eager on the card
     graphed_against_eager(card, su32, gsu32, fsu)
+    closed_loop_forms(card)
 
     # ---- 5a. agreement: f32 kernel path on the card vs f64 plain on the CPU
     s64 = flagship_setup(AGREE_B, AGREE_T, dtype=torch.float64, device="cpu")
@@ -862,11 +1111,15 @@ def main() -> None:
           f"{agreement_flexsat.GATE_P99:.0e}")
     agreement_flexsat.check(fag)
 
-    # kernel table: launches over the main paths, the largest float32
-    # error over every parity check, times and bounds at the shapes of the
-    # path that the kernel serves per iteration (the rocket window for B and
-    # C, the quadruped batch for D). No single PyTorch call computes any of
-    # these knot recursions, so library_ms is null.
+    # ---- 5f. the closed loop, card (f64 kernels) against the CPU (plain)
+    closed_loop_agreement(card)
+
+    # kernel table: launches over the main paths (4h and 4i included), the
+    # largest float32 error over every parity check, times and bounds at
+    # the shapes of the path that the kernel serves per iteration (the
+    # rocket window for B and C, the quadruped batch for D). No single
+    # PyTorch call computes any of these knot recursions, so library_ms is
+    # null.
     sources = {
         "batched_ls_rollout": ("altro_tpu_torch/csrc/ls_rollout.cu",
                                "altro_tpu/ops/rollout.py:89", "flagship"),
@@ -885,7 +1138,8 @@ def main() -> None:
         table.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": (launches[name] + rlaunches[name] + qlaunches[name]
-                         + glaunches[name] + flaunches[name]),
+                         + glaunches[name] + flaunches[name]
+                         + llaunches[name]),
             "max_abs_err": max(v for shape in par if name in par[shape][0]
                                for v in par[shape][0][name][0].values()),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
