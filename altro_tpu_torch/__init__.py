@@ -10,7 +10,11 @@ pass, the Riccati backward pass from a per-scenario expansion, the
 line-search ladder rollout and the ladder rollout fused with the AL merit
 (``csrc/``). On a CUDA device a solve's start, loop and finish run as CUDA
 graphs, replayed with one host sync per k loop passes (``solver/graph.py``;
-``graphed=False`` keeps the host-driven loop). The JAX package ``altro_tpu``
+``graphed=False`` keeps the host-driven loop). Beside the solver: the
+in-framework baseline oracles (``transcribe.py``; the dense QP, dense
+conic and knot-structured ADMM solvers under ``solver/``, their chunks on
+CUDA graphs), the ALTRO-vs-baseline lockstep loops (``mpc.py``) and the
+paper's benchmark drivers (``bench/drivers.py``). The JAX package ``altro_tpu``
 is the reference it is checked against; this package imports neither it
 nor JAX.
 

@@ -158,15 +158,16 @@ def riccati_work(Bt, N, n, m, per_lane, itemsize) -> tuple:
     return elems * itemsize, Bt * N1 * knot
 
 
-def flagship_inputs(dtype, dev, B: int = FLAG_B, widths=(12, 6)) -> dict:
+def flagship_inputs(dtype, dev, B: int = FLAG_B, widths=(12, 6),
+                    N: int = FLAG_N) -> dict:
     """Kernel B's and kernel A's arguments at the flagship shapes (B=1024,
     n=12, m=6, N=30, one NONPOS block of 2m rows; seed 7): X, U off any
     solve, |u| > 3 on a third of the entries (active and inactive rows),
     half the lanes regularised; the ladder at L=3 on the plain version's
     gains, and the L=1 init form (K = d = 0, alpha = 1); and kernel D's, the
     shared dynamics with the solver's AL expansion of the same X, U and
-    multipliers. ``widths``: the same random-linear model at another
-    (n, m)."""
+    multipliers. ``widths`` and ``N``: the same random-linear model at
+    another (n, m) and horizon."""
     import torch
     from altro_tpu_torch.constraints import DualState
     from altro_tpu_torch.models import random_linear as rl
@@ -175,12 +176,12 @@ def flagship_inputs(dtype, dev, B: int = FLAG_B, widths=(12, 6)) -> dict:
     from altro_tpu_torch.solver.altro import _al_expansion_cd
 
     # the window as flagship_setup builds it (its seed, one step of track)
-    n_track = FLAG_N + 3
+    n_track = N + 3
     rng = np.random.default_rng(1)
     full = rl.gen_random_linear(rng, *widths, n_track, dtype=dtype,
                                 device=dev)
     prob = rl.gen_tracking_mpc(full, *rl.gen_trajectory(rng, full, n_track),
-                               FLAG_N)
+                               N)
     (con,) = prob.constraints
     dyn = prob.dynamics
     N, n, m, p = prob.N, prob.n, prob.m, con.p

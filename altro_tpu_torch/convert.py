@@ -21,7 +21,9 @@ from .constraints import ConicConstraint, DualState
 from .costs import QuadCost
 from .dynamics import LTVDynamics
 from .problem import Problem
+from .solver.knot_admm import KnotQP
 from .solver.options import SolverOptions
+from .transcribe import BatchConic, BatchQP
 
 
 def numpy_tree(obj) -> Any:
@@ -94,6 +96,46 @@ def options_from_dict(tree: dict) -> SolverOptions:
     keys raise)."""
     return SolverOptions(**{k: (v.item() if isinstance(v, np.ndarray) else v)
                             for k, v in tree.items()})
+
+
+def _lanes(a, rank: int, device, dtype):
+    """A tensor with a leading lane axis from an array of rank ``rank``
+    (one program: one lane) or ``rank + 1`` (already batched)."""
+    t = _t(a, device, dtype)
+    return t[None] if t.dim() == rank else t
+
+
+def batch_qp_from_numpy(tree: dict, device="cpu",
+                        dtype=torch.float64) -> BatchQP:
+    """A :class:`~altro_tpu_torch.transcribe.BatchQP` from ``numpy_tree``
+    of the JAX package's BatchQP (unbatched: one lane)."""
+    return BatchQP(**{k: _lanes(tree[k], r, device, dtype) for k, r in
+                      (("P", 2), ("q", 1), ("A", 2), ("l", 1), ("u", 1))},
+                   n=int(tree["n"]), m=int(tree["m"]), N=int(tree["N"]))
+
+
+def batch_conic_from_numpy(tree: dict, device="cpu",
+                           dtype=torch.float64) -> BatchConic:
+    """A :class:`~altro_tpu_torch.transcribe.BatchConic` from
+    ``numpy_tree`` of the JAX package's BatchConic."""
+    return BatchConic(
+        **{k: _lanes(tree[k], r, device, dtype) for k, r in
+           (("P", 2), ("q", 1), ("A", 2), ("b", 1))},
+        segments=tuple((Cone(c), int(n)) for c, n in tree["segments"]),
+        n=int(tree["n"]), m=int(tree["m"]), N=int(tree["N"]))
+
+
+def knot_qp_from_numpy(tree: dict, device="cpu",
+                       dtype=torch.float64) -> KnotQP:
+    """A :class:`~altro_tpu_torch.solver.knot_admm.KnotQP` from
+    ``numpy_tree`` of the JAX package's KnotQP."""
+    ranks = dict(Q=3, q=2, R=3, r=2, A=3, B=3, d=2, x0=1)
+    blocks = dict(Cx=3, Cu=3, l=2, u=2)
+    return KnotQP(
+        **{k: _lanes(tree[k], r, device, dtype) for k, r in ranks.items()},
+        **{k: tuple(_lanes(a, r, device, dtype) for a in tree[k])
+           for k, r in blocks.items()},
+        cones=tuple(Cone(c) for c in tree["cones"]))
 
 
 def tree_to(obj, device=None, dtype=None):

@@ -8,6 +8,13 @@ vertical-force bounds, relinearized per contact schedule
 (:func:`build_mpc_problem`, :func:`_linearized_problem`, one solve:
 :func:`mpc_solve_forces`).
 
+Backends: "altro", and the JAX package's in-framework ADMM baselines
+"admm_qp" (the OSQP role) and "admm_conic" (the ECOS role): with a
+workspace from :func:`make_baseline_state` both run the knot-structured
+ADMM, set up once on an all-stance linearization and refactored for every
+solve (the reference's setup-once + update! pattern), zero-started with
+the workspace's rho; without one, the dense oracles solve cold.
+
 The closed loop (:func:`simulate`, :func:`simulate_host`): every MPC period
 (``cfg.update_dt``, 30 ms) computes the horizon's contact schedule and foot
 locations, relinearizes about it, solves warm-started from the shifted
@@ -29,8 +36,9 @@ phases through ``index_select``, so nothing in it reads to or copies from
 the host. Entry points run on the card unless the caller passes
 ``device="cpu"``.
 
-The JAX package's ADMM backends (the OSQP and ECOS roles) and its C++
-entrants are not ported: their oracles come with the port's oracle slice.
+The JAX package's C++ entrants (``native=True``: the native knot ADMM and
+the native AL-iLQR) are not ported: they come with the C++-oracle slice,
+and asking for them raises.
 """
 from __future__ import annotations
 
@@ -46,11 +54,12 @@ from ...constraints import (DualState, bound_constraint, friction_cone,
                             linearized_friction)
 from ...costs import lqr_objective
 from ...dynamics import LTVDynamics
-from ...mpc import make_relinearized_step, shift_fill
+from ...mpc import MPCResults, make_relinearized_step, shift_fill
 from ...problem import Problem
-from ...solver import altro, graph
+from ...solver import admm_conic, admm_qp, altro, graph, knot_admm
 from ...solver.graph import Replayable, clone_tree, copy_into
 from ...solver.options import SolverOptions
+from ...transcribe import extract_traj, to_batch_conic, to_batch_qp
 from ...utils.profiling import timed
 from . import kinematics, planner, swing
 from .config import MPCConfig, woofer as _w
@@ -106,12 +115,13 @@ def _linearized_problem(prob: Problem, x_curr, x_ref, contacts, foot_locs,
     return dataclasses.replace(prob, dynamics=dyn, x0=x_curr)
 
 
+BACKENDS = ("altro", "admm_qp", "admm_conic")
+NATIVE_SLICE = ("the native C++ entrants come with the port's C++-oracle "
+                "slice, which is not ported yet")
+
+
 def _check_backend(backend: str) -> None:
-    if backend in ("admm_qp", "admm_conic"):
-        raise NotImplementedError(
-            f"backend {backend!r} needs the ADMM oracles, which are not "
-            "ported yet (they come with the oracle slice)")
-    if backend != "altro":
+    if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}")
 
 
@@ -120,17 +130,67 @@ def mpc_solve_forces(backend: str, prob: Problem, opts: SolverOptions,
                      duals, baseline=None):
     """One MPC solve, batched at B=1: relinearize about the horizon's
     contact schedule (contacts [N, 4], foot_locs [N, 4, 3], x_ref [N, 12]),
-    solve from x_curr [1, 12] warm-started with the shifted U_prev
-    [1, N-1, 12] and shifted duals ([1, ...]), and return (forces [1, 12],
-    U, duals, iterations [1], status [1], baseline). Only the "altro"
-    backend is ported; ``baseline`` is returned as given."""
+    solve from x_curr [1, 12] and return (forces [1, 12], U [1, N-1, 12],
+    duals, iterations [1], status [1], baseline).
+
+    "altro" warm-starts from the shifted U_prev [1, N-1, 12] and shifted
+    duals ([1, ...]). The ADMM backends return the duals as given: with
+    ``baseline`` (a ``knot_admm.KnotADMMWork`` from
+    :func:`make_baseline_state`) they refactor it for this instance and
+    solve from zero; without it they set up and solve the dense oracle
+    (``admm_qp`` or ``admm_conic``) cold. (A shifted primal and dual warm
+    start measured worse here in the JAX package: each MPC period rolls a
+    stance transition through the horizon, flipping equality rows at
+    rho * 1e3, and the adaptive-rho transient that causes costs more than
+    the zero start.)"""
     _check_backend(backend)
     prob_k = _linearized_problem(prob, x_curr, x_ref, contacts, foot_locs,
                                  dt_mpc)
-    sol = altro.solve(prob_k, opts, U0=shift_fill(U_prev),
-                      duals=tuple(d.shift() for d in duals))
-    return (sol.U[:, 0], sol.U, sol.duals, sol.stats.iterations,
-            sol.stats.status, baseline)
+    if backend == "altro":
+        sol = altro.solve(prob_k, opts, U0=shift_fill(U_prev),
+                          duals=tuple(d.shift() for d in duals))
+        return (sol.U[:, 0], sol.U, sol.duals, sol.stats.iterations,
+                sol.stats.status, baseline)
+    eps = float(opts.cost_tolerance)
+    if baseline is not None:
+        ksol = knot_admm.solve(knot_admm.refactor(
+            baseline, knot_admm.to_knot_qp(prob_k)), eps_abs=eps)
+        return (ksol.U[:, 0], ksol.U, duals, ksol.iterations, ksol.status,
+                baseline)
+    if backend == "admm_qp":
+        prog = to_batch_qp(prob_k)
+        sol = admm_qp.solve(admm_qp.setup(prog), eps_abs=eps)
+    else:
+        prog = to_batch_conic(prob_k)
+        sol = admm_conic.solve(admm_conic.setup(prog), eps_abs=eps)
+    _, U = extract_traj(prog, sol.x)
+    return U[:, 0], U, duals, sol.iterations, sol.status, None
+
+
+def make_baseline_state(backend: str, prob: Problem, cfg: MPCConfig, x_des,
+                        dtype=torch.float64, native: bool = False):
+    """The ADMM backends' setup-once knot-ADMM workspace (rho = 0.1), from
+    the all-stance linearization at x_des on the nominal feet (the
+    reference's OSQP setup phase, OSQPParams.jl:60-125; the scalings are a
+    preconditioner, so reusing them across relinearizations is safe); None
+    for "altro". ``native=True`` asks for the JAX package's C++ knot ADMM,
+    which is not ported: it raises NotImplementedError."""
+    _check_backend(backend)
+    if backend == "altro":
+        return None
+    if native:
+        raise NotImplementedError(NATIVE_SLICE)
+    N = cfg.N
+    kw = dict(dtype=dtype, device=x_des.device)
+    feet = x_des[0:3][None, :] + planner.nominal_foot_locations(**kw)
+    feet[:, 2] = _w.geometry.foot_radius
+    u_ref = torch.zeros((N, 12), **kw)
+    u_ref[:, 2::3] = SPRUNG_MASS * 9.81 / 4.0
+    dyn0 = linearize_horizon(x_des.expand(N, 12), u_ref,
+                             feet.expand(N, 4, 3), torch.ones((N, 4), **kw),
+                             cfg.dynamics_discretization)
+    prob0 = dataclasses.replace(prob, dynamics=dyn0, x0=x_des[None])
+    return knot_admm.setup(knot_admm.to_knot_qp(prob0), rho=0.1)
 
 
 @dataclass
@@ -290,9 +350,10 @@ class ClosedLoop:
     warm-started MPC solve), :meth:`adopt` (the solution into the state) and
     :meth:`ticks` (the period's control ticks). ``graphed`` (None: on a
     CUDA device): prep and ticks are replayed CUDA graphs, the solve a
-    ``mpc.make_relinearized_step`` on graphs; on the CPU the same functions
-    run over the same buffers without capture. Else everything runs
-    eagerly and the solve takes the host-driven loop.
+    ``mpc.make_relinearized_step`` on graphs (an ADMM backend's: the knot
+    refactor, then the knot ADMM's chunks on graphs); on the CPU the same
+    functions run over the same buffers without capture. Else everything
+    runs eagerly and the solve takes the host-driven loop.
 
     The ticks read the TRUE plant ``plant`` (None: the nominal model);
     the MPC always linearizes the nominal model."""
@@ -300,7 +361,8 @@ class ClosedLoop:
     def __init__(self, cfg: MPCConfig, opts: SolverOptions,
                  dtype=torch.float64, device="cuda",
                  plant: Optional[PlantParams] = None,
-                 graphed: Optional[bool] = None):
+                 graphed: Optional[bool] = None, backend: str = "altro"):
+        _check_backend(backend)
         dev = _device(device)
         self.cfg, self.opts, self.plant, self.device = cfg, opts, plant, dev
         self.gait = GAITS[cfg.gait_type](cfg.stance_time,
@@ -311,9 +373,13 @@ class ClosedLoop:
         self.state = initial_state(self.prob, self.x_des, opts, dtype)
         self.t = torch.zeros((), dtype=dtype, device=dev)
         self.graphed = graph.use_graphs(graphed, dev)
-        self.step = make_relinearized_step(
-            dataclasses.replace(self.prob, x0=self.x_des[None]), opts,
-            graphed=self.graphed)
+        self.baseline = make_baseline_state(backend, self.prob, cfg,
+                                            self.x_des, dtype)
+        self.step = None if self.baseline is not None else \
+            make_relinearized_step(
+                dataclasses.replace(self.prob, x0=self.x_des[None]), opts,
+                graphed=self.graphed)
+        self.admm_chunks = 0
         self.capture_s = 0.0
         self._prep_g = self._ticks_g = None
         if self.graphed:
@@ -355,13 +421,27 @@ class ClosedLoop:
 
     def solve(self, dyn):
         """The period's solve from the state: (U [1, N-1, 12], duals
-        [1, ...], MPCResults)."""
+        [1, ...], MPCResults). An ADMM backend's duals are the state's,
+        and its MPCResults carry no violation (NaN)."""
         s = self.state
-        carry = (s.x[None], s.U_prev[None],
-                 tuple(DualState(lam=d.lam[None], rho=d.rho[None])
-                       for d in s.duals))
-        (_, U, duals), out = self.step(carry, dyn, 0)
-        return U, duals, out
+        duals = tuple(DualState(lam=d.lam[None], rho=d.rho[None])
+                      for d in s.duals)
+        if self.baseline is None:
+            (_, U, duals), out = self.step((s.x[None], s.U_prev[None],
+                                            duals), dyn, 0)
+            return U, duals, out
+        prob_k = dataclasses.replace(self.prob, dynamics=dyn, x0=s.x[None])
+        ksol = knot_admm.solve(
+            knot_admm.refactor(self.baseline, knot_admm.to_knot_qp(prob_k)),
+            eps_abs=float(self.opts.cost_tolerance), graphed=self.graphed)
+        self.admm_chunks += ksol.chunks
+        out = MPCResults(X=ksol.X, U=ksol.U, iters=ksol.iterations,
+                         status=ksol.status,
+                         viol=torch.full(ksol.status.shape, torch.nan,
+                                         dtype=ksol.X.dtype,
+                                         device=ksol.X.device),
+                         x0=s.x[None])
+        return ksol.U, duals, out
 
     def adopt(self, U, duals=None, planner_fl=None) -> None:
         """The solution into the state: forces U[0, 0], U_prev, and (when
@@ -408,9 +488,9 @@ def simulate(cfg: MPCConfig, opts: SolverOptions, tf: float = 2.0,
     periods): returns per-period records, x [P, 12] after the period's
     ticks, forces [P, 12] applied during them, the solves' iterations [P]
     and status [P]. ``plant``: the true plant's parameters (the MPC keeps
-    the nominal model). ``graphed`` as in :class:`ClosedLoop`."""
-    _check_backend(backend)
-    loop = ClosedLoop(cfg, opts, dtype, device, plant, graphed)
+    the nominal model). ``backend`` and ``graphed`` as in
+    :class:`ClosedLoop`."""
+    loop = ClosedLoop(cfg, opts, dtype, device, plant, graphed, backend)
     xs, forces, outs = [], [], []
     for k in range(int(round(tf / cfg.update_dt))):
         f, out = loop.period(k)
@@ -423,7 +503,8 @@ def simulate(cfg: MPCConfig, opts: SolverOptions, tf: float = 2.0,
 def simulate_host(cfg: MPCConfig, opts: SolverOptions, tf: float = 2.0,
                   backend: str = "altro", dtype=torch.float64,
                   plant: Optional[PlantParams] = None, probe=None,
-                  device="cuda", graphed: Optional[bool] = None) -> dict:
+                  device="cuda", graphed: Optional[bool] = None,
+                  native: bool = False) -> dict:
     """The closed loop of :func:`simulate`, timed per period in three
     sections, each fenced by a device synchronise: ``prep_ms`` (the
     horizon's schedule and the relinearization), ``mpc_ms`` (the solve
@@ -436,13 +517,19 @@ def simulate_host(cfg: MPCConfig, opts: SolverOptions, tf: float = 2.0,
     period's linearized problem and the solution's controls [1, N-1, 12].
     Returns :func:`simulate`'s records plus the three lists of ms, the
     seconds of the set-up before the timed loop (``setup_s``), of which
-    capturing graphs (``capture_s``), and the solver-loop graph's replays
-    (``loop_replays``, the warm-up's included; 0 eager)."""
+    capturing graphs (``capture_s``), the ALTRO solver-loop graph's
+    replays (``loop_replays``, the warm-up's included; 0 eager or with an
+    ADMM backend) and an ADMM backend's chunks (``admm_chunks``, the
+    warm-up's included: graph replays, or eager chunks). ``native=True``
+    asks for the JAX package's C++ entrants, which are not ported: it
+    raises NotImplementedError."""
     _check_backend(backend)
+    if native:
+        raise NotImplementedError(NATIVE_SLICE)
     dev = _device(device)
     sec = {}
     with timed("setup", sec, dev):
-        loop = ClosedLoop(cfg, opts, dtype, dev, plant, graphed)
+        loop = ClosedLoop(cfg, opts, dtype, dev, plant, graphed, backend)
         saved = clone_tree(loop.state)
         loop.set_time(0)
         U, duals, _ = loop.solve(loop.prep()[0])
@@ -472,9 +559,12 @@ def simulate_host(cfg: MPCConfig, opts: SolverOptions, tf: float = 2.0,
         xs.append(loop.state.x.clone())
         outs.append(out)
     rec = _records(xs, forces, outs)
+    admm_capture_s = sum(g.capture_s for g in loop.baseline.graphs.values()
+                         ) if loop.baseline is not None else 0.0
     rec.update(mpc_ms=mpc_ms, prep_ms=prep_ms, tick_ms=tick_ms,
                setup_s=sec["setup"],
                loop_replays=getattr(loop.step, "loop_replays", 0),
-               capture_s=loop.capture_s + getattr(loop.step, "capture_s",
-                                                  0.0))
+               admm_chunks=loop.admm_chunks,
+               capture_s=(loop.capture_s + admm_capture_s
+                          + getattr(loop.step, "capture_s", 0.0)))
     return rec

@@ -746,3 +746,162 @@ def run_mpc(prob_mpc: Problem, opts: SolverOptions, X_track, U_track, noise,
         carry, out = step(carry, noise[t], start_k + t)
         outs.append(out)
     return stack_results(outs)
+
+
+# ----------------------------------------------------------------------------
+# Lockstep ALTRO-vs-ADMM oracle loops (the reference's run_MPC comparison)
+# ----------------------------------------------------------------------------
+
+@dataclass
+class LockstepResults:
+    err_X: torch.Tensor   # [T] inf-norm state-trajectory difference
+    err_U: torch.Tensor   # [T] inf-norm control difference
+    err_x0: torch.Tensor  # [T, 2] distance of each solution's x0 to true x0
+    iters: torch.Tensor   # [T, 2] (altro, baseline)
+    status: torch.Tensor  # [T, 2]
+    viol: torch.Tensor    # [T]
+
+
+def _qp_shift_warmstart(x, y, n: int, m: int, N: int, ps):
+    """Shift QP primal and dual warm starts x [B, NN], y [B, M] one knot
+    (the circshift warm start of random_linear_problem.jl:150-157). Rows:
+    dynamics (N-1) n, x0 n, then the constraint blocks, each N p contiguous
+    knot-major rows; each block shifts by its own p, its tail filled by
+    repeating its last knot."""
+    Bt = x.shape[0]
+    x_s = torch.roll(x, -(n + m), dims=1)
+    x_s = torch.cat([x_s[:, :-n], x[:, -n:]], dim=1)
+    segs = [torch.roll(y[:, :(N - 1) * n], -n, dims=1),
+            y[:, (N - 1) * n:N * n]]
+    off = N * n
+    for p in ps:
+        seg = y[:, off:off + N * p].reshape(Bt, N, p)
+        segs.append(torch.cat([seg[:, 1:], seg[:, -1:]], dim=1)
+                    .reshape(Bt, -1))
+        off += N * p
+    return x_s, torch.cat(segs, dim=1)
+
+
+def one_scenario(prob: Problem) -> Problem:
+    """``prob`` as a batch of one (x0 [1, n]) unless x0 is batched."""
+    return (prob if prob.x0.dim() == 2
+            else dataclasses.replace(prob, x0=prob.x0[None]))
+
+
+def lockstep_steps(pm: Problem, opts: SolverOptions, X_track, U_track,
+                   noise, noise_model, constraints_fn, baseline,
+                   warmup: bool = False):
+    """Drive the ALTRO step (``make_mpc_step``, shared_k) of the one
+    scenario ``pm`` and ``baseline(prob_k) -> (X, U, iterations, status,
+    ...)`` on the same instances, one row of ``noise`` [T, n] per step.
+    Yields per step (prob_k, ALTRO's MPCResults, the baseline's tuple,
+    ALTRO ms, baseline ms); each time ends in a device synchronise. The
+    baseline's closure owns its warm start. ``warmup``: run the step and
+    the baseline once before the loop (graph capture and warm-up)."""
+    sync = (torch.cuda.synchronize if pm.x0.device.type == "cuda"
+            else (lambda: None))
+    step, init_carry = make_mpc_step(pm, opts, X_track, U_track,
+                                     noise_model, constraints_fn)
+    pieces = _StepPieces(pm, opts, X_track, U_track, noise_model,
+                         constraints_fn, "shift")
+    carry = init_carry(1)
+    if warmup:
+        step(carry, noise[0][None], 0)
+        baseline(pieces.prob_at(1, carry[0])[0])
+    for t in range(noise.shape[0]):
+        t0 = time.perf_counter()
+        carry, out = step(carry, noise[t][None], t)
+        sync()
+        altro_ms = (time.perf_counter() - t0) * 1e3
+        prob_k, _ = pieces.prob_at(t + 1, out.x0)
+        t0 = time.perf_counter()
+        base = baseline(prob_k)
+        sync()
+        yield (prob_k, out, base, altro_ms,
+               (time.perf_counter() - t0) * 1e3)
+
+
+def _lockstep(pm: Problem, opts: SolverOptions, X_track, U_track,
+              noise, noise_model, constraints_fn, baseline):
+    """Stack the per-step agreement of ``lockstep_steps``."""
+    rows = []
+    for _, out, (Xq, Uq, q_it, q_st), _, _ in lockstep_steps(
+            pm, opts, X_track, U_track, noise, noise_model, constraints_fn,
+            baseline):
+        x0 = out.x0[0]
+        rows.append((torch.amax(torch.abs(out.X[0] - Xq[0])),
+                     torch.amax(torch.abs(out.U[0] - Uq[0])),
+                     torch.stack([torch.linalg.norm(out.X[0, 0] - x0),
+                                  torch.linalg.norm(Xq[0, 0] - x0)]),
+                     torch.stack([out.iters[0], q_it[0]]),
+                     torch.stack([out.status[0], q_st[0]]), out.viol[0]))
+    return LockstepResults(*(torch.stack(list(c)) for c in zip(*rows)))
+
+
+def run_mpc_lockstep(prob_mpc: Problem, opts: SolverOptions, X_track,
+                     U_track, noise, qp_eps: Optional[float] = None,
+                     qp_max_iter: int = 4000,
+                     noise_model=default_noise_model,
+                     constraints_fn=None) -> LockstepResults:
+    """ALTRO and the in-framework ADMM QP in lockstep on the same MPC
+    instances, one scenario, one row of ``noise`` [T, n] per step (the
+    reference's run_MPC, random_linear_problem.jl:85-189). The QP side
+    refreshes q and the x0 rows and warm-starts from its shifted previous
+    solution; with fixed constraints the one-time KKT factor stays valid,
+    time-varying ones set up anew. On a CUDA device both sides run on CUDA
+    graphs."""
+    from .solver import admm_qp
+    from .transcribe import extract_traj, to_batch_qp
+
+    N, n, m = prob_mpc.N, prob_mpc.n, prob_mpc.m
+    qp_eps = float(opts.cost_tolerance) if qp_eps is None else qp_eps
+    ps = tuple(c.p for c in prob_mpc.constraints)
+    pm = one_scenario(prob_mpc)
+    work0 = admm_qp.setup(to_batch_qp(pm))
+    q0 = admm_qp.solve(work0, eps_abs=qp_eps, max_iter=qp_max_iter)
+    warm = [q0.x, q0.y]
+
+    def baseline(prob_k):
+        qp_k = to_batch_qp(prob_k)
+        work = (dataclasses.replace(work0, qp=qp_k) if constraints_fn is None
+                else admm_qp.setup(qp_k, graphs=work0.graphs))
+        xw, yw = _qp_shift_warmstart(warm[0], warm[1], n, m, N, ps)
+        sol = admm_qp.solve(work, x0=xw, y0=yw, eps_abs=qp_eps,
+                            max_iter=qp_max_iter)
+        warm[:] = [sol.x, sol.y]
+        return extract_traj(qp_k, sol.x) + (sol.iterations, sol.status)
+
+    return _lockstep(pm, opts, X_track, U_track, noise, noise_model,
+                     constraints_fn, baseline)
+
+
+def run_mpc_lockstep_conic(prob_mpc: Problem, opts: SolverOptions, X_track,
+                           U_track, noise, conic_eps: Optional[float] = None,
+                           conic_max_iter: int = 20000,
+                           noise_model=default_noise_model,
+                           constraints_fn=None) -> LockstepResults:
+    """ALTRO against the in-framework conic ADMM on SOC-constrained MPC
+    problems (the ECOS/COSMO lockstep of the rocket and grasp loops,
+    simple_rocket.jl:106, grasp_mpc.jl:7): the conic side starts each step
+    from its previous solution, unshifted, with the factored KKT matrix
+    reused (set up anew per step under time-varying constraints)."""
+    from .solver import admm_conic
+    from .transcribe import extract_traj, to_batch_conic
+
+    conic_eps = (float(opts.cost_tolerance) if conic_eps is None
+                 else conic_eps)
+    pm = one_scenario(prob_mpc)
+    work0 = admm_conic.setup(to_batch_conic(pm))
+    warm = [None, None]
+
+    def baseline(prob_k):
+        cp = to_batch_conic(prob_k)
+        work = (dataclasses.replace(work0, prob=cp) if constraints_fn is None
+                else admm_conic.setup(cp, graphs=work0.graphs))
+        sol = admm_conic.solve(work, x0=warm[0], y0=warm[1],
+                               eps_abs=conic_eps, max_iter=conic_max_iter)
+        warm[:] = [sol.x, sol.y]
+        return extract_traj(cp, sol.x) + (sol.iterations, sol.status)
+
+    return _lockstep(pm, opts, X_track, U_track, noise, noise_model,
+                     constraints_fn, baseline)

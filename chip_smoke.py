@@ -42,6 +42,13 @@ Phases, each printing its findings; any failure raises (non-zero exit):
       cones inside, polar and between: the fused expansion, the fused
       ladder + merit at the solver's L=11 (J and the accepted rung as in
       b) and the ladder rollout's init form (L=1);
+   g. phase 6's shapes, one lane (B=1) at the drivers' L=11 ladder, not
+      timed: A (with its init form) and B on the random-linear models of
+      the lockstep and the sweeps ((n, m, N) = (12, 6, 21), (12, 6, 101),
+      (30, 25, 21), (25, 2, 21), (2, 2, 21)), B and C on the rocket
+      window, grasp's window at N=51 and its cold form at N=251, and the
+      flexsat regulator (the same gates; J per lane; the accepted rung
+      equal in float64); their float32 errors count in max_abs_err;
 4. main paths, each on CUDA graphs (``altro_tpu_torch/solver/graph.py``:
    every MPC step, batch solve and cold solve as start, loop and finish
    graphs, the loop replayed with one host sync per k passes), with the
@@ -120,6 +127,34 @@ Phases, each printing its findings; any failure raises (non-zero exit):
       solve succeeds, full-batch true-cost gap |mean| <= 1e-3 and p99
       |gap| <= 1e-2; the largest gap printed).
 
+6. baselines on the card (``altro_tpu_torch/bench/baselines.py`` and
+   ``bench/drivers.py``), float64 unless the driver's dtype says otherwise;
+   the kernel launches of the ALTRO side count in the kernel table:
+   a. ``admm_qp``, ``admm_conic`` and ``knot_admm`` on the card against the
+      port on the CPU on identical inputs: the random-linear QP (n=12, m=6,
+      N=31), the rocket window's conic program, the quadruped QP and SOCP
+      in knot form (gates: equal status, iterations within one CHUNK,
+      max|dx| <= 10 eps_abs; graphed equal to eager in status and
+      iterations); prints each solve's ms, chunks, and the chunk graph's
+      device ms and launches;
+   b. the lockstep on the card with ALTRO on kernels A/B/C:
+      ``run_mpc_lockstep`` on the random-linear problem (N=21, T=10,
+      qp_eps 1e-7; gates: every status 1, err_X, err_U < 5e-3, err_x0 <
+      1e-5) and ``run_mpc_lockstep_conic`` on the rocket at tolerance 1e-6
+      (T=5, conic_eps 1e-9; gates: every status 1, err_U < 1e-3);
+   c. the quadruped table's four rows (``drivers.quadruped_benchmark``: 67
+      periods each; gates per row: status 1 on every period, final height
+      within 0.05 m of the stance height, |roll|, |pitch| < 0.2); prints
+      ms/solve +- sigma, +prep, iterations and success per row;
+   d. one pass of each driver at reduced T (T_DRIVER steps):
+      random-linear horizon (all five N) and control_dim (float32, the
+      JAX package's card dtype), rocket (the four tolerances), grasp (the
+      five N) and flexsat (one trial); prints ALTRO and baseline ms/step,
+      iterations, chunks and err_U per point (gates: ALTRO's success rate
+      1.0 at every point of the random-linear and grasp sweeps; on the
+      rocket both solvers' success rates 1.0 at every tolerance and err_U
+      < 1e-3 at 1e-8; on flexsat both solvers' success rates 1.0).
+
 The line before the last is the kernel table as JSON (with each kernel's
 bound_ms and bound_by at the shapes it was timed at, and library_ms null: no
 single PyTorch call computes these knot recursions); the last line is
@@ -169,6 +204,14 @@ FLEX_B, FLEX_T, FLEX_AGREE_B = 1024, 45, 1024
 # and card-vs-CPU comparisons (10 periods), and the card-vs-CPU gates
 LOOP_TF, LOOP_COMPARE_TF = 2.0, 0.3
 LOOP_DX, LOOP_DFORCE = 1e-4, 1e-3
+# phase 6: lockstep steps (random-linear, rocket) and the drivers' steps
+LOCK_T, LOCK_ROCKET_T, T_DRIVER = 10, 5, 3
+# 3g: phase 6's random-linear shapes (n, m, N) at B=1: the lockstep and
+# the horizon sweep's shortest (12, 6, 21), its longest (12, 6, 101), the
+# control_dim sweep's widest (30, 25, 21) and the state_dim sweep's points
+# run on the card (25, 2, 21) and (2, 2, 21)
+P6_LINEAR = ((12, 6, 21), (12, 6, 101), (30, 25, 21), (25, 2, 21),
+             (2, 2, 21))
 
 
 def errors(got, ref, names, tol: float) -> dict:
@@ -364,6 +407,75 @@ def quadruped_parity(dtype, tol):
         time_ms(lambda: ls_ref(*largs)),
         qd["ladder_work"])
     return res
+
+
+def phase6_parity(dtype, tol):
+    """Kernels A, B and C against their plain versions at the shapes phase 6
+    gives them, one lane (B=1) and the ladder of the drivers' options (ten
+    halvings and the alpha = 0 rung, L=11): A (that ladder and the init
+    form) and B on the random-linear shapes P6_LINEAR; B and C on the rocket
+    window (N=21), grasp's window at the sweep's longest N=51 and its cold
+    form at N=251 (the driver's cold solve), and the flexsat regulator
+    (N=80). Returns {shape: {kernel: {output: max_abs_err}}}; raises as
+    :func:`errors` does, on a J gap beyond tol max(1, |J|), and in float64
+    on a differing accepted rung."""
+    from altro_tpu_torch.bench.kernels import (QUAD_LADDER, flagship_inputs,
+                                               flexsat_inputs, grasp_inputs,
+                                               rocket_inputs)
+    from altro_tpu_torch.ops import riccati_fused, rollout, rollout_al
+    from altro_tpu_torch.solver.altro import _ladder_choice
+
+    dev = torch.device("cuda")
+    fb = riccati_fused.fused_expand_backward
+    fb_ref = riccati_fused.fused_expand_backward_reference
+    ls, ls_ref = rollout.batched_ls_rollout, rollout.batched_ls_rollout_reference
+    la = rollout_al.batched_ls_rollout_al
+    la_ref = rollout_al.batched_ls_rollout_al_reference
+    names = ("K", "d", "dV1", "dV2")
+    out = {}
+    for n, m, N in P6_LINEAR:
+        fl = flagship_inputs(dtype, dev, B=1, widths=(n, m), N=N)
+        largs, iargs = fl["ladder"][:-1] + (QUAD_LADDER,), fl["init"]
+        errs = errors(ls(*largs), ls_ref(*largs), ("Xs L=11", "Us L=11"),
+                      tol)
+        errs.update(errors(ls(*iargs), ls_ref(*iargs), ("Xs L=1", "Us L=1"),
+                           tol))
+        out[f"random-linear n={n} m={m} N={N}"] = {
+            "fused_expand_backward": errors(
+                fb(*fl["fused"], packed=fl["packed"]), fl["fused_ref"],
+                names, tol),
+            "batched_ls_rollout": errs}
+    alphas = torch.tensor(QUAD_LADDER, dtype=dtype, device=dev)
+    for label, rk in (
+            ("rocket window N=21", rocket_inputs(dtype, dev, 1)),
+            ("grasp window N=51", grasp_inputs(dtype, dev, 1, N=51)),
+            ("grasp cold N=251", grasp_inputs(dtype, dev, 1, cold=True,
+                                              N=251)),
+            ("flexsat N=80", flexsat_inputs(dtype, dev, 1))):
+        packed = rk["packed"]
+        res = {"fused_expand_backward": errors(
+            fb(*rk["fused"], packed=packed), rk["fused_ref"], names, tol)}
+        cargs = rk["ladder_al"][:-1] + (QUAD_LADDER,)
+        Xs, Us, J = la(*cargs, packed=packed)
+        Xr, Ur, Jr = la_ref(*cargs)
+        errs = errors((Xs, Us), (Xr, Ur), ("Xs", "Us"), tol)
+        gap = float(((J - Jr).abs() / Jr.abs().clamp(min=1.0)).max())
+        if not gap <= tol:
+            raise AssertionError(f"{label} J: max|kernel - plain| / "
+                                 f"max(1, |J|) = {gap:.3e} > {tol:.0e}")
+        errs["J"] = float((J - Jr).abs().max())
+        _, _, dV1, dV2 = rk["fused_ref"]
+        idx_k, acc_k, _, _ = _ladder_choice(J, alphas, dV1, dV2, 1e-4)
+        idx_p, acc_p, _, _ = _ladder_choice(Jr, alphas, dV1, dV2, 1e-4)
+        same = bool(((idx_k == idx_p) & (acc_k == acc_p)).all())
+        print(f"{label} parity ({dtype}, B=1, L=11): accepted rung "
+              f"{int(idx_p[0])} (plain), {'same' if same else 'differs'} "
+              f"on the kernel")
+        if dtype == torch.float64 and not same:
+            raise AssertionError(f"{label}: accepted rung differs")
+        res["batched_ls_rollout_al"] = errs
+        out[label] = res
+    return out
 
 
 def quadruped_agreement():
@@ -799,6 +911,116 @@ def closed_loop_agreement(card):
                                  f"{df:.3e}; physical gates {phys}")
 
 
+def lockstep_on_card(card):
+    """Phase 6b: the two lockstep loops on the card in float64 (ALTRO on
+    kernels A/B/C, the ADMM baselines on graphs), gated as the JAX
+    package's tests."""
+    from altro_tpu_torch.bench.baselines import rocket_window
+    from altro_tpu_torch.models import random_linear as rl
+    from altro_tpu_torch.models import rocket
+    from altro_tpu_torch.mpc import (run_mpc_lockstep,
+                                     run_mpc_lockstep_conic)
+    from altro_tpu_torch.solver.options import SolverOptions
+    kw = dict(dtype=torch.float64, device="cuda")
+    rng = np.random.default_rng(1)
+    prob = rl.gen_random_linear(rng, 12, 6, 121, **kw)
+    X, U = rl.gen_trajectory(rng, prob, 121)
+    pm = rl.gen_tracking_mpc(prob, X, U, 21)
+    noise = torch.tensor(np.random.default_rng(3).standard_normal(
+        (LOCK_T, 12)), **kw)
+    t0 = time.perf_counter()
+    res = run_mpc_lockstep(pm, SolverOptions(
+        cost_tolerance=1e-4, constraint_tolerance=1e-4, penalty_initial=1e3,
+        penalty_scaling=100.0, reset_duals=False), X, U, noise, qp_eps=1e-7)
+    secs = time.perf_counter() - t0
+    print(f"lockstep random-linear [{card}] T={LOCK_T}: {secs:.2f} s; "
+          f"iterations ALTRO/ADMM-QP {res.iters[:, 0].tolist()} / "
+          f"{res.iters[:, 1].tolist()}; max err_X "
+          f"{float(res.err_X.max()):.3e}, err_U {float(res.err_U.max()):.3e},"
+          f" err_x0 {float(res.err_x0.max()):.3e}")
+    if not (int(res.status.min()) == 1 and float(res.err_X.max()) < 5e-3
+            and float(res.err_U.max()) < 5e-3
+            and float(res.err_x0.max()) < 1e-5):
+        raise AssertionError(f"random-linear lockstep: {res}")
+
+    pw, cold_X, cold_U = rocket_window("cuda")
+    noise = torch.tensor(np.random.default_rng(1).standard_normal(
+        (LOCK_ROCKET_T, 6)), **kw)
+    tol = 1e-6
+    t0 = time.perf_counter()
+    res = run_mpc_lockstep_conic(
+        pw, SolverOptions(
+            cost_tolerance=tol, gradient_tolerance=tol * 1e-2,
+            constraint_tolerance=tol, penalty_initial=1e3,
+            penalty_scaling=10.0, reset_duals=False, iterations_outer=40),
+        cold_X, cold_U, noise, conic_eps=1e-9, conic_max_iter=50000,
+        noise_model=rocket.rocket_noise_model())
+    secs = time.perf_counter() - t0
+    print(f"lockstep rocket [{card}] tol {tol:g}, T={LOCK_ROCKET_T}: "
+          f"{secs:.2f} s; iterations ALTRO/ADMM-conic "
+          f"{res.iters[:, 0].tolist()} / {res.iters[:, 1].tolist()}; max "
+          f"err_U {float(res.err_U.max()):.3e}")
+    if not (int(res.status.min()) == 1 and float(res.err_U.max()) < 1e-3):
+        raise AssertionError(f"rocket lockstep: {res}")
+
+
+def quadruped_table(card):
+    """Phase 6c: the quadruped table's four rows on the card."""
+    from altro_tpu_torch.bench import drivers
+    from altro_tpu_torch.models.quadruped import config
+    stance = config.MPCConfig().stance_height
+    rows = drivers.quadruped_benchmark(tf=LOOP_TF, device="cuda")
+    for name, r in rows.items():
+        if name == "table_md":
+            continue
+        print(f"quadruped table [{card}] {name}: {r['ms_per_solve']:.3f} +- "
+              f"{r['ms_per_solve_std']:.3f} ms/solve (+{r['ms_prep']:.3f} "
+              f"prep), {r['mean_iters']:.2f} iterations, success "
+              f"{r['success']:.3f} over {r['periods']} periods; ADMM chunks "
+              f"{r['admm_chunks']}, ALTRO loop replays {r['loop_replays']}; "
+              f"final height {r['final_height']:.4f} m, max |roll|,|pitch| "
+              f"{r['max_roll_pitch']:.4f}")
+        if not (r["success"] == 1.0
+                and abs(r["final_height"] - stance) < 0.05
+                and r["max_roll_pitch"] < 0.2):
+            raise AssertionError(f"quadruped table {name}: {r}")
+    print(rows["table_md"])
+
+
+def drivers_once(card):
+    """Phase 6d: one pass of each driver at T_DRIVER steps."""
+    from altro_tpu_torch.bench import drivers
+    runs = (
+        ("random_linear_horizon",
+         lambda: drivers.random_linear_sweep("horizon", T=T_DRIVER)),
+        ("random_linear_control_dim",
+         lambda: drivers.random_linear_sweep("control_dim", T=T_DRIVER)),
+        ("rocket", lambda: drivers.rocket_tol_sweep(T=T_DRIVER)),
+        ("grasp", lambda: drivers.grasp_horizon_sweep(T=T_DRIVER)),
+        ("flexsat", lambda: drivers.flexsat_benchmark(T=T_DRIVER,
+                                                      trials=1)))
+    for name, fn in runs:
+        print(f"driver {name} [{card}], T={T_DRIVER}:", flush=True)
+        t0 = time.perf_counter()
+        res = fn()
+        print(f"  ({time.perf_counter() - t0:.1f} s)", flush=True)
+        for x, e in res.get("errs", {}).items():
+            if e["success"] != 1.0:
+                raise AssertionError(f"driver {name} at {x}: {e}")
+        for r in res.get("rows", []):
+            # the rocket's tolerances: both solvers succeed on every step,
+            # and at the tightest ALTRO agrees with the conic ADMM as in 6b
+            if not (r["success"] == 1.0 and r["baseline_success"] == 1.0
+                    and (r["tol"] > 1e-8 or r["err_U"] < 1e-3)):
+                raise AssertionError(f"driver {name} at tol {r['tol']}: "
+                                     f"{r}")
+        if name == "flexsat" and not (res["altro_success"] == 1.0
+                                      and res["qp_success"] == 1.0):
+            raise AssertionError(f"driver flexsat: ALTRO success "
+                                 f"{res['altro_success']}, ADMM-QP success "
+                                 f"{res['qp_success']}")
+
+
 def main() -> None:
     # ---- 1. device
     if not torch.cuda.is_available():
@@ -858,6 +1080,17 @@ def main() -> None:
                       f"{plain_ms:.4f} ms, bound {bnd:.4f} ms ({by}: "
                       f"{work[0] / 1e6:.2f} MB, {work[1] / 1e9:.4f} GFLOP) "
                       f"[{card}]")
+
+    # ---- 3g. phase 6's shapes, one lane (no timing)
+    par6 = {}
+    for label, dtype, tol in (("f32", torch.float32, F32_TOL),
+                              ("f64", torch.float64, F64_TOL)):
+        par6[label] = phase6_parity(dtype, tol)
+        for shape, res in par6[label].items():
+            for name, errs in res.items():
+                errs_s = " ".join(f"{k}={v:.3e}" for k, v in errs.items())
+                print(f"parity {name} {shape} B=1 {label}: max|kernel - "
+                      f"plain| {errs_s}")
 
     def reset_counts():
         rollout.launch_count = 0
@@ -1114,6 +1347,17 @@ def main() -> None:
     # ---- 5f. the closed loop, card (f64 kernels) against the CPU (plain)
     closed_loop_agreement(card)
 
+    # ---- 6. baselines on the card; ALTRO's launches count in the table
+    from altro_tpu_torch.bench import baselines
+    reset_counts()
+    base = baselines.run("cuda")
+    baselines.check(base)
+    lockstep_on_card(card)
+    quadruped_table(card)
+    drivers_once(card)
+    p6launches = read_counts()
+    print(f"phase 6 ALTRO launches: {p6launches}")
+
     # kernel table: launches over the main paths (4h and 4i included), the
     # largest float32 error over every parity check, times and bounds at
     # the shapes of the path that the kernel serves per iteration (the
@@ -1139,9 +1383,12 @@ def main() -> None:
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": (launches[name] + rlaunches[name] + qlaunches[name]
                          + glaunches[name] + flaunches[name]
-                         + llaunches[name]),
-            "max_abs_err": max(v for shape in par if name in par[shape][0]
-                               for v in par[shape][0][name][0].values()),
+                         + llaunches[name] + p6launches[name]),
+            "max_abs_err": max(
+                [v for shape in par if name in par[shape][0]
+                 for v in par[shape][0][name][0].values()]
+                + [v for res in par6["f32"].values() if name in res
+                   for v in res[name].values()]),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
             "library_ms": None})
     print(json.dumps({"kernels": table}))

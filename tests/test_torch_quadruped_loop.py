@@ -308,11 +308,21 @@ def test_mpc_solve_forces_matches_jax(lin):
     assert int(it_t[0]) == int(it_j)
     close(f_t[0], f_j, atol=1e-8)
     close(U_t[0], U_j, atol=1e-8)
-    for backend in ("admm_qp", "admm_conic"):
-        with pytest.raises(NotImplementedError, match="oracle"):
-            tctl.mpc_solve_forces(backend, tprob, tt.SolverOptions(**OPTS),
-                                  T(x_curr)[None], None, None, None, 0.03,
-                                  None, None)
+    # the ADMM backend of this friction model through its closed loop's
+    # workspace (the knot ADMM; its agreement with the JAX package is
+    # tests/test_torch_lockstep.py's): solved, the duals passed through
+    backend = "admm_qp" if lin else "admm_conic"
+    work = tctl.make_baseline_state(backend, tprob, tcfg, tx_des)
+    f_a, U_a, d_a, _, st_a, w_a = tctl.mpc_solve_forces(
+        backend, tprob, tt.SolverOptions(**OPTS), T(x_curr)[None],
+        tx_des.expand(cfg.N, 12), T(contacts), T(locs),
+        cfg.dynamics_discretization, T(U0)[None], tduals, work)
+    assert int(st_a[0]) == 1 and d_a is tduals and w_a is work
+    assert U_a.shape == U_t.shape and torch.equal(f_a, U_a[:, 0])
+    with pytest.raises(ValueError, match="backend"):
+        tctl.mpc_solve_forces("osqp", tprob, tt.SolverOptions(**OPTS),
+                              T(x_curr)[None], None, None, None, 0.03, None,
+                              None)
 
 
 # --------------------------------------------------------- the closed loop
@@ -386,9 +396,14 @@ def test_fixed_buffer_route_matches_eager(lin):
 
 
 def test_loop_entry_points_refuse_other_backends():
+    """Unknown backends, and the JAX package's native C++ entrants (not
+    ported: they come with the C++-oracle slice)."""
     cfg, opts = tconfig.MPCConfig(), tt.SolverOptions(**OPTS)
     with pytest.raises(NotImplementedError, match="oracle"):
-        tctl.simulate(cfg, opts, tf=0.03, backend="admm_qp", device="cpu")
+        tctl.simulate_host(cfg, opts, tf=0.03, backend="admm_qp",
+                           device="cpu", native=True)
+    with pytest.raises(ValueError, match="backend"):
+        tctl.simulate(cfg, opts, tf=0.03, backend="osqp", device="cpu")
     with pytest.raises(ValueError, match="backend"):
         tctl.simulate_host(cfg, opts, tf=0.03, backend="osqp", device="cpu")
 
