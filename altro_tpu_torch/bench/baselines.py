@@ -83,7 +83,8 @@ def quadruped_instance(lin: bool, device, dtype=torch.float64):
     prob_k = controller._linearized_problem(
         prob, x_curr[None], x_ref, contacts, foot_locs,
         cfg.dynamics_discretization)
-    work = controller.make_baseline_state("admm_qp", prob, cfg, x_des, dtype)
+    work = controller.make_baseline_state("admm_qp", prob, cfg, x_des, dtype,
+                                          native=False)
     return prob_k, work
 
 

@@ -20,14 +20,17 @@ step), recording their inf-norm agreement. On a CUDA device both sides run
 on CUDA graphs (ALTRO's step as start, loop and finish graphs; the ADMM's
 chunks) and every timed section ends in a device synchronise. The dtypes
 are the JAX package's: random-linear in float64 on the CPU and float32 on
-the card, everything else in float64. The port's kernels take n, m <= 32
-(``ops.rollout.MAX_DIM``): on the card a sweep point beyond that is
-recorded under ``not_run`` with the reason and never solved by the plain
-version.
+the card, everything else in float64. The kernels take n, m <= 64
+(``ops.rollout.MAX_DIM``), so every sweep point runs on the card.
 
-``rocket_multibaseline`` and ``grasp_multibaseline`` (the JAX package's
-four-solver studies, whose truth solves are its native C++ oracle) raise
-NotImplementedError: they come with the port's C++-oracle slice.
+``rocket_multibaseline`` and ``grasp_multibaseline`` are the JAX package's
+four-solver studies: ALTRO's warm step (on graphs on the card), the dense
+conic ADMM and the knot ADMM (on the card) and the native C++ conic solver
+(the port's copy, ``native/``, on the host), each scored against a native
+C++ truth solve at 1e-9 of every instance. ``quadruped`` reports two races:
+the card race (ALTRO on the kernels against the knot ADMM on the card) and
+the C++ race (the native AL-iLQR against the native knot ADMM, the JAX
+package's table).
 
 Results go to ``<out>/<name>.json`` with the device (name and power limit)
 beside them; ``--fig`` also draws the figures with matplotlib (not
@@ -59,8 +62,6 @@ from .harness import comparison_plot, save_results
 QUAD_OPTS = dict(cost_tolerance=1e-4, constraint_tolerance=1e-4,
                  penalty_initial=10.0, penalty_scaling=100.0,
                  reset_duals=False)
-CPP_SLICE = ("its truth solves are the JAX package's native C++ oracle, "
-             "which comes with the port's C++-oracle slice (not ported yet)")
 
 
 def _counts() -> dict:
@@ -192,16 +193,9 @@ def random_linear_sweep(kind: str = "horizon", T: int = 50, dtype=None,
                          penalty_scaling=100.0, reset_duals=False)
 
     times: Dict[str, Dict[float, List[float]]] = {"ALTRO": {}, "ADMM-QP": {}}
-    errs, not_run = {}, {}
+    errs = {}
     for x in (xs if xs is not None else sweeps["xs"]):
         n, m, N_mpc = sweeps["cfg"](x)
-        if (torch.device(device).type == "cuda"
-                and max(n, m) > rollout.MAX_DIM):
-            not_run[x] = (f"n={n}, m={m}: the kernels take n, m <= "
-                          f"{rollout.MAX_DIM}")
-            print(f"  {sweeps['xlabel']}={x}: not run ({not_run[x]})",
-                  flush=True)
-            continue
         rng = np.random.default_rng(sweeps["seed"])
         N_track = N_mpc + T + 2
         prob = rl.gen_random_linear(rng, n, m, N_track, dtype=dtype,
@@ -221,10 +215,7 @@ def random_linear_sweep(kind: str = "horizon", T: int = 50, dtype=None,
         errs[x] = dict(err_X=max(rows["err_X"]), err_U=max(rows["err_U"]),
                        success=float(np.mean([s[0] for s in rows["status"]])))
         print(f"  {sweeps['xlabel']}={x}: {_summary(rows)}", flush=True)
-    out = dict(kind=kind, xlabel=sweeps["xlabel"], times=times, errs=errs)
-    if not_run:
-        out["not_run"] = not_run
-    return out
+    return dict(kind=kind, xlabel=sweeps["xlabel"], times=times, errs=errs)
 
 
 # ---------------------------------------------------------------------------
@@ -279,9 +270,172 @@ def rocket_tol_sweep(tols=(1e-2, 1e-4, 1e-6, 1e-8), T: int = 20,
     return dict(rows=out, cold_iterations=int(cold.stats.iterations[0]))
 
 
-def rocket_multibaseline_tol(*args, **kwargs):
-    """The JAX package's four-solver rocket tolerance study: not ported."""
-    raise NotImplementedError(f"rocket_multibaseline: {CPP_SLICE}")
+# the four solvers of the multi-baseline studies, in the JAX package's order
+MULTI_SOLVERS = ("altro", "dense_admm", "knot_admm", "native_cpp")
+
+
+def _multibaseline_tol(family: str, tols, T: int, N_mpc: int, dtype,
+                       device, instances=None) -> dict:
+    """The four-solver tolerance study on the rocket's or grasp's MPC
+    window (the JAX package's ``rocket_multibaseline_tol`` /
+    ``grasp_multibaseline_tol``). For each tolerance ALTRO's warm-started
+    closed loop (``make_mpc_step``, on CUDA graphs on a card) defines the
+    instance sequence; the dense conic ADMM (its factor set up once, or
+    refactored per step under grasp's rotating constraint frames), the knot
+    ADMM (set up once, refactored per step) and the native C++ conic solver
+    solve the identical instances at the same eps, and every solver's
+    control error is measured against a native C++ truth solve at 1e-9 of
+    the same instance, which must converge. ALTRO's step and the two ADMM
+    solves are each fenced by a device synchronise (all three warmed up,
+    and captured, on the first instance before the timed loop); the native
+    solves are timed with ``perf_counter`` around the transcription, the
+    copy to the host and the solve, as the JAX driver times them.
+    ``instances`` (T problems, per tolerance the same): the baselines' and
+    the truth's instance of each step in place of the one ALTRO's closed
+    loop defines (the JAX package's run's instances, converted, so that
+    both packages' baselines solve one sequence)."""
+    from ..convert import tree_to
+    from ..mpc import _StepPieces, make_mpc_step
+    from ..native import qp as native
+
+    native.load()            # the build, outside the timed loop
+    dev = torch.device(device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    if family == "rocket":
+        from ..models import rocket
+        N = 301
+        prob = rocket.rocket_problem(N=N, tf=(N - 1) * 0.05, dtype=dtype,
+                                     device=dev)
+        cold = _cold(prob, SolverOptions(
+            cost_tolerance=1e-6, gradient_tolerance=1e-8,
+            constraint_tolerance=1e-5, penalty_initial=1e-2,
+            penalty_scaling=500.0, iterations_outer=40,
+            iterations_inner=100), rocket.hover_controls(prob))
+        Xc, Uc = cold.X[0], cold.U[0]
+        prob_mpc = gen_tracking_mpc(prob, Xc, Uc, N_mpc, dt=0.05)
+        nm, cons_fn = rocket.rocket_noise_model(), None
+        penalty = dict(penalty_initial=1e3, penalty_scaling=10.0)
+    else:
+        from ..models import grasp
+        N, tf = 251, 6.0
+        o = grasp.make_grasp_object(N, tf, dtype=dtype, device=dev)
+        prob = grasp.grasp_problem(o, N, tf)
+        cold = _cold(prob, SolverOptions(
+            cost_tolerance=1e-6, gradient_tolerance=1e-8,
+            constraint_tolerance=1e-6, penalty_initial=10.0,
+            penalty_scaling=10.0, iterations_outer=30, iterations_inner=50),
+            grasp.hover_controls(o, N))
+        Xc, Uc = cold.X[0], cold.U[0]
+        prob_mpc = gen_tracking_mpc(prob, Xc, Uc, N_mpc, Qk=1e3, Rk=1.0,
+                                    Qfk=10.0, dt=tf / (N - 1))
+        prob_mpc = dataclasses.replace(
+            prob_mpc, constraints=grasp.grasp_constraints(o, N_mpc, 0))
+
+        def cons_fn(k):
+            return grasp.grasp_constraints(o, N_mpc, k)
+        nm = default_noise_model
+        penalty = dict(penalty_initial=1e4, penalty_scaling=100.0)
+    rng = np.random.default_rng(1)
+    noise = torch.tensor(rng.standard_normal((T, 6)), dtype=dtype,
+                         device=dev)
+    pm = one_scenario(prob_mpc)
+    cwork0 = admm_conic.setup(to_batch_conic(pm))
+    kwork0 = knot_admm.setup(knot_admm.to_knot_qp(pm))
+
+    def dense_solve(prob_k, eps):
+        data = to_batch_conic(prob_k)
+        work = (admm_conic.refactor(cwork0, data) if cons_fn is not None
+                else dataclasses.replace(cwork0, prob=data))
+        sol = admm_conic.solve(work, eps_abs=eps, max_iter=100000)
+        return extract_traj(data, sol.x)[1], int(sol.status[0])
+
+    def knot_solve(prob_k, eps):
+        sol = knot_admm.solve(knot_admm.refactor(
+            kwork0, knot_admm.to_knot_qp(prob_k)), eps_abs=eps,
+            max_iter=20000)
+        return sol.U, int(sol.status[0])
+
+    def native_solve(prob_k, eps):
+        data = to_batch_conic(tree_to(prob_k, "cpu"))
+        sol = native.solve_conic(*native.conic_arrays(data), eps_abs=eps,
+                                 max_iter=300000)
+        x = torch.as_tensor(sol.x, dtype=dtype)[None]
+        return extract_traj(data, x)[1].to(dev), sol.status
+
+    out = []
+    for tol in tols:
+        opts = SolverOptions(cost_tolerance=tol, gradient_tolerance=tol * 1e-2,
+                             constraint_tolerance=tol, reset_duals=False,
+                             iterations_outer=40, **penalty)
+        step, init_carry = make_mpc_step(pm, opts, Xc, Uc, nm, cons_fn)
+        pieces = _StepPieces(pm, opts, Xc, Uc, nm, cons_fn, "shift")
+        carry = init_carry(1)
+        # warm-up (graph capture) of the step and both ADMM solves
+        step(carry, noise[0][None], 0)
+        prob_w = pieces.prob_at(1, carry[0])[0]
+        dense_solve(prob_w, tol)
+        knot_solve(prob_w, tol)
+        sync()
+
+        errs = {k: [] for k in MULTI_SOLVERS}
+        ms = {k: [] for k in MULTI_SOLVERS}
+        sts = {k: [] for k in MULTI_SOLVERS}
+        for t in range(T):
+            t0 = time.perf_counter()
+            carry, res = step(carry, noise[t][None], t)
+            sync()
+            ms["altro"].append((time.perf_counter() - t0) * 1e3)
+            sts["altro"].append(int(res.status[0]))
+            prob_k = (pieces.prob_at(t + 1, res.x0)[0] if instances is None
+                      else one_scenario(tree_to(instances[t], dev, dtype)))
+
+            U_truth, st_truth = native_solve(prob_k, 1e-9)
+            if st_truth != 1:
+                raise RuntimeError(f"{family} tol={tol:g} step {t}: the "
+                                   "native truth solve did not converge")
+            errs["altro"].append(float(torch.amax(torch.abs(
+                res.U - U_truth))))
+            for name, fn in (("dense_admm", dense_solve),
+                             ("knot_admm", knot_solve)):
+                t0 = time.perf_counter()
+                U_b, st = fn(prob_k, tol)
+                sync()
+                ms[name].append((time.perf_counter() - t0) * 1e3)
+                errs[name].append(float(torch.amax(torch.abs(
+                    U_b - U_truth))))
+                sts[name].append(st)
+            t0 = time.perf_counter()
+            U_n, st = native_solve(prob_k, tol)
+            ms["native_cpp"].append((time.perf_counter() - t0) * 1e3)
+            errs["native_cpp"].append(float(torch.amax(torch.abs(
+                U_n - U_truth))))
+            sts["native_cpp"].append(int(st))
+
+        row = dict(tol=tol)
+        for k in MULTI_SOLVERS:
+            row[f"err_{k}"] = max(errs[k])
+            row[f"ms_{k}"] = float(np.mean(ms[k]))
+            row[f"success_{k}"] = float(np.mean(sts[k]))
+        out.append(row)
+        print(f"  tol={tol:g}: " + " ".join(
+            f"{k}={row[f'err_{k}']:.2e}/{row[f'ms_{k}']:.3f}ms"
+            f"/{row[f'success_{k}']:.2f}" for k in MULTI_SOLVERS),
+            flush=True)
+    return dict(rows=out, cold_iterations=int(cold.stats.iterations[0]))
+
+
+def rocket_multibaseline_tol(tols=(1e-2, 1e-4, 1e-6, 1e-8), T: int = 10,
+                             N_mpc: int = 21, dtype=torch.float64,
+                             device="cuda", instances=None) -> dict:
+    """Four-solver tolerance study on the rocket (the reference's headline
+    rocket figure: ALTRO against ECOS, COSMO and Mosek at matched
+    tolerances, run_simple_rocket.jl:146-201 / figures/rocket_solver_tol.tikz;
+    the JAX package's ``rocket_multibaseline_tol``): conic AL-iLQR (ALTRO),
+    dense conic ADMM (the SCS/COSMO form), the MPC-structured knot ADMM and
+    the native C++ conic solver, each scored against a native C++ solve at
+    1e-9 of the same instance (see :func:`_multibaseline_tol`)."""
+    return _multibaseline_tol("rocket", tols, T, N_mpc, dtype, device,
+                              instances)
 
 
 # ---------------------------------------------------------------------------
@@ -338,9 +492,19 @@ def grasp_horizon_sweep(Ns=(11, 21, 31, 41, 51), T: int = 15,
     return dict(times=times, errs=errs, xlabel="MPC horizon N")
 
 
-def grasp_multibaseline_tol(*args, **kwargs):
-    """The JAX package's four-solver grasp tolerance study: not ported."""
-    raise NotImplementedError(f"grasp_multibaseline: {CPP_SLICE}")
+def grasp_multibaseline_tol(tols=(1e-2, 1e-4, 1e-6, 1e-8), T: int = 10,
+                            N_mpc: int = 21, dtype=torch.float64,
+                            device="cuda", instances=None) -> dict:
+    """Grasp counterpart of :func:`rocket_multibaseline_tol` (the JAX
+    package's ``grasp_multibaseline_tol``: the reference drives
+    ECOS/COSMO/Mosek on the grasp sweep, grasp_benchmark.jl:36-62), on one
+    horizon (N_mpc=21, the reference's tracking weights). The contact
+    frames rotate every step, so every baseline takes the rotated
+    constraint data per step: the dense conic ADMM refactors its KKT
+    matrix, the knot ADMM its band, and the native solver reads the new
+    program."""
+    return _multibaseline_tol("grasp", tols, T, N_mpc, dtype, device,
+                              instances)
 
 
 # ---------------------------------------------------------------------------
@@ -405,32 +569,23 @@ def flexsat_benchmark(T: int = 45, trials: int = 10, dtype=torch.float64,
 # Quadruped
 # ---------------------------------------------------------------------------
 
-def quadruped_benchmark(tf: float = 2.0, dtype=torch.float64,
-                        device="cuda") -> dict:
-    """The reference's quadruped table (quadruped_benchmark.jl): the
-    closed-loop trot of ``tf`` seconds on the single-rigid-body plant,
-    timing each MPC period in three fenced sections
-    (``controller.simulate_host``): the solve alone (``ms_per_solve``, the
-    reference table's accounting), the schedule and relinearization
-    (``ms_prep``) and the period's 1 kHz ticks (``ms_per_period_sim``).
-    Rows ALTRO-QP and OSQP-role (linearized friction pyramids; ALTRO and
-    the knot ADMM), ALTRO-SOCP and ECOS-role (friction cones), with the
-    keys of the JAX package's rows, plus ``launches`` (kernel launches and
-    ALTRO loop passes of the row's run, the warm-up period's included),
-    ``loop_replays``, ``admm_chunks``, ``capture_s``, ``tick_ms``,
-    ``periods``, ``final_height`` (m) and ``max_roll_pitch`` (the largest
-    |MRP roll or pitch component| over the periods). ``table_md`` is the
-    markdown table."""
+QUAD_ROWS = (("ALTRO-QP", True, "altro"), ("OSQP-role", True, "admm_qp"),
+             ("ALTRO-SOCP", False, "altro"),
+             ("ECOS-role", False, "admm_conic"))
+
+
+def _quadruped_race(tf: float, dtype, device, native: bool) -> dict:
+    """The four rows of one race (``controller.simulate_host`` with
+    ``native``) and their markdown table under "table_md"."""
     opts = SolverOptions(**QUAD_OPTS)
     rows = {}
-    for name, lin, backend in (("ALTRO-QP", True, "altro"),
-                               ("OSQP-role", True, "admm_qp"),
-                               ("ALTRO-SOCP", False, "altro"),
-                               ("ECOS-role", False, "admm_conic")):
+    race = "C++" if native else "card"
+    for name, lin, backend in QUAD_ROWS:
         cfg = config.MPCConfig(linearized_friction=lin)
         before = _counts()
         res = controller.simulate_host(cfg, opts, tf=tf, backend=backend,
-                                       dtype=dtype, device=device)
+                                       dtype=dtype, device=device,
+                                       native=native)
         launches = {k: v - before[k] for k, v in _counts().items()}
         status = res["status"].cpu().numpy()
         mpc_ms = np.asarray(res["mpc_ms"])
@@ -454,7 +609,7 @@ def quadruped_benchmark(tf: float = 2.0, dtype=torch.float64,
             final_height=float(res["x"][-1, 2]),
             max_roll_pitch=float(res["x"][:, 3:5].abs().max()))
         r = rows[name]
-        print(f"  {name}: {r['ms_per_solve']:.3f} ± "
+        print(f"  [{race} race] {name}: {r['ms_per_solve']:.3f} ± "
               f"{r['ms_per_solve_std']:.3f} ms/solve "
               f"(+{r['ms_prep']:.3f} prep), {r['ms_per_period_sim']:.3f} ms "
               f"sim per period, {r['mean_iters']:.2f} iters (success "
@@ -462,13 +617,43 @@ def quadruped_benchmark(tf: float = 2.0, dtype=torch.float64,
               f"{r['loop_replays']}, ADMM chunks {r['admm_chunks']}; "
               f"launches {launches}", flush=True)
 
-    lines = ["| configuration | ms/solve | σ | +prep | success |",
-             "|---|---|---|---|---|"]
+    lines = [f"{race} race:", "",
+             "| configuration | ms/solve | σ | +prep | iterations | success |",
+             "|---|---|---|---|---|---|"]
     for k, v in rows.items():
         lines.append(f"| {k} | {v['ms_per_solve']:.3f} | "
                      f"{v['ms_per_solve_std']:.3f} | {v['ms_prep']:.3f} | "
-                     f"{v['success']:.2f} |")
+                     f"{v['mean_iters']:.2f} | {v['success']:.2f} |")
     rows["table_md"] = "\n".join(lines)
+    return rows
+
+
+def quadruped_benchmark(tf: float = 2.0, dtype=torch.float64,
+                        device="cuda") -> dict:
+    """The reference's quadruped table (quadruped_benchmark.jl): the
+    closed-loop trot of ``tf`` seconds on the single-rigid-body plant,
+    timing each MPC period in three fenced sections
+    (``controller.simulate_host``): the solve alone (``ms_per_solve``, the
+    reference table's accounting), the schedule and relinearization
+    (``ms_prep``) and the period's 1 kHz ticks (``ms_per_period_sim``).
+    Rows ALTRO-QP and OSQP-role (linearized friction pyramids; ALTRO and
+    the knot ADMM), ALTRO-SOCP and ECOS-role (friction cones), with the
+    keys of the JAX package's rows, plus ``launches`` (kernel launches and
+    ALTRO loop passes of the row's run, the warm-up period's included),
+    ``loop_replays``, ``admm_chunks``, ``capture_s``, ``tick_ms``,
+    ``periods``, ``final_height`` (m) and ``max_roll_pitch`` (the largest
+    |MRP roll or pitch component| over the periods).
+
+    Two races. The rows at the top level and ``table_md`` are the CARD
+    race (``native=False``): ALTRO on kernels B, C and A against the knot
+    ADMM on the card. ``cpp_race`` (its rows) and ``cpp_table_md`` are the
+    C++ race (``native=True``, the JAX package's default, whose table it
+    reports): the native AL-iLQR against the native knot ADMM on the
+    host."""
+    rows = _quadruped_race(tf, dtype, device, native=False)
+    cpp = _quadruped_race(tf, dtype, device, native=True)
+    rows["cpp_table_md"] = cpp.pop("table_md")
+    rows["cpp_race"] = cpp
     return rows
 
 
@@ -480,9 +665,11 @@ BENCHMARKS = {
     "random_linear_control_dim":
         lambda dev, a: random_linear_sweep("control_dim", device=dev),
     "rocket": lambda dev, a: rocket_tol_sweep(device=dev),
-    "rocket_multibaseline": lambda dev, a: rocket_multibaseline_tol(),
+    "rocket_multibaseline": lambda dev, a: rocket_multibaseline_tol(
+        device=dev),
     "grasp": lambda dev, a: grasp_horizon_sweep(device=dev),
-    "grasp_multibaseline": lambda dev, a: grasp_multibaseline_tol(),
+    "grasp_multibaseline": lambda dev, a: grasp_multibaseline_tol(
+        device=dev),
     "flexsat": lambda dev, a: flexsat_benchmark(device=dev),
     "quadruped": lambda dev, a: quadruped_benchmark(tf=a.tf, device=dev),
 }
@@ -570,8 +757,41 @@ def _fig_quadruped(res, path):
     plt.close(fig)
 
 
-FIGURES = {"rocket": _fig_rocket, "flexsat": _fig_flexsat,
-           "quadruped": _fig_quadruped}
+def _fig_rocket_multibaseline(res, path):
+    """Four-solver error and time against the tolerance, the reference's
+    headline contrast (figures/rocket_solver_tol.tikz: ALTRO against
+    ECOS/COSMO/Mosek); grasp's study draws the same way."""
+    plt = _mpl()
+    rows = res["rows"]
+    tols = [r["tol"] for r in rows]
+    solvers = [("altro", "tab:red", "o", "conic AL-iLQR (ALTRO)"),
+               ("dense_admm", "tab:cyan", "s", "dense conic ADMM"),
+               ("knot_admm", "tab:blue", "^", "knot ADMM (MPC-structured)"),
+               ("native_cpp", "tab:green", "d", "native C++ conic")]
+    fig, (ax1, ax2) = plt.subplots(1, 2, figsize=(9.5, 3.6))
+    for key, color, mk, label in solvers:
+        ax1.loglog(tols, [max(r[f"err_{key}"], 1e-12) for r in rows],
+                   mk + "-", color=color, label=label)
+        ax2.semilogx(tols, [r[f"ms_{key}"] for r in rows], mk + "-",
+                     color=color, label=label)
+    ax1.set_xlabel("solver tolerance")
+    ax1.set_ylabel("inf-norm control error vs tight oracle")
+    ax1.invert_xaxis()
+    ax1.grid(True, alpha=0.3)
+    ax1.legend(fontsize=7)
+    ax2.set_xlabel("solver tolerance")
+    ax2.set_ylabel("time per solve (ms)")
+    ax2.set_yscale("log")
+    ax2.invert_xaxis()
+    ax2.grid(True, alpha=0.3)
+    fig.savefig(path, bbox_inches="tight", dpi=120)
+    plt.close(fig)
+
+
+FIGURES = {"rocket": _fig_rocket,
+           "rocket_multibaseline": _fig_rocket_multibaseline,
+           "grasp_multibaseline": _fig_rocket_multibaseline,
+           "flexsat": _fig_flexsat, "quadruped": _fig_quadruped}
 
 
 def figures(name: str, res, out: str) -> None:
@@ -612,10 +832,15 @@ def main() -> None:
                  dict(res, device=where))
     if name == "quadruped":
         print(res["table_md"])
-        print(json.dumps({"device": where, "rows": {
-            k: {kk: vv for kk, vv in v.items()
-                if kk not in ("mpc_ms", "prep_ms", "tick_ms")}
-            for k, v in res.items() if k != "table_md"}}))
+        print(res["cpp_table_md"])
+
+        def brief(rows):
+            return {k: {kk: vv for kk, vv in v.items()
+                        if kk not in ("mpc_ms", "prep_ms", "tick_ms")}
+                    for k, v in rows.items() if isinstance(v, dict)
+                    and "ms_per_solve" in v}
+        print(json.dumps({"device": where, "rows": brief(res),
+                          "cpp_race": brief(res["cpp_race"])}))
     if args.fig:
         figures(name, res, args.out)
 

@@ -56,6 +56,10 @@ HEAD_START_MS = 20
 HEAD_START_CYCLES = int(HEAD_START_MS * 1.98e6)
 # widths of kernels B and D that no main path uses, on the flagship's model
 OTHER_WIDTHS = ((13, 6), (7, 3))
+# the wide bodies' shapes (n, m): the state_dim sweep's points above 32
+# (m = 2, N = 21) and the TPU kernels' widest problem
+WIDE_SHAPES = ((35, 2), (45, 2), (55, 2), (64, 64))
+WIDE_N = 21
 
 
 def time_ms(fn, kernel: bool = False) -> float:
@@ -213,6 +217,81 @@ def flagship_inputs(dtype, dev, B: int = FLAG_B, widths=(12, 6),
         init=(dyn.A, dyn.B, dyn.d, X, U, torch.zeros_like(K),
               torch.zeros_like(d), (1.0,)),
         init_work=rollout_work(B, N, n, m, 1, False, X.element_size()))
+
+
+def wide_inputs(dtype, dev, B: int, n: int, m: int, N: int = WIDE_N
+                ) -> dict:
+    """All four kernels' arguments at a width above the group bodies'
+    (n or m > 32: the wide bodies): the random-linear tracking model of the
+    state_dim sweep at (n, m), N knots, with its NONPOS control bounds
+    (2m rows) while m <= 4, and above that 8 NONPOS rows (bounds on the
+    first four controls) and one SOC block of 4 rows (|u[4:7]| <= 2).
+    Seed 13: states and controls off any solve, multipliers
+    rho (|c| + 1) N(0, 1) with rho 1e3, so that lam + rho c takes both signs
+    on the NONPOS rows and the cone lands inside, on the polar side and
+    between; half the lanes regularised. B's arguments, D's (shared dynamics,
+    the solver's AL expansion of the same point), A's at the drivers' L=11
+    ladder on the plain version's gains and its init form (L=1), C's at
+    L=11."""
+    import dataclasses
+
+    import torch
+    from altro_tpu_torch.constraints import (DualState, bound_constraint,
+                                             norm_constraint2)
+    from altro_tpu_torch.models import random_linear as rl
+    from altro_tpu_torch.ops import riccati_fused
+    from altro_tpu_torch.ops.blocks import pack_blocks
+    from altro_tpu_torch.solver.altro import _al_expansion_cd
+
+    rng = np.random.default_rng(13)
+    full = rl.gen_random_linear(rng, n, m, N + 3, dtype=dtype, device=dev)
+    prob = rl.gen_tracking_mpc(full, *rl.gen_trajectory(rng, full, N + 3),
+                               N)
+    if m > 4:
+        kw = dict(dtype=dtype, device=dev)
+        bound = np.full(m, np.inf)
+        bound[:4] = 3.0
+        sel = torch.zeros((3, m), **kw)
+        sel[:, 4:7] = torch.eye(3, **kw)
+        prob = dataclasses.replace(prob, constraints=(
+            bound_constraint(N, n, m, u_min=-bound, u_max=bound, **kw),
+            norm_constraint2(N, n, m, sel, torch.zeros(m, **kw), offset=2.0,
+                             **kw)))
+    blocks, dyn = prob.constraints, prob.dynamics
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=dev)
+
+    X = t(rng.standard_normal((B, N, n)))
+    U = t(3.0 * rng.standard_normal((B, N - 1, m)))
+    rho = torch.full((B, N), 1e3, dtype=dtype, device=dev)
+    lams = tuple(rho[..., None] * (c.evaluate(X, U).abs() + 1.0)
+                 * t(rng.standard_normal((B, N, c.p))) for c in blocks)
+    rhos = (rho,) * len(blocks)
+    reg = t(np.where(rng.random(B) < 0.5, 0.0, 1e-2))
+    packed = pack_blocks(blocks, N, n, m, X)
+    fused = (prob.cost, dyn.A, dyn.B, blocks, X, U, lams, rhos, reg)
+    ref = riccati_fused.fused_expand_backward_reference(*fused)
+    K, d = ref[0].contiguous(), ref[1].contiguous()
+    expansion = (a.contiguous() for a in _al_expansion_cd(
+        prob.cost, blocks, tuple(DualState(lam=lam, rho=rho)
+                                 for lam in lams), X, U))
+    soc_p = tuple(c.p for c in blocks if c.cone.name == "SOC")
+    item = X.element_size()
+    L = len(QUAD_LADDER)
+    return dict(
+        prob=prob, fused=fused, fused_ref=ref, packed=packed,
+        fused_work=fused_work(B, N, n, m, packed.P, soc_p, item),
+        riccati=(dyn.A, dyn.B, *expansion, reg),
+        riccati_work=riccati_work(B, N, n, m, False, item),
+        ladder=(dyn.A, dyn.B, dyn.d, X, U, K, d, QUAD_LADDER),
+        ladder_work=rollout_work(B, N, n, m, L, False, item),
+        init=(dyn.A, dyn.B, dyn.d, X, U, torch.zeros_like(K),
+              torch.zeros_like(d), (1.0,)),
+        init_work=rollout_work(B, N, n, m, 1, False, item),
+        ladder_al=(prob.cost, dyn.A, dyn.B, dyn.d, blocks, X, U, K, d, lams,
+                   rho, QUAD_LADDER),
+        ladder_al_work=rollout_al_work(B, N, n, m, packed.P, L, item))
 
 
 def rocket_inputs(dtype, dev, B: int = ROCKET_B) -> dict:

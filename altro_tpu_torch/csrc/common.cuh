@@ -11,8 +11,12 @@ namespace altro {
 
 // Size limits shared by every kernel and checked by the Python wrappers:
 // state and control widths up to kMaxDim, constraint rows up to kMaxRows in
-// at most kMaxBlocks blocks, ladders up to kMaxRungs.
-constexpr int kMaxDim = 32;
+// at most kMaxBlocks blocks, ladders up to kMaxRungs. Widths up to
+// kNarrowDim take each kernel's group body (a group of threads per
+// scenario, rows in registers and shuffles); wider ones take its wide body
+// (a block per scenario or per (scenario, rung), wide.cuh).
+constexpr int kMaxDim = 64;
+constexpr int kNarrowDim = 32;
 constexpr int kMaxRows = 64;
 constexpr int kMaxBlocks = 16;
 constexpr int kMaxRungs = 32;

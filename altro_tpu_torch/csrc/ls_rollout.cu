@@ -202,6 +202,79 @@ int launch_group(const T* A, const T* Bm, const T* dd, int per_lane,
   return (int)cudaGetLastError();
 }
 
+// The wide body, for n or m above kNarrowDim (up to kMaxDim): a block of
+// kWideThreads = kMaxDim threads per (scenario, rung) on grid (Bt, L),
+// thread i owning row i of u and of x+, with x, dx and u exchanged through
+// shared memory and the block barrier; the rows are read from device
+// memory, thread i striding along row i of K, A and B. Bound at n = m = 64,
+// B = 1024, L = 11: the bytes (0.14 ms, Xs and Us written); it reaches
+// ~11 ms: every block reads the knot's A and B rows anew, uncoalesced,
+// behind three barriers per knot (PERF.md).
+constexpr int kWideThreads = altro::kMaxDim;
+
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads)
+ls_rollout_wide(const T* __restrict__ A, const T* __restrict__ Bm,
+                const T* __restrict__ dd, int per_lane,
+                const T* __restrict__ Xbar, const T* __restrict__ Ubar,
+                const T* __restrict__ K, const T* __restrict__ d,
+                Ladder<T> ladder, int L, T* __restrict__ Xs,
+                T* __restrict__ Us, int Bt, int N, int n, int m) {
+  __shared__ T xs[altro::kMaxDim], dxs[altro::kMaxDim], us[altro::kMaxDim];
+  const int b = blockIdx.x, l = blockIdx.y, t = threadIdx.x, N1 = N - 1;
+  T alpha = T(0);
+#pragma unroll
+  for (int i = 0; i < altro::kMaxRungs; ++i)
+    if (i == l) alpha = ladder.a[i];
+  T* Xo = Xs + ((size_t)b * L + l) * N * n;
+  T* Uo = Us + ((size_t)b * L + l) * N1 * m;
+  const T* xb = Xbar + (size_t)b * N * n;
+  if (t < n) {
+    xs[t] = xb[t];
+    Xo[t] = xb[t];
+  }
+  for (int k = 0; k < N1; ++k) {
+    if (t < n) dxs[t] = xs[t] - xb[(size_t)k * n + t];
+    __syncthreads();
+    if (t < m) {
+      const size_t ku = (size_t)b * N1 + k;
+      const T* Kr = K + (ku * m + t) * n;
+      T kd = T(0);
+      for (int p = 0; p < n; ++p) kd += Kr[p] * dxs[p];
+      const T u = (Ubar[ku * m + t] + alpha * d[ku * m + t]) + kd;
+      us[t] = u;
+      Uo[(size_t)k * m + t] = u;
+    }
+    __syncthreads();
+    T x = T(0);
+    if (t < n) {
+      const size_t kd = per_lane ? (size_t)b * N1 + k : (size_t)k;
+      const T* Ar = A + (kd * n + t) * n;
+      const T* Br = Bm + (kd * n + t) * m;
+      T acc = T(0);
+      for (int p = 0; p < n; ++p) acc += Ar[p] * xs[p];
+      for (int p = 0; p < m; ++p) acc += Br[p] * us[p];
+      x = acc + dd[kd * n + t];
+    }
+    __syncthreads();
+    if (t < n) {
+      xs[t] = x;
+      Xo[(size_t)(k + 1) * n + t] = x;
+    }
+  }
+}
+
+template <typename T>
+int launch_wide(const T* A, const T* Bm, const T* dd, int per_lane,
+                const T* Xbar, const T* Ubar, const T* K, const T* d,
+                const Ladder<T>& ladder, int L, T* Xs, T* Us, int Bt, int N,
+                int n, int m, cudaStream_t stream) {
+  ls_rollout_wide<T><<<dim3((unsigned)Bt, (unsigned)L), kWideThreads, 0,
+                       stream>>>(A, Bm, dd, per_lane, Xbar, Ubar, K, d,
+                                 ladder, L, Xs, Us, Bt, N, n, m);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_ls_rollout(const void* A, const void* Bm, const void* dd,
                       int per_lane, const void* Xbar, const void* Ubar,
@@ -222,6 +295,9 @@ int launch_ls_rollout(const void* A, const void* Bm, const void* dd,
   const T* k = (const T*)K;
   const T* df = (const T*)d;
   cudaStream_t s = (cudaStream_t)stream;
+  if (n > altro::kNarrowDim || m > altro::kNarrowDim)
+    return launch_wide<T>(a, bm, dv, per_lane, xb, ub, k, df, ladder, L,
+                          (T*)Xs, (T*)Us, Bt, N, n, m, s);
   if (n <= 16 && m <= 16)
     return launch_group<T, 16>(a, bm, dv, per_lane, xb, ub, k, df, ladder, L,
                                (T*)Xs, (T*)Us, Bt, N, n, m, s);

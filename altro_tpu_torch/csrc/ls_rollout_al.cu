@@ -369,6 +369,154 @@ __global__ void __launch_bounds__(kMaxThreads) ls_rollout_al_kernel(
   if (active && lane == 0) Jout[(size_t)b * L + l] = (T)J;
 }
 
+// The wide body, for n or m above kNarrowDim (up to kMaxDim): a block of
+// kWideThreads = kMaxDim threads per (scenario, rung) on grid (Bt, L),
+// thread i owning row i of u and of x+ and constraint row i (kMaxRows =
+// kMaxDim), with x, dx and u exchanged through shared memory; the rows are
+// read from device memory. The merit's sums run in doubles as in the group
+// body: each thread's cost rows, one thread per block for its penalty (the
+// rows' squares summed in row order), then the knot's sum over the block by
+// two warp butterflies and their sum, before it joins the running sum.
+// Bound at n = m = 64, B = 1024, L = 11: the FLOPs (0.18 ms); it reaches
+// ~24 ms, kernel A's wide body's reads (the cost rows too) plus the
+// merit's double-precision sums (PERF.md).
+constexpr int kWideThreads = altro::kMaxDim;
+static_assert(altro::kMaxRows <= kWideThreads, "a thread per row");
+
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads) ls_rollout_al_wide(
+    const T* __restrict__ Q, const T* __restrict__ q,
+    const T* __restrict__ R, const T* __restrict__ r,
+    const T* __restrict__ H, const T* __restrict__ cc,
+    const T* __restrict__ A, const T* __restrict__ Bm,
+    const T* __restrict__ dd, const T* __restrict__ Cx,
+    const T* __restrict__ Cu, const T* __restrict__ cb,
+    const T* __restrict__ cmask, altro::BlockTable<T> table,
+    const T* __restrict__ Xbar, const T* __restrict__ Ubar,
+    const T* __restrict__ K, const T* __restrict__ d,
+    const T* __restrict__ rho, Ladder<T> ladder, int L,
+    T* __restrict__ Xs, T* __restrict__ Us, T* __restrict__ Jout, int Bt,
+    int N, int n, int m, int P) {
+  __shared__ altro::BlockTable<T> tab;
+  __shared__ T xs[altro::kMaxDim], dxs[altro::kMaxDim], us[altro::kMaxDim];
+  __shared__ double zs[altro::kMaxRows], vs[altro::kMaxRows];
+  __shared__ double red[kWideThreads / 32];
+  const int b = blockIdx.x, l = blockIdx.y, t = threadIdx.x, N1 = N - 1;
+  if (t == 0) tab = table;
+  T alpha = T(0);
+#pragma unroll
+  for (int i = 0; i < altro::kMaxRungs; ++i)
+    if (i == l) alpha = ladder.a[i];
+  T* Xo = Xs + ((size_t)b * L + l) * N * n;
+  T* Uo = Us + ((size_t)b * L + l) * N1 * m;
+  const T* xb = Xbar + (size_t)b * N * n;
+  if (t < n) {
+    xs[t] = xb[t];
+    Xo[t] = xb[t];
+  }
+  double J = 0.0;
+  for (int k = 0; k <= N1; ++k) {
+    const bool term = k == N1;
+    if (t < n) dxs[t] = term ? T(0) : xs[t] - xb[(size_t)k * n + t];
+    __syncthreads();
+    // u = (ubar + alpha d) + K dx; u = 0 at the terminal knot
+    if (t < m) {
+      T u = T(0);
+      if (!term) {
+        const size_t ku = (size_t)b * N1 + k;
+        const T* Kr = K + (ku * m + t) * n;
+        T kd = T(0);
+        for (int p = 0; p < n; ++p) kd += Kr[p] * dxs[p];
+        u = (Ubar[ku * m + t] + alpha * d[ku * m + t]) + kd;
+        Uo[(size_t)k * m + t] = u;
+      }
+      us[t] = u;
+    }
+    __syncthreads();
+    // the thread's rows of the cost
+    double jj = t == 0 ? (double)cc[k] : 0.0;
+    if (t < n) {
+      const T* Qr = Q + ((size_t)k * n + t) * n;
+      double qx = 0.0;
+      for (int p = 0; p < n; ++p) qx += (double)Qr[p] * (double)xs[p];
+      jj += (double)xs[t] * ((double)q[(size_t)k * n + t] + 0.5 * qx);
+    }
+    if (!term && t < m) {
+      const T* Rr = R + ((size_t)k * m + t) * m;
+      const T* Hr = H + ((size_t)k * m + t) * n;
+      double ru = 0.0, hx = 0.0;
+      for (int p = 0; p < m; ++p) ru += (double)Rr[p] * (double)us[p];
+      for (int p = 0; p < n; ++p) hx += (double)Hr[p] * (double)xs[p];
+      jj += (double)us[t] * (((double)r[(size_t)k * m + t] + 0.5 * ru) + hx);
+    }
+    // the constraint row's z and its square (max(z, 0)^2 for NONPOS, NaN
+    // propagating like jnp.maximum; 0 for an SOC block's last row)
+    const double rk = (double)rho[(size_t)b * N + k];
+    if (t < P) {
+      const T* Cxr = Cx + ((size_t)k * P + t) * n;
+      double c = 0.0;
+      for (int p = 0; p < n; ++p) c += (double)Cxr[p] * (double)xs[p];
+      if (!term) {
+        const T* Cur = Cu + ((size_t)k * P + t) * m;
+        for (int p = 0; p < m; ++p) c += (double)Cur[p] * (double)us[p];
+      }
+      const int bi = altro::block_of(tab, t);
+      const int off = t - tab.row0[bi];
+      const double z =
+          (double)tab.lam[bi][((size_t)b * N + k) * tab.p[bi] + off] +
+          rk * (c + (double)cb[(size_t)k * P + t]);
+      double v = z * z;
+      if (tab.cone[bi] == altro::kNonpos && !(z > 0.0) && z == z) v = 0.0;
+      if (tab.cone[bi] == altro::kSoc && off == tab.p[bi] - 1) v = 0.0;
+      zs[t] = z;
+      vs[t] = v;
+    }
+    // x+ = (A x + B u) + dd
+    T xn = T(0);
+    if (!term && t < n) {
+      const size_t kd = (size_t)k;
+      const T* Ar = A + (kd * n + t) * n;
+      const T* Br = Bm + (kd * n + t) * m;
+      T acc = T(0);
+      for (int p = 0; p < n; ++p) acc += Ar[p] * xs[p];
+      for (int p = 0; p < m; ++p) acc += Br[p] * us[p];
+      xn = acc + dd[kd * n + t];
+    }
+    __syncthreads();
+    // one thread per block: its penalty; an SOC block's |v|^2 and its last
+    // row's z, float flags multiplied in as jnp does (a NaN z stays NaN)
+    if (t < tab.count) {
+      const int r0 = tab.row0[t], p = tab.p[t];
+      double v = 0.0;
+      for (int i = 0; i < p; ++i) v += vs[r0 + i];
+      const double z = zs[r0 + p - 1];
+      const double a = sqrt(v);
+      const double a_safe = a > 0.0 ? a : 1.0;
+      const double polar = a <= -z ? 1.0 : 0.0;
+      const double bnd = (a > z && a > -z) ? 1.0 : 0.0;
+      const double gamma = bnd * (a - z) / (2.0 * a_safe);
+      const double soc = polar * (v + z * z) + ((2.0 * gamma) * gamma) * v;
+      const double ssq = tab.cone[t] == altro::kSoc ? soc : v;
+      jj += ((double)cmask[(size_t)k * P + r0 + p - 1] * (0.5 / rk)) * ssq;
+    }
+#pragma unroll
+    for (int dl = 16; dl > 0; dl >>= 1) jj += __shfl_xor_sync(kFull, jj, dl);
+    if (t % 32 == 0) red[t / 32] = jj;
+    __syncthreads();
+    if (t == 0) {
+      double knot = 0.0;
+#pragma unroll
+      for (int w = 0; w < kWideThreads / 32; ++w) knot += red[w];
+      J += knot;
+    }
+    if (!term && t < n) {
+      xs[t] = xn;
+      Xo[(size_t)(k + 1) * n + t] = xn;
+    }
+  }
+  if (t == 0) Jout[(size_t)b * L + l] = (T)J;
+}
+
 template <typename T>
 struct Args {
   const T *Q, *q, *R, *r, *H, *c, *A, *Bm, *dd, *Cx, *Cu, *cb, *cmask;
@@ -446,6 +594,14 @@ int launch_ls_rollout_al(const void* Q, const void* q, const void* R,
       (T*)J,          L,              Bt,           N,
       n,              m,              P};
   cudaStream_t s = (cudaStream_t)stream;
+  if (n > altro::kNarrowDim || m > altro::kNarrowDim) {
+    ls_rollout_al_wide<T><<<dim3((unsigned)Bt, (unsigned)L), kWideThreads, 0,
+                            s>>>(
+        a.Q, a.q, a.R, a.r, a.H, a.c, a.A, a.Bm, a.dd, a.Cx, a.Cu, a.cb,
+        a.cmask, table, a.Xbar, a.Ubar, a.K, a.d, a.rho, ladder, a.L, a.Xs,
+        a.Us, a.J, a.Bt, a.N, a.n, a.m, a.P);
+    return (int)cudaGetLastError();
+  }
   // 16 lanes per (scenario, rung) up to n, m = 16, 32 above; the lane's
   // constraint rows (P / G, rounded up to 1, 2 or 4) as a constant
   if (n <= 16 && m <= 16) {

@@ -89,6 +89,7 @@
 
 #include "common.cuh"
 #include "ptx.cuh"
+#include "wide.cuh"
 
 namespace {
 
@@ -519,7 +520,7 @@ __global__ void __launch_bounds__(kBlockThreads, 2) riccati_kernel(
     T* __restrict__ dV2out, int Bt, int N, int n, int m) {
   // owned tiles per thread: those of Qxx and Qx at n = 16 in a group of 64,
   // at n = 32 in a group of 128
-  constexpr int kNb = (TG == 64 ? kSmallDim : altro::kMaxDim) / 4;
+  constexpr int kNb = (TG == 64 ? kSmallDim : altro::kNarrowDim) / 4;
   constexpr int kOwn = (2 * kNb * (kNb + 1) + kNb + TG - 1) / TG;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
@@ -809,6 +810,129 @@ int launch_group(const void* A, const void* Bm, int per_lane, const void* lx,
   return (int)cudaGetLastError();
 }
 
+// The wide body, for n or m above kNarrowDim (up to kMaxDim): one block of
+// wide::kWideThreads threads per scenario, the expansion and the dynamics
+// read from device memory, the work space in shared memory (Qxx's upper
+// triangle in Vxx's place, Qx beside it), and wide.cuh's Riccati tail.
+// As in the group body, below the terminal knot only the upper triangle of
+// lxx and the lower triangle of luu are read.
+template <typename T>
+__global__ void __launch_bounds__(altro::wide::kWideThreads) riccati_wide(
+    const T* __restrict__ A, const T* __restrict__ Bm, int per_lane,
+    const T* __restrict__ lx, const T* __restrict__ lu,
+    const T* __restrict__ lxx, const T* __restrict__ luu,
+    const T* __restrict__ lux, const T* __restrict__ reg,
+    T* __restrict__ Kout, T* __restrict__ dout, T* __restrict__ dV1out,
+    T* __restrict__ dV2out, int Bt, int N, int n, int m) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Vx = reinterpret_cast<T*>(smem_raw);
+  T* Qx = Vx + n;
+  T* Vxx = Qx + n;
+  T* VA = Vxx + n * n;
+  T* VB = VA + (n * n > m * m ? n * n : m * m);
+  T* Quu = VB + n * m;
+  T* Qux = Quu + m * m;
+  T* Qu = Qux + m * n;
+  T* Quud = Qu + m;
+  T* KD = Quud + m;
+  T* Lc = VA;  // the Cholesky factor, after V A's last use
+  T* QuuK = VB;
+  const int b = blockIdx.x, N1 = N - 1;
+  const int n_tri = n * (n + 1) / 2;
+  const T regb = reg[b];
+  T dv1 = T(0), dv2 = T(0);
+  for (int k = N1; k >= 0; --k) {
+    const bool term = k == N1;
+    const size_t kn = (size_t)b * N + k;
+    const T* lxk = lx + kn * n;
+    const T* lxxk = lxx + kn * n * n;
+    const T* luk = lu + kn * m;
+    const T* luuk = luu + kn * m * m;
+    const T* luxk = lux + kn * m * n;
+    const size_t kd = per_lane ? (size_t)b * N1 + k : (size_t)k;
+    const T* Ak = term ? A : A + kd * n * n;  // not read at the terminal
+    const T* Bk = term ? Bm : Bm + kd * n * m;
+    // pass 1: V A and V B
+    if (!term) altro::wide::vab(Vxx, Ak, Bk, VA, VB, n, m);
+    __syncthreads();
+    // pass 2: Qxx (upper triangle, in Vxx's place), Qx, Qux, Qu, Quu
+    const int n_all =
+        term ? n_tri + n : n_tri + n + m * n + m + m * (m + 1) / 2;
+    for (int e = threadIdx.x; e < n_all; e += blockDim.x) {
+      if (e < n_tri) {
+        int i, j;
+        altro::wide::upper_ij(e, n, &i, &j);
+        T acc = T(0);
+        if (!term)
+          for (int p = 0; p < n; ++p) acc += Ak[p * n + i] * VA[p * n + j];
+        Vxx[i * n + j] = lxxk[i * n + j] + acc;
+      } else if (e < n_tri + n) {
+        const int i = e - n_tri;
+        T acc = T(0);
+        if (!term)
+          for (int p = 0; p < n; ++p) acc += Ak[p * n + i] * Vx[p];
+        Qx[i] = lxk[i] + acc;
+      } else if (e < n_tri + n + m * n) {
+        const int ee = e - n_tri - n, i = ee / n, j = ee % n;
+        T acc = T(0);
+        for (int p = 0; p < n; ++p) acc += Bk[p * m + i] * VA[p * n + j];
+        Qux[ee] = luxk[ee] + acc;
+      } else if (e < n_tri + n + m * n + m) {
+        const int i = e - n_tri - n - m * n;
+        T acc = T(0);
+        for (int p = 0; p < n; ++p) acc += Bk[p * m + i] * Vx[p];
+        Qu[i] = luk[i] + acc;
+      } else {
+        // the lower triangle (i >= j), mirrored
+        int i, j;
+        altro::wide::upper_ij(e - n_tri - n - m * n - m, m, &j, &i);
+        T acc = T(0);
+        for (int p = 0; p < n; ++p) acc += Bk[p * m + i] * VB[p * m + j];
+        const T v = luuk[i * m + j] + acc;
+        Quu[i * m + j] = v;
+        Quu[j * m + i] = v;
+      }
+    }
+    __syncthreads();
+    if (!term) {
+      // pass 3: (K | d), Quu K, Quu d, dV
+      altro::wide::factor(Quu, Lc, regb, m);
+      altro::wide::solve(Lc, Quu, Qux, Qu, KD, QuuK, Quud, n, m, &dv1,
+                         &dv2);
+      __syncthreads();
+    }
+    // pass 4: V; K and d stored
+    altro::wide::value(Vxx, Vx, Qx, KD, QuuK, Qux, Quud, Qu, term, n, m);
+    if (!term)
+      altro::wide::store_gains(KD, Kout + ((size_t)b * N1 + k) * m * n,
+                               dout + ((size_t)b * N1 + k) * m, n, m);
+    __syncthreads();
+  }
+  if (threadIdx.x == n) {
+    dV1out[b] = dv1;
+    dV2out[b] = dv2;
+  }
+}
+
+template <typename T>
+int launch_wide(const void* A, const void* Bm, int per_lane, const void* lx,
+                const void* lu, const void* lxx, const void* luu,
+                const void* lux, const void* reg, void* K, void* d,
+                void* dV1, void* dV2, int Bt, int N, int n, int m,
+                cudaStream_t stream) {
+  const int va = n * n > m * m ? n * n : m * m;
+  const size_t bytes = (size_t)(2 * n + n * n + va + 2 * n * m + m * m +
+                                2 * m + (n + 1) * m) *
+                       sizeof(T);
+  cudaError_t e = altro::wide::prepare(riccati_wide<T>, bytes);
+  if (e != cudaSuccess) return (int)e;
+  riccati_wide<T><<<Bt, altro::wide::kWideThreads, bytes, stream>>>(
+      (const T*)A, (const T*)Bm, per_lane, (const T*)lx, (const T*)lu,
+      (const T*)lxx, (const T*)luu, (const T*)lux, (const T*)reg, (T*)K,
+      (T*)d, (T*)dV1, (T*)dV2, Bt, N, n, m);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_riccati(const void* A, const void* Bm, int per_lane,
                    const void* lx, const void* lu, const void* lxx,
@@ -819,6 +943,9 @@ int launch_riccati(const void* A, const void* Bm, int per_lane,
       Bt < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  if (n > altro::kNarrowDim || m > altro::kNarrowDim)
+    return launch_wide<T>(A, Bm, per_lane, lx, lu, lxx, luu, lux, reg, K, d,
+                          dV1, dV2, Bt, N, n, m, s);
 #define ALTRO_RICCATI_LAUNCH(TG, MM)                                        \
   launch_group<T, TG, MM>(A, Bm, per_lane, lx, lu, lxx, luu, lux, reg, K,   \
                           d, dV1, dV2, Bt, N, n, m, s)

@@ -36,13 +36,19 @@ phases through ``index_select``, so nothing in it reads to or copies from
 the host. Entry points run on the card unless the caller passes
 ``device="cpu"``.
 
-The JAX package's C++ entrants (``native=True``: the native knot ADMM and
-the native AL-iLQR) are not ported: they come with the C++-oracle slice,
-and asking for them raises.
+The JAX package's C++ entrants (``native=True``, the default of
+:func:`make_baseline_state` and :func:`simulate_host` as in the JAX
+package): the ADMM backends run the native knot ADMM
+(``native/knot_solver.cpp``) and "altro" the native AL-iLQR
+(``native/ilqr_solver.cpp``), the port's copy of the JAX package's C++
+oracles, on the host: the C++ race. ``native=False`` is the card race: ALTRO
+on the kernels against the knot ADMM on the card. A failed g++ build raises;
+nothing falls back to the other race.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from dataclasses import dataclass
 from typing import Optional, Tuple
@@ -55,6 +61,7 @@ from ...constraints import (DualState, bound_constraint, friction_cone,
 from ...costs import lqr_objective
 from ...dynamics import LTVDynamics
 from ...mpc import MPCResults, make_relinearized_step, shift_fill
+from ...native import qp as native_qp
 from ...problem import Problem
 from ...solver import admm_conic, admm_qp, altro, graph, knot_admm
 from ...solver.graph import Replayable, clone_tree, copy_into
@@ -116,8 +123,6 @@ def _linearized_problem(prob: Problem, x_curr, x_ref, contacts, foot_locs,
 
 
 BACKENDS = ("altro", "admm_qp", "admm_conic")
-NATIVE_SLICE = ("the native C++ entrants come with the port's C++-oracle "
-                "slice, which is not ported yet")
 
 
 def _check_backend(backend: str) -> None:
@@ -137,7 +142,10 @@ def mpc_solve_forces(backend: str, prob: Problem, opts: SolverOptions,
     duals ([1, ...]). The ADMM backends return the duals as given: with
     ``baseline`` (a ``knot_admm.KnotADMMWork`` from
     :func:`make_baseline_state`) they refactor it for this instance and
-    solve from zero; without it they set up and solve the dense oracle
+    solve from zero; with a native workspace (``native_qp.NativeKnotWork``)
+    they update it in place (its adapted rho retained, as OSQP's update!)
+    and solve from its previous iterate (OSQP's warm_start, check every 10
+    iterations); without one they set up and solve the dense oracle
     (``admm_qp`` or ``admm_conic``) cold. (A shifted primal and dual warm
     start measured worse here in the JAX package: each MPC period rolls a
     stance transition through the horizon, flipping equality rows at
@@ -152,6 +160,14 @@ def mpc_solve_forces(backend: str, prob: Problem, opts: SolverOptions,
         return (sol.U[:, 0], sol.U, sol.duals, sol.stats.iterations,
                 sol.stats.status, baseline)
     eps = float(opts.cost_tolerance)
+    if isinstance(baseline, native_qp.NativeKnotWork):
+        baseline.update(knot_admm.to_knot_qp(prob_k))
+        nsol = baseline.solve(eps_abs=eps, check_every=10, warm=True)
+        U = torch.as_tensor(nsol.U, dtype=x_curr.dtype,
+                            device=x_curr.device)[None]
+        one = torch.ones(1, dtype=torch.int32, device=x_curr.device)
+        return (U[:, 0], U, duals, one * nsol.iterations,
+                one * nsol.status, baseline)
     if baseline is not None:
         ksol = knot_admm.solve(knot_admm.refactor(
             baseline, knot_admm.to_knot_qp(prob_k)), eps_abs=eps)
@@ -167,19 +183,10 @@ def mpc_solve_forces(backend: str, prob: Problem, opts: SolverOptions,
     return U[:, 0], U, duals, sol.iterations, sol.status, None
 
 
-def make_baseline_state(backend: str, prob: Problem, cfg: MPCConfig, x_des,
-                        dtype=torch.float64, native: bool = False):
-    """The ADMM backends' setup-once knot-ADMM workspace (rho = 0.1), from
-    the all-stance linearization at x_des on the nominal feet (the
-    reference's OSQP setup phase, OSQPParams.jl:60-125; the scalings are a
-    preconditioner, so reusing them across relinearizations is safe); None
-    for "altro". ``native=True`` asks for the JAX package's C++ knot ADMM,
-    which is not ported: it raises NotImplementedError."""
-    _check_backend(backend)
-    if backend == "altro":
-        return None
-    if native:
-        raise NotImplementedError(NATIVE_SLICE)
+def baseline_knot_qp(prob: Problem, cfg: MPCConfig, x_des,
+                     dtype=torch.float64):
+    """The knot program the ADMM backends' workspace is set up on: the
+    all-stance linearization at x_des on the nominal feet, one lane."""
     N = cfg.N
     kw = dict(dtype=dtype, device=x_des.device)
     feet = x_des[0:3][None, :] + planner.nominal_foot_locations(**kw)
@@ -190,7 +197,26 @@ def make_baseline_state(backend: str, prob: Problem, cfg: MPCConfig, x_des,
                              feet.expand(N, 4, 3), torch.ones((N, 4), **kw),
                              cfg.dynamics_discretization)
     prob0 = dataclasses.replace(prob, dynamics=dyn0, x0=x_des[None])
-    return knot_admm.setup(knot_admm.to_knot_qp(prob0), rho=0.1)
+    return knot_admm.to_knot_qp(prob0)
+
+
+def make_baseline_state(backend: str, prob: Problem, cfg: MPCConfig, x_des,
+                        dtype=torch.float64, native: bool = True):
+    """The ADMM backends' setup-once knot-ADMM workspace (rho = 0.1), from
+    the all-stance linearization at x_des on the nominal feet (the
+    reference's OSQP setup phase, OSQPParams.jl:60-125; the scalings are a
+    preconditioner, so reusing them across relinearizations is safe); None
+    for "altro". ``native=True`` (the JAX package's default): the native C++
+    knot ADMM's workspace (``native_qp.NativeKnotWork``, on the host);
+    ``native=False``: the port's ``knot_admm.KnotADMMWork`` on x_des's
+    device."""
+    _check_backend(backend)
+    if backend == "altro":
+        return None
+    kqp = baseline_knot_qp(prob, cfg, x_des, dtype)
+    if native:
+        return native_qp.knot_setup(kqp, rho=0.1)
+    return knot_admm.setup(kqp, rho=0.1)
 
 
 @dataclass
@@ -356,12 +382,21 @@ class ClosedLoop:
     runs eagerly and the solve takes the host-driven loop.
 
     The ticks read the TRUE plant ``plant`` (None: the nominal model);
-    the MPC always linearizes the nominal model."""
+    the MPC always linearizes the nominal model.
+
+    ``native``: the solve is the JAX package's C++ entrant on the host
+    (:meth:`native_update` and :meth:`native_solve`): "altro" the native
+    AL-iLQR, set up on the first instance and warm-started from its own
+    previous solution and multipliers, shifted one knot; an ADMM backend the
+    native knot ADMM from its previous iterate, the OSQP role ("admm_qp") at
+    eps 1e-3 with its active-set polish, the ECOS role at the options' cost
+    tolerance (the JAX package's ``simulate_host``)."""
 
     def __init__(self, cfg: MPCConfig, opts: SolverOptions,
                  dtype=torch.float64, device="cuda",
                  plant: Optional[PlantParams] = None,
-                 graphed: Optional[bool] = None, backend: str = "altro"):
+                 graphed: Optional[bool] = None, backend: str = "altro",
+                 native: bool = False):
         _check_backend(backend)
         dev = _device(device)
         self.cfg, self.opts, self.plant, self.device = cfg, opts, plant, dev
@@ -373,12 +408,15 @@ class ClosedLoop:
         self.state = initial_state(self.prob, self.x_des, opts, dtype)
         self.t = torch.zeros((), dtype=dtype, device=dev)
         self.graphed = graph.use_graphs(graphed, dev)
+        self.backend, self.native = backend, native
         self.baseline = make_baseline_state(backend, self.prob, cfg,
-                                            self.x_des, dtype)
-        self.step = None if self.baseline is not None else \
+                                            self.x_des, dtype, native=native)
+        self.step = None if self.baseline is not None or native else \
             make_relinearized_step(
                 dataclasses.replace(self.prob, x0=self.x_des[None]), opts,
                 graphed=self.graphed)
+        self.ilqr = None
+        self._warm = None      # the native AL-iLQR's last (U, lam)
         self.admm_chunks = 0
         self.capture_s = 0.0
         self._prep_g = self._ticks_g = None
@@ -419,10 +457,64 @@ class ClosedLoop:
         self._prep_g.replay()
         return self._prep_g.out
 
+    def native_update(self, dyn) -> None:
+        """The period's instance into the native workspace: the AL-iLQR's
+        (set up on the first instance) or the knot ADMM's."""
+        prob_k = dataclasses.replace(self.prob, dynamics=dyn,
+                                     x0=self.state.x[None])
+        if self.backend != "altro":
+            self.baseline.update(knot_admm.to_knot_qp(prob_k))
+        elif self.ilqr is None:
+            self.ilqr = native_qp.ilqr_setup(prob_k)
+        else:
+            self.ilqr.update(prob_k)
+
+    def native_solve(self):
+        """The native solve of the instance of the last
+        :meth:`native_update`: (U [1, N-1, 12] on the loop's device, the
+        state's duals [1, ...], MPCResults; the knot ADMM's carry no
+        violation, NaN)."""
+        s = self.state
+        duals = tuple(DualState(lam=d.lam[None], rho=d.rho[None])
+                      for d in s.duals)
+        if self.backend == "altro":
+            U0 = lam0 = None
+            if self._warm is not None:
+                U0, lam0 = (np.concatenate([w[1:], w[-1:]], 0)
+                            for w in self._warm)
+            ns = self.ilqr.solve(self.opts, U0=U0, lam0=lam0)
+            self._warm = (ns.U, ns.lam)
+            X, viol = ns.X, ns.viol
+        else:
+            qp_mode = self.backend == "admm_qp"
+            ns = self.baseline.solve(
+                eps_abs=1e-3 if qp_mode else float(self.opts.cost_tolerance),
+                check_every=5, warm=True, polish=qp_mode)
+            X, viol = ns.X, math.nan
+        kw = dict(dtype=s.x.dtype, device=s.x.device)
+        U = torch.as_tensor(ns.U, **kw)[None]
+        one = torch.ones(1, dtype=torch.int32, device=s.x.device)
+        out = MPCResults(X=torch.as_tensor(X, **kw)[None], U=U,
+                         iters=one * ns.iterations, status=one * ns.status,
+                         viol=torch.full((1,), viol, **kw), x0=s.x[None])
+        return U, duals, out
+
+    def reset_native(self) -> None:
+        """Drop the native solvers' carried iterate (after a warm-up solve
+        of the first instance): the knot ADMM keeps its adapted rho, the
+        AL-iLQR starts its next solve cold."""
+        if self.backend == "altro":
+            self._warm = None
+        else:
+            self.baseline.reset_iterate()
+
     def solve(self, dyn):
         """The period's solve from the state: (U [1, N-1, 12], duals
         [1, ...], MPCResults). An ADMM backend's duals are the state's,
         and its MPCResults carry no violation (NaN)."""
+        if self.native:
+            self.native_update(dyn)
+            return self.native_solve()
         s = self.state
         duals = tuple(DualState(lam=d.lam[None], rho=d.rho[None])
                       for d in s.duals)
@@ -504,7 +596,7 @@ def simulate_host(cfg: MPCConfig, opts: SolverOptions, tf: float = 2.0,
                   backend: str = "altro", dtype=torch.float64,
                   plant: Optional[PlantParams] = None, probe=None,
                   device="cuda", graphed: Optional[bool] = None,
-                  native: bool = False) -> dict:
+                  native: bool = True) -> dict:
     """The closed loop of :func:`simulate`, timed per period in three
     sections, each fenced by a device synchronise: ``prep_ms`` (the
     horizon's schedule and the relinearization), ``mpc_ms`` (the solve
@@ -520,22 +612,29 @@ def simulate_host(cfg: MPCConfig, opts: SolverOptions, tf: float = 2.0,
     capturing graphs (``capture_s``), the ALTRO solver-loop graph's
     replays (``loop_replays``, the warm-up's included; 0 eager or with an
     ADMM backend) and an ADMM backend's chunks (``admm_chunks``, the
-    warm-up's included: graph replays, or eager chunks). ``native=True``
-    asks for the JAX package's C++ entrants, which are not ported: it
-    raises NotImplementedError."""
+    warm-up's included: graph replays, or eager chunks).
+
+    ``native=True`` (the JAX package's default): the C++ race. The solve is
+    the C++ entrant on the host (:class:`ClosedLoop` with ``native``), and,
+    as in the JAX package, the instance's transfer into its workspace (the
+    AL-iLQR's update, or the knot ADMM's update and banded refactor) counts
+    in ``prep_ms`` and the native solve call alone in ``mpc_ms``; after the
+    warm-up the knot ADMM drops its iterate (keeping its adapted rho) and
+    the AL-iLQR starts cold. ``native=False``: the card race."""
     _check_backend(backend)
-    if native:
-        raise NotImplementedError(NATIVE_SLICE)
     dev = _device(device)
     sec = {}
     with timed("setup", sec, dev):
-        loop = ClosedLoop(cfg, opts, dtype, dev, plant, graphed, backend)
+        loop = ClosedLoop(cfg, opts, dtype, dev, plant, graphed, backend,
+                          native)
         saved = clone_tree(loop.state)
         loop.set_time(0)
         U, duals, _ = loop.solve(loop.prep()[0])
         loop.ticks()
         copy_into(loop.state, saved, "closed-loop state")
         loop.adopt(saved.U_prev[None], duals)
+        if native:
+            loop.reset_native()
 
     xs, forces, outs = [], [], []
     mpc_ms, prep_ms, tick_ms = [], [], []
@@ -543,8 +642,11 @@ def simulate_host(cfg: MPCConfig, opts: SolverOptions, tf: float = 2.0,
         loop.set_time(k)
         with timed("prep", sec, dev):
             dyn, planner_fl = loop.prep()
+            if native:
+                loop.native_update(dyn)
         with timed("solve", sec, dev):
-            U, duals, out = loop.solve(dyn)
+            U, duals, out = (loop.native_solve() if native
+                             else loop.solve(dyn))
         loop.adopt(U, duals, planner_fl)
         if probe is not None:
             probe(k, dataclasses.replace(
@@ -559,8 +661,9 @@ def simulate_host(cfg: MPCConfig, opts: SolverOptions, tf: float = 2.0,
         xs.append(loop.state.x.clone())
         outs.append(out)
     rec = _records(xs, forces, outs)
-    admm_capture_s = sum(g.capture_s for g in loop.baseline.graphs.values()
-                         ) if loop.baseline is not None else 0.0
+    admm_capture_s = (sum(g.capture_s for g in loop.baseline.graphs.values())
+                      if isinstance(loop.baseline, knot_admm.KnotADMMWork)
+                      else 0.0)
     rec.update(mpc_ms=mpc_ms, prep_ms=prep_ms, tick_ms=tick_ms,
                setup_s=sec["setup"],
                loop_replays=getattr(loop.step, "loop_replays", 0),

@@ -22,7 +22,9 @@ from . import _build
 launch_count = 0
 
 MAX_RUNGS = 32
-MAX_DIM = 32
+# widths the kernels take (csrc/common.cuh: kMaxDim; above 32 each kernel
+# runs its wide body)
+MAX_DIM = 64
 
 
 def batched_ls_rollout_reference(A, B, dd, Xbar, Ubar, K, d,

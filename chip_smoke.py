@@ -49,6 +49,14 @@ Phases, each printing its findings; any failure raises (non-zero exit):
       window, grasp's window at N=51 and its cold form at N=251, and the
       flexsat regulator (the same gates; J per lane; the accepted rung
       equal in float64); their float32 errors count in max_abs_err;
+   h. the kernels' wide bodies (n or m above 32, up to the TPU kernels'
+      64): A (at L=11 and its init form), B, C (L=11) and D at
+      ``bench/kernels.py: WIDE_SHAPES``, the state_dim sweep's
+      (n, m) = (35, 2), (45, 2), (55, 2) and (64, 64) with 8 NONPOS rows
+      and one SOC block of 4 (N=21), at B=1 and B=1024, float32 and
+      float64, under 3a-3f's gates (J per lane, the accepted rung as in
+      b); each kernel's ms, its plain version's and its bound printed at
+      B=1024; the float32 errors count in max_abs_err;
 4. main paths, each on CUDA graphs (``altro_tpu_torch/solver/graph.py``:
    every MPC step, batch solve and cold solve as start, loop and finish
    graphs, the loop replayed with one host sync per k passes), with the
@@ -142,10 +150,13 @@ Phases, each printing its findings; any failure raises (non-zero exit):
       qp_eps 1e-7; gates: every status 1, err_X, err_U < 5e-3, err_x0 <
       1e-5) and ``run_mpc_lockstep_conic`` on the rocket at tolerance 1e-6
       (T=5, conic_eps 1e-9; gates: every status 1, err_U < 1e-3);
-   c. the quadruped table's four rows (``drivers.quadruped_benchmark``: 67
-      periods each; gates per row: status 1 on every period, final height
-      within 0.05 m of the stance height, |roll|, |pitch| < 0.2); prints
-      ms/solve +- sigma, +prep, iterations and success per row;
+   c. the quadruped table's four rows in both races
+      (``drivers.quadruped_benchmark``: 67 periods each; the card race,
+      ALTRO on the kernels against the knot ADMM on the card, and the C++
+      race, the native AL-iLQR against the native knot ADMM on the host;
+      gates per row: status 1 on every period, final height within 0.05 m
+      of the stance height, |roll|, |pitch| < 0.2); prints ms/solve
+      +- sigma, +prep, iterations and success per row;
    d. one pass of each driver at reduced T (T_DRIVER steps):
       random-linear horizon (all five N) and control_dim (float32, the
       JAX package's card dtype), rocket (the four tolerances), grasp (the
@@ -154,6 +165,17 @@ Phases, each printing its findings; any failure raises (non-zero exit):
       1.0 at every point of the random-linear and grasp sweeps; on the
       rocket both solvers' success rates 1.0 at every tolerance and err_U
       < 1e-3 at 1e-8; on flexsat both solvers' success rates 1.0).
+   e. the four-solver studies (``drivers.rocket_multibaseline_tol`` and
+      ``grasp_multibaseline_tol``: ALTRO's warm step on graphs, the dense
+      conic and knot ADMM on the card, the native C++ conic solver on the
+      host, each against a native truth solve at 1e-9) at T=2 and
+      tolerances 1e-2 and 1e-8 (gates: every solver's success 1.0, every
+      truth solve converged, ALTRO's error below 1e-3 at 1e-8);
+   f. the quadruped's C++ race (``simulate_host(native=True)``) for 5
+      periods in both friction modes, all four rows (gates: 5f's physical
+      gates);
+   g. the state_dim driver at n = 35, 45, 55 (the kernels' wide bodies),
+      T_DRIVER steps (gates: success 1.0 at each point, all run).
 
 The line before the last is the kernel table as JSON (with each kernel's
 bound_ms and bound_by at the shapes it was timed at, and library_ms null: no
@@ -212,6 +234,16 @@ LOCK_T, LOCK_ROCKET_T, T_DRIVER = 10, 5, 3
 # run on the card (25, 2, 21) and (2, 2, 21)
 P6_LINEAR = ((12, 6, 21), (12, 6, 101), (30, 25, 21), (25, 2, 21),
              (2, 2, 21))
+# 3h: the kernels' wide bodies (n or m above 32) at bench/kernels.py's
+# WIDE_SHAPES (the state_dim sweep's n = 35, 45, 55 with m = 2, and
+# n = m = 64 with 8 NONPOS rows and one SOC block of 4), N = 21, at one
+# lane and at the batch where they are timed
+WIDE_BATCHES = (1, 1024)
+# phase 6: the four-solver studies' steps and tolerances, the quadruped's
+# C++ race (periods of 30 ms) and the state_dim sweep's points above 32
+MULTI_T, MULTI_TOLS = 2, (1e-2, 1e-8)
+CPP_RACE_TF = 0.15
+STATE_DIM_WIDE = (35, 45, 55)
 
 
 def errors(got, ref, names, tol: float) -> dict:
@@ -475,6 +507,90 @@ def phase6_parity(dtype, tol):
             raise AssertionError(f"{label}: accepted rung differs")
         res["batched_ls_rollout_al"] = errs
         out[label] = res
+    return out
+
+
+def wide_parity(dtype, tol, B):
+    """Phase 3h: kernels A, B, C and D against their plain versions at the
+    wide bodies' shapes (``bench/kernels.py: wide_inputs``, N=21): B, D on
+    the same point (D on the solver's AL expansion of it), A at the
+    drivers' L=11 ladder and its init form, C at L=11 (J per lane against
+    max(1, |J|), the accepted rung equal in float64, on at most 1% of the
+    lanes in float32), under 3a-3f's gates. Returns {(n, m): {kernel:
+    ({output: max_abs_err}, ms, plain_ms, (bytes, flops))}}, timed only at
+    B=1024 (ms None otherwise)."""
+    from altro_tpu_torch.bench.kernels import (QUAD_LADDER, WIDE_SHAPES,
+                                               wide_inputs)
+    from altro_tpu_torch.ops import riccati, riccati_fused, rollout, rollout_al
+    from altro_tpu_torch.solver.altro import _ladder_choice
+
+    dev = torch.device("cuda")
+    fb = riccati_fused.fused_expand_backward
+    bp = riccati.batched_riccati
+    ls = rollout.batched_ls_rollout
+    la = rollout_al.batched_ls_rollout_al
+    refs = {"fused_expand_backward":
+            riccati_fused.fused_expand_backward_reference,
+            "batched_riccati": riccati.batched_riccati_reference,
+            "batched_ls_rollout": rollout.batched_ls_rollout_reference,
+            "batched_ls_rollout L=1": rollout.batched_ls_rollout_reference,
+            "batched_ls_rollout_al":
+            rollout_al.batched_ls_rollout_al_reference}
+    timed = B == 1024
+    out = {}
+    for n, m in WIDE_SHAPES:
+        w = wide_inputs(dtype, dev, B, n, m)
+        packed = w["packed"]
+        calls = {"fused_expand_backward": (
+                     lambda: fb(*w["fused"], packed=packed), w["fused"],
+                     ("K", "d", "dV1", "dV2"), "fused_work"),
+                 "batched_riccati": (lambda: bp(*w["riccati"]), w["riccati"],
+                                     ("K", "d", "dV1", "dV2"),
+                                     "riccati_work"),
+                 "batched_ls_rollout": (lambda: ls(*w["ladder"]),
+                                        w["ladder"], ("Xs", "Us"),
+                                        "ladder_work"),
+                 "batched_ls_rollout L=1": (lambda: ls(*w["init"]),
+                                            w["init"], ("Xs", "Us"),
+                                            "init_work")}
+        res = {}
+        for name, (fn, args, outs, work) in calls.items():
+            got = fn()
+            torch.cuda.synchronize()
+            ref = refs[name](*args)
+            errs = errors(got, ref, outs, tol)
+            del got
+            res[name] = (errs,
+                         time_ms(fn, kernel=True) if timed else None,
+                         time_ms(lambda: refs[name](*args)) if timed
+                         else None, w[work])
+        cargs = w["ladder_al"]
+        Xs, Us, J = la(*cargs, packed=packed)
+        Xr, Ur, Jr = refs["batched_ls_rollout_al"](*cargs)
+        torch.cuda.synchronize()
+        errs = errors((Xs, Us), (Xr, Ur), ("Xs", "Us"), tol)
+        gap = float(((J - Jr).abs() / Jr.abs().clamp(min=1.0)).max())
+        if not gap <= tol:
+            raise AssertionError(f"n={n} m={m} B={B} J: max|kernel - plain|"
+                                 f" / max(1, |J|) = {gap:.3e} > {tol:.0e}")
+        errs["J"] = float((J - Jr).abs().max())
+        _, _, dV1, dV2 = w["fused_ref"]
+        alphas = torch.tensor(QUAD_LADDER, dtype=dtype, device=dev)
+        idx_k, acc_k, _, _ = _ladder_choice(J, alphas, dV1, dV2, 1e-4)
+        idx_p, acc_p, _, _ = _ladder_choice(Jr, alphas, dV1, dV2, 1e-4)
+        differ = int(((idx_k != idx_p) | (acc_k != acc_p)).sum())
+        if differ > (0 if dtype == torch.float64 else B // 100):
+            raise AssertionError(f"n={n} m={m} B={B}: accepted rung differs "
+                                 f"on {differ} lanes")
+        del Xs, Us, Xr, Ur
+        res["batched_ls_rollout_al"] = (
+            errs, time_ms(lambda: la(*cargs, packed=packed), kernel=True)
+            if timed else None,
+            time_ms(lambda: refs["batched_ls_rollout_al"](*cargs)) if timed
+            else None, w["ladder_al_work"])
+        out[(n, m)] = res
+        del w
+        torch.cuda.empty_cache()
     return out
 
 
@@ -747,7 +863,8 @@ def closed_loop_main(card, lin, counts):
     launches; returns the launches."""
     from altro_tpu_torch.models.quadruped import controller
     cfg, opts = _loop_setup(lin)
-    res = controller.simulate_host(cfg, opts, tf=LOOP_TF, device="cuda")
+    res = controller.simulate_host(cfg, opts, tf=LOOP_TF, device="cuda",
+                                   native=False)
     launches, passes, eager = counts()
     status = res["status"].cpu()
     xs = res["x"].cpu()
@@ -965,26 +1082,34 @@ def lockstep_on_card(card):
 
 
 def quadruped_table(card):
-    """Phase 6c: the quadruped table's four rows on the card."""
+    """Phase 6c: the quadruped table's four rows in both races, each over
+    the 2 s closed loop: the card race (ALTRO on the kernels against the
+    knot ADMM on the card) and the C++ race (the native AL-iLQR against the
+    native knot ADMM on the host, the JAX package's table)."""
     from altro_tpu_torch.bench import drivers
     from altro_tpu_torch.models.quadruped import config
     stance = config.MPCConfig().stance_height
-    rows = drivers.quadruped_benchmark(tf=LOOP_TF, device="cuda")
-    for name, r in rows.items():
-        if name == "table_md":
-            continue
-        print(f"quadruped table [{card}] {name}: {r['ms_per_solve']:.3f} +- "
-              f"{r['ms_per_solve_std']:.3f} ms/solve (+{r['ms_prep']:.3f} "
-              f"prep), {r['mean_iters']:.2f} iterations, success "
-              f"{r['success']:.3f} over {r['periods']} periods; ADMM chunks "
-              f"{r['admm_chunks']}, ALTRO loop replays {r['loop_replays']}; "
-              f"final height {r['final_height']:.4f} m, max |roll|,|pitch| "
-              f"{r['max_roll_pitch']:.4f}")
-        if not (r["success"] == 1.0
-                and abs(r["final_height"] - stance) < 0.05
-                and r["max_roll_pitch"] < 0.2):
-            raise AssertionError(f"quadruped table {name}: {r}")
-    print(rows["table_md"])
+    res = drivers.quadruped_benchmark(tf=LOOP_TF, device="cuda")
+    for race, rows in (("card race", res), ("C++ race", res["cpp_race"])):
+        for name, r in rows.items():
+            if not (isinstance(r, dict) and "ms_per_solve" in r):
+                continue
+            print(f"quadruped table, {race} [{card}] {name}: "
+                  f"{r['ms_per_solve']:.3f} +- {r['ms_per_solve_std']:.3f} "
+                  f"ms/solve (+{r['ms_prep']:.3f} prep), "
+                  f"{r['mean_iters']:.2f} iterations, success "
+                  f"{r['success']:.3f} over {r['periods']} periods; ADMM "
+                  f"chunks {r['admm_chunks']}, ALTRO loop replays "
+                  f"{r['loop_replays']}; final height "
+                  f"{r['final_height']:.4f} m, max |roll|,|pitch| "
+                  f"{r['max_roll_pitch']:.4f}")
+            if not (r["success"] == 1.0
+                    and abs(r["final_height"] - stance) < 0.05
+                    and r["max_roll_pitch"] < 0.2):
+                raise AssertionError(f"quadruped table, {race}, {name}: "
+                                     f"{r}")
+    print(res["table_md"])
+    print(res["cpp_table_md"])
 
 
 def drivers_once(card):
@@ -1019,6 +1144,71 @@ def drivers_once(card):
             raise AssertionError(f"driver flexsat: ALTRO success "
                                  f"{res['altro_success']}, ADMM-QP success "
                                  f"{res['qp_success']}")
+
+
+def multibaseline_on_card(card):
+    """Phase 6e: the four-solver studies on the card (ALTRO's warm step on
+    graphs, both ADMM forms on the card, the native C++ solver on the host)
+    at MULTI_T steps and MULTI_TOLS. Gates: every solver's success 1.0 at
+    both tolerances, every native truth solve converged (the driver raises
+    otherwise), ALTRO's error against the truth below 1e-3 at 1e-8 (the
+    JAX package's CPU record, at T=10, reads 4e-5 on the rocket and ~0 on
+    grasp there). The loose tolerance's errors are printed, not gated."""
+    from altro_tpu_torch.bench import drivers
+    for name, fn in (("rocket_multibaseline",
+                      drivers.rocket_multibaseline_tol),
+                     ("grasp_multibaseline",
+                      drivers.grasp_multibaseline_tol)):
+        print(f"driver {name} [{card}], T={MULTI_T}:", flush=True)
+        t0 = time.perf_counter()
+        res = fn(tols=MULTI_TOLS, T=MULTI_T)
+        print(f"  ({time.perf_counter() - t0:.1f} s; cold iterations "
+              f"{res['cold_iterations']})", flush=True)
+        for r in res["rows"]:
+            ok = all(r[f"success_{k}"] == 1.0 for k in drivers.MULTI_SOLVERS)
+            if not (ok and (r["tol"] > 1e-8 or r["err_altro"] < 1e-3)):
+                raise AssertionError(f"driver {name} at tol {r['tol']}: {r}")
+
+
+def cpp_race_on_card(card):
+    """Phase 6f: the quadruped's C++ race (``simulate_host(native=True)``:
+    the native AL-iLQR and the native knot ADMM on the host, the schedule,
+    relinearization and ticks on the card) for CPP_RACE_TF seconds in both
+    friction modes. Gates: the physical gates of 5f (status 1 every
+    period, height, attitude, vertical forces)."""
+    from altro_tpu_torch.bench.drivers import QUAD_ROWS
+    from altro_tpu_torch.models.quadruped import controller
+    for name, lin, backend in QUAD_ROWS:
+        cfg, opts = _loop_setup(lin)
+        res = controller.simulate_host(cfg, opts, tf=CPP_RACE_TF,
+                                       backend=backend, device="cuda",
+                                       native=True)
+        ok = _loop_physical(cfg, res)
+        print(f"C++ race [{card}] {name}: iterations "
+              f"{res['iters'].tolist()}, status {res['status'].tolist()}, "
+              f"ms/solve {np.mean(res['mpc_ms']):.3f} (+"
+              f"{np.mean(res['prep_ms']):.3f} prep); physical gates {ok}")
+        if not ok:
+            raise AssertionError(f"C++ race {name}: {res}")
+
+
+def state_dim_on_card(card):
+    """Phase 6g: the state_dim sweep's points above the group bodies'
+    widths (n = 35, 45, 55, m = 2, N = 21: the kernels' wide bodies) at
+    T_DRIVER steps. Gates: success 1.0 at each point, every point run."""
+    from altro_tpu_torch.bench import drivers
+    t0 = time.perf_counter()
+    res = drivers.random_linear_sweep("state_dim", T=T_DRIVER,
+                                      xs=list(STATE_DIM_WIDE))
+    print(f"driver random_linear_state_dim [{card}], T={T_DRIVER}, n = "
+          f"{STATE_DIM_WIDE}: ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    if "not_run" in res or sorted(res["errs"]) != list(STATE_DIM_WIDE):
+        raise AssertionError(f"state_dim: points {sorted(res['errs'])}, "
+                             f"keys {sorted(res)}")
+    for x, e in res["errs"].items():
+        if e["success"] != 1.0:
+            raise AssertionError(f"state_dim n={x}: {e}")
 
 
 def main() -> None:
@@ -1091,6 +1281,25 @@ def main() -> None:
                 errs_s = " ".join(f"{k}={v:.3e}" for k, v in errs.items())
                 print(f"parity {name} {shape} B=1 {label}: max|kernel - "
                       f"plain| {errs_s}")
+
+    # ---- 3h. the wide bodies (n or m above 32), at B=1 and B=1024
+    wide = {}
+    for label, dtype, tol in (("f32", torch.float32, F32_TOL),
+                              ("f64", torch.float64, F64_TOL)):
+        for B in WIDE_BATCHES:
+            wide[label, B] = wide_parity(dtype, tol, B)
+            for (n, m), res in wide[label, B].items():
+                for name, (errs, ms, plain_ms, work) in res.items():
+                    errs_s = " ".join(f"{k}={v:.3e}" for k, v in errs.items())
+                    line = (f"parity {name} wide n={n} m={m} B={B} {label}: "
+                            f"max|kernel - plain| {errs_s}")
+                    if ms is not None:
+                        bnd, by = bound_ms(*work, 4 if label == "f32" else 8)
+                        line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+                                 f"ms, bound {bnd:.4f} ms ({by}: "
+                                 f"{work[0] / 1e6:.2f} MB, "
+                                 f"{work[1] / 1e9:.4f} GFLOP) [{card}]")
+                    print(line, flush=True)
 
     def reset_counts():
         rollout.launch_count = 0
@@ -1355,7 +1564,19 @@ def main() -> None:
     lockstep_on_card(card)
     quadruped_table(card)
     drivers_once(card)
+    c0 = read_counts()
+    multibaseline_on_card(card)
+    c1 = read_counts()
+    cpp_race_on_card(card)
+    c2 = read_counts()
+    state_dim_on_card(card)
     p6launches = read_counts()
+    for label, a, b in (("6e four-solver studies", c0, c1),
+                        ("6f C++ race", c1, c2),
+                        ("6g state_dim n = 35-55 (wide bodies)", c2,
+                         p6launches)):
+        print(f"phase {label} launches: "
+              f"{ {k: b[k] - a[k] for k in b} }")
     print(f"phase 6 ALTRO launches: {p6launches}")
 
     # kernel table: launches over the main paths (4h and 4i included), the
@@ -1388,7 +1609,11 @@ def main() -> None:
                 [v for shape in par if name in par[shape][0]
                  for v in par[shape][0][name][0].values()]
                 + [v for res in par6["f32"].values() if name in res
-                   for v in res[name].values()]),
+                   for v in res[name].values()]
+                + [v for B in WIDE_BATCHES
+                   for res in wide["f32", B].values()
+                   for k, r in res.items() if k.split(" ")[0] == name
+                   for v in r[0].values()]),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
             "library_ms": None})
     print(json.dumps({"kernels": table}))

@@ -3,15 +3,19 @@
 the JAX package's run (equal iterations and status, and the JAX test's
 gates), ``run_mpc_lockstep_conic`` on the rocket (the tolerance sweep of
 ``tests/test_rocket.py``, T cut to 5) and on grasp (``tests/test_grasp.py``),
-both also beside the JAX package's on the same tracking data,
+both also beside the JAX package's on the same tracking data; the rocket
+tolerance sweep at T=20 and all four tolerances from the JAX package's own
+carry before every step (equal iterations and status on every step), and
+the round-off decision where the free-running sweeps part (step 0's SOC
+case flip between the JAX package's compiled and op-by-op arithmetic);
 the flexible satellite's cold solve against ``admm_qp``, the quadruped's
 ALTRO against ``admm_qp`` and ``admm_conic`` (``tests/test_quadruped.py``),
 ``simulate_host`` with each ADMM backend for 3 periods against the JAX
 package's ``native=False`` run (equal status and iterations, forces within
-1e-6 N), the native entrants raising, the three harness tests of
-``tests/test_harness.py``, and every benchmark driver at a tiny size with
-the result keys of the JAX package's (whose compute is stubbed out: only
-its result layout is read).
+1e-6 N), the native entrants raising when the C++ library does not build,
+the three harness tests of ``tests/test_harness.py``, and every benchmark
+driver at a tiny size with the result keys of the JAX package's (whose
+compute is stubbed out: only its result layout is read).
 """
 import dataclasses
 from typing import NamedTuple
@@ -146,6 +150,164 @@ def test_rocket_lockstep_matches_jax(rocket_cold):
                                   np.asarray(jres.iters)[2:, 0])
     np.testing.assert_allclose(res.err_U[2:].numpy(),
                                np.asarray(jres.err_U)[2:], atol=1e-8)
+
+
+# The rocket tolerance sweep from the JAX package's own carry. Both
+# packages get bit-equal data: the JAX package's cold N=301 solve and MPC
+# window (converted), the same noise, and, before every step, the JAX
+# package's carry (x0, X, U, duals) converted.
+SWEEP_T = 20
+
+
+@pytest.fixture(scope="module")
+def rocket_sweep_data():
+    from altro_tpu.models import rocket as jrocket
+    from altro_tpu.mpc import gen_tracking_mpc as jgen
+    from altro_tpu_torch.convert import numpy_tree, problem_from_numpy
+    N = 301
+    jp = jrocket.rocket_problem(N=N, tf=(N - 1) * 0.05)
+    cold = jax.jit(at.solve)(jp, at.SolverOptions(
+        cost_tolerance=1e-6, gradient_tolerance=1e-8,
+        constraint_tolerance=1e-5, penalty_initial=1e-2,
+        penalty_scaling=500.0, iterations_outer=40, iterations_inner=100),
+        U0=jrocket.hover_controls(jp))
+    jpm = jgen(jp, cold.X, cold.U, 21, dt=0.05)
+    noise = np.random.default_rng(1).standard_normal((SWEEP_T, 6))
+    return dict(jpm=jpm, cold=cold, noise=noise,
+                tpm=problem_from_numpy(numpy_tree(jpm)),
+                Xc=torch.tensor(np.asarray(cold.X)),
+                Uc=torch.tensor(np.asarray(cold.U)))
+
+
+def _sweep_opts(mod, tol):
+    return mod.SolverOptions(
+        cost_tolerance=tol, gradient_tolerance=tol * 1e-2,
+        constraint_tolerance=tol, penalty_initial=1e3, penalty_scaling=10.0,
+        reset_duals=False, iterations_outer=40)
+
+
+def _carry_to_port(carry):
+    x0, X, U, duals = carry[:4]
+
+    def t(a):
+        return torch.tensor(np.asarray(a))[None]
+    return (t(x0), t(X), t(U), tuple(tt.DualState(lam=t(d.lam),
+                                                 rho=t(d.rho))
+                                     for d in duals))
+
+
+@pytest.mark.parametrize("tol", [1e-2, 1e-4, 1e-6, 1e-8])
+def test_rocket_sweep_from_jax_carry_matches_jax(rocket_sweep_data, tol):
+    """The rocket tolerance sweep (T=20, f64): before every step the JAX
+    package's carry, converted, goes into the port's step, which then takes
+    the JAX step's iterations and status, at every step and every
+    tolerance: the two packages decide alike from equal inputs. (Run
+    free, each on its own carry, the two sequences part later: a solve
+    that crosses a round-off decision, such as step 0's in
+    ``test_rocket_sweep_step0_case_flip_is_round_off``, moves U by up to
+    3e-5 within the tolerance, and a later step decides differently from
+    the moved carry.)"""
+    from altro_tpu.models import rocket as jrocket
+    from altro_tpu.mpc import make_mpc_step as jmake
+    from altro_tpu_torch.models import rocket
+    from altro_tpu_torch.mpc import make_mpc_step
+    d = rocket_sweep_data
+    jstep, jinit = jmake(d["jpm"], _sweep_opts(at, tol), d["cold"].X,
+                         d["cold"].U, jrocket.rocket_noise_model())
+    jstep = jax.jit(jstep)
+    carry = jax.jit(jinit)()
+    step, _ = make_mpc_step(d["tpm"], _sweep_opts(tt, tol), d["Xc"],
+                            d["Uc"], rocket.rocket_noise_model(),
+                            graphed=False)
+    jit, pit = [], []
+    for t in range(SWEEP_T):
+        _, out = step(_carry_to_port(carry),
+                      torch.tensor(d["noise"][t])[None], t)
+        carry, jout = jstep(carry, jnp.asarray(d["noise"][t]))
+        jit.append((int(jout.iters), int(jout.status)))
+        pit.append((int(out.iters[0]), int(out.status[0])))
+    assert pit == jit
+    assert all(s == 1 for _, s in pit)
+
+
+def test_rocket_sweep_step0_case_flip_is_round_off(rocket_sweep_data):
+    """Where the free-running sweeps part first (step 0, every tolerance:
+    U 3e-5 apart at 1e-4 with equal iterations): the AL expansion of the
+    step's first iteration. The port's equals the JAX package's computed
+    op by op bit for bit; the JAX package's jit-compiled expansion differs
+    in luu by O(rho) at the knots, and only at the knots, where the
+    thrust-angle cone's residual z = lam + rho c lies on the cone's
+    boundary to the last bit (|v| == s in float64): there one ulp of |v|
+    decides between the inside case (no curvature) and the boundary case
+    (coef2 = rho / 2 on a rank-1 term), and the compiled reduction rounds
+    |v| the other way. Both sides of the decision, from the port's own
+    z."""
+    from altro_tpu.costs import retarget_tracking
+    from altro_tpu.models import rocket as jrocket
+    from altro_tpu.mpc import _xws_corrector
+    from altro_tpu.mpc import make_mpc_step as jmake
+    from altro_tpu.mpc import shift_fill, track_window
+    from altro_tpu.solver import altro as jal
+    from altro_tpu_torch.cones import _soc_parts, soc_polar_curvature_factors
+    from altro_tpu_torch.models import rocket
+    from altro_tpu_torch.mpc import _StepPieces
+    from altro_tpu_torch.solver import altro as tal
+    d = rocket_sweep_data
+    tol, jpm, ulp = 1e-4, d["jpm"], 2.0 ** -52
+    _, jinit = jmake(jpm, _sweep_opts(at, tol), d["cold"].X, d["cold"].U,
+                     jrocket.rocket_noise_model())
+    carry = jax.jit(jinit)()
+    # the JAX package's step 0 up to its first iteration's state
+    x0, X, U, duals, k = carry
+    x0_new = jrocket.rocket_noise_model()(jpm.dynamics.step(x0, U[0], 0),
+                                          jnp.asarray(d["noise"][0]))
+    Xw, Uw = track_window(d["cold"].X, d["cold"].U, int(k) + 1, 21)
+    jpk = jpm.replace(cost=retarget_tracking(jpm.cost, Xw, Uw), x0=x0_new)
+    U_ws = shift_fill(U)
+    js = jal._warmstart_state(jpk, _sweep_opts(at, tol), U_ws,
+                              tuple(du.shift() for du in duals),
+                              _xws_corrector(jpm.dynamics)(X, U_ws, x0_new))
+    # the port's, from the converted carry
+    pieces = _StepPieces(d["tpm"], _sweep_opts(tt, tol), d["Xc"], d["Uc"],
+                         rocket.rocket_noise_model(), None, "shift")
+    pk, ts, _ = pieces.start_from(_carry_to_port(carry),
+                                  torch.tensor(d["noise"][0])[None],
+                                  *pieces.window(1))
+    np.testing.assert_array_equal(ts[0][0].numpy(), np.asarray(js[0]))
+    np.testing.assert_array_equal(ts[1][0].numpy(), np.asarray(js[1]))
+    port = tal._al_expansion_cd(pk.cost, pk.constraints, ts[3], ts[0],
+                                ts[1])
+    eager = jal._al_expansion_cd(jpk.cost, jpk.constraints, js[3], js[0],
+                                 js[1])
+    compiled = jax.jit(jal._al_expansion_cd)(jpk.cost, jpk.constraints,
+                                             js[3], js[0], js[1])
+    for a, b in zip(port, eager):
+        b = np.asarray(b)
+        np.testing.assert_array_equal(a.numpy().reshape(b.shape), b)
+    dluu = np.abs(np.asarray(compiled[3]) - np.asarray(eager[3])).max(
+        axis=(1, 2))
+    flipped = set(np.flatnonzero(dluu > 1.0).tolist())
+    assert flipped, "the compiled expansion agrees: no case flip to show"
+    # the knots whose SOC residual lies on the boundary to two ulp
+    on_edge = set()
+    X, U = ts[0], ts[1]
+    for con, du in zip(pk.constraints, ts[3]):
+        if con.cone.value != "soc":
+            continue
+        z = (du.lam + du.rho[..., None] * con.evaluate(X, U))[0]
+        _, s_, a, _ = _soc_parts(z)
+        edge = ((a - s_).abs() <= 2 * ulp * s_.abs()) & (con.mask > 0)
+        on_edge |= set(torch.nonzero(edge).flatten().tolist())
+        for kk in torch.nonzero(edge).flatten().tolist():
+            # both sides: |v| eight ulp smaller is the inside case (no
+            # curvature), eight ulp larger the boundary case (rank-1
+            # weight 1/2, times rho in the expansion)
+            sides = z[kk].repeat(2, 1)
+            sides[0, :-1] *= 1.0 - 8 * ulp
+            sides[1, :-1] *= 1.0 + 8 * ulp
+            _, _, _, c2, _ = soc_polar_curvature_factors(sides)
+            assert c2.tolist() == [0.0, 0.5]
+    assert flipped <= on_edge, (flipped, on_edge)
 
 
 @pytest.fixture(scope="module")
@@ -331,7 +493,7 @@ def test_simulate_host_admm_matches_jax(backend, lin):
                               backend=backend, native=False)
     res = tctl.simulate_host(tc.MPCConfig(linearized_friction=lin),
                              tt.SolverOptions(**QUAD), tf=tf,
-                             backend=backend, device="cpu")
+                             backend=backend, device="cpu", native=False)
     np.testing.assert_array_equal(res["status"].numpy(),
                                   np.asarray(jres["status"]))
     np.testing.assert_array_equal(res["iters"].numpy(),
@@ -343,20 +505,29 @@ def test_simulate_host_admm_matches_jax(backend, lin):
     assert res["admm_chunks"] > int(res["iters"].sum()) // 25
 
 
-def test_native_entrants_raise():
+def test_native_entrants_raise(tmp_path, monkeypatch):
+    """The C++ entrants (the quadruped's native workspace and race, the
+    four-solver studies' truth solves) raise when the native library does
+    not build, with the compiler's output: nothing falls back to a PyTorch
+    solver."""
     from altro_tpu_torch.models.quadruped import config, controller
+    from altro_tpu_torch.native import qp as native_qp
+    bad = tmp_path / "broken.cpp"
+    bad.write_text("int broken( { return 0; }\n")
+    monkeypatch.setattr(native_qp, "_lib", None)
+    monkeypatch.setattr(native_qp, "_SRCS", (str(bad),))
+    monkeypatch.setattr(native_qp, "BUILD_DIR", str(tmp_path / "build"))
     cfg = config.MPCConfig()
     prob, x_des = controller.build_mpc_problem(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="C\\+\\+-oracle"):
-        controller.make_baseline_state("admm_qp", prob, cfg, x_des,
-                                       native=True)
-    with pytest.raises(NotImplementedError, match="C\\+\\+-oracle"):
-        controller.simulate_host(cfg, tt.SolverOptions(**QUAD), tf=0.03,
-                                 backend="admm_qp", device="cpu",
-                                 native=True)
-    for name in ("rocket_multibaseline", "grasp_multibaseline"):
-        with pytest.raises(NotImplementedError, match="C\\+\\+-oracle"):
-            tdrv.BENCHMARKS[name]("cpu", None)
+    with pytest.raises(RuntimeError, match="broken.cpp"):
+        controller.make_baseline_state("admm_qp", prob, cfg, x_des)
+    for backend in ("admm_qp", "altro"):
+        with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
+            controller.simulate_host(cfg, tt.SolverOptions(**QUAD), tf=0.03,
+                                     backend=backend, device="cpu")
+    for name in ("rocket_multibaseline_tol", "grasp_multibaseline_tol"):
+        with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
+            getattr(tdrv, name)(tols=(1e-4,), T=1, device="cpu")
 
 
 # ----------------------------------------------------------------------------
@@ -435,6 +606,71 @@ def _fake_sim(cfg, opts, tf=2.0, backend="altro", **kw):
                 tick_ms=[1.0] * P, iters=jnp.ones(P))
 
 
+class _FakeConicWork(NamedTuple):
+    prob: object = None
+
+    def replace(self, prob):
+        return _FakeConicWork(prob)
+
+
+class _FakeAdmmSol(NamedTuple):
+    x: jnp.ndarray
+    U: jnp.ndarray
+    status: jnp.ndarray
+
+
+def _fake_conic_solve(work, **kw):
+    return _FakeAdmmSol(x=jnp.zeros(work.prob.P.shape[-1]), U=None,
+                        status=jnp.ones((), jnp.int32))
+
+
+def _fake_knot_solve(prob_k, **kw):
+    return _FakeAdmmSol(x=None, U=jnp.zeros((prob_k.N - 1, prob_k.m)),
+                        status=jnp.ones((), jnp.int32))
+
+
+def _fake_native_conic(P, q, A, b, segments, **kw):
+    return _FakeAdmmSol(x=np.zeros(P.shape[0]), U=None, status=1)
+
+
+def _fake_make_mpc_step(prob_mpc, opts, X_track, U_track, *a, **kw):
+    """The JAX package's step, as a stub: the carry's step index advances,
+    the solution is zeros with status 1."""
+    from altro_tpu.mpc import MPCResults
+
+    def step(carry, noise_i):
+        x0, X, U, duals, k = carry
+        one = jnp.ones((), jnp.int32)
+        return (x0, X, U, duals, k + 1), MPCResults(
+            X=X, U=U, iters=one, status=one, viol=jnp.zeros(()), x0=x0)
+
+    def init_carry():
+        N, n, m = prob_mpc.N, prob_mpc.n, prob_mpc.m
+        return (prob_mpc.x0, jnp.zeros((N, n)), jnp.zeros((N - 1, m)),
+                prob_mpc.init_duals(1.0), jnp.zeros((), jnp.int32))
+    return step, init_carry
+
+
+def _stub_multibaseline(monkeypatch):
+    """Stub the compute of the JAX package's four-solver studies (ALTRO's
+    step, both ADMM solvers, the native solver): only their result layout
+    is read."""
+    import altro_tpu.mpc as jmpc
+    from altro_tpu import native as jnative
+    from altro_tpu.solver import admm_conic as jconic
+    from altro_tpu.solver import knot_admm as jknot
+    monkeypatch.setattr(jmpc, "make_mpc_step", _fake_make_mpc_step)
+    monkeypatch.setattr(jconic, "setup", lambda data, **kw: _FakeConicWork())
+    monkeypatch.setattr(jconic, "refactor",
+                        lambda work, data: _FakeConicWork(data))
+    monkeypatch.setattr(jconic, "solve", _fake_conic_solve)
+    monkeypatch.setattr(jknot, "to_knot_qp", lambda prob: prob)
+    monkeypatch.setattr(jknot, "setup", lambda kqp, **kw: None)
+    monkeypatch.setattr(jknot, "refactor", lambda work, kqp: kqp)
+    monkeypatch.setattr(jknot, "solve", _fake_knot_solve)
+    monkeypatch.setattr(jnative, "solve_conic", _fake_native_conic)
+
+
 DRIVERS = {
     "random_linear_horizon": (
         lambda m, **kw: m.random_linear_sweep("horizon", T=2, xs=[11], **kw)),
@@ -448,6 +684,10 @@ DRIVERS = {
     "grasp": lambda m, **kw: m.grasp_horizon_sweep(Ns=(11,), T=2, **kw),
     "flexsat": lambda m, **kw: m.flexsat_benchmark(T=1, trials=1, **kw),
     "quadruped": lambda m, **kw: m.quadruped_benchmark(tf=0.06, **kw),
+    "rocket_multibaseline": (
+        lambda m, **kw: m.rocket_multibaseline_tol(tols=(1e-2,), T=1, **kw)),
+    "grasp_multibaseline": (
+        lambda m, **kw: m.grasp_multibaseline_tol(tols=(1e-2,), T=1, **kw)),
 }
 
 
@@ -466,9 +706,11 @@ def _keys(res):
 
 
 # the keys the port adds to the JAX package's, by driver and row level:
-# the success rates that chip_smoke.py gates
+# the success rates that chip_smoke.py gates, and the quadruped's second
+# race (the JAX package reports one)
 EXTRA_KEYS = {("rocket", "rows"): {"success", "baseline_success"},
-              ("flexsat", ""): {"altro_success", "qp_success"}}
+              ("flexsat", ""): {"altro_success", "qp_success"},
+              ("quadruped", ""): {"cpp_race", "cpp_table_md"}}
 
 
 @pytest.mark.parametrize("name", list(DRIVERS))
@@ -480,6 +722,8 @@ def test_driver_result_keys_match_jax(name, monkeypatch):
     monkeypatch.setattr(jdrv, "host_lockstep", _fake_rows)
     monkeypatch.setattr(jqp, "solve", _fake_admm)
     monkeypatch.setattr(jctl, "simulate_host", _fake_sim)
+    if name.endswith("multibaseline"):
+        _stub_multibaseline(monkeypatch)
     jres = DRIVERS[name](jdrv)
     res = DRIVERS[name](tdrv, device="cpu")
     jk, tk = _keys(jres), _keys(res)

@@ -389,18 +389,19 @@ def test_fixed_buffer_route_matches_eager(lin):
     fixed = tctl.simulate(cfg, opts, tf=0.15, device="cpu", graphed=True)
     for k in eager:
         assert torch.equal(eager[k], fixed[k]), k
-    host = tctl.simulate_host(cfg, opts, tf=0.15, device="cpu")
+    host = tctl.simulate_host(cfg, opts, tf=0.15, device="cpu",
+                              native=False)
     assert torch.equal(host["status"], eager["status"])
     assert len(host["mpc_ms"]) == len(host["tick_ms"]) == 5
     close(host["x"], eager["x"].numpy(), atol=1e-8)
 
 
 def test_loop_entry_points_refuse_other_backends():
-    """Unknown backends, and the JAX package's native C++ entrants (not
-    ported: they come with the C++-oracle slice)."""
+    """Unknown backends, on the card race and on the C++ race (the native
+    entrants themselves run: tests/test_torch_multibaseline.py)."""
     cfg, opts = tconfig.MPCConfig(), tt.SolverOptions(**OPTS)
-    with pytest.raises(NotImplementedError, match="oracle"):
-        tctl.simulate_host(cfg, opts, tf=0.03, backend="admm_qp",
+    with pytest.raises(ValueError, match="backend"):
+        tctl.simulate_host(cfg, opts, tf=0.03, backend="osqp",
                            device="cpu", native=True)
     with pytest.raises(ValueError, match="backend"):
         tctl.simulate(cfg, opts, tf=0.03, backend="osqp", device="cpu")

@@ -243,6 +243,6 @@ def test_kernel_nan_lane_stays_in_its_lane(cuda, per_lane, dtype, tol):
 
 @pytest.mark.cuda
 def test_kernel_refuses_wide_problems(cuda):
-    args = _torch(_inputs(2, 4, 33, 3), torch.float32, cuda)
-    with pytest.raises(ValueError, match="n, m <= 32"):
+    args = _torch(_inputs(2, 4, 65, 3), torch.float32, cuda)
+    with pytest.raises(ValueError, match="n, m <= 64"):
         riccati.batched_riccati(*args)
