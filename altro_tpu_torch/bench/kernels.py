@@ -20,7 +20,10 @@ quadruped closed loop's one robot (B=1, N=15, 24 NONPOS rows or 4 cones
 and 8 NONPOS rows in 5 blocks). Kernels B and D are also timed on the flagship's
 random-linear model (shared dynamics; D on the solver's AL expansion of the
 inputs B expands itself) at the flagship's widths and at (n, m) = (13, 6)
-and (7, 3), which no main path uses. ``--against DIR`` names the root
+and (7, 3), which no main path uses. The wide bodies (n or m above 32) run
+at ``WIDE_SHAPES`` (the state_dim sweep's n = 35, 45, 55 with m = 2, and
+n = m = 64), N=21, at one lane and at B=1024: A at L=11 and L=1, B, C at
+L=11 and D (``wide_cases``). ``--against DIR`` names the root
 of another checkout of this repository (for example the parent commit,
 unpacked with ``git archive`` into ``build/``): each turn runs in a process
 of its own, in the order other, this, this, other, on the same inputs
@@ -60,6 +63,8 @@ OTHER_WIDTHS = ((13, 6), (7, 3))
 # (m = 2, N = 21) and the TPU kernels' widest problem
 WIDE_SHAPES = ((35, 2), (45, 2), (55, 2), (64, 64))
 WIDE_N = 21
+# the batch at which the wide bodies are timed beside one lane
+WIDE_BATCH = 1024
 
 
 def time_ms(fn, kernel: bool = False) -> float:
@@ -554,6 +559,37 @@ def quadloop_inputs(dtype, dev, linearized_friction: bool = True) -> dict:
         init_work=rollout_work(1, N, n, m, 1, False, item))
 
 
+def wide_cases(dtype, dev) -> list:
+    """(kernel, shape, call, work) of the wide bodies: A at the drivers'
+    L=11 ladder and its init form (L=1), B, C (L=11) and D at every
+    WIDE_SHAPES point, at one lane and at WIDE_BATCH lanes."""
+    from altro_tpu_torch.ops import riccati, riccati_fused, rollout, rollout_al
+
+    cases = []
+    for B in (1, WIDE_BATCH):
+        for n, m in WIDE_SHAPES:
+            w = wide_inputs(dtype, dev, B, n, m)
+            tag = f"wide n={n} m={m} B={B}"
+            cases += [
+                ("A", f"{tag} L=11",
+                 (lambda w=w: rollout.batched_ls_rollout(*w["ladder"])),
+                 w["ladder_work"]),
+                ("A", f"{tag} L=1",
+                 (lambda w=w: rollout.batched_ls_rollout(*w["init"])),
+                 w["init_work"]),
+                ("B", tag,
+                 (lambda w=w: riccati_fused.fused_expand_backward(
+                     *w["fused"], packed=w["packed"])), w["fused_work"]),
+                ("C", f"{tag} L=11",
+                 (lambda w=w: rollout_al.batched_ls_rollout_al(
+                     *w["ladder_al"], packed=w["packed"])),
+                 w["ladder_al_work"]),
+                ("D", tag,
+                 (lambda w=w: riccati.batched_riccati(*w["riccati"])),
+                 w["riccati_work"])]
+    return cases
+
+
 def measure() -> list:
     """Time kernels A, B, C and D at every shape, f32 and f64, in the
     checkout whose ``altro_tpu_torch`` is imported."""
@@ -619,6 +655,7 @@ def measure() -> list:
             ("D", "flagship shared", pass_d(fl), fl["riccati_work"]),
             *(("D", f"random-linear shared n={n} m={m}", pass_d(inp),
                inp["riccati_work"]) for (n, m), inp in other)]
+        cases += wide_cases(dtype, dev)
         for kernel, shape, fn, (nbytes, flops) in cases:
             bnd, by = bound_ms(nbytes, flops, item)
             rows.append(dict(kernel=kernel, shape=shape, dtype=label,

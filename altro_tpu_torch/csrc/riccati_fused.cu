@@ -843,14 +843,384 @@ int launch_group(const void* Q, const void* q, const void* R, const void* r,
   return (int)cudaGetLastError();
 }
 
-// The wide body, for n or m above kNarrowDim (up to kMaxDim): one block of
-// wide::kWideThreads threads per scenario, the knot rows read from device
-// memory, the lane's x, u and multipliers staged per knot, and the whole
-// work space (Qxx's upper triangle in Vxx's place, Qx beside it) in shared
-// memory. Pass 1 and 2 are the group body's (row_terms, the SOC passes,
-// expansion_entry); the Riccati tail is wide.cuh's.
+// The wide body, for n or m above kNarrowDim (up to kMaxDim); it replaces
+// the TPU kernel altro_tpu/ops/riccati_fused.py: fused_expand_backward at
+// those widths, and computes its formulas (riccati_fused.py:220-295).
+//
+// One block works one scenario: 128 threads at the narrow end (the
+// state_dim sweep's m = 2: four scenarios per SM), 512 at n = m = 64. The
+// expansion's dynamics terms are two block-wide products per knot over the
+// concatenated width W = n + m, with F = [A | B] the knot's shared dynamics
+// rows and C = [Cx | Cu] its constraint rows:
+//
+//   G = Vxx F                                    [n x W]
+//   Qfull = F'G + C' diag(w) C   (upper triangle) [W x W]
+//         = [Qxx Qxu; . Quu], each 4 x 4 tile's sums seeded with its cost
+//           entries and the SOC blocks' rank-1 terms; F'Vx + C'g rides along
+//           as one extra column (Qx, Qu).
+//
+// The shared rows come into shared memory by cp.async (16-byte copies when
+// n and m allow), never read per FMA: where two stages of n + P rows fit,
+// one stage per knot holds F and C (the next knot's lands while the knot
+// is worked); else (n = m = 64 in
+// float64) a ring of 16-row panels, two to four stages, takes F twice and
+// C in the products' order. At a knot's start its constraint rows, Q and R
+// go into G's region and its H into Qux's place, so that the group body's helpers for the rows'
+// scalars (row_terms, soc_scalars, soc_rows, rank_terms) and the cost part
+// of Qx and Qu (one thread per entry) read shared memory. Each thread owns
+// up to two tiles of G and one of Qfull (512 threads: one and two) and per
+// row of a stage reads one 4-vector of each operand; the expansion is then
+// written straight into the Riccati tail's layout, whose blocked factor,
+// solves, Quu K and V are wide.cuh's. The lane's x, u, multipliers and rho
+// for knot k-1 are loaded into registers during knot k. The products and
+// the tail are separate non-inlined functions, so that each gets the
+// registers it needs (inlined into one body they spilled their tiles' sums
+// at 128 registers).
+//
+// Work space (WideLayout): at n = m = 64 with 12 rows and one SOC block,
+// ~224 KB in float64 (a three-stage ring) and ~165 KB in float32 (one
+// stage per knot): G takes the region that the constraint rows take before
+// it and aug and Quu K after it, and Quu lies in aug's strict lower
+// triangle, so no matrix is held twice.
+//
+// What bounds it on the H100: at n = m = 64, N = 21, B = 1024 its FLOPs
+// (~98 GFLOP, 1.46 ms at 67 TFLOP/s in float32), against ~0.4 GB of bytes
+// (0.12 ms); at the state_dim sweep's m = 2 and one scenario, the chain of
+// a knot's phases (about a dozen barriers). Tensor cores are not used: the
+// port pins float32 products to full precision, which bars TF32
+// mma/wgmma, and double-precision mma.sync (DMMA) is a later step
+// (ROADMAP.md §2) that would pay only where the products, not the tail's
+// barriers, hold the body back.
+
+// Rows per ring stage where a knot's F and C do not fit one (n = m = 64 in
+// float64), and the block sizes: 128 threads while G's tiles fit two per
+// thread, Qfull's one and the lane's inputs one (the state_dim sweep's
+// n <= 55, m = 2: four scenarios per SM), 512 above.
+constexpr int kRing = 16;
+constexpr int kSmallThreads = 128;
+constexpr int kLargeThreads = 512;
+
+// Where the knot's rows staged at its start lie in the region: Cx [P x n]
+// and Cu [P x m] from its start, then b [P], mask [P], then Q [n x n] and
+// R [m x m], each 16-byte aligned.
+struct KnotRows {
+  int ob, oq, orr, size;
+  __host__ __device__ KnotRows(int n, int m, int P) {
+    using altro::wide::pad4;
+    ob = pad4(P * (n + m));
+    oq = ob + pad4(2 * P);
+    orr = oq + pad4(n * n);
+    size = orr + pad4(m * m);
+  }
+};
+
+// Offsets (in elements) of the wide body's shared memory: the lane's x, u,
+// multipliers and rho; z, g, w; the cost part of Qx, Qu (qc); Qx, Vx, Qu,
+// qdiag, inv; the SOC scratch; then, 16-byte aligned, Vq, Qux, the region
+// (the knot's Cx, Cu, b, mask, Q and R, then G, then aug and Quu K) and the ring
+// of `depth` stages of kp rows.
+struct WideLayout {
+  int lane, z, g, w, qc, Qx, Vx, Qu, qdiag, inv, soc, Vq, Qux, region, ring,
+      total;
+  __host__ __device__ WideLayout(int n, int m, int P, int nsoc, int kp,
+                                 int depth) {
+    const altro::wide::TailDims td(n, m);
+    const int Wp = altro::wide::pad4(n + m);
+    lane = 0;
+    z = lane + n + m + P + 1;
+    g = z + P;
+    w = g + P;
+    qc = w + P;
+    Qx = qc + n + m;
+    Vx = Qx + n;
+    Qu = Vx + n;
+    qdiag = Qu + m;
+    inv = qdiag + m;
+    soc = inv + m;
+    Vq = altro::wide::pad4(soc + nsoc * soc_elems(n, m));
+    Qux = Vq + n * td.ldn;
+    region = Qux + m * td.ldn;
+    const int g_elems = n * Wp, tail_elems = m * (td.lda + td.ldk);
+    const int rows_elems = KnotRows(n, m, P).size;
+    int rg = g_elems > tail_elems ? g_elems : tail_elems;
+    rg = rg > rows_elems ? rg : rows_elems;
+    ring = region + altro::wide::pad4(rg);
+    total = ring + depth * kp * Wp;
+  }
+};
+
+// The ring: `depth` stages of kp rows of [A | B] or [Cx | Cu], depth - 1 of
+// them in flight, in the order the products take them (knot k < N1: F for
+// G, F again and C for Qfull; the terminal knot: C), from knot N1 down; or,
+// where two stages of n + P rows fit (`whole`), one stage per knot with F
+// and C together, taken once by both products.
 template <typename T>
-__global__ void __launch_bounds__(altro::wide::kWideThreads)
+struct Ring {
+  const T *A, *Bm, *Cx, *Cu;
+  T* base;
+  int n, m, P, N1, Wp, kp, nF, nC, depth, vec;
+  altro::Spread spn, spm;  // a thread's place in rows of n and of m
+  int ik, ii, islot, uslot;
+  bool whole;  // one stage per knot: F in rows 0..n-1, C in rows n..n+P-1
+
+  __device__ int panels(int k) const {
+    return whole ? 1 : (k < N1 ? 2 * nF : 0) + nC;
+  }
+
+  __device__ void issue() {
+    if (ik < 0) return;
+    T* dst = base + islot * kp * Wp;
+    if (whole) {
+      if (ik < N1) {
+        altro::stage_rows(dst, Wp, A + (size_t)ik * n * n, n, n, vec, spn);
+        altro::stage_rows(dst + n, Wp, Bm + (size_t)ik * n * m, n, m, vec,
+                          spm);
+      }
+      altro::stage_rows(dst + n * Wp, Wp, Cx + (size_t)ik * P * n, P, n, vec,
+                        spn);
+      altro::stage_rows(dst + n * Wp + n, Wp, Cu + (size_t)ik * P * m, P, m,
+                        vec, spm);
+      altro::cp_async_commit();
+      if (++islot == depth) islot = 0;
+      --ik;
+      return;
+    }
+    const int f = ik < N1 ? 2 * nF : 0;
+    const bool dyn = ii < f;
+    const int r0 = (dyn ? (ii < nF ? ii : ii - nF) : ii - f) * kp;
+    const int rows = min(kp, (dyn ? n : P) - r0);
+    const T* s1 = dyn ? A + ((size_t)ik * n + r0) * n
+                      : Cx + ((size_t)ik * P + r0) * n;
+    const T* s2 = dyn ? Bm + ((size_t)ik * n + r0) * m
+                      : Cu + ((size_t)ik * P + r0) * m;
+    altro::stage_rows(dst, Wp, s1, rows, n, vec, spn);
+    altro::stage_rows(dst + n, Wp, s2, rows, m, vec, spm);
+    altro::cp_async_commit();
+    if (++islot == depth) islot = 0;
+    if (++ii == panels(ik)) {
+      ii = 0;
+      --ik;
+    }
+  }
+
+  // the next panel, landed and visible; every thread is past the panel
+  // before it, whose stage the next issue takes (at least depth - 2 commit
+  // groups follow the panel's own)
+  __device__ const T* acquire() {
+    if (depth == 4)
+      altro::cp_async_wait_group<2>();
+    else if (depth == 3)
+      altro::cp_async_wait_group<1>();
+    else
+      altro::cp_async_wait_all();
+    __syncthreads();
+    const T* cur = base + uslot * kp * Wp;
+    if (++uslot == depth) uslot = 0;
+    issue();
+    return cur;
+  }
+};
+
+// G = Vxx F [n x W] (Vxx symmetric: row p of Vxx is its column p), up to KT
+// 4 x 4 tiles per thread, from nF panels of the ring or the knot's `whole`
+// stage.
+template <typename T, int KT>
+__device__ __noinline__ void dynamics_product(Ring<T>* rg, const T* Vq,
+                                              int ldn, T* G,
+                                              const T* whole) {
+  namespace wd = altro::wide;
+  const int n = rg->n, Wp = rg->Wp, kp = rg->kp, W4 = Wp / 4;
+  const int t = threadIdx.x, nt = blockDim.x, tiles = (n + 3) / 4 * W4;
+  T acc[KT][4][4];
+#pragma unroll
+  for (int s = 0; s < KT; ++s) wd::zero4(acc[s]);
+  for (int f = 0; f < (whole ? 1 : rg->nF); ++f) {
+    const T* pan = whole ? whole : rg->acquire();
+    const int p0 = f * kp, kc = whole ? n : min(kp, n - p0);
+#pragma unroll
+    for (int s = 0; s < KT; ++s) {
+      const int q = t + s * nt;
+      if (q >= tiles) break;
+      const int i0 = q / W4 * 4, j0 = q % W4 * 4;
+#pragma unroll 4
+      for (int kk = 0; kk < kc; ++kk) {
+        T av[4], bv[4];
+        wd::ld4(Vq + (p0 + kk) * ldn + i0, av);
+        wd::ld4(pan + kk * Wp + j0, bv);
+        wd::outer4(acc[s], av, bv);
+      }
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < KT; ++s) {
+    const int q = t + s * nt;
+    if (q >= tiles) break;
+    const int i0 = q / W4 * 4, j0 = q % W4 * 4;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      if (i0 + r >= n) break;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) G[(i0 + r) * Wp + j0 + c] = acc[s][r][c];
+    }
+  }
+}
+
+// What the expansion pass reads and writes (shared memory unless noted).
+template <typename T>
+struct ExpansionArgs {
+  const T* G;     // V F [n x Wp]
+  Work<T> wk;     // g, w, soc
+  const T* qc;    // the cost part of Qx, Qu [W]
+  const T* Qs;    // the knot's Q [n x ldq] and R [m x ldr] in device
+  const T* Hs;    // memory, its H [m x ldh] staged in Qux's place
+  const T* Rs;
+  int ldq, ldh, ldr;
+  T regb;
+  int term, nsoc;
+};
+
+// Qfull = F'G + C' diag(w) C over the upper triangle of [W x W] (at the
+// terminal knot C'WC over the x block), up to KT 4 x 4 tiles per thread,
+// from the ring's panels or the knot's `whole` stage, each tile's sums seeded with its cost entries (Q, H or R, loaded from
+// device memory while the first panel lands) and the SOC blocks' rank-1
+// terms; the extra column F'Vx + C'g on the first Wo threads. Then, once G
+// is read no more, the expansion in the tail's layout: Qxx (upper) in Vq,
+// Qux and -Qux into aug's right-hand sides, Quu + reg I (upper) and Quu
+// (strict lower, diagonal in qdiag) into aug, Qx and Qu. Ends on a barrier.
+template <typename T, int KT>
+__device__ __noinline__ void expansion(Ring<T>* rg,
+                                       const altro::wide::Tail<T> tl,
+                                       const ExpansionArgs<T> ea,
+                                       const T* whole) {
+  namespace wd = altro::wide;
+  const int n = rg->n, m = rg->m, P = rg->P, Wp = rg->Wp, kp = rg->kp;
+  const int W4 = Wp / 4, W = n + m, Wo = ea.term ? n : W, nsoc = ea.nsoc;
+  const int t = threadIdx.x, nt = blockDim.x;
+  const int ldn = tl.ldn, lda = tl.lda, ma = tl.ma;
+  int i2[KT], j2[KT];
+  bool act[KT];
+  T acc[KT][4][4];
+#pragma unroll
+  for (int s = 0; s < KT; ++s) {
+    int I = 0, J = 0;
+    act[s] = t + s * nt < W4 * (W4 + 1) / 2;
+    if (act[s]) wd::upper_ij(t + s * nt, W4, &I, &J);
+    i2[s] = 4 * I;
+    j2[s] = 4 * J;
+    act[s] = act[s] && (!ea.term || j2[s] < n);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int i = i2[s] + r, j = j2[s] + c;
+        const bool in = act[s] && i <= j && j < Wo;
+        const int kind = j < n ? 0 : i < n ? 1 : 2;  // Qxx, Qxu, Quu
+        const T* src = kind == 0   ? ea.Qs + i * ea.ldq + j
+                       : kind == 1 ? ea.Hs + (j - n) * ea.ldh + i
+                                   : ea.Rs + (i - n) * ea.ldr + (j - n);
+        acc[s][r][c] = in ? *src : T(0);
+      }
+  }
+#pragma unroll
+  for (int s = 0; s < KT; ++s) {
+    if (!act[s] || nsoc == 0) continue;
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int i = i2[s] + r, j = j2[s] + c;
+        if (i > j || j >= Wo) continue;
+        acc[s][r][c] += j < n ? rank_terms(ea.wk.soc, nsoc, n, m, 0, i, 0, j)
+                        : i < n
+                            ? rank_terms(ea.wk.soc, nsoc, n, m, 2 * n, j - n, 0, i)
+                            : rank_terms(ea.wk.soc, nsoc, n, m, 2 * n, i - n,
+                                         2 * n, j - n);
+      }
+  }
+  T gv = T(0);
+  if (!ea.term) {
+    for (int f = 0; f < (whole ? 1 : rg->nF); ++f) {
+      const T* pan = whole ? whole : rg->acquire();
+      const int p0 = f * kp, kc = whole ? n : min(kp, n - p0);
+      if (t < W)
+        for (int kk = 0; kk < kc; ++kk) gv += pan[kk * Wp + t] * tl.Vx[p0 + kk];
+#pragma unroll
+      for (int s = 0; s < KT; ++s) {
+        if (!act[s]) continue;
+#pragma unroll 2
+        for (int kk = 0; kk < kc; ++kk) {
+          T av[4], bv[4];
+          wd::ld4(pan + kk * Wp + i2[s], av);
+          wd::ld4(ea.G + (p0 + kk) * Wp + j2[s], bv);
+          wd::outer4(acc[s], av, bv);
+        }
+      }
+    }
+  }
+  for (int f = 0; f < (whole ? (P > 0) : rg->nC); ++f) {
+    const T* pan = whole ? whole + n * Wp : rg->acquire();
+    const int r0 = f * kp, kc = whole ? P : min(kp, P - r0);
+    if (t < Wo)
+      for (int kk = 0; kk < kc; ++kk) gv += pan[kk * Wp + t] * ea.wk.g[r0 + kk];
+#pragma unroll
+    for (int s = 0; s < KT; ++s) {
+      if (!act[s]) continue;
+#pragma unroll 2
+      for (int kk = 0; kk < kc; ++kk) {
+        const T wr = ea.wk.w[r0 + kk];
+        T av[4], bv[4];
+        wd::ld4(pan + kk * Wp + i2[s], av);
+        wd::ld4(pan + kk * Wp + j2[s], bv);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) bv[c] *= wr;
+        wd::outer4(acc[s], av, bv);
+      }
+    }
+  }
+  // G is read no more: aug and Quu K take its place
+  __syncthreads();
+#pragma unroll
+  for (int s = 0; s < KT; ++s) {
+    if (!act[s]) continue;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int i = i2[s] + r, j = j2[s] + c;
+        if (i > j || j >= Wo) continue;
+        const T v = acc[s][r][c];
+        if (j < n) {
+          tl.Vq[i * ldn + j] = v;
+        } else if (i < n) {
+          tl.Qux[(j - n) * ldn + i] = v;
+          tl.aug[(j - n) * lda + ma + i] = -v;
+        } else {
+          const int a = i - n, cc = j - n;
+          if (a == cc) {
+            tl.aug[a * lda + a] = v + ea.regb;
+            tl.qdiag[a] = v;
+          } else {
+            tl.aug[a * lda + cc] = v;
+            tl.aug[cc * lda + a] = v;
+          }
+        }
+      }
+    }
+  }
+  if (t < Wo) {
+    const T v = ea.qc[t] + gv;
+    if (t < n) {
+      tl.Qx[t] = v;
+    } else {
+      tl.Qu[t - n] = v;
+      tl.aug[(t - n) * lda + ma + n] = -v;
+    }
+  }
+  __syncthreads();
+}
+
+template <typename T, int NT>
+__global__ void __launch_bounds__(NT, NT == kSmallThreads ? 4 : 1)
 fused_expand_backward_wide(
     const T* __restrict__ Q, const T* __restrict__ q,
     const T* __restrict__ R, const T* __restrict__ r,
@@ -861,15 +1231,21 @@ fused_expand_backward_wide(
     const T* __restrict__ X, const T* __restrict__ U,
     const T* __restrict__ rho, const T* __restrict__ reg,
     T* __restrict__ Kout, T* __restrict__ dout, T* __restrict__ dV1out,
-    T* __restrict__ dV2out, int Bt, int N, int n, int m, int P) {
+    T* __restrict__ dV2out, int Bt, int N, int n, int m, int P, int vec,
+    int kp, int depth) {
+  namespace wd = altro::wide;
+  // 4 x 4 tiles per thread: G has at most 16 x 32 = 512 (the small blocks:
+  // 256), Qfull's upper triangle at most 32 x 33 / 2 = 528 (128)
+  constexpr int kT1 = NT == kSmallThreads ? 2 : 1;
+  constexpr int kT2 = NT == kSmallThreads ? 1 : 2;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ altro::BlockTable<T> tab;
   __shared__ int8_t row_blk[altro::kMaxRows];
   T* smem = reinterpret_cast<T*>(smem_raw);
-  const int TG = blockDim.x, t = threadIdx.x;
+  const int t = threadIdx.x, nt = blockDim.x;
   const int b = blockIdx.x, N1 = N - 1;
   if (t == 0) tab = table;
-  for (int rr = t; rr < P; rr += TG) {
+  for (int rr = t; rr < P; rr += nt) {
     int bi = 0;
     while (bi + 1 < table.count && rr >= table.row0[bi + 1]) ++bi;
     row_blk[rr] = (int8_t)bi;
@@ -877,108 +1253,194 @@ fused_expand_backward_wide(
   __syncthreads();
   const int nsoc = tab.nsoc;
 
-  T* x = smem;
+  const WideLayout lo(n, m, P, nsoc, kp, depth);
+  const wd::TailDims td(n, m);
+  T* x = smem + lo.lane;
   T* u = x + n;
   T* lam = u + m;
-  T* Qx = lam + P;
-  Work<T> wk;
-  wk.Vx = Qx + n;
-  wk.Vxx = wk.Vx + n;
-  wk.z = wk.Vxx + n * n;
-  wk.g = wk.z + P;
-  wk.w = wk.g + P;
-  wk.Qu = wk.w + P;
-  wk.Quu = wk.Qu + m;
-  wk.Qux = wk.Quu + m * m;
-  wk.Quud = wk.Qux + m * n;
-  wk.Linv = wk.Quud + m;
-  wk.VA = wk.Linv + m;
-  wk.VB = wk.VA + (n * n > m * m ? n * n : m * m);
-  wk.KD = wk.VB + n * m;
-  wk.soc = wk.KD + (n + 1) * m;
-  T* Lc = wk.VA;  // the Cholesky factor, after V A's last use
-  T* QuuK = wk.VB;
+  T* G = smem + lo.region;
+  T* qc = smem + lo.qc;
+  Work<T> wk{};
+  wk.z = smem + lo.z;
+  wk.g = smem + lo.g;
+  wk.w = smem + lo.w;
+  wk.soc = smem + lo.soc;
+  const wd::Tail<T> tl{smem + lo.Vq, smem + lo.Qx, smem + lo.Vx,
+                       smem + lo.Qux, smem + lo.Qu, G, smem + lo.qdiag,
+                       smem + lo.inv, G + m * td.lda, n, m, td.ldn, td.ldk,
+                       td.ma, td.lda};
+  const int v = vec ? 16 / (int)sizeof(T) : 1;
+  Ring<T> ring{A, Bm, Cx, Cu, smem + lo.ring, n, m, P, N1, wd::pad4(n + m),
+               kp, (n + kp - 1) / kp, (P + kp - 1) / kp, depth, vec,
+               altro::Spread(n / v, t, nt), altro::Spread(m / v, t, nt),
+               0, 0, 0, 0, kp >= n + P};
+  ring.ik = ring.panels(N1) ? N1 : N1 - 1;
+  for (int i = 1; i < depth; ++i) ring.issue();
 
-  const int n_tri = n * (n + 1) / 2;
-  const int n_own = owned_entries(n);
-  const int n_shared = shared_entries(m, n);
+  // the lane's x, u, multipliers and rho of knot k (u = 0 at the terminal),
+  // loaded into a register one knot ahead
+  const int nlane = n + m + P + 1;
+  auto lane_val = [&](int k) -> T {
+    if (t < n) return X[((size_t)b * N + k) * n + t];
+    if (t < n + m)
+      return k == N1 ? T(0) : U[((size_t)b * N1 + k) * m + (t - n)];
+    if (t < n + m + P) {
+      const int rr = t - n - m, bi = row_blk[rr];
+      return tab.lam[bi][((size_t)b * N + k) * tab.p[bi] +
+                         (rr - tab.row0[bi])];
+    }
+    return rho[(size_t)b * N + k];
+  };
+  T nxt = t < nlane ? lane_val(N1) : T(0);
   const T regb = reg[b];
   T dv1 = T(0), dv2 = T(0);
+
   for (int k = N1; k >= 0; --k) {
     const bool term = k == N1;
+    // the knot's constraint rows, Q and R into the region (free until G),
+    // its H into Qux's place (free until the expansion)
+    T* crows = G;
+    const KnotRows kr(n, m, P);
+    if (P) {
+      altro::stage_rows(crows, n, Cx + (size_t)k * P * n, P, n, vec,
+                        ring.spn);
+      altro::stage_rows(crows + P * n, m, Cu + (size_t)k * P * m, P, m, vec,
+                        ring.spm);
+      altro::stage_vec(crows + kr.ob, cb + (size_t)k * P, P, t);
+      altro::stage_vec(crows + kr.ob + P, cmask + (size_t)k * P, P,
+                       nt - 1 - t);
+    }
+    altro::stage_rows(crows + kr.oq, n, Q + (size_t)k * n * n, n, n, vec,
+                      ring.spn);
+    if (!term) {
+      altro::stage_rows(crows + kr.orr, m, R + (size_t)k * m * m, m, m, vec,
+                        ring.spm);
+      altro::stage_rows(tl.Qux, td.ldn, H + (size_t)k * m * n, m, n, vec,
+                        ring.spn);
+    }
+    altro::cp_async_commit();
+    if (t < nlane) x[t] = nxt;
+    if (k > 0 && t < nlane) nxt = lane_val(k - 1);
+    altro::cp_async_wait_all();
+    __syncthreads();
+    const T rk = x[n + m + P];
     Knot<T> kn;
-    kn.Q = Q + (size_t)k * n * n;
-    kn.q = q + (size_t)k * n;
-    kn.R = R + (size_t)k * m * m;
-    kn.r = r + (size_t)k * m;
-    kn.H = H + (size_t)k * m * n;
-    kn.A = term ? A : A + (size_t)k * n * n;  // not read at the terminal
-    kn.B = term ? Bm : Bm + (size_t)k * n * m;
-    kn.Cx = Cx + (size_t)k * P * n;
-    kn.Cu = Cu + (size_t)k * P * m;
-    kn.b = cb + (size_t)k * P;
-    kn.mask = cmask + (size_t)k * P;
-    for (int e = t; e < n + m + P; e += TG) {
-      if (e < n) {
-        x[e] = X[((size_t)b * N + k) * n + e];
-      } else if (e < n + m) {
-        u[e - n] = term ? T(0) : U[((size_t)b * N1 + k) * m + (e - n)];
-      } else {
-        const int rr = e - n - m, bi = row_blk[rr];
-        lam[rr] = tab.lam[bi][((size_t)b * N + k) * tab.p[bi] +
-                              (rr - tab.row0[bi])];
+    kn.Q = kn.q = kn.R = kn.r = kn.H = kn.A = kn.B = nullptr;
+    kn.Cx = crows;
+    kn.Cu = crows + P * n;
+    kn.b = crows + kr.ob;
+    kn.mask = kn.b + P;
+
+    // the rows' z, g, w (the first P threads); the cost part of Qx and Qu,
+    // q + Q x + H'u and r + R u + H x, from the staged rows (the last Wo
+    // threads, one entry each); the SOC blocks' scalars and projections
+    row_terms(tab, row_blk, kn, x, u, lam, rk, !term, n, m, P, wk, t, nt);
+    {
+      const int e = nt - 1 - t, Wo = term ? n : n + m;
+      const T* Qs = crows + kr.oq;
+      const T* Rs = crows + kr.orr;
+      if (e < Wo) {
+        T a;
+        if (e < n) {
+          a = q[(size_t)k * n + e];
+          for (int p = 0; p < n; ++p) a += Qs[e * n + p] * x[p];
+          if (!term)
+            for (int p = 0; p < m; ++p) a += tl.Qux[p * td.ldn + e] * u[p];
+        } else {
+          const int i = e - n;
+          a = r[(size_t)k * m + i];
+          for (int p = 0; p < m; ++p) a += Rs[i * m + p] * u[p];
+          for (int p = 0; p < n; ++p) a += tl.Qux[i * td.ldn + p] * x[p];
+        }
+        qc[e] = a;
       }
     }
-    const T rk = rho[(size_t)b * N + k];
-    __syncthreads();
-
-    // pass 1: the rows' z, g, w; V A and V B
-    row_terms(tab, row_blk, kn, x, u, lam, rk, !term, n, m, P, wk, t, TG);
-    if (!term) altro::wide::vab(wk.Vxx, kn.A, kn.B, wk.VA, wk.VB, n, m);
     __syncthreads();
     if (nsoc) {
-      soc_scalars(tab, kn, rk, n, m, wk, t, TG);
+      soc_scalars(tab, kn, rk, n, m, wk, t, nt);
       __syncthreads();
-      soc_rows(tab, row_blk, kn, rk, !term, n, m, P, wk, t, TG);
+      soc_rows(tab, row_blk, kn, rk, !term, n, m, P, wk, t, nt);
       __syncthreads();
     }
-    // pass 2: every expansion entry; Qxx's upper triangle in Vxx's place
-    const int n_all = term ? n_own : n_own + n_shared;
-    for (int e = t; e < n_all; e += TG) {
-      int d1 = 0, d2 = 0;
-      const T v = expansion_entry(kn, wk, x, u, term, nsoc, n, m, P, e, &d1,
-                                  &d2);
-      if (e < n_tri) {
-        int i, j;
-        upper_ij(e, n, &i, &j);
-        wk.Vxx[i * n + j] = v;
-      } else if (e < n_own) {
-        Qx[e - n_tri] = v;
-      } else {
-        wk.Qu[d1] = v;
-        wk.Qu[d2] = v;
-      }
-    }
-    __syncthreads();
+
+    const T* whole = ring.whole ? ring.acquire() : nullptr;
     if (!term) {
-      // pass 3: (K | d), Quu K, Quu d, dV
-      altro::wide::factor(wk.Quu, Lc, regb, m);
-      altro::wide::solve(Lc, wk.Quu, wk.Qux, wk.Qu, wk.KD, QuuK, wk.Quud, n,
-                         m, &dv1, &dv2);
+      dynamics_product<T, kT1>(&ring, tl.Vq, td.ldn, G, whole);
+      if (whole) __syncthreads();  // G whole before the expansion reads it
+    }
+    const ExpansionArgs<T> ea{G,
+                              wk,
+                              qc,
+                              Q + (size_t)k * n * n,
+                              tl.Qux,
+                              R + (size_t)k * m * m,
+                              n,
+                              td.ldn,
+                              m,
+                              regb,
+                              term,
+                              nsoc};
+    expansion<T, kT2>(&ring, tl, ea, whole);
+
+    // the Riccati tail: (K | d), Quu K, V; K and d stored
+    if (!term) {
+      wd::factor_solve(tl);
+      wd::quu_k(tl);
       __syncthreads();
     }
-    // pass 4: V; K and d stored
-    altro::wide::value(wk.Vxx, wk.Vx, Qx, wk.KD, QuuK, wk.Qux, wk.Quud,
-                       wk.Qu, term, n, m);
+    wd::value(tl, term, &dv1, &dv2);
     if (!term)
-      altro::wide::store_gains(wk.KD, Kout + ((size_t)b * N1 + k) * m * n,
-                               dout + ((size_t)b * N1 + k) * m, n, m);
+      wd::store_gains(tl, Kout + ((size_t)b * N1 + k) * m * n,
+                      dout + ((size_t)b * N1 + k) * m);
     __syncthreads();
   }
-  if (t == n) {
+  if (t == 0) {
     dV1out[b] = dv1;
     dV2out[b] = dv2;
   }
+}
+
+template <typename T, int NT>
+int launch_wide_nt(const void* Q, const void* q, const void* R,
+                   const void* r, const void* H, const void* A,
+                   const void* Bm, const void* Cx, const void* Cu,
+                   const void* cb, const void* cmask,
+                   const altro::BlockTable<T>& table, const void* X,
+                   const void* U, const void* rho, const void* reg, void* K,
+                   void* d, void* dV1, void* dV2, int Bt, int N, int n,
+                   int m, int P, cudaStream_t stream) {
+  auto kern = fused_expand_backward_wide<T, NT>;
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, kern);
+  if (e != cudaSuccess) return (int)e;
+  const size_t cap = 232448 - attr.sharedSizeBytes;
+  auto bytes_of = [&](int kp, int depth) {
+    return (size_t)WideLayout(n, m, P, table.nsoc, kp, depth).total *
+           sizeof(T);
+  };
+  // one stage of n + P rows per knot where two such stages fit, else
+  // kRing rows in the deepest ring (4 stages down to 2) that fits
+  int kp = n + P, depth = 2;
+  if (bytes_of(kp, 2) > cap) {
+    kp = kRing;
+    for (depth = 4; depth > 2 && bytes_of(kp, depth) > cap; --depth) {
+    }
+  }
+  const size_t bytes = bytes_of(kp, depth);
+  e = altro::wide::prepare(kern, bytes);
+  if (e != cudaSuccess) return (int)e;
+  // 16-byte copies of the staged rows when every row starts aligned
+  const int v = 16 / (int)sizeof(T);
+  auto aligned = [](const void* p) { return ((uintptr_t)p & 15) == 0; };
+  const int vec = n % v == 0 && m % v == 0 && aligned(Q) && aligned(H) &&
+                  aligned(A) && aligned(Bm) && aligned(Cx) && aligned(Cu);
+  kern<<<Bt, NT, bytes, stream>>>(
+      (const T*)Q, (const T*)q, (const T*)R, (const T*)r, (const T*)H,
+      (const T*)A, (const T*)Bm, (const T*)Cx, (const T*)Cu, (const T*)cb,
+      (const T*)cmask, table, (const T*)X, (const T*)U, (const T*)rho,
+      (const T*)reg, (T*)K, (T*)d, (T*)dV1, (T*)dV2, Bt, N, n, m, P, vec, kp,
+      depth);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -989,19 +1451,13 @@ int launch_wide(const void* Q, const void* q, const void* R, const void* r,
                 const void* U, const void* rho, const void* reg, void* K,
                 void* d, void* dV1, void* dV2, int Bt, int N, int n, int m,
                 int P, cudaStream_t stream) {
-  const size_t bytes =
-      (size_t)(2 * n + m + P + work_elems(n, m, P, table.nsoc)) * sizeof(T);
-  cudaError_t e =
-      altro::wide::prepare(fused_expand_backward_wide<T>, bytes);
-  if (e != cudaSuccess) return (int)e;
-  fused_expand_backward_wide<T>
-      <<<Bt, altro::wide::kWideThreads, bytes, stream>>>(
-          (const T*)Q, (const T*)q, (const T*)R, (const T*)r, (const T*)H,
-          (const T*)A, (const T*)Bm, (const T*)Cx, (const T*)Cu,
-          (const T*)cb, (const T*)cmask, table, (const T*)X, (const T*)U,
-          (const T*)rho, (const T*)reg, (T*)K, (T*)d, (T*)dV1, (T*)dV2, Bt,
-          N, n, m, P);
-  return (int)cudaGetLastError();
+  const int W4 = altro::wide::pad4(n + m) / 4;
+  const bool small = (n + 3) / 4 * W4 <= 2 * kSmallThreads &&
+                     W4 * (W4 + 1) / 2 <= kSmallThreads &&
+                     n + m + P + 1 <= kSmallThreads;
+  return (small ? launch_wide_nt<T, kSmallThreads> : launch_wide_nt<T, kLargeThreads>)(
+      Q, q, R, r, H, A, Bm, Cx, Cu, cb, cmask, table, X, U, rho, reg, K, d,
+      dV1, dV2, Bt, N, n, m, P, stream);
 }
 
 template <typename T>

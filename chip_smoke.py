@@ -55,8 +55,9 @@ Phases, each printing its findings; any failure raises (non-zero exit):
       (n, m) = (35, 2), (45, 2), (55, 2) and (64, 64) with 8 NONPOS rows
       and one SOC block of 4 (N=21), at B=1 and B=1024, float32 and
       float64, under 3a-3f's gates (J per lane, the accepted rung as in
-      b); each kernel's ms, its plain version's and its bound printed at
-      B=1024; the float32 errors count in max_abs_err;
+      b); each kernel's ms, its plain version's, its bound and the share
+      of the bound it reaches printed at both batches; the float32 errors
+      count in max_abs_err;
 4. main paths, each on CUDA graphs (``altro_tpu_torch/solver/graph.py``:
    every MPC step, batch solve and cold solve as start, loop and finish
    graphs, the loop replayed with one host sync per k passes), with the
@@ -517,8 +518,8 @@ def wide_parity(dtype, tol, B):
     drivers' L=11 ladder and its init form, C at L=11 (J per lane against
     max(1, |J|), the accepted rung equal in float64, on at most 1% of the
     lanes in float32), under 3a-3f's gates. Returns {(n, m): {kernel:
-    ({output: max_abs_err}, ms, plain_ms, (bytes, flops))}}, timed only at
-    B=1024 (ms None otherwise)."""
+    ({output: max_abs_err}, ms, plain_ms, (bytes, flops))}}, timed at every
+    batch."""
     from altro_tpu_torch.bench.kernels import (QUAD_LADDER, WIDE_SHAPES,
                                                wide_inputs)
     from altro_tpu_torch.ops import riccati, riccati_fused, rollout, rollout_al
@@ -536,7 +537,6 @@ def wide_parity(dtype, tol, B):
             "batched_ls_rollout L=1": rollout.batched_ls_rollout_reference,
             "batched_ls_rollout_al":
             rollout_al.batched_ls_rollout_al_reference}
-    timed = B == 1024
     out = {}
     for n, m in WIDE_SHAPES:
         w = wide_inputs(dtype, dev, B, n, m)
@@ -560,10 +560,8 @@ def wide_parity(dtype, tol, B):
             ref = refs[name](*args)
             errs = errors(got, ref, outs, tol)
             del got
-            res[name] = (errs,
-                         time_ms(fn, kernel=True) if timed else None,
-                         time_ms(lambda: refs[name](*args)) if timed
-                         else None, w[work])
+            res[name] = (errs, time_ms(fn, kernel=True),
+                         time_ms(lambda: refs[name](*args)), w[work])
         cargs = w["ladder_al"]
         Xs, Us, J = la(*cargs, packed=packed)
         Xr, Ur, Jr = refs["batched_ls_rollout_al"](*cargs)
@@ -584,10 +582,9 @@ def wide_parity(dtype, tol, B):
                                  f"on {differ} lanes")
         del Xs, Us, Xr, Ur
         res["batched_ls_rollout_al"] = (
-            errs, time_ms(lambda: la(*cargs, packed=packed), kernel=True)
-            if timed else None,
-            time_ms(lambda: refs["batched_ls_rollout_al"](*cargs)) if timed
-            else None, w["ladder_al_work"])
+            errs, time_ms(lambda: la(*cargs, packed=packed), kernel=True),
+            time_ms(lambda: refs["batched_ls_rollout_al"](*cargs)),
+            w["ladder_al_work"])
         out[(n, m)] = res
         del w
         torch.cuda.empty_cache()
@@ -1291,15 +1288,13 @@ def main() -> None:
             for (n, m), res in wide[label, B].items():
                 for name, (errs, ms, plain_ms, work) in res.items():
                     errs_s = " ".join(f"{k}={v:.3e}" for k, v in errs.items())
-                    line = (f"parity {name} wide n={n} m={m} B={B} {label}: "
-                            f"max|kernel - plain| {errs_s}")
-                    if ms is not None:
-                        bnd, by = bound_ms(*work, 4 if label == "f32" else 8)
-                        line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-                                 f"ms, bound {bnd:.4f} ms ({by}: "
-                                 f"{work[0] / 1e6:.2f} MB, "
-                                 f"{work[1] / 1e9:.4f} GFLOP) [{card}]")
-                    print(line, flush=True)
+                    bnd, by = bound_ms(*work, 4 if label == "f32" else 8)
+                    print(f"parity {name} wide n={n} m={m} B={B} {label}: "
+                          f"max|kernel - plain| {errs_s}; kernel {ms:.4f} "
+                          f"ms, plain {plain_ms:.4f} ms, bound {bnd:.4f} ms "
+                          f"({by}: {work[0] / 1e6:.2f} MB, "
+                          f"{work[1] / 1e9:.4f} GFLOP), share "
+                          f"{bnd / ms:.2%} [{card}]", flush=True)
 
     def reset_counts():
         rollout.launch_count = 0

@@ -1,9 +1,15 @@
 """The four kernels at the TPU kernels' full width (n, m <= 64): on a CUDA
 device each kernel's wide body (n or m above 32) against its plain version
-at n in {33, 55, 64}, and each wrapper refusing n or m = 65; on the CPU the
-wide inputs through the wrappers' plain dispatch, and the state_dim sweep's
-widest point (n = 55, m = 2, N = 21) of the port's lockstep loop against
-the JAX package's.
+at n in {33, 55, 64}, and each wrapper refusing n or m = 65; the edges of
+kernel A's and B's wide mappings (and of the Riccati tail that D shares):
+one control, a narrow state beside the widest control, a control just past
+the group bodies at full state, the shortest horizon, one lane and 1023,
+ladders of 1 and 32 rungs, per-lane dynamics at 64, a NaN lane, and a lane
+whose Quu + reg I is indefinite (the clamped pivots, against a clamped
+recursion); on the CPU the wide inputs at every edge through the wrappers'
+plain dispatch, kernel A's byte count, and the state_dim sweep's widest
+point (n = 55, m = 2, N = 21) of the port's lockstep loop against the JAX
+package's.
 
 The kernel tests need no JAX:
 ``python -m pytest --noconftest -m cuda tests/test_torch_wide.py``."""
@@ -68,6 +74,250 @@ def test_wide_inputs_on_cpu():
                       rollout_al.launch_count, riccati.launch_count]
     nbytes, flops = bk.fused_work(1024, 21, 64, 64, 12, (4,), 8)
     assert nbytes > 0 and flops > 1024 * 21 * 2 * 64 ** 3
+
+
+# edges of the wide mappings (n, m, N): one control; a narrow state beside
+# the widest control; the full state with a control just past the group
+# bodies; the shortest horizon at full width and at the sweep's first wide
+# point
+EDGES = [(33, 1, 9), (2, 64, 9), (64, 33, 9), (64, 64, 2), (35, 2, 2)]
+
+
+def _edge_id(e):
+    return f"n{e[0]}m{e[1]}N{e[2]}"
+
+
+def _counts():
+    return (rollout.launch_count, riccati_fused.launch_count,
+            rollout_al.launch_count, riccati.launch_count)
+
+
+def _clamped_backward(A, B, lx, lu, lxx, luu, lux, reg):
+    """The plain Riccati recursion with the kernels' Cholesky: pivots
+    clamped as sqrt(max(., 1e-12)), a NaN kept, where the plain version
+    gives a failed factorization NaN gains."""
+    Bt, N, n = lx.shape
+    m = lu.shape[-1]
+    kw = dict(dtype=lx.dtype, device=lx.device)
+    Vx, Vxx = lx[:, -1], lxx[..., -1, :, :].expand(Bt, n, n)
+    dV1, dV2 = torch.zeros(Bt, **kw), torch.zeros(Bt, **kw)
+    Ks, ds = [], []
+
+    def mv(M, v):
+        return (M @ v[..., None])[..., 0]
+    for k in reversed(range(N - 1)):
+        Ak, Bk = A[..., k, :, :], B[..., k, :, :]
+        VA = Vxx @ Ak
+        Qx, Qu = lx[:, k] + mv(Ak.mT, Vx), lu[:, k] + mv(Bk.mT, Vx)
+        Qxx = lxx[..., k, :, :] + Ak.mT @ VA
+        Quu = luu[..., k, :, :] + Bk.mT @ (Vxx @ Bk)
+        Qux = lux[..., k, :, :] + Bk.mT @ VA
+        M = Quu + reg[:, None, None] * torch.eye(m, **kw)
+        L = torch.zeros_like(M)
+        for j in range(m):
+            dg = M[:, j, j] - (L[:, j, :j] ** 2).sum(-1)
+            piv = torch.sqrt(torch.where((dg > 1e-12) | torch.isnan(dg), dg,
+                                         torch.full_like(dg, 1e-12)))
+            L[:, j, j] = piv
+            L[:, j + 1:, j] = (M[:, j + 1:, j] - mv(L[:, j + 1:, :j],
+                                                    L[:, j, :j])) / piv[:, None]
+        sol = torch.cholesky_solve(torch.cat([Qux, Qu[..., None]], -1), L)
+        K, d = -sol[..., :-1], -sol[..., -1]
+        Quud = mv(Quu, d)
+        Vx = Qx + mv(K.mT, Quud) + mv(K.mT, Qu) + mv(Qux.mT, d)
+        Vxx = Qxx + K.mT @ (Quu @ K) + K.mT @ Qux + Qux.mT @ K
+        Vxx = 0.5 * (Vxx + Vxx.mT)
+        dV1 = dV1 + (d * Qu).sum(-1)
+        dV2 = dV2 + 0.5 * (d * Quud).sum(-1)
+        Ks.insert(0, K)
+        ds.insert(0, d)
+    return torch.stack(Ks, 1), torch.stack(ds, 1), dV1, dV2
+
+
+@pytest.mark.parametrize("edge", EDGES, ids=_edge_id)
+def test_wide_edges_on_cpu(edge):
+    """Each edge's wide inputs through every wrapper's plain dispatch (no
+    launch): the output shapes, kernel B's plain version against kernel D's
+    on B's own expansion, the SOC block present above m = 4."""
+    n, m, N = edge
+    w = bk.wide_inputs(torch.float64, torch.device("cpu"), 2, n, m, N=N)
+    counts = _counts()
+    got = riccati_fused.fused_expand_backward(*w["fused"],
+                                              packed=w["packed"])
+    assert [tuple(g.shape) for g in got] == [(2, N - 1, m, n), (2, N - 1, m),
+                                             (2,), (2,)]
+    _close(riccati.batched_riccati(*w["riccati"]), got, 1e-12)
+    Xs, Us = rollout.batched_ls_rollout(*w["ladder"])
+    assert Xs.shape == (2, 11, N, n) and Us.shape == (2, 11, N - 1, m)
+    Xi, Ui = rollout.batched_ls_rollout(*w["init"])
+    assert Xi.shape == (2, 1, N, n) and torch.isfinite(Xi).all()
+    Xa, Ua, J = rollout_al.batched_ls_rollout_al(*w["ladder_al"])
+    assert torch.equal(Xa, Xs) and torch.equal(Ua, Us) and J.shape == (2, 11)
+    assert (m > 4) == any(c == 2 for _, _, c in w["packed"].meta)
+    assert counts == _counts()
+
+
+def test_rollout_work_counts_k_once():
+    """Kernel A's bytes read each scenario's K once whatever L: the hand
+    count at n = m = 64, B = 1024, N = 21, L = 11 (float32), and only the
+    outputs grow with L."""
+    Bt, N, n, m, L, N1 = 1024, 21, 64, 64, 11, 20
+    hand = 4 * (N1 * (n * n + n * m + n)          # shared A, B, dd
+                + Bt * N * n                        # Xbar
+                + Bt * N1 * (2 * m + m * n)         # Ubar, d, K: once each
+                + Bt * L * (N * n + N1 * m))        # Xs, Us written
+    nbytes, flops = bk.rollout_work(Bt, N, n, m, L, False, 4)
+    assert nbytes == hand
+    assert nbytes - bk.rollout_work(Bt, N, n, m, 1, False, 4)[0] == (
+        4 * Bt * (L - 1) * (N * n + N1 * m))
+    assert flops == Bt * L * N1 * (2 * n + 2 * m * n + 2 * m + 2 * n * n
+                                   + 2 * n * m)
+
+
+def test_clamped_reference_is_plain_where_definite():
+    """Where every pivot of Quu + reg I stays above the clamp, the tests'
+    clamped recursion is the plain version (to round-off)."""
+    w = bk.wide_inputs(torch.float64, torch.device("cpu"), 3, 33, 1, N=4)
+    _close(_clamped_backward(*w["riccati"]),
+           riccati.batched_riccati_reference(*w["riccati"]), 1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("edge", EDGES, ids=_edge_id)
+@pytest.mark.parametrize("Bt", [1, 1023])
+def test_wide_edges_match_plain_versions(cuda, edge, Bt, dtype, tol):
+    """B, D and A (L=11 and its init form) at each edge against their plain
+    versions, under ``_close``; one launch each (A two)."""
+    from altro_tpu_torch.convert import tree_to
+    n, m, N = edge
+    w = bk.wide_inputs(dtype, cuda, Bt, n, m, N=N)
+
+    def truth(fn, args):
+        return fn(*tree_to(args, cuda, torch.float64))
+    counts = _counts()
+    _close(riccati_fused.fused_expand_backward(*w["fused"],
+                                               packed=w["packed"]),
+           w["fused_ref"], tol,
+           truth(riccati_fused.fused_expand_backward_reference, w["fused"]))
+    _close(riccati.batched_riccati(*w["riccati"]),
+           riccati.batched_riccati_reference(*w["riccati"]), tol,
+           truth(riccati.batched_riccati_reference, w["riccati"]))
+    for key in ("ladder", "init"):
+        _close(rollout.batched_ls_rollout(*w[key]),
+               rollout.batched_ls_rollout_reference(*w[key]), tol,
+               truth(rollout.batched_ls_rollout_reference, w[key]))
+    assert _counts() == (counts[0] + 2, counts[1] + 1, counts[2],
+                         counts[3] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("L", [1, 32])
+@pytest.mark.parametrize("Bt", [1, 1023])
+def test_wide_ladder_lengths(cuda, L, Bt, dtype, tol):
+    """Kernel A's wide body at n = m = 64 with ladders of 1 and 32 rungs
+    (the rungs of a scenario in one block, or in chunks at one lane)."""
+    from altro_tpu_torch.convert import tree_to
+    w = bk.wide_inputs(dtype, cuda, Bt, 64, 64, N=9)
+    args = w["ladder"][:-1] + (tuple(0.5 ** i for i in range(L)),)
+    _close(rollout.batched_ls_rollout(*args),
+           rollout.batched_ls_rollout_reference(*args), tol,
+           rollout.batched_ls_rollout_reference(
+               *tree_to(args, cuda, torch.float64)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("Bt", [1, 1023])
+def test_wide_per_lane_dynamics_at_64(cuda, Bt, dtype, tol):
+    """Kernels A and D with per-lane dynamics at n = m = 64."""
+    from altro_tpu_torch.convert import tree_to
+    w = bk.wide_inputs(dtype, cuda, Bt, 64, 64, N=7)
+    A, B, dd = w["ladder"][:3]
+    rng = np.random.default_rng(4)
+    scale = torch.as_tensor(1.0 + 0.1 * rng.standard_normal((Bt, 1, 1, 1)),
+                            dtype=dtype, device=cuda)
+    A = (A[None] * scale).contiguous()
+    B = (B[None] * scale).contiguous()
+    dd = dd[None].expand(Bt, -1, -1).contiguous()
+    largs = (A, B, dd) + w["ladder"][3:]
+    rargs = (A, B) + w["riccati"][2:]
+    _close(rollout.batched_ls_rollout(*largs),
+           rollout.batched_ls_rollout_reference(*largs), tol,
+           rollout.batched_ls_rollout_reference(
+               *tree_to(largs, cuda, torch.float64)))
+    _close(riccati.batched_riccati(*rargs),
+           riccati.batched_riccati_reference(*rargs), tol,
+           riccati.batched_riccati_reference(
+               *tree_to(rargs, cuda, torch.float64)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("widths", [(40, 3), (64, 64)],
+                         ids=lambda w: f"n{w[0]}m{w[1]}")
+def test_wide_nan_lane_stays_in_its_lane(cuda, widths, dtype, tol):
+    """A NaN state (B), gradient (D) or gain (A) of lane 1 at knot 2 gives
+    the plain version's NaN pattern in that lane; the other lanes agree
+    with the plain version."""
+    w = bk.wide_inputs(dtype, cuda, 5, *widths, N=6)
+    f = list(w["fused"])
+    f[4] = f[4].clone()
+    f[4][1, 2, 0] = float("nan")
+    r = list(w["riccati"])
+    r[2] = r[2].clone()
+    r[2][1, 2, 0] = float("nan")
+    a = list(w["ladder"])
+    a[5] = a[5].clone()
+    a[5][1, 2, 0, 0] = float("nan")
+    keep = [0, 2, 3, 4]
+    for got, ref in (
+            (riccati_fused.fused_expand_backward(*f, packed=w["packed"]),
+             riccati_fused.fused_expand_backward_reference(*f)),
+            (riccati.batched_riccati(*r),
+             riccati.batched_riccati_reference(*r)),
+            (rollout.batched_ls_rollout(*a),
+             rollout.batched_ls_rollout_reference(*a))):
+        for g, rf in zip(got, ref):
+            assert torch.equal(torch.isnan(g[1]), torch.isnan(rf[1]))
+        assert any(bool(torch.isnan(rf[1]).any()) for rf in ref)
+        _close([g[keep] for g in got], [rf[keep] for rf in ref], tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", TOLS)
+def test_wide_clamped_pivot_lane(cuda, dtype, tol):
+    """Lane 1's Quu + reg I indefinite (reg = -1e6) at n = 33, m = 1, N = 2:
+    kernels B and D clamp its pivot as the TPU kernels do (the plain
+    version gives NaN), against the clamped recursion on B's own expansion;
+    the other lanes as the plain version."""
+    from altro_tpu_torch.constraints import DualState
+    from altro_tpu_torch.convert import tree_to
+    from altro_tpu_torch.solver.altro import _al_expansion_cd
+    w = bk.wide_inputs(dtype, cuda, 3, 33, 1, N=2)
+    f = list(w["fused"])
+    f[8] = f[8].clone()
+    f[8][1] = -1e6
+    cost, dynA, dynB, blocks, X, U, lams, rhos, reg = f
+
+    def clamped(args):
+        cost, dynA, dynB, blocks, X, U, lams, rhos, reg = args
+        ex = _al_expansion_cd(cost, blocks,
+                              tuple(DualState(lam=lam, rho=rho)
+                                    for lam, rho in zip(lams, rhos)), X, U)
+        return _clamped_backward(dynA, dynB, *ex, reg)
+    ref = clamped(f)
+    truth = clamped(tree_to(tuple(f), cuda, torch.float64))
+    plain = riccati_fused.fused_expand_backward_reference(*f)
+    assert bool(torch.isnan(plain[0][1]).all())
+    assert float(ref[0][1].abs().max()) > 1e9   # the clamp took effect
+    _close(riccati_fused.fused_expand_backward(*f, packed=w["packed"]), ref,
+           tol, truth)
+    r = list(w["riccati"])
+    r[-1] = f[8]
+    _close(riccati.batched_riccati(*r), _clamped_backward(*r), tol,
+           _clamped_backward(*tree_to(tuple(r), cuda, torch.float64)))
 
 
 @pytest.mark.cuda
