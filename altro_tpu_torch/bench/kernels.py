@@ -8,8 +8,10 @@ Prints one line per (kernel, shape, dtype): the kernel's device time (see
 :func:`time_ms`: CUDA events around REPS back-to-back launches queued behind
 a sleep on the stream, divided by REPS) and its bound, the least time the
 card could take: the larger of the bytes the function must move (each input
-read once, each output written once) over 3.35 TB/s and its FLOPs over 67
-TFLOP/s (float32) or 34 TFLOP/s (float64) outside the tensor cores (H100
+read once, each output written once) over 3.35 TB/s and its FLOPs over the
+card's peak for their type, 67 TFLOP/s in float32 (outside the tensor
+cores: the port keeps float32 at full precision, so TF32 is barred) and 67
+TFLOP/s in float64 (through the tensor cores' DMMA; 34 outside them) (H100
 SXM data sheet). A runs at the flagship's L=3 and L=1 and the quadruped's
 per-lane L=11, B on the flagship and the rocket window, C on the rocket
 window at L=6, D on the quadruped's per-lane expansion; B also on grasp's
@@ -51,7 +53,7 @@ ROCKET_LADDER = (1.0, 0.5, 0.25, 0.125, 0.0625, 0.0)
 GRASP_LADDER = (1.0, 0.5, 0.0)
 FLEX_LADDER = (1.0, 0.5, 0.25, 0.125, 0.0625, 0.0)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {4: 67e12, 8: 34e12}   # by element size: f32, f64
+PEAK_FLOPS = {4: 67e12, 8: 67e12}   # by element size: f32, f64
 # launches per timing, and the sleep they queue behind (cycles at the
 # H100's 1.98 GHz boost clock; a lower clock sleeps longer)
 REPS = 20

@@ -203,28 +203,29 @@ int launch_group(const T* A, const T* Bm, const T* dd, int per_lane,
   return (int)cudaGetLastError();
 }
 
-// The wide body, for n or m above kNarrowDim (up to kMaxDim); it replaces
-// the TPU kernel altro_tpu/ops/rollout.py: batched_ls_rollout at those
-// widths. As the TPU kernel does (rollout.py:52-87), one block carries
-// every rung of a scenario's ladder, or a chunk of Lc rungs on grid.y when
-// the batch is too small to fill the card: the rungs are the columns of two
-// small products per knot,
+// The wide bodies, for n or m above kNarrowDim (up to kMaxDim); they
+// replace the TPU kernel altro_tpu/ops/rollout.py: batched_ls_rollout at
+// those widths. The launcher splits a scenario's ladder into chunks of Lc
+// rungs along grid.y, as many as it takes to give every SM a block, and
+// picks the body by Lc.
+//
+// The ladder body (Lc >= kLadderRungs). As the TPU kernel does
+// (rollout.py:52-87), one block carries a chunk of a scenario's ladder:
+// the rungs are the columns of two small products per knot,
 //
 //   U_k     = ubar_k 1' + d_k alpha' + K_k (X_k - xbar_k 1')  [m x n][n x Lc]
 //   X_{k+1} = A_k X_k + B_k U_k + dd_k 1'          [n x (n + m)][(n + m) x Lc]
 //
-// each as a tiled product: 4 rows x 2 rungs per 2 or 4 threads (4 while
-// the batch leaves SMs idle), which take alternate 4-steps of the inner
-// dimension (one 4-vector of each row and of each rung's state per step)
-// and add their sums by shuffles, so that the chain a knot waits for is a
-// half or a quarter of the dot product. A knot's rows come into shared memory by
-// cp.async (16-byte copies when the widths allow), neighbouring threads on
-// neighbouring addresses: the scenario's K_k, d_k, ubar_k, xbar_k one knot
-// ahead (double buffer), and A_k, B_k, dd_k (shared, or the scenario's when
-// per lane) either one knot ahead too, or, where two knots of them would
-// leave fewer blocks per SM than the batch can use, during the knot's
-// first product. So each scenario's K is read once whatever L, and every
-// block streams the shared rows once per knot; the stores of U_k and X_{k+1}
+// each as a tiled product: 4 rows x 2 rungs per pair of threads, which take
+// alternate 4-steps of the inner dimension (one 4-vector of each row and
+// of each rung's state per step) and add their sums by a shuffle, so that
+// the chain a knot waits for is half the dot product. A knot's rows come
+// into shared memory by cp.async (16-byte copies when the widths allow),
+// neighbouring threads on neighbouring addresses: the scenario's K_k, d_k,
+// ubar_k, xbar_k one knot ahead (double buffer), and A_k, B_k, dd_k
+// (shared, or the scenario's when per lane) during the knot's first
+// product. So each scenario's K is read once whatever L, and every block
+// streams the dynamics rows once per knot; the stores of U_k and X_{k+1}
 // run along rows. Rows are padded to an odd count of 16-byte pieces, so
 // threads reading one column of different rows hit different banks, and
 // the padding holds zeros.
@@ -234,7 +235,18 @@ int launch_group(const T* A, const T* Bm, const T* dd, int per_lane,
 // 3.35 TB/s in float32), against ~5.5 GFLOP (0.08 ms). What it reaches is
 // set by two barriers and two short product chains per knot, overlapped
 // across the blocks of an SM.
+//
+// The rung body (Lc < kLadderRungs: one lane, or the init form's single
+// rung): a block of kRungThreads threads per (scenario, rung) on grid
+// (Bt, L), thread i owning row i of u and of x+, with x, dx and u exchanged
+// through shared memory and the block barrier; the rows are read from
+// device memory, thread i striding along row i of K, A and B. A chunk of
+// few rungs leaves the ladder body's tiles half empty and its staging
+// without reuse, and at one lane the rung body's L blocks spread the
+// ladder over L SMs (PERF.md: the two bodies on either side).
 constexpr int kRollThreads = 256;
+constexpr int kLadderRungs = 4;
+constexpr int kRungThreads = altro::kMaxDim;
 
 // Row stride for rows of w elements: a multiple of 4 elements (two for
 // float64) and an odd number of 16-byte pieces.
@@ -244,15 +256,14 @@ __host__ __device__ inline int row_ld(int w, int elem) {
   return (ld / v) % 2 == 0 ? ld + v : ld;
 }
 
-// Offsets (in elements) of the wide body's shared memory: two stages of
-// the scenario rows (K [m x ldx], d, ubar, xbar), one or two of the
-// dynamics rows (A [n x ldx], B [n x ldu], dd), two states [Lc x ldx], the
-// controls [Lc x ldu] and the chunk's step sizes.
+// Offsets (in elements) of the ladder body's shared memory: two stages of
+// the scenario rows (K [m x ldx], d, ubar, xbar), one of the dynamics rows
+// (A [n x ldx], B [n x ldu], dd), two states [Lc x ldx], the controls
+// [Lc x ldu] and the chunk's step sizes.
 struct RollLayout {
   int ldx, ldu, kst, od, oub, oxb, ast, oB, odd, kbuf, abuf, X, xst, U,
       alpha, total;
-  __host__ __device__ RollLayout(int n, int m, int Lc, int elem, int ab2,
-                                 int direct) {
+  __host__ __device__ RollLayout(int n, int m, int Lc, int elem) {
     using altro::wide::pad4;
     ldx = row_ld(n, elem);
     ldu = row_ld(m, elem);
@@ -265,7 +276,7 @@ struct RollLayout {
     ast = odd + pad4(n);
     kbuf = 0;
     abuf = 2 * kst;
-    X = abuf + (direct ? 0 : ab2 ? 2 : 1) * ast;
+    X = abuf + ast;
     xst = pad4(Lc * ldx);
     U = X + 2 * xst;
     alpha = U + pad4(Lc * ldu);
@@ -273,19 +284,19 @@ struct RollLayout {
   }
 };
 
-template <typename T, int SPLIT>
+template <typename T>
 __global__ void __launch_bounds__(kRollThreads, sizeof(T) == 8 ? 4 : 3)
 ls_rollout_wide(const T* __restrict__ A, const T* __restrict__ Bm,
                 const T* __restrict__ dd, int per_lane,
                 const T* __restrict__ Xbar, const T* __restrict__ Ubar,
                 const T* __restrict__ K, const T* __restrict__ d,
-                Ladder<T> ladder, int L, int Lc, int ab2, int direct,
-                int vec_n, int vec_m, T* __restrict__ Xs,
-                T* __restrict__ Us, int Bt, int N, int n, int m) {
+                Ladder<T> ladder, int L, int Lc, int vec_n, int vec_m,
+                T* __restrict__ Xs, T* __restrict__ Us, int Bt, int N, int n,
+                int m) {
   namespace wd = altro::wide;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
-  const RollLayout lo(n, m, Lc, (int)sizeof(T), ab2, direct);
+  const RollLayout lo(n, m, Lc, (int)sizeof(T));
   const int t = threadIdx.x, nt = blockDim.x, N1 = N - 1;
   const int b = blockIdx.x, l0 = blockIdx.y * Lc, lc = min(Lc, L - l0);
   const int ldx = lo.ldx, ldu = lo.ldu;
@@ -324,7 +335,7 @@ ls_rollout_wide(const T* __restrict__ A, const T* __restrict__ Bm,
                       false, sp_n1);
   };
   auto stage_ab = [&](int k) {
-    T* dst = smem + lo.abuf + (ab2 ? (k & 1) * lo.ast : 0);
+    T* dst = smem + lo.abuf;
     const size_t kd = per_lane ? (size_t)b * N1 + k : (size_t)k;
     altro::stage_rows(dst, ldx, A + kd * n * n, n, n, vec_n, sp_n);
     altro::stage_rows(dst + lo.oB, ldu, Bm + kd * n * m, n, m, vec_m, sp_m);
@@ -332,26 +343,21 @@ ls_rollout_wide(const T* __restrict__ A, const T* __restrict__ Bm,
   };
 
   stage_k(0);
-  if (ab2 && !direct) stage_ab(0);
   altro::cp_async_commit();
   const int RU = (m + 3) / 4, RX = (n + 3) / 4, LT = (lc + 1) / 2;
-  // SPLIT threads (2 or 4) per tile: each takes every SPLIT-th 4-step of
-  // the inner dimension, they add their sums by shuffles, and each stores
-  // every SPLIT-th row of the tile
-  constexpr int split = SPLIT;
-  const int part = t % split, quad = t / split, quads = nt / split;
+  // two threads per tile: each takes every other 4-step of the inner
+  // dimension, they add their sums by a shuffle, and each stores every
+  // other row of the tile
+  const int part = t & 1, pair = t >> 1, pairs = nt >> 1;
   for (int k = 0; k < N1; ++k) {
-    // knot k's rows have landed (and with ab2 its dynamics), and every
-    // thread is past knot k-1, whose stages the next copies take
+    // knot k's rows have landed, and every thread is past knot k-1, whose
+    // stages the next copies take: knot k's dynamics now, knot k+1's rows
     altro::cp_async_wait_all();
     __syncthreads();
-    if (!ab2 && !direct) {
-      stage_ab(k);
-      altro::cp_async_commit();
-    }
+    stage_ab(k);
+    altro::cp_async_commit();
     if (k + 1 < N1) {
       stage_k(k + 1);
-      if (ab2 && !direct) stage_ab(k + 1);
       altro::cp_async_commit();
     }
     const T* kb = smem + lo.kbuf + (k & 1) * lo.kst;
@@ -365,13 +371,13 @@ ls_rollout_wide(const T* __restrict__ A, const T* __restrict__ Bm,
 
     // U_k: rows i0..i0+3, rungs 2 lt and 2 lt + 1 (the row tiles fastest,
     // so that neighbouring threads store neighbouring entries)
-    for (int base = 0; base < RU * LT; base += quads) {
-      const int qq = min(base + quad, RU * LT - 1);
-      const bool on = base + quad < RU * LT;
+    for (int base = 0; base < RU * LT; base += pairs) {
+      const int qq = min(base + pair, RU * LT - 1);
+      const bool on = base + pair < RU * LT;
       const int i0 = (qq % RU) * 4, lt = qq / RU;
       const int la = min(2 * lt, lc - 1), lb = min(2 * lt + 1, lc - 1);
       T acc[4][2] = {};
-      for (int p = 4 * part; p < n; p += 4 * split) {
+      for (int p = 4 * part; p < n; p += 8) {
         T xb[4], xa[4], xc[4];
         wd::ld4(xbk + p, xb);
         wd::ld4(Xc + la * ldx + p, xa);
@@ -393,17 +399,15 @@ ls_rollout_wide(const T* __restrict__ A, const T* __restrict__ Bm,
         }
       }
 #pragma unroll
-      for (int o = 1; o < split; o <<= 1)
+      for (int rr = 0; rr < 4; ++rr)
 #pragma unroll
-        for (int rr = 0; rr < 4; ++rr)
-#pragma unroll
-          for (int c = 0; c < 2; ++c)
-            acc[rr][c] += __shfl_xor_sync(wd::kFullMask, acc[rr][c], o);
+        for (int c = 0; c < 2; ++c)
+          acc[rr][c] += __shfl_xor_sync(wd::kFullMask, acc[rr][c], 1);
       if (!on) continue;
 #pragma unroll
       for (int rr = 0; rr < 4; ++rr) {
         const int i = i0 + rr;
-        if (rr % split != part || i >= m) continue;
+        if ((rr & 1) != part || i >= m) continue;
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
           const int l = 2 * lt + c;
@@ -414,43 +418,30 @@ ls_rollout_wide(const T* __restrict__ A, const T* __restrict__ Bm,
         }
       }
     }
-    // U_k complete, and (staged during the knot) knot k's dynamics landed
-    if (!ab2 && !direct && k + 1 < N1)
+    // U_k complete, and knot k's dynamics landed
+    if (k + 1 < N1)
       altro::cp_async_wait_group<1>();
-    else if (!ab2 && !direct)
+    else
       altro::cp_async_wait_all();
     __syncthreads();
-    // knot k's dynamics: staged (row strides ldx, ldu) or, in the direct
-    // mode, in device memory (row strides n, m; padding read as zeros)
-    const size_t kd = per_lane ? (size_t)b * N1 + k : (size_t)k;
-    const T* ab = smem + lo.abuf + (ab2 ? (k & 1) * lo.ast : 0);
-    const T* Ak = direct ? A + kd * n * n : ab;
-    const T* Bk = direct ? Bm + kd * n * m : ab + lo.oB;
-    const T* ddk = direct ? dd + kd * n : ab + lo.odd;
-    auto row4 = [&](const T* M, int ld, int w, int i, int p, T* r) {
-      if (direct) {
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          r[c] = p + c < w ? __ldg(M + (size_t)i * w + p + c) : T(0);
-      } else {
-        wd::ld4(M + i * ld + p, r);
-      }
-    };
+    const T* Ak = smem + lo.abuf;
+    const T* Bk = Ak + lo.oB;
+    const T* ddk = Ak + lo.odd;
     // X_{k+1} = (A X + B U) + dd, split as U_k
-    for (int base = 0; base < RX * LT; base += quads) {
-      const int qq = min(base + quad, RX * LT - 1);
-      const bool on = base + quad < RX * LT;
+    for (int base = 0; base < RX * LT; base += pairs) {
+      const int qq = min(base + pair, RX * LT - 1);
+      const bool on = base + pair < RX * LT;
       const int i0 = (qq % RX) * 4, lt = qq / RX;
       const int la = min(2 * lt, lc - 1), lb = min(2 * lt + 1, lc - 1);
       T acc[4][2] = {};
-      for (int p = 4 * part; p < n; p += 4 * split) {
+      for (int p = 4 * part; p < n; p += 8) {
         T xa[4], xc[4];
         wd::ld4(Xc + la * ldx + p, xa);
         wd::ld4(Xc + lb * ldx + p, xc);
 #pragma unroll
         for (int rr = 0; rr < 4; ++rr) {
           T ar[4];
-          row4(Ak, ldx, n, min(i0 + rr, n - 1), p, ar);
+          wd::ld4(Ak + min(i0 + rr, n - 1) * ldx + p, ar);
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
             acc[rr][0] += ar[c] * xa[c];
@@ -458,14 +449,14 @@ ls_rollout_wide(const T* __restrict__ A, const T* __restrict__ Bm,
           }
         }
       }
-      for (int p = 4 * part; p < m; p += 4 * split) {
+      for (int p = 4 * part; p < m; p += 8) {
         T ua[4], uc[4];
         wd::ld4(Uc + la * ldu + p, ua);
         wd::ld4(Uc + lb * ldu + p, uc);
 #pragma unroll
         for (int rr = 0; rr < 4; ++rr) {
           T br[4];
-          row4(Bk, ldu, m, min(i0 + rr, n - 1), p, br);
+          wd::ld4(Bk + min(i0 + rr, n - 1) * ldu + p, br);
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
             acc[rr][0] += br[c] * ua[c];
@@ -474,22 +465,20 @@ ls_rollout_wide(const T* __restrict__ A, const T* __restrict__ Bm,
         }
       }
 #pragma unroll
-      for (int o = 1; o < split; o <<= 1)
+      for (int rr = 0; rr < 4; ++rr)
 #pragma unroll
-        for (int rr = 0; rr < 4; ++rr)
-#pragma unroll
-          for (int c = 0; c < 2; ++c)
-            acc[rr][c] += __shfl_xor_sync(wd::kFullMask, acc[rr][c], o);
+        for (int c = 0; c < 2; ++c)
+          acc[rr][c] += __shfl_xor_sync(wd::kFullMask, acc[rr][c], 1);
       if (!on) continue;
 #pragma unroll
       for (int rr = 0; rr < 4; ++rr) {
         const int i = i0 + rr;
-        if (rr % split != part || i >= n) continue;
+        if ((rr & 1) != part || i >= n) continue;
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
           const int l = 2 * lt + c;
           if (l >= lc) break;
-          const T x = acc[rr][c] + (direct ? __ldg(ddk + i) : ddk[i]);
+          const T x = acc[rr][c] + ddk[i];
           Xn[l * ldx + i] = x;
           Xs[(((size_t)b * L + l0 + l) * N + k + 1) * n + i] = x;
         }
@@ -499,57 +488,95 @@ ls_rollout_wide(const T* __restrict__ A, const T* __restrict__ Bm,
 }
 
 template <typename T>
+__global__ void __launch_bounds__(kRungThreads)
+ls_rollout_wide_rung(const T* __restrict__ A, const T* __restrict__ Bm,
+                const T* __restrict__ dd, int per_lane,
+                const T* __restrict__ Xbar, const T* __restrict__ Ubar,
+                const T* __restrict__ K, const T* __restrict__ d,
+                Ladder<T> ladder, int L, T* __restrict__ Xs,
+                T* __restrict__ Us, int Bt, int N, int n, int m) {
+  __shared__ T xs[altro::kMaxDim], dxs[altro::kMaxDim], us[altro::kMaxDim];
+  const int b = blockIdx.x, l = blockIdx.y, t = threadIdx.x, N1 = N - 1;
+  T alpha = T(0);
+#pragma unroll
+  for (int i = 0; i < altro::kMaxRungs; ++i)
+    if (i == l) alpha = ladder.a[i];
+  T* Xo = Xs + ((size_t)b * L + l) * N * n;
+  T* Uo = Us + ((size_t)b * L + l) * N1 * m;
+  const T* xb = Xbar + (size_t)b * N * n;
+  if (t < n) {
+    xs[t] = xb[t];
+    Xo[t] = xb[t];
+  }
+  for (int k = 0; k < N1; ++k) {
+    if (t < n) dxs[t] = xs[t] - xb[(size_t)k * n + t];
+    __syncthreads();
+    if (t < m) {
+      const size_t ku = (size_t)b * N1 + k;
+      const T* Kr = K + (ku * m + t) * n;
+      T kd = T(0);
+      for (int p = 0; p < n; ++p) kd += Kr[p] * dxs[p];
+      const T u = (Ubar[ku * m + t] + alpha * d[ku * m + t]) + kd;
+      us[t] = u;
+      Uo[(size_t)k * m + t] = u;
+    }
+    __syncthreads();
+    T x = T(0);
+    if (t < n) {
+      const size_t kd = per_lane ? (size_t)b * N1 + k : (size_t)k;
+      const T* Ar = A + (kd * n + t) * n;
+      const T* Br = Bm + (kd * n + t) * m;
+      T acc = T(0);
+      for (int p = 0; p < n; ++p) acc += Ar[p] * xs[p];
+      for (int p = 0; p < m; ++p) acc += Br[p] * us[p];
+      x = acc + dd[kd * n + t];
+    }
+    __syncthreads();
+    if (t < n) {
+      xs[t] = x;
+      Xo[(size_t)(k + 1) * n + t] = x;
+    }
+  }
+}
+
+template <typename T>
 int launch_wide(const T* A, const T* Bm, const T* dd, int per_lane,
                 const T* Xbar, const T* Ubar, const T* K, const T* d,
                 const Ladder<T>& ladder, int L, T* Xs, T* Us, int Bt, int N,
                 int n, int m, cudaStream_t stream) {
-  // rung chunks: as many as it takes to give every SM a block, at most L
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return (int)e;
-  }
+  // rung chunks: as many as it takes to give every SM of this device a
+  // block, at most L
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
   int chunks = std::min(L, std::max(1, (sms + Bt - 1) / Bt));
   const int Lc = (L + chunks - 1) / chunks;
   chunks = (L + Lc - 1) / Lc;
-  // while the blocks do not fill the SMs (a small batch): the dynamics rows
-  // one knot ahead where the work space fits, and four threads per tile;
-  // otherwise the dynamics during the knot and two threads per tile. At a
-  // large batch a block of fewer than 4 rungs whose rows take no 16-byte
-  // copies reads the dynamics from device memory (through L1) instead, four
-  // threads per tile: staging them element by element would not pay for
-  // their few uses. At a large batch the block is as wide as its tiles need
-  // (at least 128 threads, 64 without staged dynamics), so that more
-  // scenarios share an SM; at a small batch it takes kRollThreads, which
-  // stage a knot's rows sooner.
-  const int elem = (int)sizeof(T);
-  int ab2 = (long)Bt * chunks <= sms;
-  const int direct = !ab2 && Lc < 4 && n % (16 / elem) != 0;
-  const int split = ab2 || direct ? 4 : 2;
-  size_t bytes =
-      (size_t)RollLayout(n, m, Lc, elem, ab2, direct).total * elem;
-  if (ab2 && bytes > 232448) {
-    ab2 = 0;
-    bytes = (size_t)RollLayout(n, m, Lc, elem, 0, direct).total * elem;
+  if (Lc < kLadderRungs) {
+    ls_rollout_wide_rung<T>
+        <<<dim3((unsigned)Bt, (unsigned)L), kRungThreads, 0, stream>>>(
+            A, Bm, dd, per_lane, Xbar, Ubar, K, d, ladder, L, Xs, Us, Bt, N,
+            n, m);
+    return (int)cudaGetLastError();
   }
-  const int tiles = ((n > m ? n : m) + 3) / 4 * ((Lc + 1) / 2) * split;
+  // as many threads as the tiles need (at least 128, at most kRollThreads)
+  const int elem = (int)sizeof(T);
+  const size_t bytes = (size_t)RollLayout(n, m, Lc, elem).total * elem;
+  const int tiles = ((n > m ? n : m) + 3) / 4 * ((Lc + 1) / 2) * 2;
   const int threads =
-      ab2 ? kRollThreads
-          : std::min(kRollThreads,
-                     std::max(direct ? 64 : 128, (tiles + 31) / 32 * 32));
-  auto kern = split == 4 ? ls_rollout_wide<T, 4> : ls_rollout_wide<T, 2>;
-  cudaError_t e = altro::wide::prepare(kern, bytes);
+      std::min(kRollThreads, std::max(128, (tiles + 31) / 32 * 32));
+  e = altro::wide::prepare(ls_rollout_wide<T>, bytes);
   if (e != cudaSuccess) return (int)e;
   const int v = 16 / elem;
   auto aligned = [](const void* p) { return ((uintptr_t)p & 15) == 0; };
   const int vec_n = n % v == 0 && aligned(A) && aligned(K);
   const int vec_m = m % v == 0 && aligned(Bm);
-  kern<<<dim3((unsigned)Bt, (unsigned)chunks), threads, bytes, stream>>>(
-      A, Bm, dd, per_lane, Xbar, Ubar, K, d, ladder, L, Lc, ab2, direct,
-      vec_n, vec_m, Xs, Us, Bt, N, n, m);
+  ls_rollout_wide<T>
+      <<<dim3((unsigned)Bt, (unsigned)chunks), threads, bytes, stream>>>(
+          A, Bm, dd, per_lane, Xbar, Ubar, K, d, ladder, L, Lc, vec_n, vec_m,
+          Xs, Us, Bt, N, n, m);
   return (int)cudaGetLastError();
 }
 

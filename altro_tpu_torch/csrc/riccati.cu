@@ -90,6 +90,7 @@
 #include "common.cuh"
 #include "ptx.cuh"
 #include "wide.cuh"
+#include "wide_entry.cuh"
 
 namespace {
 
@@ -812,44 +813,33 @@ int launch_group(const void* A, const void* Bm, int per_lane, const void* lx,
 
 // The wide body, for n or m above kNarrowDim (up to kMaxDim): one block of
 // wide::kWideThreads threads per scenario, the expansion and the dynamics
-// read from device memory, V A and V B one entry per thread (wide::vab),
-// the Q blocks one entry per thread into the Riccati tail's layout
-// (wide.cuh: Qxx's upper triangle in Vq, Qux, Qu, Qx, Quu whole in a
-// buffer that wide::load_aug copies into aug), then wide.cuh's tail: the
-// blocked factor and solves, Quu K and V as tiled products (shared with
-// kernel B's wide body). As in the group body, below the terminal knot
-// only the upper triangle of lxx and the lower triangle of luu are read.
-// Work space at n = m = 64 in float64: ~203 KB (V A and V B share a region
-// with aug and Quu K, which follow them). At most 128 registers a thread,
-// two blocks per SM where the work space allows: the tail's functions
-// would otherwise lift the body to ~236 registers and one block per SM.
+// read from device memory, the work space in shared memory (Qxx's upper
+// triangle in Vxx's place, Qx beside it), and the entry-per-thread
+// Riccati tail of wide_entry.cuh (kernel B's blocked tail in wide.cuh cost
+// this body up to 57% at m = 2; see there). As in the group body, below
+// the terminal knot only the upper triangle of lxx and the lower triangle
+// of luu are read.
 template <typename T>
-__global__ void __launch_bounds__(altro::wide::kWideThreads, 2) riccati_wide(
+__global__ void __launch_bounds__(altro::wide::kWideThreads) riccati_wide(
     const T* __restrict__ A, const T* __restrict__ Bm, int per_lane,
     const T* __restrict__ lx, const T* __restrict__ lu,
     const T* __restrict__ lxx, const T* __restrict__ luu,
     const T* __restrict__ lux, const T* __restrict__ reg,
     T* __restrict__ Kout, T* __restrict__ dout, T* __restrict__ dV1out,
     T* __restrict__ dV2out, int Bt, int N, int n, int m) {
-  namespace wd = altro::wide;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
-  const wd::TailDims td(n, m);
-  const int ldn = td.ldn;
-  T* Vx = smem;
+  T* Vx = reinterpret_cast<T*>(smem_raw);
   T* Qx = Vx + n;
-  T* Qu = Qx + n;
-  T* qdiag = Qu + m;
-  T* inv = qdiag + m;
-  T* Vq = smem + wd::pad4(2 * n + 3 * m);
-  T* Qux = Vq + n * ldn;
-  T* Quu = Qux + m * ldn;
-  T* region = Quu + wd::pad4(m * m);
-  T* VA = region;  // V A [n, n] and V B [n, m], then aug and Quu K
-  T* VB = VA + n * n;
-  const wd::Tail<T> tl{Vq,    Qx,     Vx,   Qux,    Qu,
-                       region, qdiag, inv,  region + m * td.lda,
-                       n,     m,      ldn,  td.ldk, td.ma, td.lda};
+  T* Vxx = Qx + n;
+  T* VA = Vxx + n * n;
+  T* VB = VA + (n * n > m * m ? n * n : m * m);
+  T* Quu = VB + n * m;
+  T* Qux = Quu + m * m;
+  T* Qu = Qux + m * n;
+  T* Quud = Qu + m;
+  T* KD = Quud + m;
+  T* Lc = VA;  // the Cholesky factor, after V A's last use
+  T* QuuK = VB;
   const int b = blockIdx.x, N1 = N - 1;
   const int n_tri = n * (n + 1) / 2;
   const T regb = reg[b];
@@ -866,19 +856,19 @@ __global__ void __launch_bounds__(altro::wide::kWideThreads, 2) riccati_wide(
     const T* Ak = term ? A : A + kd * n * n;  // not read at the terminal
     const T* Bk = term ? Bm : Bm + kd * n * m;
     // pass 1: V A and V B
-    if (!term) wd::vab(Vq, ldn, Ak, Bk, VA, VB, n, m);
+    if (!term) altro::wide_entry::vab(Vxx, Ak, Bk, VA, VB, n, m);
     __syncthreads();
-    // pass 2: Qxx (upper triangle, in Vq), Qx, Qux, Qu, Quu
+    // pass 2: Qxx (upper triangle, in Vxx's place), Qx, Qux, Qu, Quu
     const int n_all =
         term ? n_tri + n : n_tri + n + m * n + m + m * (m + 1) / 2;
     for (int e = threadIdx.x; e < n_all; e += blockDim.x) {
       if (e < n_tri) {
         int i, j;
-        wd::upper_ij(e, n, &i, &j);
+        altro::wide::upper_ij(e, n, &i, &j);
         T acc = T(0);
         if (!term)
           for (int p = 0; p < n; ++p) acc += Ak[p * n + i] * VA[p * n + j];
-        Vq[i * ldn + j] = lxxk[i * n + j] + acc;
+        Vxx[i * n + j] = lxxk[i * n + j] + acc;
       } else if (e < n_tri + n) {
         const int i = e - n_tri;
         T acc = T(0);
@@ -889,7 +879,7 @@ __global__ void __launch_bounds__(altro::wide::kWideThreads, 2) riccati_wide(
         const int ee = e - n_tri - n, i = ee / n, j = ee % n;
         T acc = T(0);
         for (int p = 0; p < n; ++p) acc += Bk[p * m + i] * VA[p * n + j];
-        Qux[i * ldn + j] = luxk[ee] + acc;
+        Qux[ee] = luxk[ee] + acc;
       } else if (e < n_tri + n + m * n + m) {
         const int i = e - n_tri - n - m * n;
         T acc = T(0);
@@ -898,7 +888,7 @@ __global__ void __launch_bounds__(altro::wide::kWideThreads, 2) riccati_wide(
       } else {
         // the lower triangle (i >= j), mirrored
         int i, j;
-        wd::upper_ij(e - n_tri - n - m * n - m, m, &j, &i);
+        altro::wide::upper_ij(e - n_tri - n - m * n - m, m, &j, &i);
         T acc = T(0);
         for (int p = 0; p < n; ++p) acc += Bk[p * m + i] * VB[p * m + j];
         const T v = luuk[i * m + j] + acc;
@@ -908,33 +898,25 @@ __global__ void __launch_bounds__(altro::wide::kWideThreads, 2) riccati_wide(
     }
     __syncthreads();
     if (!term) {
-      // pass 3: the tail's operands in V A's and V B's place; (K | d),
-      // Quu K, Quu d
-      wd::load_aug(tl, Quu, regb);
-      __syncthreads();
-      wd::factor_solve(tl);
-      wd::quu_k(tl);
+      // pass 3: (K | d), Quu K, Quu d, dV
+      altro::wide_entry::factor(Quu, Lc, regb, m);
+      altro::wide_entry::solve(Lc, Quu, Qux, Qu, KD, QuuK, Quud, n, m, &dv1,
+                               &dv2);
       __syncthreads();
     }
-    // pass 4: V and dV; K and d stored
-    wd::value(tl, term, &dv1, &dv2);
+    // pass 4: V; K and d stored
+    altro::wide_entry::value(Vxx, Vx, Qx, KD, QuuK, Qux, Quud, Qu, term, n,
+                             m);
     if (!term)
-      wd::store_gains(tl, Kout + ((size_t)b * N1 + k) * m * n,
-                      dout + ((size_t)b * N1 + k) * m);
+      altro::wide_entry::store_gains(
+          KD, Kout + ((size_t)b * N1 + k) * m * n,
+          dout + ((size_t)b * N1 + k) * m, n, m);
     __syncthreads();
   }
-  if (threadIdx.x == 0) {
+  if (threadIdx.x == n) {
     dV1out[b] = dv1;
     dV2out[b] = dv2;
   }
-}
-
-// Shared memory of the wide body, in elements (see riccati_wide).
-inline int wide_elems(int n, int m) {
-  const altro::wide::TailDims td(n, m);
-  const int va = n * n + n * m, tail = m * (td.lda + td.ldk);
-  return altro::wide::pad4(2 * n + 3 * m) + (n + m) * td.ldn +
-         altro::wide::pad4(m * m) + (va > tail ? va : tail);
 }
 
 template <typename T>
@@ -943,7 +925,10 @@ int launch_wide(const void* A, const void* Bm, int per_lane, const void* lx,
                 const void* lux, const void* reg, void* K, void* d,
                 void* dV1, void* dV2, int Bt, int N, int n, int m,
                 cudaStream_t stream) {
-  const size_t bytes = (size_t)wide_elems(n, m) * sizeof(T);
+  const int va = n * n > m * m ? n * n : m * m;
+  const size_t bytes = (size_t)(2 * n + n * n + va + 2 * n * m + m * m +
+                                2 * m + (n + 1) * m) *
+                       sizeof(T);
   cudaError_t e = altro::wide::prepare(riccati_wide<T>, bytes);
   if (e != cudaSuccess) return (int)e;
   riccati_wide<T><<<Bt, altro::wide::kWideThreads, bytes, stream>>>(

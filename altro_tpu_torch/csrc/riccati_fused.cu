@@ -81,6 +81,7 @@
 #include "common.cuh"
 #include "ptx.cuh"
 #include "wide.cuh"
+#include "wide_entry.cuh"
 
 namespace {
 
@@ -843,15 +844,17 @@ int launch_group(const void* Q, const void* q, const void* R, const void* r,
   return (int)cudaGetLastError();
 }
 
-// The wide body, for n or m above kNarrowDim (up to kMaxDim); it replaces
-// the TPU kernel altro_tpu/ops/riccati_fused.py: fused_expand_backward at
-// those widths, and computes its formulas (riccati_fused.py:220-295).
+// The wide body, for n or m above kNarrowDim (up to kMaxDim) and n + m
+// above kEntryWidth (the entry body below takes the narrower end); it
+// replaces the TPU kernel altro_tpu/ops/riccati_fused.py:
+// fused_expand_backward at those widths, and computes its formulas
+// (riccati_fused.py:220-295).
 //
-// One block works one scenario: 128 threads at the narrow end (the
-// state_dim sweep's m = 2: four scenarios per SM), 512 at n = m = 64. The
-// expansion's dynamics terms are two block-wide products per knot over the
-// concatenated width W = n + m, with F = [A | B] the knot's shared dynamics
-// rows and C = [Cx | Cu] its constraint rows:
+// One block works one scenario: 128 threads at a narrow control (the
+// state_dim sweep's n = 45, 55 with m = 2: four scenarios per SM), 512 at
+// n = m = 64. The expansion's dynamics terms are two block-wide products
+// per knot over the concatenated width W = n + m, with F = [A | B] the
+// knot's shared dynamics rows and C = [Cx | Cu] its constraint rows:
 //
 //   G = Vxx F                                    [n x W]
 //   Qfull = F'G + C' diag(w) C   (upper triangle) [W x W]
@@ -862,11 +865,11 @@ int launch_group(const void* Q, const void* q, const void* R, const void* r,
 // The shared rows come into shared memory by cp.async (16-byte copies when
 // n and m allow), never read per FMA: where two stages of n + P rows fit,
 // one stage per knot holds F and C (the next knot's lands while the knot
-// is worked); else (n = m = 64 in
-// float64) a ring of 16-row panels, two to four stages, takes F twice and
-// C in the products' order. At a knot's start its constraint rows, Q and R
-// go into G's region and its H into Qux's place, so that the group body's helpers for the rows'
-// scalars (row_terms, soc_scalars, soc_rows, rank_terms) and the cost part
+// is worked); else (n = m = 64 in float64) a ring of 16-row panels, two
+// to four stages, takes F twice and C in the products' order. At a knot's
+// start its constraint rows, Q and R go into G's region and its H into
+// Qux's place, so that the group body's helpers for the rows' scalars
+// (row_terms, soc_scalars, soc_rows, rank_terms) and the cost part
 // of Qx and Qu (one thread per entry) read shared memory. Each thread owns
 // up to two tiles of G and one of Qfull (512 threads: one and two) and per
 // row of a stage reads one 4-vector of each operand; the expansion is then
@@ -897,6 +900,12 @@ int launch_group(const void* Q, const void* q, const void* R, const void* r,
 // thread, Qfull's one and the lane's inputs one (the state_dim sweep's
 // n <= 55, m = 2: four scenarios per SM), 512 above.
 constexpr int kRing = 16;
+// Up to this n + m the entry body (below) runs instead: it is faster at
+// the state_dim sweep's n = 35, m = 2, the tiled body from n = 45 on, in
+// both dtypes and at one lane and 1024, but for float64 at one lane,
+// where the crossover lies between n = 45 and 55 (PERF.md,
+// bench/kernels.py's wide rows).
+constexpr int kEntryWidth = 40;
 constexpr int kSmallThreads = 128;
 constexpr int kLargeThreads = 512;
 
@@ -1081,10 +1090,11 @@ struct ExpansionArgs {
 
 // Qfull = F'G + C' diag(w) C over the upper triangle of [W x W] (at the
 // terminal knot C'WC over the x block), up to KT 4 x 4 tiles per thread,
-// from the ring's panels or the knot's `whole` stage, each tile's sums seeded with its cost entries (Q, H or R, loaded from
-// device memory while the first panel lands) and the SOC blocks' rank-1
-// terms; the extra column F'Vx + C'g on the first Wo threads. Then, once G
-// is read no more, the expansion in the tail's layout: Qxx (upper) in Vq,
+// from the ring's panels or the knot's `whole` stage, each tile's sums
+// seeded with its cost entries (Q, H or R, loaded from device memory while
+// the first panel lands) and the SOC blocks' rank-1 terms; the extra
+// column F'Vx + C'g on the first Wo threads. Then, once G is read no
+// more, the expansion in the tail's layout: Qxx (upper) in Vq,
 // Qux and -Qux into aug's right-hand sides, Quu + reg I (upper) and Quu
 // (strict lower, diagonal in qdiag) into aug, Qx and Qu. Ends on a barrier.
 template <typename T, int KT>
@@ -1432,14 +1442,183 @@ int launch_wide_nt(const void* Q, const void* q, const void* R,
   // 16-byte copies of the staged rows when every row starts aligned
   const int v = 16 / (int)sizeof(T);
   auto aligned = [](const void* p) { return ((uintptr_t)p & 15) == 0; };
-  const int vec = n % v == 0 && m % v == 0 && aligned(Q) && aligned(H) &&
-                  aligned(A) && aligned(Bm) && aligned(Cx) && aligned(Cu);
+  const int vec = n % v == 0 && m % v == 0 && aligned(Q) && aligned(R) &&
+                  aligned(H) && aligned(A) && aligned(Bm) && aligned(Cx) &&
+                  aligned(Cu);
   kern<<<Bt, NT, bytes, stream>>>(
       (const T*)Q, (const T*)q, (const T*)R, (const T*)r, (const T*)H,
       (const T*)A, (const T*)Bm, (const T*)Cx, (const T*)Cu, (const T*)cb,
       (const T*)cmask, table, (const T*)X, (const T*)U, (const T*)rho,
       (const T*)reg, (T*)K, (T*)d, (T*)dV1, (T*)dV2, Bt, N, n, m, P, vec, kp,
       depth);
+  return (int)cudaGetLastError();
+}
+
+// The entry body, the wide body's narrow end (n + m <= kEntryWidth: the
+// state_dim sweep's n = 35 with m = 2): one block of wide::kWideThreads
+// threads per scenario, the knot rows read from device memory, the lane's
+// x, u and multipliers staged per knot, and the whole work space (Qxx's
+// upper triangle in Vxx's place, Qx beside it) in shared memory. Pass 1
+// and 2 are the group body's (row_terms, the SOC passes, expansion_entry);
+// the Riccati tail is wide_entry.cuh's. At this width a knot is a short
+// chain of barriers over one entry per thread and eight scenarios share an
+// SM, where the tiled body's staging and tiles cost more than they save
+// (PERF.md: the two bodies on either side of kEntryWidth).
+template <typename T>
+__global__ void __launch_bounds__(altro::wide::kWideThreads)
+fused_expand_backward_wide_entry(
+    const T* __restrict__ Q, const T* __restrict__ q,
+    const T* __restrict__ R, const T* __restrict__ r,
+    const T* __restrict__ H, const T* __restrict__ A,
+    const T* __restrict__ Bm, const T* __restrict__ Cx,
+    const T* __restrict__ Cu, const T* __restrict__ cb,
+    const T* __restrict__ cmask, altro::BlockTable<T> table,
+    const T* __restrict__ X, const T* __restrict__ U,
+    const T* __restrict__ rho, const T* __restrict__ reg,
+    T* __restrict__ Kout, T* __restrict__ dout, T* __restrict__ dV1out,
+    T* __restrict__ dV2out, int Bt, int N, int n, int m, int P) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ altro::BlockTable<T> tab;
+  __shared__ int8_t row_blk[altro::kMaxRows];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  const int TG = blockDim.x, t = threadIdx.x;
+  const int b = blockIdx.x, N1 = N - 1;
+  if (t == 0) tab = table;
+  for (int rr = t; rr < P; rr += TG) {
+    int bi = 0;
+    while (bi + 1 < table.count && rr >= table.row0[bi + 1]) ++bi;
+    row_blk[rr] = (int8_t)bi;
+  }
+  __syncthreads();
+  const int nsoc = tab.nsoc;
+
+  T* x = smem;
+  T* u = x + n;
+  T* lam = u + m;
+  T* Qx = lam + P;
+  Work<T> wk;
+  wk.Vx = Qx + n;
+  wk.Vxx = wk.Vx + n;
+  wk.z = wk.Vxx + n * n;
+  wk.g = wk.z + P;
+  wk.w = wk.g + P;
+  wk.Qu = wk.w + P;
+  wk.Quu = wk.Qu + m;
+  wk.Qux = wk.Quu + m * m;
+  wk.Quud = wk.Qux + m * n;
+  wk.Linv = wk.Quud + m;
+  wk.VA = wk.Linv + m;
+  wk.VB = wk.VA + (n * n > m * m ? n * n : m * m);
+  wk.KD = wk.VB + n * m;
+  wk.soc = wk.KD + (n + 1) * m;
+  T* Lc = wk.VA;  // the Cholesky factor, after V A's last use
+  T* QuuK = wk.VB;
+
+  const int n_tri = n * (n + 1) / 2;
+  const int n_own = owned_entries(n);
+  const int n_shared = shared_entries(m, n);
+  const T regb = reg[b];
+  T dv1 = T(0), dv2 = T(0);
+  for (int k = N1; k >= 0; --k) {
+    const bool term = k == N1;
+    Knot<T> kn;
+    kn.Q = Q + (size_t)k * n * n;
+    kn.q = q + (size_t)k * n;
+    kn.R = R + (size_t)k * m * m;
+    kn.r = r + (size_t)k * m;
+    kn.H = H + (size_t)k * m * n;
+    kn.A = term ? A : A + (size_t)k * n * n;  // not read at the terminal
+    kn.B = term ? Bm : Bm + (size_t)k * n * m;
+    kn.Cx = Cx + (size_t)k * P * n;
+    kn.Cu = Cu + (size_t)k * P * m;
+    kn.b = cb + (size_t)k * P;
+    kn.mask = cmask + (size_t)k * P;
+    for (int e = t; e < n + m + P; e += TG) {
+      if (e < n) {
+        x[e] = X[((size_t)b * N + k) * n + e];
+      } else if (e < n + m) {
+        u[e - n] = term ? T(0) : U[((size_t)b * N1 + k) * m + (e - n)];
+      } else {
+        const int rr = e - n - m, bi = row_blk[rr];
+        lam[rr] = tab.lam[bi][((size_t)b * N + k) * tab.p[bi] +
+                              (rr - tab.row0[bi])];
+      }
+    }
+    const T rk = rho[(size_t)b * N + k];
+    __syncthreads();
+
+    // pass 1: the rows' z, g, w; V A and V B
+    row_terms(tab, row_blk, kn, x, u, lam, rk, !term, n, m, P, wk, t, TG);
+    if (!term)
+      altro::wide_entry::vab(wk.Vxx, kn.A, kn.B, wk.VA, wk.VB, n, m);
+    __syncthreads();
+    if (nsoc) {
+      soc_scalars(tab, kn, rk, n, m, wk, t, TG);
+      __syncthreads();
+      soc_rows(tab, row_blk, kn, rk, !term, n, m, P, wk, t, TG);
+      __syncthreads();
+    }
+    // pass 2: every expansion entry; Qxx's upper triangle in Vxx's place
+    const int n_all = term ? n_own : n_own + n_shared;
+    for (int e = t; e < n_all; e += TG) {
+      int d1 = 0, d2 = 0;
+      const T v = expansion_entry(kn, wk, x, u, term, nsoc, n, m, P, e, &d1,
+                                  &d2);
+      if (e < n_tri) {
+        int i, j;
+        upper_ij(e, n, &i, &j);
+        wk.Vxx[i * n + j] = v;
+      } else if (e < n_own) {
+        Qx[e - n_tri] = v;
+      } else {
+        wk.Qu[d1] = v;
+        wk.Qu[d2] = v;
+      }
+    }
+    __syncthreads();
+    if (!term) {
+      // pass 3: (K | d), Quu K, Quu d, dV
+      altro::wide_entry::factor(wk.Quu, Lc, regb, m);
+      altro::wide_entry::solve(Lc, wk.Quu, wk.Qux, wk.Qu, wk.KD, QuuK,
+                               wk.Quud, n, m, &dv1, &dv2);
+      __syncthreads();
+    }
+    // pass 4: V; K and d stored
+    altro::wide_entry::value(wk.Vxx, wk.Vx, Qx, wk.KD, QuuK, wk.Qux,
+                             wk.Quud, wk.Qu, term, n, m);
+    if (!term)
+      altro::wide_entry::store_gains(
+          wk.KD, Kout + ((size_t)b * N1 + k) * m * n,
+          dout + ((size_t)b * N1 + k) * m, n, m);
+    __syncthreads();
+  }
+  if (t == n) {
+    dV1out[b] = dv1;
+    dV2out[b] = dv2;
+  }
+}
+
+template <typename T>
+int launch_wide_entry(const void* Q, const void* q, const void* R,
+                      const void* r, const void* H, const void* A,
+                      const void* Bm, const void* Cx, const void* Cu,
+                      const void* cb, const void* cmask,
+                      const altro::BlockTable<T>& table, const void* X,
+                      const void* U, const void* rho, const void* reg,
+                      void* K, void* d, void* dV1, void* dV2, int Bt, int N,
+                      int n, int m, int P, cudaStream_t stream) {
+  const size_t bytes =
+      (size_t)(2 * n + m + P + work_elems(n, m, P, table.nsoc)) * sizeof(T);
+  cudaError_t e =
+      altro::wide::prepare(fused_expand_backward_wide_entry<T>, bytes);
+  if (e != cudaSuccess) return (int)e;
+  fused_expand_backward_wide_entry<T>
+      <<<Bt, altro::wide::kWideThreads, bytes, stream>>>(
+          (const T*)Q, (const T*)q, (const T*)R, (const T*)r, (const T*)H,
+          (const T*)A, (const T*)Bm, (const T*)Cx, (const T*)Cu,
+          (const T*)cb, (const T*)cmask, table, (const T*)X, (const T*)U,
+          (const T*)rho, (const T*)reg, (T*)K, (T*)d, (T*)dV1, (T*)dV2, Bt,
+          N, n, m, P);
   return (int)cudaGetLastError();
 }
 
@@ -1455,9 +1634,11 @@ int launch_wide(const void* Q, const void* q, const void* R, const void* r,
   const bool small = (n + 3) / 4 * W4 <= 2 * kSmallThreads &&
                      W4 * (W4 + 1) / 2 <= kSmallThreads &&
                      n + m + P + 1 <= kSmallThreads;
-  return (small ? launch_wide_nt<T, kSmallThreads> : launch_wide_nt<T, kLargeThreads>)(
-      Q, q, R, r, H, A, Bm, Cx, Cu, cb, cmask, table, X, U, rho, reg, K, d,
-      dV1, dV2, Bt, N, n, m, P, stream);
+  auto launch = n + m <= kEntryWidth ? launch_wide_entry<T>
+                : small              ? launch_wide_nt<T, kSmallThreads>
+                                     : launch_wide_nt<T, kLargeThreads>;
+  return launch(Q, q, R, r, H, A, Bm, Cx, Cu, cb, cmask, table, X, U, rho,
+                reg, K, d, dV1, dV2, Bt, N, n, m, P, stream);
 }
 
 template <typename T>

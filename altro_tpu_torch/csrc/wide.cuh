@@ -1,12 +1,14 @@
-// The Riccati tail shared by the wide bodies of kernels B and D
-// (riccati_fused.cu: fused_expand_backward_wide, which replaces the TPU
-// kernel altro_tpu/ops/riccati_fused.py: fused_expand_backward above
-// n, m = 32; riccati.cu: riccati_wide, for altro_tpu/ops/riccati.py:
-// batched_riccati), and the block-wide tiled products they are built from.
+// The blocked Riccati tail of kernel B's tiled wide body (riccati_fused.cu:
+// fused_expand_backward_wide, which replaces the TPU kernel
+// altro_tpu/ops/riccati_fused.py: fused_expand_backward above n + m =
+// kEntryWidth), the block-wide tiled products it is built from, and the
+// helpers every wide body shares (pivot, upper_ij, prepare). The narrow
+// end's entry-per-thread tail, which kernel D's wide body also calls, is
+// wide_entry.cuh.
 //
-// One block of kWideThreads threads works one scenario with its work space
-// in shared memory. Per knot, after the caller has formed the expansion,
-// the tail takes it in this layout (Tail below; strides padded to 4
+// One block works one scenario with its work space in shared memory. Per
+// knot, after the caller has formed the expansion, the tail takes it in
+// this layout (Tail below; strides padded to 4
 // elements, so that a thread reads 4 neighbouring elements of a row as one
 // or two 16-byte loads):
 //
@@ -44,7 +46,8 @@
 // with Quu K and V), each behind a short chain of dependent shared-memory
 // loads; the FLOPs (~1.9 m^2 n + m^3 / 3 per knot) come second. The tail's
 // functions are not inlined: each gets its own registers. Times in
-// PERF.md.
+// PERF.md. kWideThreads is the block of the entry-per-thread wide bodies
+// (kernel B's narrow end and kernel D's).
 #pragma once
 
 #include <cstddef>
@@ -134,41 +137,6 @@ struct Tail {
   T* QuuK;
   int n, m, ldn, ldk, ma, lda;
 };
-
-// V A [n, n] and V B [n, m] from Vxx (row stride ldv), with A [n, n] and
-// B [n, m] in device memory (kernel D's body).
-template <typename T>
-__device__ void vab(const T* Vxx, int ldv, const T* A, const T* Bm, T* VA,
-                    T* VB, int n, int m) {
-  for (int e = threadIdx.x; e < n * n + n * m; e += blockDim.x) {
-    const bool va = e < n * n;
-    const int w = va ? n : m, ee = va ? e : e - n * n;
-    const int i = ee / w, j = ee % w;
-    const T* D = (va ? A : Bm) + j;
-    T acc = T(0);
-    for (int p = 0; p < n; ++p) acc += Vxx[i * ldv + p] * D[p * w];
-    (va ? VA : VB)[ee] = acc;
-  }
-}
-
-// The tail's operands from a full symmetric Quu [m x m] (row stride m), Qux
-// and Qu (kernel D's body, whose expansion pass writes Quu whole).
-template <typename T>
-__device__ __noinline__ void load_aug(const Tail<T> tl, const T* Quu, T regb) {
-  const int n = tl.n, m = tl.m;
-  for (int e = threadIdx.x; e < m * m + m * (n + 1); e += blockDim.x) {
-    if (e < m * m) {
-      const int a = e / m, c = e % m;
-      const T v = Quu[e];
-      tl.aug[a * tl.lda + c] = a == c ? v + regb : v;
-      if (a == c) tl.qdiag[a] = v;
-    } else {
-      const int ee = e - m * m, a = ee / (n + 1), c = ee % (n + 1);
-      tl.aug[a * tl.lda + tl.ma + c] =
-          c < n ? -tl.Qux[a * tl.ldn + c] : -tl.Qu[a];
-    }
-  }
-}
 
 // The diagonal block (bb <= kPanel rows at D, upper triangle, row stride
 // lda) factored by one warp: lane i holds row i of the symmetric block in

@@ -1,12 +1,12 @@
 """The four kernels at the TPU kernels' full width (n, m <= 64): on a CUDA
 device each kernel's wide body (n or m above 32) against its plain version
 at n in {33, 55, 64}, and each wrapper refusing n or m = 65; the edges of
-kernel A's and B's wide mappings (and of the Riccati tail that D shares):
-one control, a narrow state beside the widest control, a control just past
-the group bodies at full state, the shortest horizon, one lane and 1023,
-ladders of 1 and 32 rungs, per-lane dynamics at 64, a NaN lane, and a lane
-whose Quu + reg I is indefinite (the clamped pivots, against a clamped
-recursion); on the CPU the wide inputs at every edge through the wrappers'
+kernel A's and B's wide mappings: one control, a narrow state beside the
+widest control, a control just past the group bodies at full state, the
+shortest horizon, either side of each kernel's choice of body, one lane
+and 1023, ladders of 1 and 32 rungs, per-lane dynamics at 64, a NaN lane,
+rows that start off a 16-byte boundary, and a lane whose Quu + reg I is
+indefinite (the clamped pivots, against a clamped recursion); on the CPU the wide inputs at every edge through the wrappers'
 plain dispatch, kernel A's byte count, and the state_dim sweep's widest
 point (n = 55, m = 2, N = 21) of the port's lockstep loop against the JAX
 package's.
@@ -79,8 +79,10 @@ def test_wide_inputs_on_cpu():
 # edges of the wide mappings (n, m, N): one control; a narrow state beside
 # the widest control; the full state with a control just past the group
 # bodies; the shortest horizon at full width and at the sweep's first wide
-# point
-EDGES = [(33, 1, 9), (2, 64, 9), (64, 33, 9), (64, 64, 2), (35, 2, 2)]
+# point; either side of kernel B's choice between its entry body and its
+# tiled body (n + m = 40 and 41)
+EDGES = [(33, 1, 9), (2, 64, 9), (64, 33, 9), (64, 64, 2), (35, 2, 2),
+         (38, 2, 9), (39, 2, 9)]
 
 
 def _edge_id(e):
@@ -214,10 +216,12 @@ def test_wide_edges_match_plain_versions(cuda, edge, Bt, dtype, tol):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", TOLS)
 @pytest.mark.parametrize("L", [1, 32])
-@pytest.mark.parametrize("Bt", [1, 1023])
+@pytest.mark.parametrize("Bt", [1, 44, 1023])
 def test_wide_ladder_lengths(cuda, L, Bt, dtype, tol):
-    """Kernel A's wide body at n = m = 64 with ladders of 1 and 32 rungs
-    (the rungs of a scenario in one block, or in chunks at one lane)."""
+    """Kernel A's wide bodies at n = m = 64 with ladders of 1 and 32 rungs:
+    the rung body (one rung, or one lane), the ladder body on chunks of
+    rungs (44 lanes: three chunks of 11 on the H100's 132 SMs) and on whole
+    ladders."""
     from altro_tpu_torch.convert import tree_to
     w = bk.wide_inputs(dtype, cuda, Bt, 64, 64, N=9)
     args = w["ladder"][:-1] + (tuple(0.5 ** i for i in range(L)),)
@@ -287,15 +291,17 @@ def test_wide_nan_lane_stays_in_its_lane(cuda, widths, dtype, tol):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", TOLS)
-def test_wide_clamped_pivot_lane(cuda, dtype, tol):
-    """Lane 1's Quu + reg I indefinite (reg = -1e6) at n = 33, m = 1, N = 2:
-    kernels B and D clamp its pivot as the TPU kernels do (the plain
-    version gives NaN), against the clamped recursion on B's own expansion;
-    the other lanes as the plain version."""
+@pytest.mark.parametrize("n", [33, 45])
+def test_wide_clamped_pivot_lane(cuda, n, dtype, tol):
+    """Lane 1's Quu + reg I indefinite (reg = -1e6) at n = 33 or 45, m = 1,
+    N = 2 (kernel B's entry body and its tiled body): kernels B and D clamp
+    its pivot as the TPU kernels do (the plain version gives NaN), against
+    the clamped recursion on B's own expansion; the other lanes as the plain
+    version."""
     from altro_tpu_torch.constraints import DualState
     from altro_tpu_torch.convert import tree_to
     from altro_tpu_torch.solver.altro import _al_expansion_cd
-    w = bk.wide_inputs(dtype, cuda, 3, 33, 1, N=2)
+    w = bk.wide_inputs(dtype, cuda, 3, n, 1, N=2)
     f = list(w["fused"])
     f[8] = f[8].clone()
     f[8][1] = -1e6
@@ -318,6 +324,38 @@ def test_wide_clamped_pivot_lane(cuda, dtype, tol):
     r[-1] = f[8]
     _close(riccati.batched_riccati(*r), _clamped_backward(*r), tol,
            _clamped_backward(*tree_to(tuple(r), cuda, torch.float64)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", TOLS)
+def test_wide_offset_views(cuda, dtype, tol):
+    """Contiguous views that start one element past a 16-byte boundary,
+    which the kernels must copy element by element: kernel B's R and kernel
+    A's K at n = m = 64 (64 lanes: A's ladder body), against the plain
+    versions."""
+    import dataclasses
+
+    from altro_tpu_torch.convert import tree_to
+    w = bk.wide_inputs(dtype, cuda, 64, 64, 64, N=5)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        buf[1:] = t.reshape(-1)
+        v = buf[1:].view(t.shape)
+        assert v.is_contiguous() and v.data_ptr() % 16 != 0
+        return v
+    f = list(w["fused"])
+    f[0] = dataclasses.replace(f[0], R=shifted(f[0].R))
+    _close(riccati_fused.fused_expand_backward(*f, packed=w["packed"]),
+           riccati_fused.fused_expand_backward_reference(*f), tol,
+           riccati_fused.fused_expand_backward_reference(
+               *tree_to(tuple(f), cuda, torch.float64)))
+    a = list(w["ladder"])
+    a[5] = shifted(a[5])
+    _close(rollout.batched_ls_rollout(*a),
+           rollout.batched_ls_rollout_reference(*a), tol,
+           rollout.batched_ls_rollout_reference(
+               *tree_to(tuple(a), cuda, torch.float64)))
 
 
 @pytest.mark.cuda
