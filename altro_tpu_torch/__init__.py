@@ -47,11 +47,18 @@ from .costs import (  # noqa: E402
     retarget_tracking,
     tracking_objective,
 )
-from .dynamics import LTVDynamics, lti_dynamics, zoh_discretize  # noqa: E402
+from .dynamics import (  # noqa: E402
+    LTVDynamics,
+    euler_discretize,
+    lti_dynamics,
+    zoh_discretize,
+)
 from .problem import Problem  # noqa: E402
 from .solver.altro import (  # noqa: E402
     Solution,
     Stats,
+    check_status,
+    print_summary,
     solve,
     solve_partial,
     solve_resume,

@@ -4,6 +4,7 @@ over warm work on one card, per path.
     python -m altro_tpu_torch.bench.device_profile [flagship] [rocket]
                                                    [grasp] [flexsat]
                                                    [quadruped]
+                                                   [flagship_lanes] [split]
                                                    [--forms graphed,eager]
 
 Paths (all of them when none is named), each at B=1024 in float32 and in
@@ -12,10 +13,16 @@ pass per replay) and on the host-driven loop:
 
 - flagship: the cold solve and two warm MPC steps, then windows of 10 warm
   steps;
+- flagship_lanes: the same with a window index per lane
+  (``make_mpc_step(shared_k=False)``, start windows 0-4): the split route
+  (the AL expansion in PyTorch, kernel D, kernel A);
 - rocket and grasp, each in the plain step and in the straggler-compacted
   step of its shipped schedule (``bench/conic.py: SCHEDULES``): the cold
   solve of the long problem, the batched initial solve
   and one warm-up step, then windows of 3 (rocket) or 5 (grasp) warm steps;
+- split: the rocket's and grasp's plain steps with the fused expansion off
+  (``SolverOptions.fused_expansion=False``: kernel D in place of B, as
+  ``bench/fused_check.py`` runs them);
 - flexsat, in the plain step and in the compacted step of its shipped
   schedule (``bench/families.py: FLEXSAT_SCHEDULE``): the cold solve and
   one warm-up step, then windows of 5 regulator steps;
@@ -150,11 +157,36 @@ def flagship_window(B: int = FLAG_B, device="cuda", graphed=None):
     return _step_window(step, carry, setup.noise, 2, FLAG_STEPS)
 
 
+LANE_SPREAD = 5
+
+
+def flagship_lanes_window(B: int = FLAG_B, device="cuda", graphed=None):
+    """Windows of the flagship's steps with a window index per lane (start
+    windows 0 .. LANE_SPREAD - 1)."""
+    from altro_tpu_torch.bench.flagship import flagship_setup
+    from altro_tpu_torch.mpc import make_mpc_step
+
+    setup = flagship_setup(B, 2 * FLAG_STEPS + 2 + LANE_SPREAD,
+                           dtype=torch.float32, device=device)
+    lane_step, init_carry = make_mpc_step(
+        setup.prob_mpc, setup.opts, setup.X_track, setup.U_track,
+        shared_k=False, graphed=graphed)
+
+    def step(carry, noise_i, k):
+        return lane_step(carry, noise_i)
+
+    carry = init_carry(B, torch.arange(B, device=device) % LANE_SPREAD)
+    for t in range(2):
+        carry, _ = step(carry, setup.noise[t], t)
+    return _step_window(step, carry, setup.noise, 2, FLAG_STEPS)
+
+
 def conic_window(family: str, compact: bool, B: int = ROCKET_B,
-                 device="cuda", graphed=None):
+                 device="cuda", graphed=None, split: bool = False):
     """Windows of the rocket's or grasp's MPC steps, plain or in the
-    family's shipped compaction schedule; the window function carries the
-    step as ``window.step``."""
+    family's shipped compaction schedule (``split``: with the fused
+    expansion off); the window function carries the step as
+    ``window.step``."""
     import numpy as np
 
     from altro_tpu_torch.bench import conic
@@ -163,7 +195,9 @@ def conic_window(family: str, compact: bool, B: int = ROCKET_B,
                                  graphed=graphed)
     steps = {"rocket": ROCKET_STEPS, "grasp": GRASP_STEPS}[family]
     sched = conic.SCHEDULES[family] if compact else (0, 256, ())
-    step, init_carry = conic.make_step(setup, *sched, graphed=graphed)
+    opts = dataclasses.replace(setup.opts, fused_expansion=not split)
+    step, init_carry = conic.make_step(setup, *sched, opts=opts,
+                                       graphed=graphed)
     noise = torch.as_tensor(np.random.default_rng(setup.noise_seed)
                             .standard_normal((2 * steps + 1, B, 6)),
                             dtype=torch.float32, device=device)
@@ -365,6 +399,16 @@ PATHS = {
                       lambda g, c=compact: flexsat_window(c, graphed=g))
                      for label, compact in (("flexsat", False),
                                             ("flexsat compacted", True))),
+    "flagship_lanes": (("flagship lanes", FLAG_B,
+                        f"{FLAG_STEPS} warm steps", FLAG_STEPS,
+                        lambda g: flagship_lanes_window(graphed=g)),),
+    "split": tuple((f"{family} split", B, f"{steps} warm steps", steps,
+                    lambda g, f=family, B=B: conic_window(
+                        f, False, B, graphed=g, split=True))
+                   for family, B, steps in (("rocket", ROCKET_B,
+                                             ROCKET_STEPS),
+                                            ("grasp", GRASP_B,
+                                             GRASP_STEPS))),
     "quadruped": (("quadruped qp", QUAD_B, f"{QUAD_SOLVES} cold solves",
                    QUAD_SOLVES, lambda g: quadruped_window(True, graphed=g)),
                   ("quadruped socp", QUAD_B, f"{QUAD_SOLVES} cold solves",

@@ -169,6 +169,22 @@ def riccati_work(Bt, N, n, m, per_lane, itemsize) -> tuple:
     return elems * itemsize, Bt * N1 * knot
 
 
+def _split_args(pm, X, U, lams, rhos, reg) -> dict:
+    """Kernel D's arguments on the split route at the fused kernel's
+    inputs: the shared dynamics and the solver's AL expansion of X, U and
+    the multipliers (``riccati``), and their work (``riccati_work``)."""
+    from altro_tpu_torch.constraints import DualState
+    from altro_tpu_torch.solver.altro import _al_expansion_cd
+
+    expansion = (a.contiguous() for a in _al_expansion_cd(
+        pm.cost, pm.constraints,
+        tuple(DualState(lam=lam, rho=rho) for lam, rho in zip(lams, rhos)),
+        X, U))
+    return dict(riccati=(pm.dynamics.A, pm.dynamics.B, *expansion, reg),
+                riccati_work=riccati_work(X.shape[0], pm.N, pm.n, pm.m,
+                                          False, X.element_size()))
+
+
 def flagship_inputs(dtype, dev, B: int = FLAG_B, widths=(12, 6),
                     N: int = FLAG_N) -> dict:
     """Kernel B's and kernel A's arguments at the flagship shapes (B=1024,
@@ -180,11 +196,9 @@ def flagship_inputs(dtype, dev, B: int = FLAG_B, widths=(12, 6),
     multipliers. ``widths`` and ``N``: the same random-linear model at
     another (n, m) and horizon."""
     import torch
-    from altro_tpu_torch.constraints import DualState
     from altro_tpu_torch.models import random_linear as rl
     from altro_tpu_torch.ops import riccati_fused
     from altro_tpu_torch.ops.blocks import pack_blocks
-    from altro_tpu_torch.solver.altro import _al_expansion_cd
 
     # the window as flagship_setup builds it (its seed, one step of track)
     n_track = N + 3
@@ -210,14 +224,11 @@ def flagship_inputs(dtype, dev, B: int = FLAG_B, widths=(12, 6),
              (rho,), reg)
     ref = riccati_fused.fused_expand_backward_reference(*fused)
     K, d = ref[0].contiguous(), ref[1].contiguous()
-    expansion = (a.contiguous() for a in _al_expansion_cd(
-        prob.cost, prob.constraints, (DualState(lam=lam, rho=rho),), X, U))
     return dict(
         fused=fused, fused_ref=ref,
         packed=pack_blocks(prob.constraints, N, n, m, X),
         fused_work=fused_work(B, N, n, m, p, (), X.element_size()),
-        riccati=(dyn.A, dyn.B, *expansion, reg),
-        riccati_work=riccati_work(B, N, n, m, False, X.element_size()),
+        **_split_args(prob, X, U, (lam,), (rho,), reg),
         ladder=(dyn.A, dyn.B, dyn.d, X, U, K, d, FLAG_LADDER),
         ladder_work=rollout_work(B, N, n, m, len(FLAG_LADDER), False,
                                  X.element_size()),
@@ -243,12 +254,10 @@ def wide_inputs(dtype, dev, B: int, n: int, m: int, N: int = WIDE_N
     import dataclasses
 
     import torch
-    from altro_tpu_torch.constraints import (DualState, bound_constraint,
-                                             norm_constraint2)
+    from altro_tpu_torch.constraints import bound_constraint, norm_constraint2
     from altro_tpu_torch.models import random_linear as rl
     from altro_tpu_torch.ops import riccati_fused
     from altro_tpu_torch.ops.blocks import pack_blocks
-    from altro_tpu_torch.solver.altro import _al_expansion_cd
 
     rng = np.random.default_rng(13)
     full = rl.gen_random_linear(rng, n, m, N + 3, dtype=dtype, device=dev)
@@ -280,17 +289,13 @@ def wide_inputs(dtype, dev, B: int, n: int, m: int, N: int = WIDE_N
     fused = (prob.cost, dyn.A, dyn.B, blocks, X, U, lams, rhos, reg)
     ref = riccati_fused.fused_expand_backward_reference(*fused)
     K, d = ref[0].contiguous(), ref[1].contiguous()
-    expansion = (a.contiguous() for a in _al_expansion_cd(
-        prob.cost, blocks, tuple(DualState(lam=lam, rho=rho)
-                                 for lam in lams), X, U))
     soc_p = tuple(c.p for c in blocks if c.cone.name == "SOC")
     item = X.element_size()
     L = len(QUAD_LADDER)
     return dict(
         prob=prob, fused=fused, fused_ref=ref, packed=packed,
         fused_work=fused_work(B, N, n, m, packed.P, soc_p, item),
-        riccati=(dyn.A, dyn.B, *expansion, reg),
-        riccati_work=riccati_work(B, N, n, m, False, item),
+        **_split_args(prob, X, U, lams, rhos, reg),
         ladder=(dyn.A, dyn.B, dyn.d, X, U, K, d, QUAD_LADDER),
         ladder_work=rollout_work(B, N, n, m, L, False, item),
         init=(dyn.A, dyn.B, dyn.d, X, U, torch.zeros_like(K),
@@ -307,7 +312,8 @@ def rocket_inputs(dtype, dev, B: int = ROCKET_B) -> dict:
     controls 60 N off the hover rollout, multipliers on the scale of rho c
     so that every cone case occurs, and the glideslope cone's apex at lane
     0, knot N-3 (x = y = 0, lambda_v = 0); and kernel C's at the solver's
-    L=6 ladder on the plain version's gains."""
+    L=6 ladder on the plain version's gains; kernel D's on the split route
+    (:func:`_split_args`)."""
     import torch
     from altro_tpu_torch.bench.conic import rocket_setup
     from altro_tpu_torch.models import rocket
@@ -341,6 +347,7 @@ def rocket_inputs(dtype, dev, B: int = ROCKET_B) -> dict:
     ref = riccati_fused.fused_expand_backward_reference(*fused)
     return dict(
         prob=pm, fused=fused, fused_ref=ref, packed=packed,
+        **_split_args(pm, X, U, lams, rhos, reg),
         ladder_al=(pm.cost, dyn.A, dyn.B, dyn.d, blocks, X, U,
                    ref[0].contiguous(), ref[1].contiguous(), lams, rhos[0],
                    ROCKET_LADDER),
@@ -360,8 +367,9 @@ def grasp_inputs(dtype, dev, B: int = GRASP_B, cold: bool = False,
     scale of rho c so that every cone case occurs, and one apex lane-knot
     (lane 0, knot 1: the first contact force zero and lambda's vector part
     zero, so z = (0, lambda_s) with lambda_s = 500); and kernel C's at the
-    warm solves' L=3 ladder on the plain version's gains. ``N``: the same
-    form at a shorter horizon."""
+    warm solves' L=3 ladder on the plain version's gains; kernel D's on the
+    split route (:func:`_split_args`). ``N``: the same form at a shorter
+    horizon."""
     import torch
     from altro_tpu_torch.bench.conic import GRASP_N, GRASP_TF, grasp_setup
     from altro_tpu_torch.models import grasp
@@ -408,6 +416,7 @@ def grasp_inputs(dtype, dev, B: int = GRASP_B, cold: bool = False,
     soc_p = tuple(c.p for c in blocks if c.cone.name == "SOC")
     return dict(
         prob=pm, fused=fused, fused_ref=ref, packed=packed,
+        **_split_args(pm, X, U, lams, rhos, reg),
         ladder_al=(pm.cost, dyn.A, dyn.B, dyn.d, blocks, X, U,
                    ref[0].contiguous(), ref[1].contiguous(), lams, rhos[0],
                    GRASP_LADDER),

@@ -7,9 +7,13 @@ Total cost over a trajectory (X: [..., N, n], U: [..., N-1, m]):
               + u_k'H_k x_k + c_k            for k < N-1 (stage)
         + 0.5 x_T'Q_T x_T + q_T'x_T + c_T    at k = N-1 (terminal)
 
-The cost stacks are shared problem data without a batch axis; trajectories
-carry any number of leading batch axes. Stage-cost ``dt`` scaling is folded
-into the stored stacks by the constructors.
+The Hessian stacks Q, R, H are shared problem data without a batch axis.
+The linear terms q, r, c are shared too, or carry a leading lane axis
+([B, N, ...], ``per_lane``: every scenario tracks its own reference window,
+as under ``vmap`` of the JAX package's ``retarget_tracking``). Trajectories
+carry any number of leading batch axes; with a per-lane cost the first of
+them is the lane. Stage-cost ``dt`` scaling is folded into the stored stacks
+by the constructors.
 """
 from __future__ import annotations
 
@@ -25,17 +29,30 @@ def pad_terminal(U):
     return torch.cat([U, torch.zeros_like(U[..., :1, :])], dim=-2)
 
 
+def _lanes(t, X):
+    """A per-lane stack ``t`` [B, N, ...] aligned to a trajectory X
+    [B, ..., N, n]: singleton axes for X's axes between the lane and the
+    knot (the ladder's rungs)."""
+    mid = X.dim() - 3
+    return t.reshape(t.shape[:1] + (1,) * mid + t.shape[1:])
+
+
 @dataclass
 class QuadCost:
     """Per-knot quadratic cost stacks. R/r/H rows at the terminal knot are
     zero."""
 
     Q: torch.Tensor  # [N, n, n]
-    q: torch.Tensor  # [N, n]
+    q: torch.Tensor  # [(B,) N, n]
     R: torch.Tensor  # [N, m, m]   (row N-1 unused/zero)
-    r: torch.Tensor  # [N, m]
+    r: torch.Tensor  # [(B,) N, m]
     H: torch.Tensor  # [N, m, n]   cross term (zero for every reference problem)
-    c: torch.Tensor  # [N]
+    c: torch.Tensor  # [(B,) N]
+
+    @property
+    def per_lane(self) -> bool:
+        """Whether the linear terms q, r, c carry a lane axis."""
+        return self.q.dim() == 3
 
     @property
     def N(self) -> int:
@@ -49,15 +66,32 @@ class QuadCost:
     def m(self) -> int:
         return self.R.shape[-1]
 
+    def stage_terms(self, x, u, k: int):
+        """Cost of knot ``k`` at x [..., n], u [..., m] (with a per-lane
+        cost the first leading axis is the lane)."""
+        Q, R, H = self.Q[k], self.R[k], self.H[k]
+        q, r, c = self.q[..., k, :], self.r[..., k, :], self.c[..., k]
+        return (0.5 * torch.einsum("...i,ij,...j->...", x, Q, x)
+                + torch.sum(q * x, dim=-1)
+                + 0.5 * torch.einsum("...i,ij,...j->...", u, R, u)
+                + torch.sum(r * u, dim=-1)
+                + torch.einsum("...i,ij,...j->...", u, H, x) + c)
+
     def total(self, X, U):
-        """Total trajectory cost [...] for X [..., N, n], U [..., N-1, m]."""
+        """Total trajectory cost [...] for X [..., N, n], U [..., N-1, m];
+        with a per-lane cost X is [B, ..., N, n]."""
         Upad = pad_terminal(U)
         xQx = torch.einsum("...ki,kij,...kj->...k", X, self.Q, X)
         uRu = torch.einsum("...ki,kij,...kj->...k", Upad, self.R, Upad)
         uHx = torch.einsum("...ki,kij,...kj->...k", Upad, self.H, X)
-        lin = (torch.einsum("...ki,ki->...k", X, self.q)
-               + torch.einsum("...ki,ki->...k", Upad, self.r))
-        per_knot = 0.5 * xQx + 0.5 * uRu + uHx + lin + self.c
+        if self.per_lane:
+            q, r, c = (_lanes(t, X) for t in (self.q, self.r, self.c))
+            lin = torch.sum(X * q, dim=-1) + torch.sum(Upad * r, dim=-1)
+        else:
+            lin = (torch.einsum("...ki,ki->...k", X, self.q)
+                   + torch.einsum("...ki,ki->...k", Upad, self.r))
+            c = self.c
+        per_knot = 0.5 * xQx + 0.5 * uRu + uHx + lin + c
         return torch.sum(per_knot, dim=-1)
 
     def expansion(self, X, U):
@@ -68,9 +102,11 @@ class QuadCost:
         Row N-1 of lu/luu/lux is zero by construction.
         """
         Upad = pad_terminal(U)
-        lx = (torch.einsum("kij,...kj->...ki", self.Q, X) + self.q
+        q, r = ((_lanes(self.q, X), _lanes(self.r, X)) if self.per_lane
+                else (self.q, self.r))
+        lx = (torch.einsum("kij,...kj->...ki", self.Q, X) + q
               + torch.einsum("kji,...kj->...ki", self.H, Upad))
-        lu = (torch.einsum("kij,...kj->...ki", self.R, Upad) + self.r
+        lu = (torch.einsum("kij,...kj->...ki", self.R, Upad) + r
               + torch.einsum("kij,...kj->...ki", self.H, X))
         return lx, lu, self.Q, self.R, self.H
 
@@ -123,8 +159,15 @@ def tracking_objective(Q, R, Qf, X_ref, U_ref, dt: float = 1.0) -> QuadCost:
 def retarget_tracking(cost: QuadCost, X_ref, U_ref) -> QuadCost:
     """Refresh the linear terms of a tracking objective for a new reference
     window without touching the Q/R stacks (the MPC hot path). Assumes
-    H == 0."""
+    H == 0. Per-lane windows X_ref [B, N, n], U_ref [B, N-1, m] give a
+    per-lane cost (q, r, c with the lane axis)."""
     Upad = pad_terminal(U_ref)
+    if X_ref.dim() == 3:
+        qs = -torch.einsum("kij,bkj->bki", cost.Q, X_ref)
+        rs = -torch.einsum("kij,bkj->bki", cost.R, Upad)
+        cs = (0.5 * torch.einsum("bki,kij,bkj->bk", X_ref, cost.Q, X_ref)
+              + 0.5 * torch.einsum("bki,kij,bkj->bk", Upad, cost.R, Upad))
+        return dataclasses.replace(cost, q=qs, r=rs, c=cs)
     qs = -torch.einsum("kij,kj->ki", cost.Q, X_ref)
     rs = -torch.einsum("kij,kj->ki", cost.R, Upad)
     cs = (0.5 * torch.einsum("ki,kij,kj->k", X_ref, cost.Q, X_ref)

@@ -87,3 +87,13 @@ def zoh_discretize(A, B, dt, d=None):
     E = torch.linalg.matrix_exp(M * dt)
     dd = E[:n, n + m] if d is not None else torch.zeros(n, **kw)
     return E[:n, :n], E[:n, n:n + m], dd
+
+
+def euler_discretize(A, B, dt, d=None):
+    """Forward-Euler discretization: Ad = I + A dt, Bd = B dt, dd = d dt
+    (zeros without ``d``). Returns (Ad, Bd, dd)."""
+    n = A.shape[0]
+    Ad = torch.eye(n, dtype=A.dtype, device=A.device) + A * dt
+    dd = (d * dt if d is not None
+          else torch.zeros(n, dtype=A.dtype, device=A.device))
+    return Ad, B * dt, dd

@@ -1,10 +1,12 @@
 """Warm-started receding-horizon MPC step (PyTorch counterpart of the
-batched ``shared_k`` steps of ``altro_tpu/mpc.py``).
+batched steps of ``altro_tpu/mpc.py``).
 
 Each step of a batch of scenarios:
 
     propagate x0 through the first control (+ noise)
-    advance the tracking-cost window          (once for the whole batch)
+    advance the tracking-cost window          (once for the whole batch, or
+                                               per lane with ``shared_k``
+                                               off)
     refresh the constraint window             (``constraints_fn``, if given)
     seed the controls: the shifted previous solution (states
         seam-corrected) or the tracking window's controls
@@ -96,9 +98,17 @@ def shift_fill(arr):
     return torch.cat([arr[..., 1:, :], arr[..., -1:, :]], dim=-2)
 
 
-def track_window(X_track, U_track, k0: int, N: int):
+def track_window(X_track, U_track, k0, N: int):
     """The [k0, k0+N) tracking window, clamped at the tail like
-    ``lax.dynamic_slice``."""
+    ``lax.dynamic_slice``. ``k0`` an int: (X [N, n], U [N-1, m]); an
+    integer tensor [B] of per-lane indices: every lane's window
+    (X [B, N, n], U [B, N-1, m]) gathered on the device, with no host sync
+    (capturable in a CUDA graph)."""
+    if isinstance(k0, torch.Tensor):
+        ar = torch.arange(N, device=k0.device)
+        kx = torch.clamp(k0, 0, X_track.shape[0] - N)
+        ku = torch.clamp(k0, 0, U_track.shape[0] - (N - 1))
+        return X_track[kx[:, None] + ar], U_track[ku[:, None] + ar[:-1]]
     kx = min(max(int(k0), 0), X_track.shape[0] - N)
     ku = min(max(int(k0), 0), U_track.shape[0] - (N - 1))
     return X_track[kx:kx + N], U_track[ku:ku + N - 1]
@@ -233,6 +243,40 @@ class _StepPieces(_Pieces):
         sol0 = graph.solve(dataclasses.replace(pm, x0=x0), self.opts,
                            graphed=graphed, check_every=check_every)
         return (x0, sol0.X, sol0.U, sol0.duals)
+
+
+class _LanePieces(_StepPieces):
+    """The step of :class:`_StepPieces` with the window index in the carry,
+    one per lane (``make_mpc_step(shared_k=False)``): carry = (x0, X, U,
+    duals, k) with k an int64 tensor [B]. The host part is empty; the
+    tensor part advances k, gathers every lane's tracking window and
+    retargets the cost per lane, so the solve runs on a per-lane cost (the
+    solver's split route). ``finish`` returns the next carry with the
+    advanced k."""
+
+    def window(self, k_new: int):
+        return ()
+
+    def start_from(self, carry, noise_i):
+        *rest, k = carry
+        k_new = k + 1
+        Xw, Uw = track_window(self.X_track, self.U_track, k_new,
+                              self.prob_mpc.N)
+        prob_k, s0, x0_new = super().start_from(tuple(rest), noise_i, Xw,
+                                                Uw, None)
+        return prob_k, s0, (x0_new, k_new)
+
+    def finish(self, prob_k, state, out):
+        x0_new, k_new = out
+        carry, res = super().finish(prob_k, state, x0_new)
+        return carry + (k_new,), res
+
+    def init_carry(self, batch: int, graphed: bool, check_every: int,
+                   start_k=0):
+        carry = super().init_carry(batch, graphed, check_every)
+        k = torch.as_tensor(start_k, dtype=torch.int64,
+                            device=carry[0].device)
+        return carry + (k.expand(batch).clone(),)
 
 
 # the regulator's process noise per step, times a standard normal draw
@@ -491,6 +535,14 @@ class _GraphedStep:
         return clone_tree(loop.state)
 
 
+class _LaneStep(_GraphedStep):
+    """The graphed step of per-lane window indices (:class:`_LanePieces`),
+    called as ``step(carry, noise_i)``."""
+
+    def __call__(self, carry, noise_i):
+        return super().__call__(carry, noise_i, 0)
+
+
 def make_mpc_step(prob_mpc: Problem, opts: SolverOptions, X_track, U_track,
                   noise_model=default_noise_model, constraints_fn=None,
                   shared_k: bool = True, warm_start: str = "shift",
@@ -500,7 +552,22 @@ def make_mpc_step(prob_mpc: Problem, opts: SolverOptions, X_track, U_track,
     ``init_carry(batch) -> carry`` with carry = (x0, X, U, duals), all
     batched. Every scenario sits at the same window index ``k``, so the
     tracking window, the cost retarget and the constraint window are
-    computed once per step (``shared_k=True``, the only form ported).
+    computed once per step and the solve runs on a shared cost
+    (``shared_k=True``, the default here).
+
+    ``shared_k=False`` (the JAX package's default, which steps one
+    scenario and is vmapped): each lane carries its own window index,
+    ``step(carry, noise [B, n]) -> (carry, MPCResults)`` with carry =
+    (x0, X, U, duals, k), k an int64 tensor [B] that every step advances
+    by one, and ``init_carry(batch, start_k=0)`` with ``start_k`` an int or
+    a [B] tensor of start indices (the carry's solution is the cold solve
+    of ``prob_mpc``'s own window, as in the JAX package). Every lane gets
+    its own tracking window and cost (gathered on the device), so the solve
+    takes the split route: the AL expansion in PyTorch, then the Riccati
+    pass (kernel D on the card), and the classical ladder (or, with
+    ``opts.ls_fused`` on, the ladder rollout and the merit in PyTorch).
+    ``constraints_fn`` is not supported there (the JAX package's batched
+    use shares the constraint window): NotImplementedError.
 
     ``constraints_fn(k)``: the constraint blocks of the window starting at
     knot ``k`` (time-varying constraints, as grasp's rotating contact
@@ -518,13 +585,24 @@ def make_mpc_step(prob_mpc: Problem, opts: SolverOptions, X_track, U_track,
     without capture), and ``init_carry``'s cold solve as a
     ``graph.GraphedSolve``; else the host-driven loop. ``check_every``:
     body passes between two tests of the live mask."""
-    if not shared_k:
-        raise NotImplementedError("only shared_k=True is ported")
-    pieces = _StepPieces(prob_mpc, opts, X_track, U_track, noise_model,
-                         constraints_fn, warm_start)
-    return _make_step(pieces, opts, (),
-                      graph.use_graphs(graphed, prob_mpc.x0.device),
-                      check_every)
+    graphed = graph.use_graphs(graphed, prob_mpc.x0.device)
+    if shared_k:
+        pieces = _StepPieces(prob_mpc, opts, X_track, U_track, noise_model,
+                             constraints_fn, warm_start)
+        return _make_step(pieces, opts, (), graphed, check_every)
+    if constraints_fn is not None:
+        raise NotImplementedError("shared_k=False takes no constraints_fn: "
+                                  "the constraint window is shared")
+    lanes = _LanePieces(prob_mpc, opts, X_track, U_track, noise_model, None,
+                        warm_start)
+
+    def init_carry(batch: int, start_k=0):
+        return lanes.init_carry(batch, graphed, check_every, start_k)
+
+    if graphed:
+        return _LaneStep(lanes, opts, (), check_every), init_carry
+    eager, _ = _make_step(lanes, opts, (), False, check_every)
+    return (lambda carry, noise_i: eager(carry, noise_i, 0)), init_carry
 
 
 def make_mpc_step_compacted(prob_mpc: Problem, opts: SolverOptions,

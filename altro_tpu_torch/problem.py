@@ -3,8 +3,9 @@
 
 ``x0`` carries the batch: [B, n] for a batched solve. The dynamics stacks
 are shared ([N-1, ...]) or carry the batch ([B, N-1, ...]: every scenario
-linearized about its own schedule); cost and constraint stacks are shared by
-every scenario.
+linearized about its own schedule); the cost's linear terms are shared or
+carry the batch (every scenario tracking its own window); the cost's
+Hessians and the constraint stacks are shared by every scenario.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from .dynamics import LTVDynamics
 @dataclass
 class Problem:
     dynamics: LTVDynamics   # stacks [N-1, ...] or per scenario [B, N-1, ...]
-    cost: QuadCost          # shared
+    cost: QuadCost          # Hessians shared; q, r, c shared or [B, N, ...]
     constraints: Tuple[ConicConstraint, ...]  # shared
     x0: torch.Tensor  # [B, n] (or [n] for an unbatched problem)
 

@@ -3,14 +3,16 @@
 constraint blocks.
 
 Every entry point takes an explicit leading batch axis B (``prob.x0`` is
-[B, n]); cost and constraint stacks are shared by the batch, the dynamics
-stacks are shared or per scenario. Each iteration runs
+[B, n]); constraint stacks are shared by the batch, the cost's linear terms
+and the dynamics stacks are shared or per scenario. Each iteration runs
 
 - the AL expansion and the Riccati backward pass, either
-  - with shared dynamics: fused into one pass (ops/riccati_fused.py: a
-    CUDA kernel on the card), or
-  - with per-lane dynamics: the expansion in PyTorch, then
-    :func:`backward_pass` (ops/riccati.py: a CUDA kernel on the card),
+  - fused into one pass (ops/riccati_fused.py: a CUDA kernel on the card),
+    where the dynamics and the cost are shared and
+    ``SolverOptions.fused_expansion`` is on, or
+  - split (per-lane dynamics, a per-lane cost, or the fused expansion
+    off): the expansion in PyTorch, then :func:`backward_pass`
+    (ops/riccati.py: a CUDA kernel on the card),
 - the whole line-search ladder of step sizes plus a trailing alpha = 0 rung
   in one closed-loop rollout, either
   - classical: the ladder rollout (ops/rollout.py: a CUDA kernel on the
@@ -18,9 +20,9 @@ stacks are shared or per scenario. Each iteration runs
     PyTorch for every rung, or
   - fused (``SolverOptions.ls_fused``): the ladder rollout with each
     rung's AL merit accumulated in the same pass (ops/rollout_al.py: a
-    CUDA kernel on the card; with per-lane dynamics the ladder-rollout
-    kernel followed by the merit in PyTorch), the residuals then
-    evaluated once on the adopted trajectory,
+    CUDA kernel on the card; with per-lane dynamics or a per-lane cost the
+    ladder-rollout kernel followed by the merit in PyTorch), the residuals
+    then evaluated once on the adopted trajectory,
 - the AL round bookkeeping (dual update by polar-cone projection, penalty
   scaling, violation check) inline under a per-lane mask.
 
@@ -85,9 +87,47 @@ class Solution:
     stats: Stats
 
 
+def print_summary(sol: Solution) -> None:
+    """Print a one-line summary per lane of a solve (status, iterations, AL
+    rounds, cost, violation, gradient)."""
+    s = sol.stats
+    for i in range(int(s.status.shape[0])):
+        status = ("SOLVE_SUCCEEDED" if int(s.status[i]) == 1
+                  else "MAX_ITERATIONS")
+        print(f"[altro_tpu_torch] {status}: {int(s.iterations[i])} iLQR "
+              f"iterations in {int(s.outer_iterations[i])} AL rounds | cost "
+              f"{float(s.cost[i]):.6g} | max violation {float(s.viol[i]):.3e}"
+              f" | gradient {float(s.gradient[i]):.3e}")
+
+
+def check_status(stats: Stats, context: str = "") -> bool:
+    """Whether every lane succeeded; warns with the count of unsuccessful
+    solves otherwise."""
+    import warnings
+
+    ok = bool(torch.all(stats.status == 1))
+    if not ok:
+        n_fail = int(torch.sum(stats.status == 0))
+        warnings.warn(f"solver status: {n_fail} unsuccessful solve(s)"
+                      + (f" in {context}" if context else ""))
+    return ok
+
+
 # ----------------------------------------------------------------------------
 # AL cost and expansion
 # ----------------------------------------------------------------------------
+
+def total_al_cost(prob: Problem, duals, X, U):
+    """AL cost [...] of (X, U) under ``duals`` (:func:`total_al_cost_res`
+    without the residuals)."""
+    return total_al_cost_res(prob, duals, X, U)[0]
+
+
+def al_expansion(prob: Problem, duals, X, U):
+    """Quadratic expansion of the AL objective along (X [B,N,n], U):
+    :func:`_al_expansion_cd` of the problem's cost and constraints."""
+    return _al_expansion_cd(prob.cost, prob.constraints, duals, X, U)
+
 
 def total_al_cost_res(prob: Problem, duals, X, U):
     """AL cost [...] plus the per-block residuals c and projected duals
@@ -383,9 +423,9 @@ def _ladder_choice(Jts, alphas, dV1, dV2, ls_min_ratio):
 class LoopContext:
     """What the loop body reads besides the problem and the state, built
     once per loop entry: the lane index [B], the line-search ladder (as
-    floats, which the kernels take by value, and as a tensor) and, on the
-    kernels' route with shared dynamics, the constraint stacks packed for
-    them."""
+    floats, which the kernels take by value, and as a tensor) and, where a
+    kernel that reads them runs (the fused expansion, the fused ladder on
+    shared data), the constraint stacks packed for it."""
 
     lanes: torch.Tensor
     alphas_t: Tuple[float, ...]
@@ -399,12 +439,15 @@ def loop_context(prob: Problem, opts: SolverOptions,
     [B, N, n]: the lane index, the alpha ladder plus the trailing alpha = 0
     rung (whose rollout reproduces the current trajectory: Jts[:, -1] is the
     current AL cost) and the fused kernels' row-concatenated constraint
-    stacks (per-lane dynamics take the unfused route, which reads none)."""
+    stacks, where either fused kernel runs (per-lane data takes
+    neither)."""
     alphas_t = tuple(opts.ls_decrease ** i
                      for i in range(opts.iterations_linesearch)) + (0.0,)
+    per_lane = prob.dynamics.per_lane or prob.cost.per_lane
+    fused = not per_lane and (opts.fused_expansion
+                              or _uses_fused_ladder(opts, prob, X_0))
     packed = (pack_blocks(prob.constraints, prob.N, prob.n, prob.m, X_0)
-              if X_0.device.type == "cuda" and not prob.dynamics.per_lane
-              else None)
+              if X_0.device.type == "cuda" and fused else None)
     return LoopContext(
         lanes=torch.arange(X_0.shape[0], device=X_0.device),
         alphas_t=alphas_t,
@@ -431,10 +474,13 @@ def loop_fns(prob: Problem, opts: SolverOptions, s0, it_cap=None,
     packed = ctx.packed
     dyn = prob.dynamics
     fused_ladder = _uses_fused_ladder(opts, prob, X_0)
-    # per-lane dynamics take the unfused route: expansion in PyTorch, then
-    # the Riccati pass; the line search's fused branch then runs the ladder
-    # rollout and the merit in PyTorch
-    per_lane = dyn.per_lane
+    # the fused kernels read shared data only. Per-lane data take the
+    # split route (the expansion in PyTorch, then the Riccati pass), as
+    # does any problem with opts.fused_expansion off; on per-lane data the
+    # line search's fused branch runs the ladder rollout and the merit in
+    # PyTorch
+    per_lane = dyn.per_lane or prob.cost.per_lane
+    split = per_lane or not opts.fused_expansion
 
     def round_end_update(cs, cts, duals, lam_ok):
         """AL round bookkeeping from the adopted trajectory's residuals (cs)
@@ -474,7 +520,7 @@ def loop_fns(prob: Problem, opts: SolverOptions, s0, it_cap=None,
         X, U, K, duals, reg, grad, viol, it_rd, it, rounds, done = s
         lams = tuple(d.lam for d in duals)
         rhos = tuple(d.rho for d in duals)
-        if per_lane:
+        if split:
             lx, lu, lxx, luu, lux = _al_expansion_cd(prob.cost,
                                                      prob.constraints,
                                                      duals, X, U)

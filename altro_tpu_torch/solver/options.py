@@ -50,3 +50,11 @@ class SolverOptions:
     # otherwise (the CPU default keeps the classical path); "on": always;
     # "off": never.
     ls_fused: str = "auto"
+
+    # The AL expansion fused into the Riccati pass (ops/riccati_fused.py) on
+    # shared problem data. False takes the split route on every problem:
+    # the expansion in PyTorch, then the Riccati pass from it
+    # (ops/riccati.py). The counterpart of the JAX package's
+    # ALTRO_TPU_FUSED=0; per-lane dynamics or a per-lane cost take the split
+    # route whatever this says.
+    fused_expansion: bool = True

@@ -58,6 +58,11 @@ Phases, each printing its findings; any failure raises (non-zero exit):
       b); each kernel's ms, its plain version's, its bound and the share
       of the bound it reaches printed at both batches; the float32 errors
       count in max_abs_err;
+   j. kernel D on the split route with shared dynamics (the solver's AL
+      expansion, per lane, of the fused kernel's 3a, 3b and 3d window
+      inputs: the flagship, the rocket window and grasp's window, B=1024),
+      under 3a's gates, float32 and float64, each timed beside its plain
+      version and its bound; the float32 errors count in max_abs_err;
 4. main paths, each on CUDA graphs (``altro_tpu_torch/solver/graph.py``:
    every MPC step, batch solve and cold solve as start, loop and finish
    graphs, the loop replayed with one host sync per k passes), with the
@@ -106,6 +111,14 @@ Phases, each printing its findings; any failure raises (non-zero exit):
       kick at 0.9 s; 2 s, QP): status 1 on every period, final height
       within 0.07 m, |roll|, |pitch| < 0.15, final lateral velocity
       < 0.15 m/s;
+   j. the flagship with per-lane window indices
+      (``make_mpc_step(shared_k=False)``, the JAX package's default step;
+      B=1024, LANE_T steps, float32, on graphs), lanes started at windows
+      0-4: success 1.0; kernel D and kernel A once per counted pass, B and
+      C never; no entry into the host-driven loop; the first AGREE_B lanes
+      of every step, from the card's carry cast to float64, against the
+      port's plain float64 step on the CPU (gate: equal status, max|U32 -
+      U64| <= 1e-3); step ms p50 printed beside the shared-k step's;
    f. graphed against eager on the card, every run from one carry: the
       flagship (B=1024, 10 steps), the rocket, grasp and flexsat in their
       shipped schedules (5 steps), the quadruped (2 rounds in each friction
@@ -120,8 +133,9 @@ Phases, each printing its findings; any failure raises (non-zero exit):
       max|U32 - U64| <= 1e-3);
    b. rocket, 64 lanes x 5 steps, both from the card's float32 carry of
       each step with ls_fused="on", scored by the float64 true cost of
-      each instance (gates: at most one lane-step whose status differs,
-      |mean gap| <= 1e-3, p99 |gap| <= 2e-2; see GATE_BIAS);
+      each instance (``bench/agreement_conic.py: conic_agreement``; gates:
+      at most one lane-step whose status differs, |mean gap| <= 1e-3, p99
+      |gap| <= 2e-2; see its GATES);
    c. quadruped, 64 lanes (8 per schedule) of the same float64-built
       instances in both friction modes, scored by the float64 true cost of
       each lane's controls (gates: at most one lane whose status differs,
@@ -134,7 +148,15 @@ Phases, each printing its findings; any failure raises (non-zero exit):
       every lane of those steps against a tight float64 re-solve on the
       card (gates: float32 success 1.0 and violation <= 1e-4, every truth
       solve succeeds, full-batch true-cost gap |mean| <= 1e-3 and p99
-      |gap| <= 1e-2; the largest gap printed).
+      |gap| <= 1e-2; the largest gap printed);
+   g. the end-to-end gate modules: ``bench/fused_check.py`` in full
+      (rocket and grasp, B=1024, T=6: kernel B's route against the split
+      route, kernel D's, from the same carry at every step; gates: success
+      of B's route >= the split route's, |mean gap| <= 1e-3, p99 |gap| <=
+      2e-2, B's largest violation <= max(the split route's, the
+      constraint tolerance), B and D each on its own route) and
+      ``bench/agreement.py`` at T=3 (the ``shared_k=False`` flagship,
+      B=1024, tolerances 1e-4 and 1e-6; gate: success 1.0 at both);
 
 6. baselines on the card (``altro_tpu_torch/bench/baselines.py`` and
    ``bench/drivers.py``), float64 unless the driver's dtype says otherwise;
@@ -178,6 +200,10 @@ Phases, each printing its findings; any failure raises (non-zero exit):
    g. the state_dim driver at n = 35, 45, 55 (the kernels' wide bodies),
       T_DRIVER steps (gates: success 1.0 at each point, all run).
 
+7. the quickstart (``altro_tpu_torch/examples/quickstart.py``), all five
+   sections at ``--fast`` on the card (gates: every solve succeeds, the
+   closed loop's every period).
+
 The line before the last is the kernel table as JSON (with each kernel's
 bound_ms and bound_by at the shapes it was timed at, and library_ms null: no
 single PyTorch call computes these knot recursions); the last line is
@@ -200,21 +226,13 @@ AGREE_B, AGREE_T = 64, 10
 F32_TOL, F64_TOL, AGREE_TOL = 1e-3, 1e-9, 1e-3
 ROCKET_B, ROCKET_T = 1024, 30
 ROCKET_AGREE_B, ROCKET_AGREE_T = 64, 5
-# rocket f32-vs-f64 true-cost gap gates. A float32 solve at the warm
-# options (cost tolerance 1e-6) stops where its own rounding hides further
-# decrease. With kernel C's merit summed in doubles the kernel path measured
-# on an NVIDIA H100 a mean gap of -3.9e-5 and a p99 of 8.6e-4 over 64 lanes
-# x 5 steps; with the float merit it had measured 1.2e-3 and 3.7e-2, and
-# the JAX package's own float32 replay of the comparison on the CPU gives
-# 1.7e-2 and 0.36. The gates sit between the two kernel paths, so that a
-# return of the float merit's stalls (or any defect that biases many lanes)
-# fails them.
-GATE_BIAS, GATE_P99 = 1e-3, 2e-2
 GRASP_B, GRASP_T = 1024, 15
 GRASP_AGREE_B, GRASP_AGREE_T = 64, 5
-# grasp f32-vs-f64 true-cost gap gates; the JAX package's shipped float32
-# measured a cost gap of 4.6e-5 against a float64 truth on the TPU
-GRASP_GATE_BIAS, GRASP_GATE_P99 = 1e-3, 1e-2
+# 4j: the shared_k=False flagship's steps and the spread of its lanes'
+# start windows (0 .. LANE_SPREAD - 1)
+LANE_T, LANE_SPREAD = 10, 5
+# 5g: fused_check's steps, agreement's steps
+FUSED_CHECK_T, AGREEMENT_T = 6, 3
 # compacted-vs-plain comparison: batch and steps from one carry
 COMPARE_B, COMPARE_T = 1024, 5
 QUAD_B, QUAD_ROUNDS, QUAD_AGREE_B = 1024, 5, 64
@@ -636,60 +654,6 @@ def quadruped_agreement():
                 and p99 <= QUAD_GATE_P99):
             raise AssertionError(f"quadruped [{mode}] cost gap: mean "
                                  f"{float(gap.mean()):.3e}, p99 {p99:.3e}")
-
-
-def conic_agreement(su32, Bn, T, gate_bias, gate_p99):
-    """Rocket or grasp agreement: at each step the card's float32 carry is
-    advanced by the float32 kernel path and, cast to float64, solved by the
-    plain float64 path on the CPU (both ls_fused="on"); both solutions'
-    controls are scored by the float64 true cost of the instance (rolled out
-    from the float64 step's x0). Gates: at most one lane-step whose status
-    differs, |mean gap| <= gate_bias, p99 |gap| <= gate_p99."""
-    from altro_tpu_torch.bench.conic import SETUPS, make_step
-    from altro_tpu_torch.convert import tree_to
-    from altro_tpu_torch.costs import retarget_tracking
-    from altro_tpu_torch.mpc import track_window
-
-    family = su32.family
-    s64 = SETUPS[family](torch.float64, device="cpu",
-                         track=(su32.X_track.double().cpu(),
-                                su32.U_track.double().cpu()))
-    step32, init32 = make_step(su32, opts=dataclasses.replace(
-        su32.opts, ls_fused="on"))
-    step64, _ = make_step(s64, opts=dataclasses.replace(s64.opts,
-                                                        ls_fused="on"))
-    noise = np.random.default_rng(su32.noise_seed).standard_normal((T, Bn, 6))
-    dyn, N = s64.prob_mpc.dynamics, s64.prob_mpc.N
-    carry = init32(Bn)
-    gaps, status_diff, dU = [], 0, 0.0
-    for t in range(T):
-        c64 = tree_to(carry, "cpu", torch.float64)
-        carry, o32 = step32(carry, torch.as_tensor(noise[t], dtype=torch.float32,
-                                                   device="cuda"), t)
-        _, o64 = step64(c64, torch.as_tensor(noise[t]), t)
-        Xw, Uw = track_window(s64.X_track, s64.U_track, t + 1, N)
-        cost = retarget_tracking(s64.prob_mpc.cost, Xw, Uw)
-        U32 = o32.U.double().cpu()
-        J64 = cost.total(dyn.rollout(o64.x0, o64.U), o64.U)
-        J32 = cost.total(dyn.rollout(o64.x0, U32), U32)
-        gaps.append((J32 - J64) / J64.abs().clamp(min=1e-12))
-        status_diff += int((o32.status.cpu() != o64.status).sum())
-        dU = max(dU, float((U32 - o64.U).abs().max()))
-    gap = torch.stack(gaps)
-    worst = int(gap.abs().argmax())
-    p99 = float(torch.quantile(gap.abs().flatten(), 0.99))
-    print(f"{family} agreement {Bn} lanes x {T} steps, f32 kernels vs f64 "
-          f"plain (ls_fused='on'): status differs on {status_diff} "
-          f"lane-steps; true-cost gap mean {float(gap.mean()):.3e}, p99 |gap| "
-          f"{p99:.3e}, worst {float(gap.flatten()[worst]):.3e} (step "
-          f"{worst // Bn}, lane {worst % Bn}); max|dU| {dU:.3e}; gates "
-          f"|mean| <= {gate_bias:.0e}, p99 <= {gate_p99:.0e}")
-    if status_diff > 1:
-        raise AssertionError(f"{family} status differs on {status_diff} "
-                             "lane-steps")
-    if not (abs(float(gap.mean())) <= gate_bias and p99 <= gate_p99):
-        raise AssertionError(f"{family} cost gap: mean {float(gap.mean()):.3e}"
-                             f", p99 {p99:.3e}")
 
 
 def conic_noise(su, T):
@@ -1208,6 +1172,166 @@ def state_dim_on_card(card):
             raise AssertionError(f"state_dim n={x}: {e}")
 
 
+def shared_riccati_parity(dtype, tol):
+    """Phase 3j: kernel D with shared A/B against its plain version on the
+    solver's AL expansion of the fused kernel's window inputs (the
+    flagship, the rocket window, grasp's window; B=1024). Returns {shape:
+    ({output: max_abs_err}, ms, plain_ms, (bytes, flops))}."""
+    from altro_tpu_torch.bench.kernels import (flagship_inputs, grasp_inputs,
+                                               rocket_inputs)
+    from altro_tpu_torch.ops import riccati
+
+    dev = torch.device("cuda")
+    bp, bp_ref = riccati.batched_riccati, riccati.batched_riccati_reference
+    out = {}
+    for label, fn in (("flagship", flagship_inputs),
+                      ("rocket window", rocket_inputs),
+                      ("grasp window", grasp_inputs)):
+        inp = fn(dtype, dev)
+        args = inp["riccati"]
+        got = bp(*args)
+        torch.cuda.synchronize()
+        ref = bp_ref(*args)
+        if not all(bool(torch.isfinite(r).all()) for r in ref):
+            raise AssertionError(f"{label}: the split-route inputs make Quu "
+                                 "indefinite")
+        out[label] = (errors(got, ref, ("K", "d", "dV1", "dV2"), tol),
+                      time_ms(lambda: bp(*args), kernel=True),
+                      time_ms(lambda: bp_ref(*args)), inp["riccati_work"])
+        del inp, args, got, ref
+    return out
+
+
+def lane_flagship(card, reset_counts, read_counts):
+    """Phase 4j: the flagship with per-lane window indices
+    (``make_mpc_step(shared_k=False)``) on graphs, built in float64 on the
+    CPU and cast; the counts are reset after the capture, just before the
+    LANE_T steps, and read just after them. Gates its quality, launches and
+    loop form, then the first AGREE_B lanes of every step against the
+    port's float64 plain step on the CPU from the same carry; returns the
+    launches."""
+    from altro_tpu_torch.bench.flagship import flagship_setup
+    from altro_tpu_torch.convert import tree_to
+    from altro_tpu_torch.mpc import _state_map, make_mpc_step
+    from altro_tpu_torch.solver import altro
+
+    s64 = flagship_setup(FLAG_B, LANE_T + LANE_SPREAD, dtype=torch.float64,
+                         device="cpu")
+    s32 = tree_to(s64, "cuda", torch.float32)
+    args32 = (s32.prob_mpc, s32.opts, s32.X_track, s32.U_track)
+    step, init = make_mpc_step(*args32, shared_k=False)
+    carry = init(FLAG_B, torch.arange(FLAG_B, device="cuda") % LANE_SPREAD)
+    step(carry, s32.noise[0])                          # capture, warm up
+    reset_counts()
+    carries, outs, ms = [], [], []
+    for t in range(LANE_T):
+        carries.append(_state_map(lambda a: a[:AGREE_B], carry))
+        (carry, out), t_ms = _timed(lambda: step(carry, s32.noise[t]))
+        outs.append(out)
+        ms.append(t_ms)
+    launches, passes = read_counts(), altro.pass_count
+    eager = altro.eager_loop_count
+    status = torch.stack([o.status for o in outs]).cpu()
+    viol = torch.stack([o.viol for o in outs]).double().cpu()
+    iters = torch.stack([o.iters for o in outs]).cpu().double()
+    # the shared-k step on the same problem, timed in the same call
+    sstep, sinit = make_mpc_step(*args32)
+    sc = sinit(FLAG_B)
+    sstep(sc, s32.noise[0], 0)                         # capture, warm up
+    sms = []
+    for t in range(LANE_T):
+        (sc, _), t_ms = _timed(lambda: sstep(sc, s32.noise[t], t))
+        sms.append(t_ms)
+    print(f"lane-k flagship main path [{card}]: B={FLAG_B}, {LANE_T} steps, "
+          f"start windows 0-{LANE_SPREAD - 1}, float32, graphs; step ms p50 "
+          f"{float(np.median(ms)):.3f} (shared-k step p50 "
+          f"{float(np.median(sms)):.3f}); success "
+          f"{float(status.double().mean()):.4f} max_viol "
+          f"{float(viol.max()):.3e} mean_iters {float(iters.mean()):.3f} "
+          f"lane_max_iters {int(iters.max())}; passes {passes}; final "
+          f"windows {sorted(set(carry[4].tolist()))}; launches {launches}")
+    if not (float(status.double().mean()) == 1.0
+            and float(viol.max()) <= 1e-4):
+        raise AssertionError(f"lane-k flagship quality: status "
+                             f"{status.double().mean()}, viol {viol.max()}")
+    if not (passes > 0 and launches["batched_riccati"] == passes
+            and launches["batched_ls_rollout"] == passes
+            and launches["fused_expand_backward"] == 0
+            and launches["batched_ls_rollout_al"] == 0 and eager == 0):
+        raise AssertionError(f"lane-k flagship launch counts {launches} do "
+                             f"not match {passes} passes, or the host-driven "
+                             f"loop ran ({eager})")
+    step64, _ = make_mpc_step(s64.prob_mpc, s64.opts, s64.X_track,
+                              s64.U_track, shared_k=False)
+    differ, dU = 0, 0.0
+    for t, (c, o32) in enumerate(zip(carries, outs)):
+        _, o64 = step64(tree_to(c, "cpu", torch.float64),
+                        s64.noise[t][:AGREE_B])
+        differ += int((o32.status[:AGREE_B].cpu() != o64.status).sum())
+        dU = max(dU, float((o32.U[:AGREE_B].double().cpu() - o64.U)
+                           .abs().max()))
+    print(f"lane-k flagship agreement [{card}] {AGREE_B} lanes x {LANE_T} "
+          f"steps, f32 kernels vs f64 plain from the same carry: status "
+          f"differs on {differ} lane-steps; max|dU| {dU:.3e} (gate "
+          f"{AGREE_TOL:.0e})")
+    if differ or not dU <= AGREE_TOL:
+        raise AssertionError(f"lane-k flagship f32 vs f64: status differs on "
+                             f"{differ} lane-steps, max|dU| {dU:.3e}")
+    return launches
+
+
+def gate_modules(card, su32, gsu32):
+    """Phase 5g: ``bench/fused_check.py`` in full on both families (the
+    setups of 4b and 4e) and ``bench/agreement.py`` at AGREEMENT_T steps;
+    their gates fail the run."""
+    from altro_tpu_torch.bench import agreement, fused_check
+    t0 = time.perf_counter()
+    fc = fused_check.run(1024, FUSED_CHECK_T, "cuda",
+                         setups={"rocket": su32, "grasp": gsu32})
+    for family in fused_check.FAMILIES:
+        r = fc[family]
+        print(f"fused_check {family} [{card}] B={r['lanes']}, T={r['steps']}"
+              f": success B route {r['success_fused']:.5f}, split route "
+              f"{r['success_unfused']:.5f}; true-cost gap signed mean "
+              f"{r['gap_signed_mean']:.3e}, |gap| mean "
+              f"{r['gap_abs_mean']:.3e}, p99 {r['gap_abs_p99']:.3e}, max "
+              f"{r['gap_abs_max']:.3e}; max_viol B route "
+              f"{r['max_viol_fused']:.3e}, split route "
+              f"{r['max_viol_unfused']:.3e}; step ms p50 B route "
+              f"{r['step_ms_p50_fused']:.3f}, split route "
+              f"{r['step_ms_p50_unfused']:.3f}; launches {r['launches']}; "
+              f"gate {'PASS' if r['gate_pass'] else 'FAIL'}")
+    print(f"  ({time.perf_counter() - t0:.1f} s)", flush=True)
+    if not fc["gate_pass"]:
+        raise AssertionError(f"fused_check failed: {json.dumps(fc)}")
+    t0 = time.perf_counter()
+    ag = agreement.run(1024, AGREEMENT_T, "cuda")
+    for key, r in ag["per_tpu_tolerance"].items():
+        fb = ag["fullbatch"][f"tol_{key}"]
+        print(f"agreement tol={key} [{card}] B=1024, T={AGREEMENT_T}: "
+              f"success {r['success_all_steps']:.4f}; {ag['config']['sample']}"
+              f" lanes vs f64 truth: max|dU| "
+              f"{r['max_dU_tpu_f32_vs_cpu_f64']:.3e} (mean "
+              f"{r['mean_dU_tpu_f32_vs_cpu_f64']:.3e}); every lane's cost "
+              f"gap max {fb['gap_max']:.3e} p99 {fb['gap_p99']:.3e} mean "
+              f"{fb['gap_mean']:.3e}; step ms p50 {r['step_ms_p50']:.3f}")
+    print(f"agreement f64 truth vs native C++ QP: max|dU| "
+          f"{ag['max_dU_cpu_f64_vs_native_cpp']:.3e}, native status "
+          f"{ag['native_success']} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    agreement.check(ag)
+
+
+def quickstart_on_card():
+    """Phase 7: the quickstart's five sections at ``--fast`` on the card."""
+    from altro_tpu_torch.examples import quickstart
+    res = quickstart.main(["--fast"])
+    bad = {k: v for k, v in res.items()
+           if v.get("status", 1) != 1 or v.get("all_ok") is False}
+    if bad:
+        raise AssertionError(f"quickstart: {bad}")
+
+
 def main() -> None:
     # ---- 1. device
     if not torch.cuda.is_available():
@@ -1217,7 +1341,7 @@ def main() -> None:
     from altro_tpu_torch.bench.conic import (SCHEDULES, grasp_batched,
                                              grasp_setup, make_step,
                                              rocket_batched, rocket_setup)
-    from altro_tpu_torch.bench import agreement_flexsat
+    from altro_tpu_torch.bench import agreement_conic, agreement_flexsat
     from altro_tpu_torch.bench.families import (FLEXSAT_SCHEDULE,
                                                 flexsat_batched,
                                                 flexsat_setup, flexsat_step,
@@ -1295,6 +1419,20 @@ def main() -> None:
                           f"({by}: {work[0] / 1e6:.2f} MB, "
                           f"{work[1] / 1e9:.4f} GFLOP), share "
                           f"{bnd / ms:.2%} [{card}]", flush=True)
+
+    # ---- 3j. kernel D with shared dynamics on the split route
+    par_d = {}
+    for label, dtype, tol in (("f32", torch.float32, F32_TOL),
+                              ("f64", torch.float64, F64_TOL)):
+        par_d[label] = shared_riccati_parity(dtype, tol)
+        for shape, (errs, ms, plain_ms, work) in par_d[label].items():
+            errs_s = " ".join(f"{k}={v:.3e}" for k, v in errs.items())
+            bnd, by = bound_ms(*work, 4 if label == "f32" else 8)
+            print(f"parity batched_riccati shared {shape} {label}: max|kernel"
+                  f" - plain| {errs_s}; kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, bound {bnd:.4f} ms ({by}: "
+                  f"{work[0] / 1e6:.2f} MB, {work[1] / 1e9:.4f} GFLOP), share"
+                  f" {bnd / ms:.2%} [{card}]", flush=True)
 
     def reset_counts():
         rollout.launch_count = 0
@@ -1456,6 +1594,11 @@ def main() -> None:
                              f"match {fpasses} solver-loop passes and one "
                              f"cold solve")
 
+    # ---- 4j. main path: the flagship with per-lane window indices (the
+    # split route: D and A once per pass)
+    # (gated there: its float64 comparison on the CPU enters the host loop)
+    jlaunches = lane_flagship(card, reset_counts, read_counts)
+
     # ---- 4h. main path: the quadruped closed loop, both friction forms;
     # A once per solve (each starts without states), B and C once per pass
     def loop_counts():
@@ -1488,7 +1631,7 @@ def main() -> None:
                                                            levels),
         FLEXSAT_SCHEDULE, fsu.noise)
     eager_entries += altro.eager_loop_count
-    print(f"entries into the host-driven loop over 4a-4e and 4g-4i: "
+    print(f"entries into the host-driven loop over 4a-4e and 4g-4j: "
           f"{eager_entries}")
     if eager_entries:
         raise AssertionError(f"the main paths entered the host-driven loop "
@@ -1516,14 +1659,13 @@ def main() -> None:
         raise AssertionError(f"f32-vs-f64 control gap {float(dU.max()):.3e}")
 
     # ---- 5b. rocket agreement
-    conic_agreement(su32, ROCKET_AGREE_B, ROCKET_AGREE_T, GATE_BIAS, GATE_P99)
+    agreement_conic.conic_agreement(su32, ROCKET_AGREE_B, ROCKET_AGREE_T)
 
     # ---- 5c. quadruped agreement
     quadruped_agreement()
 
     # ---- 5d. grasp agreement
-    conic_agreement(gsu32, GRASP_AGREE_B, GRASP_AGREE_T, GRASP_GATE_BIAS,
-                    GRASP_GATE_P99)
+    agreement_conic.conic_agreement(gsu32, GRASP_AGREE_B, GRASP_AGREE_T)
 
     # ---- 5e. flexsat agreement: float32 on the card against float64
     # truth solves (16 lanes per checked step, on the CPU) and tight
@@ -1551,6 +1693,12 @@ def main() -> None:
     # ---- 5f. the closed loop, card (f64 kernels) against the CPU (plain)
     closed_loop_agreement(card)
 
+    # ---- 5g. the gate modules: fused_check in full, agreement at T=3
+    reset_counts()
+    gate_modules(card, su32, gsu32)
+    glaunches5 = read_counts()
+    print(f"phase 5g launches: {glaunches5}")
+
     # ---- 6. baselines on the card; ALTRO's launches count in the table
     from altro_tpu_torch.bench import baselines
     reset_counts()
@@ -1574,10 +1722,19 @@ def main() -> None:
               f"{ {k: b[k] - a[k] for k in b} }")
     print(f"phase 6 ALTRO launches: {p6launches}")
 
-    # kernel table: launches over the main paths (4h and 4i included), the
-    # largest float32 error over every parity check, times and bounds at
-    # the shapes of the path that the kernel serves per iteration (the
-    # rocket window for B and C, the quadruped batch for D). No single
+    # ---- 7. the quickstart on the card
+    reset_counts()
+    t0 = time.perf_counter()
+    quickstart_on_card()
+    qslaunches = read_counts()
+    print(f"phase 7 quickstart ({time.perf_counter() - t0:.1f} s) launches: "
+          f"{qslaunches}", flush=True)
+
+    # kernel table: launches over the main paths (4h-4j, 5g and 7
+    # included), the largest float32 error over every parity check (3j's
+    # too), times and bounds at the shapes of the path that the kernel
+    # serves per iteration (the rocket window for B and C, the quadruped
+    # batch for D). No single
     # PyTorch call computes any of these knot recursions, so library_ms is
     # null.
     sources = {
@@ -1599,7 +1756,9 @@ def main() -> None:
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": (launches[name] + rlaunches[name] + qlaunches[name]
                          + glaunches[name] + flaunches[name]
-                         + llaunches[name] + p6launches[name]),
+                         + jlaunches[name] + llaunches[name]
+                         + glaunches5[name] + p6launches[name]
+                         + qslaunches[name]),
             "max_abs_err": max(
                 [v for shape in par if name in par[shape][0]
                  for v in par[shape][0][name][0].values()]
@@ -1608,7 +1767,9 @@ def main() -> None:
                 + [v for B in WIDE_BATCHES
                    for res in wide["f32", B].values()
                    for k, r in res.items() if k.split(" ")[0] == name
-                   for v in r[0].values()]),
+                   for v in r[0].values()]
+                + [v for r in par_d["f32"].values()
+                   if name == "batched_riccati" for v in r[0].values()]),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
             "library_ms": None})
     print(json.dumps({"kernels": table}))

@@ -17,6 +17,17 @@ def test_flagship_window_counts_iterations():
     assert first >= dp.FLAG_STEPS and second >= dp.FLAG_STEPS
 
 
+def test_flagship_lanes_window_counts_iterations():
+    """The flagship with a window index per lane: every step runs at least
+    one solver-loop pass; kernel B's wrapper is never called (the split
+    route)."""
+    from altro_tpu_torch.ops import riccati_fused
+    b0 = riccati_fused.launch_count
+    window = dp.flagship_lanes_window(B=5, device="cpu")
+    assert window() >= dp.FLAG_STEPS
+    assert riccati_fused.launch_count == b0
+
+
 @pytest.mark.parametrize("linearized", [True, False], ids=["qp", "socp"])
 def test_quadruped_window_counts_iterations(linearized):
     window = dp.quadruped_window(linearized, B=8, device="cpu")
@@ -29,6 +40,13 @@ def test_grasp_window_counts_passes(compact):
     (the blocks of 256 and 128 clamp to the batch): every step runs at
     least one solver-loop pass."""
     window = dp.conic_window("grasp", compact, B=8, device="cpu")
+    assert window() >= dp.GRASP_STEPS
+
+
+def test_grasp_split_window_counts_passes():
+    """Grasp's plain window with the fused expansion off (the split
+    route's profile path) at B=8 on the CPU."""
+    window = dp.conic_window("grasp", False, B=8, device="cpu", split=True)
     assert window() >= dp.GRASP_STEPS
 
 

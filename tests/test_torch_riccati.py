@@ -182,6 +182,32 @@ def test_bench_inputs_match_the_fused_kernels_plain_version():
            atol=1e-12, rtol=1e-12)
 
 
+SPLIT_INPUTS = ("flagship", "rocket", "grasp")
+
+
+def _split_inputs(name, dtype, dev, B):
+    """Kernel D's arguments on the split route with shared dynamics
+    (``bench/kernels.py``: the solver's AL expansion of the fused kernel's
+    inputs) and the fused kernel's plain gains there."""
+    from altro_tpu_torch.bench import kernels
+    fn = {"flagship": kernels.flagship_inputs,
+          "rocket": kernels.rocket_inputs,
+          "grasp": kernels.grasp_inputs}[name]
+    inp = fn(dtype, dev, B=B)
+    return inp["riccati"], inp["fused_ref"]
+
+
+@pytest.mark.parametrize("name", SPLIT_INPUTS[1:])
+def test_split_inputs_match_the_fused_kernels_plain_version(name):
+    """The rocket and grasp windows' split-route arguments (shared A/B,
+    per-lane SOC curvature): the pass gives the fused kernel's plain
+    version's gains."""
+    args, fused_ref = _split_inputs(name, torch.float64,
+                                    torch.device("cpu"), 3)
+    assert args[0].dim() == 3 and args[4].dim() == 4   # shared A, lane lxx
+    _close(riccati.batched_riccati(*args), fused_ref, atol=1e-9, rtol=1e-9)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -246,3 +272,20 @@ def test_kernel_refuses_wide_problems(cuda):
     args = _torch(_inputs(2, 4, 65, 3), torch.float32, cuda)
     with pytest.raises(ValueError, match="n, m <= 64"):
         riccati.batched_riccati(*args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3),
+                                       (torch.float64, 1e-9)])
+@pytest.mark.parametrize("name", SPLIT_INPUTS[:2])
+def test_kernel_shared_dynamics_on_the_split_route(cuda, name, dtype, tol):
+    """Shared A/B with the solver's per-lane expansion at the flagship's
+    (n=12, m=6, N=30) and the rocket window's (n=6, m=3, N=21, SOC
+    curvature) shapes, B=1024: the kernel against the plain version."""
+    args, _ = _split_inputs(name, dtype, cuda, 1024)
+    got = riccati.batched_riccati(*args)
+    ref = riccati.batched_riccati_reference(*args)
+    assert all(bool(torch.isfinite(r).all()) for r in ref)
+    for g, r in zip(got, ref):
+        assert float((g - r).abs().max()) <= tol * max(1.0,
+                                                      float(r.abs().max()))
