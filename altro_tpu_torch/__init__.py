@@ -1,9 +1,11 @@
 """altro_tpu_torch: the PyTorch and CUDA port of altro_tpu.
 
 The augmented-Lagrangian iLQR solver with ZERO, NONPOS and second-order-cone
-constraint blocks, its warm-started receding-horizon MPC step (plain or
-with straggler compaction) and the random-linear, rocket soft-landing, grasp
-and quadruped trot benchmark models, batched over scenarios (with shared or
+constraint blocks and nonlinear quadratic norm blocks, on LTV or nonlinear
+dynamics (linearized per lane by forward-mode autodiff), its warm-started
+receding-horizon MPC step (plain or with straggler compaction) and the
+random-linear, rocket soft-landing, grasp and quadruped trot benchmark
+models, batched over scenarios (with shared or
 per-scenario dynamics), with
 hand-written Hopper kernels for the fused AL expansion + Riccati backward
 pass, the Riccati backward pass from a per-scenario expansion, the
@@ -33,6 +35,7 @@ from .cones import Cone  # noqa: E402
 from .constraints import (  # noqa: E402
     ConicConstraint,
     DualState,
+    QuadNormConstraint,
     bound_constraint,
     friction_cone,
     goal_constraint,
@@ -40,6 +43,7 @@ from .constraints import (  # noqa: E402
     linearized_friction,
     norm_constraint,
     norm_constraint2,
+    quad_norm_constraint,
 )
 from .costs import (  # noqa: E402
     QuadCost,
@@ -49,8 +53,10 @@ from .costs import (  # noqa: E402
 )
 from .dynamics import (  # noqa: E402
     LTVDynamics,
+    NonlinearDynamics,
     euler_discretize,
     lti_dynamics,
+    rk4,
     zoh_discretize,
 )
 from .problem import Problem  # noqa: E402

@@ -10,6 +10,16 @@ the JAX package's benchmark ships, or in the plain step.
   noise, seeded every step from the tracking window's controls with fresh
   duals (``warm_start="track"``); compaction cap 16, block 256, one level
   (16, 128).
+- the naive rocket (``naive_rocket_setup``): the rocket's cold N=301
+  problem in its quadratic norm form (``conic=False``: the goal ZERO block
+  and three ``QuadNormConstraint`` blocks, the paper's SOC-against-
+  Inequality comparison), solved cold from the hover controls under the
+  cold options, at the default x0 (one lane) or as a Monte-Carlo of B
+  landings. Its blocks are not affine, so every iteration takes the split
+  route: the expansion in PyTorch with per-lane Jacobians and the blocks'
+  exact curvature, the Riccati kernel (ops/riccati.py) with shared A/B and
+  per-lane Hessians, the ladder-rollout kernel at L=11 and the merit in
+  PyTorch.
 - grasp: ``grasp_problem(N=61, tf=6)`` (n = m = 6; goal ZERO block, torque
   balance ZERO p=3, max force NONPOS p=2, two SOC friction cones p=4), one
   cold solve from the hover controls, then the N_mpc=21 tracking MPC whose
@@ -51,6 +61,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..convert import tree_to
 from ..models import grasp, rocket
 from ..mpc import (default_noise_model, gen_tracking_mpc, make_mpc_step,
                    make_mpc_step_device_compacted)
@@ -84,6 +95,9 @@ GRASP_WARM_OPTS = dict(cost_tolerance=1e-4, constraint_tolerance=1e-4,
                        penalty_initial=1e3, penalty_scaling=10.0,
                        reset_duals=False, iterations_inner=8, reg_min=1.0,
                        early_exact_tol=1e-3, iterations_linesearch=2)
+# the naive rocket's Monte-Carlo of landings: x0 = the default + this
+# spread times N(0, 1) per component, numpy default_rng(NAIVE_SEED)
+NAIVE_X0_SPREAD, NAIVE_SEED = 0.5, 0
 # the compaction schedules the JAX package's conic benchmark ships:
 # (it_cap, block, levels)
 SCHEDULES = {"rocket": (16, 256, ((16, 128),)),
@@ -109,6 +123,37 @@ class ConicSetup:
     cold_viol: Optional[float]
     cold_iters: int                # solver-loop passes of the cold solve
     cold_s: Optional[float]
+
+
+@dataclass
+class NaiveRocketSetup:
+    """The rocket's cold solve of a batch of landings."""
+
+    prob: Problem        # N=301, x0 [B, 6]
+    U0: torch.Tensor     # [B, N-1, 3] the hover controls
+    opts: SolverOptions  # COLD_OPTS
+
+
+def naive_rocket_setup(B: int, dtype=torch.float32, device="cuda",
+                       conic: bool = False) -> NaiveRocketSetup:
+    """The rocket's N=301 problem in its naive form (``conic``: the SOC
+    form, for the comparison) with the hover controls and the cold options:
+    at B=1 the default x0, else B landings from x0 = the default +
+    NAIVE_X0_SPREAD N(0, 1) per component (numpy
+    ``default_rng(NAIVE_SEED)``, drawn [B, 6]). Built in float64 on the
+    CPU and then cast, so that a float32 and a float64 run solve the same
+    lanes."""
+    prob = rocket.rocket_problem(N=N_COLD, tf=(N_COLD - 1) * DT,
+                                 conic=conic)
+    x0 = prob.x0[None]
+    if B > 1:
+        x0 = x0 + torch.as_tensor(
+            NAIVE_X0_SPREAD * np.random.default_rng(NAIVE_SEED)
+            .standard_normal((B, 6)))
+    U0 = rocket.hover_controls(prob)[None].expand(B, -1, -1).contiguous()
+    return tree_to(NaiveRocketSetup(prob=dataclasses.replace(prob, x0=x0),
+                                    U0=U0, opts=SolverOptions(**COLD_OPTS)),
+                   device, dtype)
 
 
 def _sync(device) -> None:

@@ -5,6 +5,8 @@ over warm work on one card, per path.
                                                    [grasp] [flexsat]
                                                    [quadruped]
                                                    [flagship_lanes] [split]
+                                                   [naive_rocket]
+                                                   [srb_nonlinear]
                                                    [--forms graphed,eager]
 
 Paths (all of them when none is named), each at B=1024 in float32 and in
@@ -28,6 +30,20 @@ pass per replay) and on the host-driven loop:
   one warm-up step, then windows of 5 regulator steps;
 - quadruped, in both friction modes: one warm-up solve, then windows of 2
   cold batch solves, each with a fresh x0 draw;
+- naive_rocket: the rocket's cold N=301 solve in its quadratic norm form
+  (``bench/conic.py: naive_rocket_setup``, B landings), windows of one
+  cold solve: the split route with shared A/B (the expansion in PyTorch,
+  kernel D, kernel A at L=11, the merit in PyTorch);
+- srb_nonlinear: the quadruped batch on the RK4 SRB model itself
+  (``families.quadruped_setup(nonlinear=True)``, QP friction), windows of
+  2 cold solves from the reference states: every pass relinearizes the
+  model per lane (``torch.func.jacfwd``), runs kernel D and rolls the
+  ladder out through the model in PyTorch. For these two the graphed form
+  also splits one pass into its sections (``sections``: linearize,
+  expansion, kernel D, ladder rollout, merit), each run alone on a
+  mid-solve iterate and fenced by a device synchronise, the device time of
+  each kernel attributed to the section whose host range contains its
+  start (as for the closed loop);
 - closed_loop, the quadruped closed loop of one robot in float64, in both
   friction forms: two warm-up periods, then windows of 10 periods, each
   fenced into its three sections (prep: the schedule and the
@@ -71,6 +87,12 @@ from altro_tpu_torch.solver import altro, graph
 
 FLAG_STEPS, ROCKET_STEPS, GRASP_STEPS, FLEX_STEPS, QUAD_SOLVES = (10, 3, 5,
                                                                   5, 2)
+NAIVE_SOLVES = 1
+PASS_SECTIONS = ("linearize", "expansion", "kernel D", "ladder rollout",
+                 "merit")
+# the iteration at which a pass is split into its sections, and the passes
+# timed
+SECTION_IT, SECTION_PASSES = 5, 10
 LOOP_PERIODS = 10
 LOOP_SECTIONS = ("prep", "solve", "ticks")
 KINDS = (("kernel B (fused_expand_backward)", ("fused_expand_backward",)),
@@ -247,6 +269,157 @@ def quadruped_window(linearized_friction: bool, B: int = QUAD_B,
     return window
 
 
+def naive_rocket_window(B: int = ROCKET_B, device="cuda", graphed=None):
+    """Windows of cold solves of the naive rocket's B landings;
+    ``window.pieces`` builds the sections of one pass
+    (:func:`pass_pieces`)."""
+    from altro_tpu_torch.bench.conic import naive_rocket_setup
+
+    su = naive_rocket_setup(B, torch.float32, device)
+    return _cold_window(su.prob, su.opts, su.U0, None, NAIVE_SOLVES, device,
+                        graphed)
+
+
+def srb_nonlinear_window(B: int = QUAD_B, device="cuda", graphed=None):
+    """Windows of cold solves of the quadruped batch on the RK4 SRB model
+    (QP friction), each from a fresh x0 draw and the reference states."""
+    from altro_tpu_torch.bench.families import quadruped_setup
+
+    su = quadruped_setup(B, True, torch.float32, device, nonlinear=True)
+    return _cold_window(su.prob, su.opts, su.U0, su.X0, QUAD_SOLVES, device,
+                        graphed,
+                        lambda: su.draw_x0().to(device=device,
+                                                dtype=torch.float32))
+
+
+def _cold_window(prob, opts, U0, X0, solves, device, graphed, draw=None):
+    """A window of ``solves`` cold batch solves of ``prob`` from U0 (and
+    the states X0), each from a fresh x0 when ``draw`` gives one; one
+    warm-up solve first."""
+    gs = (graph.GraphedSolve(prob, opts, states=X0 is not None)
+          if graph.use_graphs(graphed, device) else None)
+
+    def window(n=solves):
+        passes = altro.pass_count
+        for _ in range(n):
+            x0 = prob.x0 if draw is None else draw()
+            if gs is not None:
+                gs(x0, U0, X0)
+            else:
+                altro.solve(dataclasses.replace(prob, x0=x0), opts, U0=U0,
+                            X0=X0)
+        return altro.pass_count - passes
+
+    window(1)                                              # warm-up
+    window.pieces = lambda: pass_pieces(prob, opts, U0, X0)
+    return window
+
+
+def pass_pieces(prob, opts, U0, X0=None, it: int = SECTION_IT) -> dict:
+    """The sections of one split-route pass (PASS_SECTIONS) at the iterate
+    of a solve stopped after ``it`` iterations: each a function of no
+    argument that runs its part of the pass (the solver's own functions) on
+    the outputs of the sections before it, in order."""
+    from altro_tpu_torch.constraints import DualState
+
+    X, U, _, duals, reg = altro.solve_partial(prob, opts, U0=U0, X0=X0,
+                                              it_cap=it)[:5]
+    dyn = prob.dynamics
+    alphas_t = tuple(opts.ls_decrease ** i
+                     for i in range(opts.iterations_linesearch)) + (0.0,)
+    alphas = torch.tensor(alphas_t, dtype=X.dtype, device=X.device)
+    duals_l = tuple(DualState(lam=d.lam[:, None], rho=d.rho[:, None])
+                    for d in duals)
+    out = {}
+
+    def linearize():
+        out["AB"] = dyn.linearize(X, U)[:2]
+
+    def expansion():
+        out["exp"] = altro._al_expansion_cd(prob.cost, prob.constraints,
+                                            duals, X, U)
+
+    def riccati():
+        out["gains"] = altro.backward_pass(*out["AB"], *out["exp"], reg)
+
+    def ladder():
+        K, d = out["gains"][:2]
+        out["ladder"] = altro.rollout_closed_loop(dyn, X, U, K, d, alphas_t,
+                                                  alphas)
+
+    def merit():
+        Jts, _ = altro.total_al_cost_res(prob, duals_l, *out["ladder"])
+        _, _, dV1, dV2 = out["gains"]
+        out["choice"] = altro._ladder_choice(Jts, alphas, dV1, dV2,
+                                             opts.ls_min_ratio)
+
+    return dict(zip(PASS_SECTIONS, (linearize, expansion, riccati, ladder,
+                                    merit)))
+
+
+def _attribute(prof, prefix: str, names) -> tuple:
+    """({section: {kind: (device ms, launches)}}, kernels placed in no
+    section) of a profile whose host ranges ``prefix:<section>`` each end
+    in a device synchronise: a kernel belongs to the range that contains
+    its start."""
+    ranges, kernels = [], []
+    for e in prof.events():
+        if e.name.startswith(prefix + ":"):
+            # the range on the host; its copy on the device's timeline (a
+            # user annotation spanning the section's device work) is no
+            # kernel
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                continue
+            ranges.append((e.time_range.start, e.time_range.end,
+                           e.name.split(":", 1)[1]))
+        elif e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels.append(e)
+    device = {s: {} for s in names}
+    unplaced = 0
+    for e in kernels:
+        t = e.time_range.start
+        name = next((n for a, b, n in ranges if a <= t <= b), None)
+        if name is None:
+            unplaced += 1
+            continue
+        kind = kind_of(e.name)
+        ms, n = device[name].get(kind, (0.0, 0))
+        device[name][kind] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    return device, unplaced
+
+
+def pass_sections(pieces: dict, passes: int = SECTION_PASSES) -> dict:
+    """Wall and device ms per pass of each section of ``pieces``
+    (:func:`pass_pieces`): ``passes`` passes unprofiled, then as many under
+    the profiler, every section fenced by a device synchronise."""
+    def run(label):
+        wall = dict.fromkeys(pieces, 0.0)
+        for _ in range(passes):
+            for name, fn in pieces.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with torch.profiler.record_function(f"{label}:{name}"):
+                    fn()
+                    torch.cuda.synchronize()
+                wall[name] += (time.perf_counter() - t0) * 1e3
+        return {k: v / passes for k, v in wall.items()}
+
+    run("warm-up")
+    wall = run("unprofiled")
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        run("section")
+    device, unplaced = _attribute(prof, "section", pieces)
+    return {"passes": passes, "unplaced_kernels": unplaced, "per_pass": {
+        s: {"wall_ms": wall[s],
+            "device_ms": sum(ms for ms, _ in device[s].values()) / passes,
+            "launches": sum(n for _, n in device[s].values()) / passes,
+            "by_kind": {k: {"ms": ms / passes, "launches": n / passes}
+                        for k, (ms, n) in sorted(device[s].items())}}
+        for s in pieces}}
+
+
 def pass_ms_by_batch(step, replays: int = 20) -> dict:
     """{lanes: device ms per body pass} of each level batch's loop graph of
     a graphed step that has run: CUDA events around ``replays`` replays
@@ -340,29 +513,7 @@ def closed_loop_sections(linearized_friction: bool,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         prof_wall, _ = window(2 + periods, "section")
-    ranges, kernels = [], []
-    for e in prof.events():
-        if e.name.startswith("section:"):
-            # the range on the host; its copy on the device's timeline (a
-            # user annotation spanning the section's device work) is no
-            # kernel
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                continue
-            ranges.append((e.time_range.start, e.time_range.end,
-                           e.name.split(":", 1)[1]))
-        elif e.device_type == torch.autograd.DeviceType.CUDA:
-            kernels.append(e)
-    device = {s: {} for s in LOOP_SECTIONS}
-    unplaced = 0
-    for e in kernels:
-        t = e.time_range.start
-        name = next((n for a, b, n in ranges if a <= t <= b), None)
-        if name is None:
-            unplaced += 1
-            continue
-        kind = kind_of(e.name)
-        ms, n = device[name].get(kind, (0.0, 0))
-        device[name][kind] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    device, unplaced = _attribute(prof, "section", LOOP_SECTIONS)
     per_section = {
         s: {"wall_ms": wall[s], "profiled_wall_ms": prof_wall[s],
             "device_ms": sum(ms for ms, _ in device[s].values()) / periods,
@@ -409,6 +560,12 @@ PATHS = {
                                              ROCKET_STEPS),
                                             ("grasp", GRASP_B,
                                              GRASP_STEPS))),
+    "naive_rocket": (("naive rocket", ROCKET_B,
+                      f"{NAIVE_SOLVES} cold N=301 solve", NAIVE_SOLVES,
+                      lambda g: naive_rocket_window(graphed=g)),),
+    "srb_nonlinear": (("srb nonlinear qp", QUAD_B,
+                       f"{QUAD_SOLVES} cold solves", QUAD_SOLVES,
+                       lambda g: srb_nonlinear_window(graphed=g)),),
     "quadruped": (("quadruped qp", QUAD_B, f"{QUAD_SOLVES} cold solves",
                    QUAD_SOLVES, lambda g: quadruped_window(True, graphed=g)),
                   ("quadruped socp", QUAD_B, f"{QUAD_SOLVES} cold solves",
@@ -471,6 +628,8 @@ def main() -> None:
                     res["pass_ms_by_batch"] = pass_ms_by_batch(window.step)
                     res["compaction_ms_by_level"] = compaction_ms_by_level(
                         window.step)
+                if form == "graphed" and hasattr(window, "pieces"):
+                    res["sections"] = pass_sections(window.pieces())
                 print(f"{res['path']} [{form}] B={res['B']} f32 [{card}]: "
                       f"unprofiled {res['window']} = "
                       f"{res['unprofiled_loop_iterations']} solver-loop "
@@ -490,6 +649,15 @@ def main() -> None:
                 for kind, v in res["per_iteration"].items():
                     print(f"  per pass: {kind}: {v['ms']:.4f} ms device, "
                           f"{v['launches']:.1f} launches")
+                for sec, v in res.get("sections", {}).get(
+                        "per_pass", {}).items():
+                    print(f"  section {sec} (alone, fenced; "
+                          f"{res['sections']['passes']} passes at iteration "
+                          f"{SECTION_IT}): wall {v['wall_ms']:.3f} ms, "
+                          f"device {v['device_ms']:.4f} ms in "
+                          f"{v['launches']:.1f} kernels; " + "; ".join(
+                              f"{k} {kv['ms']:.4f} ms ({kv['launches']:.1f})"
+                              for k, kv in v["by_kind"].items()))
                 results.append(res)
     print(json.dumps({"card": card, "paths": results}))
 

@@ -26,12 +26,17 @@ forces, with a fresh x0 draw. On a CUDA device every solver iteration runs
 the AL expansion in PyTorch, the Riccati kernel (ops/riccati.py) and the
 ladder-rollout kernel (ops/rollout.py) with the line-search merit in
 PyTorch; every solve runs the ladder-rollout kernel once more for its init
-rollout.
+rollout. With ``nonlinear`` (modes ``qp_nl`` and ``socp_nl``) the same
+instances keep the RK4 SRB model itself (``srb.nonlinear_dynamics`` over
+each lane's contact schedule) in place of its Euler linearization: every
+iteration relinearizes it per lane and knot (``torch.func.jacfwd``), runs
+the Riccati kernel on the per-lane stacks and rolls out the ladder through
+the model in PyTorch; no other kernel runs.
 
 Run as a script on a CUDA machine (B=1024, f32):
 
-    python -m altro_tpu_torch.bench.families [qp] [socp] [flexsat]
-        [--flexsat-compact-cap C] [--eager] [--check-every K]
+    python -m altro_tpu_torch.bench.families [qp] [socp] [qp_nl] [socp_nl]
+        [flexsat] [--flexsat-compact-cap C] [--eager] [--check-every K]
 
 It prints one JSON line per mode (default: qp and socp) with the JAX
 package's row keys: for the quadruped label, batch, rounds, solves_per_s,
@@ -64,7 +69,7 @@ import torch
 from ..convert import tree_to
 from ..dynamics import LTVDynamics
 from ..models import flexible_satellite as fs
-from ..models.quadruped import config, controller, planner
+from ..models.quadruped import config, controller, planner, srb
 from ..models.quadruped.gait import GAITS
 from ..mpc import make_regulator_step
 from ..ops import riccati, riccati_fused, rollout, rollout_al
@@ -86,15 +91,26 @@ class QuadrupedSetup:
     opts: SolverOptions
     x_des: torch.Tensor      # [12]
     draw_x0: Callable        # () -> float64 [B, 12] on the CPU
+    # the states to start from, [B, N, 12], or None: the init rollout of U0
+    X0: Optional[torch.Tensor] = None
 
 
 def quadruped_setup(B: int, linearized_friction: bool = True,
-                    dtype=torch.float32, device="cuda") -> QuadrupedSetup:
+                    dtype=torch.float32, device="cuda",
+                    nonlinear: bool = False) -> QuadrupedSetup:
     """The flat batched quadruped instance: 8 contact schedules at
     t = i * cycle / 8 (i < 8), each linearized about x_des and repeated to
     B/8 lanes, the stance-force warm start, the benchmark's options and the
     seeded x0 sampler (``numpy.random.default_rng(3)``; each call draws the
-    next batch).
+    next batch). ``nonlinear``: the lanes keep the RK4 SRB model over their
+    schedule (per-lane params foot_locs [B, N, 4, 3], contacts [B, N, 4])
+    in place of its linearization, and start from the states about which
+    the linearized instance is built (``X0``: x_des at every knot; the
+    solver puts x0 at knot 0). The model's own open-loop rollout of the
+    stance forces is no start: from an x0 off x_des their torques spin the
+    body within the 0.42 s horizon, and on some lanes the attitude's MRP
+    overflows to NaN before the last knot (the JAX package's solve fails
+    those lanes alike).
 
     Everything is built once in float64 on the CPU and then cast: t lands
     exactly on gait phase boundaries, where float32 and float64 round to
@@ -113,17 +129,24 @@ def quadruped_setup(B: int, linearized_friction: bool = True,
     feet0 = x_des[0:3][None, :] + planner.nominal_foot_locations()
     feet0[:, 2] = config.woofer.geometry.foot_radius
     x_ref = x_des.expand(N, 12)
-    dyns = []
+    dyns, scheds = [], []
     for i in range(N_SCHED):
         t = torch.tensor(i * cycle / N_SCHED, dtype=f64)
         contacts, foot_locs, _ = planner.foot_history(
             t, x_ref, feet0, feet0, gait, x_des, N, dt)
-        dyns.append(controller._linearized_problem(
-            prob, x_des, x_ref, contacts, foot_locs, dt).dynamics)
+        scheds.append((foot_locs, contacts))
+        if not nonlinear:
+            dyns.append(controller._linearized_problem(
+                prob, x_des, x_ref, contacts, foot_locs, dt).dynamics)
     reps = B // N_SCHED
-    dyn = LTVDynamics(**{k: torch.stack([getattr(d, k) for d in dyns])
-                         .repeat_interleave(reps, dim=0)
-                         for k in ("A", "B", "d")})
+    if nonlinear:
+        dyn = srb.nonlinear_dynamics(
+            *(torch.stack(leaf).repeat_interleave(reps, dim=0)
+              for leaf in zip(*scheds)), dt)
+    else:
+        dyn = LTVDynamics(**{k: torch.stack([getattr(d, k) for d in dyns])
+                             .repeat_interleave(reps, dim=0)
+                             for k in ("A", "B", "d")})
     prob_b = dataclasses.replace(prob, dynamics=dyn,
                                  x0=x_des.expand(B, 12).contiguous())
 
@@ -138,7 +161,9 @@ def quadruped_setup(B: int, linearized_friction: bool = True,
             rng.standard_normal((B, 12))) * scale
 
     su = QuadrupedSetup(prob=prob_b, U0=U0, opts=SolverOptions(**OPTS),
-                        x_des=x_des, draw_x0=draw_x0)
+                        x_des=x_des, draw_x0=draw_x0,
+                        X0=(x_des.expand(B, N, 12).contiguous() if nonlinear
+                            else None))
     return tree_to(su, device, dtype)
 
 
@@ -152,7 +177,8 @@ def _launches() -> dict:
 def quadruped_batched(B: int = 1024, rounds: int = 10,
                       linearized_friction: bool = True, device="cuda",
                       graphed: Optional[bool] = None,
-                      check_every: int = 1) -> dict:
+                      check_every: int = 1, nonlinear: bool = False,
+                      dtype=torch.float32) -> dict:
     """Per-solve throughput of the flat batched quadruped MPC in float32
     (the JAX benchmark's precision): one warm-up solve (which captures the
     solve's graphs: ``capture_s``), then ``rounds`` timed batch solves, each
@@ -165,21 +191,24 @@ def quadruped_batched(B: int = 1024, rounds: int = 10,
     passes of a replay included), ``lane_max_iters`` the sum of each
     solve's largest lane iteration count and ``graph_replays`` the loop
     graph's replays; ``solves`` counts the solves; ``launches`` are the
-    kernel launches of this call."""
-    dev, dtype = torch.device(device), torch.float32
+    kernel launches of this call. ``nonlinear``: the RK4 SRB model in place
+    of its linearization (:func:`quadruped_setup`); ``dtype``: float64 for
+    the f64 rows."""
+    dev = torch.device(device)
     graphed = graph.use_graphs(graphed, dev)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    su = quadruped_setup(B, linearized_friction, dtype, dev)
+    su = quadruped_setup(B, linearized_friction, dtype, dev, nonlinear)
     before, passes0 = _launches(), altro.pass_count
-    gs = (graph.GraphedSolve(su.prob, su.opts, check_every=check_every)
+    gs = (graph.GraphedSolve(su.prob, su.opts, check_every=check_every,
+                             states=su.X0 is not None)
           if graphed else None)
 
     def solve_batch():
         x0 = su.draw_x0().to(device=dev, dtype=dtype)
         if gs is not None:
-            return gs(x0, su.U0).stats
+            return gs(x0, su.U0, su.X0).stats
         sol = altro.solve(dataclasses.replace(su.prob, x0=x0), su.opts,
-                          U0=su.U0)
+                          U0=su.U0, X0=su.X0)
         return sol.stats
 
     st = solve_batch()                                     # warm-up
@@ -197,7 +226,8 @@ def quadruped_batched(B: int = 1024, rounds: int = 10,
     viol = torch.cat([s.viol for s in stats]).double().cpu().numpy()
     iters = torch.stack([s.iterations for s in stats]).cpu().numpy()
     lane_max += [int(i.max()) for i in iters]
-    mode = "qp" if linearized_friction else "socp"
+    mode = (("qp" if linearized_friction else "socp")
+            + ("_nonlinear" if nonlinear else ""))
     after = _launches()
     p50, p99 = np.percentile(round_ms, [50, 99])
     return dict(label=f"quadruped_trot_mpc_N15_{mode}", batch=B,
@@ -348,7 +378,7 @@ def flexsat_batched(B: int = 1024, T: int = 45, device="cuda",
         launches={k: after[k] - before[k] for k in after})
 
 
-MODES = ("qp", "socp", "flexsat")
+MODES = ("qp", "socp", "qp_nl", "socp_nl", "flexsat")
 
 
 def main():
@@ -383,9 +413,11 @@ def main():
                 check_every=args.check_every)
         else:
             res = quadruped_batched(B=B, rounds=rounds,
-                                    linearized_friction=mode == "qp",
+                                    linearized_friction=mode.startswith(
+                                        "qp"),
                                     graphed=not args.eager,
-                                    check_every=args.check_every)
+                                    check_every=args.check_every,
+                                    nonlinear=mode.endswith("_nl"))
         res["device"] = f"{torch.cuda.get_device_name(0)} [{card}]"
         print(json.dumps(res), flush=True)
 

@@ -25,7 +25,11 @@ inputs B expands itself) at the flagship's widths and at (n, m) = (13, 6)
 and (7, 3), which no main path uses. The wide bodies (n or m above 32) run
 at ``WIDE_SHAPES`` (the state_dim sweep's n = 35, 45, 55 with m = 2, and
 n = m = 64), N=21, at one lane and at B=1024: A at L=11 and L=1, B, C at
-L=11 and D (``wide_cases``). ``--against DIR`` names the root
+L=11 and D (``wide_cases``). The naive rocket (N=301, n=6, m=3: the goal
+ZERO block and three quadratic norm blocks, which take the split route)
+runs D with shared A/B on its per-lane expansion and A at its L=11 ladder,
+at B=1024 and at one lane (``naive_rocket_inputs``). ``--against DIR``
+names the root
 of another checkout of this repository (for example the parent commit,
 unpacked with ``git archive`` into ``build/``): each turn runs in a process
 of its own, in the order other, this, this, other, on the same inputs
@@ -37,6 +41,7 @@ The input builders also serve ``chip_smoke.py``'s parity phase.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import subprocess
@@ -67,11 +72,15 @@ WIDE_SHAPES = ((35, 2), (45, 2), (55, 2), (64, 64))
 WIDE_N = 21
 # the batch at which the wide bodies are timed beside one lane
 WIDE_BATCH = 1024
+# the naive rocket: the cold solve's iteration whose iterate feeds the
+# kernels, and its batches
+NAIVE_IT = 30
+NAIVE_BATCHES = (1024, 1)
 
 
-def time_ms(fn, kernel: bool = False) -> float:
-    """Time of one call of ``fn``: CUDA events around REPS back-to-back
-    calls after a warm-up, divided by REPS. The calls queue behind a
+def time_ms(fn, kernel: bool = False, reps: int = REPS) -> float:
+    """Time of one call of ``fn``: CUDA events around ``reps`` (REPS)
+    back-to-back calls after a warm-up, divided by ``reps``. The calls queue behind a
     HEAD_START_MS sleep on the stream, so when the host enqueues them faster
     than that, the events time the device alone: a kernel's wrapper (about
     0.07 ms of host time per call) no longer hides a shorter kernel. A plain
@@ -85,16 +94,16 @@ def time_ms(fn, kernel: bool = False) -> float:
     b = torch.cuda.Event(enable_timing=True)
     torch.cuda._sleep(HEAD_START_CYCLES)
     a.record()
-    for _ in range(REPS):
+    for _ in range(reps):
         fn()
     b.record()
     queued = not a.query()
     b.synchronize()
     if kernel and not queued:
         raise RuntimeError(f"the host took longer than {HEAD_START_MS} ms to "
-                           f"queue {REPS} launches: the kernel's time would "
+                           f"queue {reps} launches: the kernel's time would "
                            "include the host's")
-    return a.elapsed_time(b) / REPS
+    return a.elapsed_time(b) / reps
 
 
 def bound_ms(nbytes: float, flops: float, itemsize: int) -> tuple:
@@ -465,19 +474,24 @@ def flexsat_inputs(dtype, dev, B: int = FLEX_B, N: int = 80) -> dict:
                                        X.element_size()))
 
 
-def quadruped_inputs(dtype, dev, B: int = QUAD_B) -> dict:
+def quadruped_inputs(dtype, dev, B: int = QUAD_B,
+                     nonlinear: bool = False) -> dict:
     """Kernel D's arguments on the flat quadruped batch (B=1024, n=m=12,
     N=15, per-lane dynamics of 8 contact schedules; seed 9): the solver's own
     AL expansion at forces 10 N around the stance forces, states off the
     rollout and multipliers on the scale of rho c; and kernel A's at the
-    solver's L=11 ladder with per-lane A/B on the plain Riccati gains."""
+    solver's L=11 ladder with per-lane A/B on the plain Riccati gains.
+    ``nonlinear``: the RK4 SRB model's batch (``quadruped_setup(...,
+    nonlinear=True)``), D on its per-lane linearization
+    (``NonlinearDynamics.linearize``) at states off the reference states
+    (the model's open-loop rollout of perturbed forces can overflow)."""
     import torch
     from altro_tpu_torch.bench.families import quadruped_setup
     from altro_tpu_torch.constraints import DualState
     from altro_tpu_torch.ops import riccati
     from altro_tpu_torch.solver.altro import _al_expansion_cd
 
-    su = quadruped_setup(B, False, dtype, dev)
+    su = quadruped_setup(B, False, dtype, dev, nonlinear)
     prob, dyn = su.prob, su.prob.dynamics
     N, n, m = prob.N, prob.n, prob.m
     rng = np.random.default_rng(9)
@@ -487,7 +501,13 @@ def quadruped_inputs(dtype, dev, B: int = QUAD_B) -> dict:
 
     x0 = su.draw_x0().to(device=dev, dtype=dtype)
     U = su.U0 + t(10.0 * rng.standard_normal((B, N - 1, m)))
-    X = dyn.rollout(x0, U) + t(0.05 * rng.standard_normal((B, N, n)))
+    if nonlinear:
+        X = su.X0 + t(0.05 * rng.standard_normal((B, N, n)))
+        X[:, 0] = x0
+        A, Bd, dd = dyn.linearize(X, U)
+    else:
+        X = dyn.rollout(x0, U) + t(0.05 * rng.standard_normal((B, N, n)))
+        A, Bd, dd = dyn.A, dyn.B, dyn.d
     duals = tuple(DualState(lam=t(5.0 * rng.standard_normal((B, N, c.p))),
                             rho=torch.full((B, N), 1e2, dtype=dtype,
                                            device=dev))
@@ -495,13 +515,13 @@ def quadruped_inputs(dtype, dev, B: int = QUAD_B) -> dict:
     lx, lu, lxx, luu, lux = (a.contiguous() for a in _al_expansion_cd(
         prob.cost, prob.constraints, duals, X, U))
     reg = t(np.where(rng.random(B) < 0.5, 0.0, 1e-2))
-    riccati_args = (dyn.A, dyn.B, lx, lu, lxx, luu, lux, reg)
+    riccati_args = (A, Bd, lx, lu, lxx, luu, lux, reg)
     ref = riccati.batched_riccati_reference(*riccati_args)
     K, d = ref[0].contiguous(), ref[1].contiguous()
     return dict(
         riccati=riccati_args, riccati_ref=ref,
         riccati_work=riccati_work(B, N, n, m, True, X.element_size()),
-        ladder=(dyn.A, dyn.B, dyn.d, X, U, K, d, QUAD_LADDER),
+        ladder=(A, Bd, dd, X, U, K, d, QUAD_LADDER),
         ladder_work=rollout_work(B, N, n, m, len(QUAD_LADDER), True,
                                  X.element_size()))
 
@@ -570,6 +590,64 @@ def quadloop_inputs(dtype, dev, linearized_friction: bool = True) -> dict:
         init_work=rollout_work(1, N, n, m, 1, False, item))
 
 
+@functools.lru_cache(maxsize=1)
+def _naive_rocket_iterate():
+    """(problem, X, U, lams, rhos, reg) of one lane of the naive rocket's
+    cold solve (``bench/conic.py: naive_rocket_setup`` at one lane) after
+    NAIVE_IT iterations (the port's plain version, float64 on the CPU)."""
+    import torch
+    from altro_tpu_torch.bench.conic import naive_rocket_setup
+    from altro_tpu_torch.solver import altro
+
+    su = naive_rocket_setup(1, torch.float64, "cpu")
+    prob = su.prob
+    X, U, _, duals, reg = altro.solve_partial(prob, su.opts, U0=su.U0,
+                                              it_cap=NAIVE_IT)[:5]
+    return (prob, X[0], U[0], tuple(d.lam[0] for d in duals),
+            tuple(d.rho[0] for d in duals), reg[0])
+
+
+def naive_rocket_inputs(dtype, dev, B: int = 1024) -> dict:
+    """Kernel D's and kernel A's arguments on the naive rocket (N=301, n=6,
+    m=3; the goal ZERO block and the max-thrust, thrust-angle and
+    glideslope quadratic norm blocks): lane 0 is the cold solve's iterate
+    after NAIVE_IT iterations (:func:`_naive_rocket_iterate`), the other
+    lanes (seed 15) that iterate with states 5 cm and controls 0.5 N off it
+    and multipliers scaled by 1 + 0.1 N(0, 1). D: the shared dynamics and
+    the solver's AL expansion there (per-lane Jacobians and the blocks'
+    exact, indefinite curvature: per-lane Hessians), the iterate's
+    regularization; A: the solver's L=11 ladder on the plain version's
+    gains."""
+    import torch
+    from altro_tpu_torch.convert import tree_to
+    from altro_tpu_torch.ops import riccati
+
+    prob, X1, U1, lams1, rhos1, reg1 = _naive_rocket_iterate()
+    rng = np.random.default_rng(15)
+    N, n, m = prob.N, prob.n, prob.m
+    X = X1[None] + torch.as_tensor(0.05 * rng.standard_normal((B, N, n)))
+    U = U1[None] + torch.as_tensor(0.5 * rng.standard_normal((B, N - 1,
+                                                               m)))
+    lams = tuple(lam[None] * (1.0 + torch.as_tensor(
+        0.1 * rng.standard_normal((B,) + tuple(lam.shape)))) for lam in lams1)
+    X[0], U[0] = X1, U1
+    for lam, lam1 in zip(lams, lams1):
+        lam[0] = lam1
+    rhos = tuple(rho[None].expand(B, -1).contiguous() for rho in rhos1)
+    reg = reg1.expand(B).contiguous()
+    prob, X, U, lams, rhos, reg = tree_to((prob, X, U, lams, rhos, reg),
+                                          dev, dtype)
+    split = _split_args(prob, X, U, lams, rhos, reg)
+    ref = riccati.batched_riccati_reference(*split["riccati"])
+    dyn = prob.dynamics
+    return dict(
+        prob=prob, riccati_ref=ref, lams=lams, rhos=rhos, **split,
+        ladder=(dyn.A, dyn.B, dyn.d, X, U, ref[0].contiguous(),
+                ref[1].contiguous(), QUAD_LADDER),
+        ladder_work=rollout_work(B, N, n, m, len(QUAD_LADDER), False,
+                                 X.element_size()))
+
+
 def wide_cases(dtype, dev) -> list:
     """(kernel, shape, call, work) of the wide bodies: A at the drivers'
     L=11 ladder and its init form (L=1), B, C (L=11) and D at every
@@ -621,6 +699,7 @@ def measure() -> list:
         gc = grasp_inputs(dtype, dev, cold=True)
         fx = flexsat_inputs(dtype, dev)
         qd = quadruped_inputs(dtype, dev)
+        sn = quadruped_inputs(dtype, dev, nonlinear=True)
         lq = quadloop_inputs(dtype, dev, True)
         ls_ = quadloop_inputs(dtype, dev, False)
         other = [(w, flagship_inputs(dtype, dev, widths=w))
@@ -663,16 +742,24 @@ def measure() -> list:
                q["ladder_al_work"]) for mode, q in (("qp", lq),
                                                      ("socp", ls_))),
             ("D", "quadruped per-lane", pass_d(qd), qd["riccati_work"]),
+            ("D", "nonlinear SRB per-lane", pass_d(sn), sn["riccati_work"]),
             ("D", "flagship shared", pass_d(fl), fl["riccati_work"]),
             *(("D", f"random-linear shared n={n} m={m}", pass_d(inp),
                inp["riccati_work"]) for (n, m), inp in other)]
         cases += wide_cases(dtype, dev)
+        for B in NAIVE_BATCHES:
+            nr = naive_rocket_inputs(dtype, dev, B)
+            cases += [("D", f"naive rocket N=301 B={B}", pass_d(nr),
+                       nr["riccati_work"]),
+                      ("A", f"naive rocket N=301 L=11 B={B}",
+                       (lambda nr=nr: ls(*nr["ladder"])),
+                       nr["ladder_work"])]
         for kernel, shape, fn, (nbytes, flops) in cases:
             bnd, by = bound_ms(nbytes, flops, item)
             rows.append(dict(kernel=kernel, shape=shape, dtype=label,
                              ms=time_ms(fn, kernel=True), bound_ms=bnd,
                              bound_by=by, bytes=nbytes, flops=flops))
-        del fl, rk, gw, gc, fx, qd, lq, ls_, other
+        del fl, rk, gw, gc, fx, qd, sn, lq, ls_, other, nr
         torch.cuda.empty_cache()
     return rows
 
@@ -723,9 +810,16 @@ def main() -> None:
         if r is results[0] or r["root"] != results[0]["root"]:
             for line in r["ptxas"]:
                 print(f"ptxas [{r['root']}]: {line}")
-    for j, row in enumerate(results[0]["rows"]):
-        times = " ".join(f"{'this' if r['root'] == here else 'other'}="
-                         f"{r['rows'][j]['ms']:.4f}" for r in results)
+    def key(row):
+        return row["kernel"], row["shape"], row["dtype"]
+    by_key = [{key(row): row for row in r["rows"]} for r in results]
+    mine = next(r for r in results if r["root"] == here)
+    for row in mine["rows"]:
+        # a shape that one checkout does not time (added later) is n/a
+        times = " ".join(
+            f"{'this' if r['root'] == here else 'other'}="
+            + (f"{rows[key(row)]['ms']:.4f}" if key(row) in rows else "n/a")
+            for r, rows in zip(results, by_key))
         print(f"{row['kernel']} {row['shape']} {row['dtype']}: ms {times}; "
               f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}: "
               f"{row['bytes'] / 1e6:.2f} MB, {row['flops'] / 1e9:.4f} "

@@ -1,10 +1,12 @@
-"""Affine conic constraint blocks (PyTorch counterpart of the affine part
-of ``altro_tpu/constraints.py``: ZERO, NONPOS and SOC blocks).
+"""Constraint blocks (PyTorch counterpart of ``altro_tpu/constraints.py``):
+affine ZERO, NONPOS and SOC blocks,
 
     c_k = Cx_k @ x_k + Cu_k @ u_k + b_k   in  K       (for knots with mask=1)
 
-The stacks carry a leading knot axis and are shared problem data (no batch
-axis); trajectories and multipliers carry leading batch axes.
+and the nonlinear quadratic norm block :class:`QuadNormConstraint`. The
+stacks carry a leading knot axis and are shared problem data (no batch
+axis); trajectories and multipliers carry leading batch axes, and so do a
+nonlinear block's Jacobians and curvature, taken at each lane's iterate.
 """
 from __future__ import annotations
 
@@ -66,6 +68,120 @@ class ConicConstraint:
 
 
 @dataclass
+class QuadNormConstraint:
+    """Nonlinear (quadratic) norm constraint ||A z||^2 <= (c'z + offset)^2,
+    z = x or u: one NONPOS row per knot.
+
+    The nonconvex "naive" counterpart of the SOC norm blocks (the rocket's
+    SOC-against-Inequality comparison). The solver consumes it through the
+    same block protocol as :class:`ConicConstraint`, with the Jacobians
+    re-evaluated at every iterate and the exact constraint curvature
+    (:meth:`second_order`) added to the expansion."""
+
+    A: torch.Tensor       # [N, p_rows, dim]
+    c: torch.Tensor       # [N, dim]
+    offset: torch.Tensor  # [N]
+    mask: torch.Tensor    # [N]
+    on: str = "control"
+    name: str = "quad_norm"
+    cone: Cone = Cone.NONPOS
+
+    @property
+    def N(self) -> int:
+        return self.A.shape[0]
+
+    @property
+    def p(self) -> int:
+        return 1
+
+    @property
+    def is_affine(self) -> bool:
+        return False
+
+    def _z(self, X, U):
+        return pad_terminal(U) if self.on == "control" else X
+
+    def _parts(self, X, U):
+        """(z, A z, c'z + offset) with the leading axes of X and U."""
+        z = self._z(X, U)
+        Az = torch.einsum("kpd,...kd->...kp", self.A, z)
+        lin = torch.einsum("kd,...kd->...k", self.c, z) + self.offset
+        return z, Az, lin
+
+    def evaluate(self, X, U):
+        """Residual [..., N, 1]: ||A z||^2 - (c'z + offset)^2."""
+        _, Az, lin = self._parts(X, U)
+        return (torch.sum(Az * Az, dim=-1) - lin * lin)[..., None]
+
+    def jacobians(self, X, U):
+        """(Cx [..., N, 1, n], Cu [..., N, 1, m]) at (X, U), with the leading
+        axes of the trajectory: the gradient 2 A'A z - 2 (c'z + offset) c in
+        the constrained variable's slot, zeros in the other."""
+        _, Az, lin = self._parts(X, U)
+        g = (2.0 * torch.einsum("...kp,kpd->...kd", Az, self.A)
+             - 2.0 * lin[..., None] * self.c)
+        if self.on == "control":
+            zero = X.new_zeros(X.shape[:-1] + (1, X.shape[-1]))
+            return zero, g[..., None, :]
+        zero = U.new_zeros(X.shape[:-1] + (1, U.shape[-1]))
+        return g[..., None, :], zero
+
+    def violations(self, X, U):
+        """[..., N, 1] infeasibility, zeroed at inactive knots."""
+        return violation(self.cone, self.evaluate(X, U)) * self.mask[:, None]
+
+    def max_violation(self, X, U):
+        """[...] largest |violation| over the knots."""
+        return torch.amax(torch.abs(self.violations(X, U)), dim=(-2, -1))
+
+    def second_order(self, X, U, g):
+        """Multiplier-weighted constraint Hessian g_k d2c_k, with g the
+        block's AL gradient [..., N, 1]: the exact curvature, the constant
+        2 A'A - 2 c c' (indefinite in general: the nonconvexity the naive
+        form exhibits) scaled per lane. Returns (Hxx, Huu, Hux), the
+        constrained variable's [..., N, dim, dim] and shared zero stacks
+        [N, ...] for the others."""
+        H = (2.0 * torch.einsum("kpi,kpj->kij", self.A, self.A)
+             - 2.0 * torch.einsum("ki,kj->kij", self.c, self.c))
+        Hw = g[..., 0, None, None] * H
+        N, n, m = self.N, X.shape[-1], U.shape[-1]
+        zxx = X.new_zeros((N, n, n))
+        zuu = X.new_zeros((N, m, m))
+        zux = X.new_zeros((N, m, n))
+        if self.on == "control":
+            return zxx, Hw, zux
+        return Hw, zuu, zux
+
+
+def quad_norm_constraint(N: int, n: int, m: int, A, c=None, offset=0.0,
+                         on: str = "control", start: int = 0,
+                         stop: Optional[int] = None, dtype=torch.float64,
+                         device=None) -> QuadNormConstraint:
+    """||A z||^2 <= (c'z + offset)^2, z = u (``on="control"``) or x
+    (``"state"``), at knots [start, stop) (stop = N - 1 by default). A
+    [p, dim] or per knot [N, p, dim]; c [dim] or [N, dim] (zeros when
+    None)."""
+    if on not in ("control", "state"):
+        raise ValueError(on)
+    kw = dict(dtype=dtype, device=device)
+    A = torch.as_tensor(A, **kw)
+    if A.dim() == 2:
+        A = A.expand((N,) + tuple(A.shape))
+    dim = A.shape[-1]
+    if dim != (m if on == "control" else n):
+        raise ValueError(f"A acts on {dim} entries, the {on} has "
+                         f"{m if on == 'control' else n}")
+    c = torch.zeros(dim, **kw) if c is None else torch.as_tensor(c, **kw)
+    if c.dim() == 1:
+        c = c.expand(N, dim)
+    stop = N - 1 if stop is None else stop
+    return QuadNormConstraint(
+        A=A.contiguous(), c=c.contiguous(),
+        offset=torch.full((N,), float(offset), **kw),
+        mask=_range_mask(N, start, stop, dtype, device), on=on)
+
+
+@dataclass
 class DualState:
     """AL multipliers and penalties for one constraint block."""
 
@@ -73,12 +189,11 @@ class DualState:
     rho: torch.Tensor  # [..., N]  scalar penalty per knot
 
     @staticmethod
-    def init(con: ConicConstraint, penalty_initial, dtype=None,
-             batch=()) -> "DualState":
-        """Zero multipliers and a constant penalty, with leading axes
-        ``batch``."""
-        dtype = con.Cx.dtype if dtype is None else dtype
-        kw = dict(dtype=dtype, device=con.Cx.device)
+    def init(con, penalty_initial, dtype=None, batch=()) -> "DualState":
+        """Zero multipliers and a constant penalty for block ``con`` (affine
+        or not), with leading axes ``batch``."""
+        dtype = con.mask.dtype if dtype is None else dtype
+        kw = dict(dtype=dtype, device=con.mask.device)
         batch = tuple(batch)
         return DualState(
             lam=torch.zeros(batch + (con.N, con.p), **kw),

@@ -5,21 +5,23 @@ values, into the port's objects.
 into nested dicts and lists of numpy arrays and plain values (it calls
 ``np.asarray`` on each leaf, so it needs no JAX import). The ``*_from_numpy``
 functions build the port's objects from such trees; ``tree_to`` moves a
-tree of the port's objects to another device or floating dtype.
+tree of the port's objects to another device or floating dtype. A nonlinear
+model's function is code, not data: the caller gives the port's counterpart
+(:func:`nonlinear_dynamics_from_numpy`).
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Any, Tuple
+from typing import Any, Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .cones import Cone
-from .constraints import ConicConstraint, DualState
+from .constraints import ConicConstraint, DualState, QuadNormConstraint
 from .costs import QuadCost
-from .dynamics import LTVDynamics
+from .dynamics import LTVDynamics, NonlinearDynamics
 from .problem import Problem
 from .solver.knot_admm import KnotQP
 from .solver.options import SolverOptions
@@ -48,6 +50,7 @@ def _t(a, device, dtype):
 # ranks of the shared cost and constraint stacks (without a batch axis)
 _COST_RANKS = {"Q": 3, "q": 2, "R": 3, "r": 2, "H": 3, "c": 1}
 _BLOCK_RANKS = {"Cx": 3, "Cu": 3, "b": 2, "mask": 1}
+_QUAD_NORM_RANKS = {"A": 3, "c": 2, "offset": 1, "mask": 1}
 
 
 def _shared(a, rank: int, name: str) -> np.ndarray:
@@ -62,26 +65,65 @@ def _shared(a, rank: int, name: str) -> np.ndarray:
     return a[0]
 
 
-def problem_from_numpy(tree: dict, device="cpu",
-                       dtype=torch.float64) -> Problem:
-    """Build a :class:`Problem` from ``numpy_tree`` of an LTV problem with
-    affine conic blocks, shared or batched (as the JAX package stacks a
-    per-lane problem for ``vmap``). Batched dynamics stay per lane; cost and
-    constraint stacks must be equal across lanes and are taken from lane 0
-    (the port keeps them shared)."""
+def _block(c: dict, i: int, device, dtype):
+    """An affine conic block or a quadratic norm block (its ``A``, ``c``,
+    ``offset``, ``mask`` and ``on``) from its ``numpy_tree``."""
+    if "Cx" in c:
+        return ConicConstraint(
+            cone=Cone(c["cone"]), name=c.get("name", ""),
+            **{k: _t(_shared(c[k], r, f"{k}{i}"), device, dtype)
+               for k, r in _BLOCK_RANKS.items()})
+    return QuadNormConstraint(
+        on=c["on"], name=c.get("name", "quad_norm"), cone=Cone(c["cone"]),
+        **{k: _t(_shared(c[k], r, f"{k}{i}"), device, dtype)
+           for k, r in _QUAD_NORM_RANKS.items()})
+
+
+def problem_from_numpy(tree: dict, device="cpu", dtype=torch.float64,
+                       dynamics: Optional[NonlinearDynamics] = None
+                       ) -> Problem:
+    """Build a :class:`Problem` from ``numpy_tree`` of a problem with affine
+    conic blocks and quadratic norm blocks, shared or batched (as the JAX
+    package stacks a per-lane problem for ``vmap``). LTV dynamics come from
+    the tree, batched ones staying per lane; a nonlinear model is given as
+    ``dynamics`` (its function is code: see
+    :func:`nonlinear_dynamics_from_numpy`). Cost and constraint stacks must
+    be equal across lanes and are taken from lane 0 (the port keeps them
+    shared)."""
     dyn, cost = tree["dynamics"], tree["cost"]
+    if dynamics is None:
+        if "A" not in dyn:
+            raise ValueError("the problem has nonlinear dynamics: pass "
+                             "dynamics=nonlinear_dynamics_from_numpy(...)")
+        dynamics = LTVDynamics(**{k: _t(dyn[k], device, dtype)
+                                  for k in ("A", "B", "d")})
     return Problem(
-        dynamics=LTVDynamics(**{k: _t(dyn[k], device, dtype)
-                                for k in ("A", "B", "d")}),
+        dynamics=dynamics,
         cost=QuadCost(**{k: _t(_shared(cost[k], r, k), device, dtype)
                          for k, r in _COST_RANKS.items()}),
-        constraints=tuple(
-            ConicConstraint(cone=Cone(c["cone"]), name=c.get("name", ""),
-                            **{k: _t(_shared(c[k], r, f"{k}{i}"), device,
-                                     dtype)
-                               for k, r in _BLOCK_RANKS.items()})
-            for i, c in enumerate(tree["constraints"])),
+        constraints=tuple(_block(c, i, device, dtype)
+                          for i, c in enumerate(tree["constraints"])),
         x0=_t(tree["x0"], device, dtype))
+
+
+def nonlinear_dynamics_from_numpy(params: Sequence, f: Callable, n: int,
+                                  m: int, N: int,
+                                  lane_axes: Sequence[bool] = (),
+                                  device="cpu", dtype=torch.float64
+                                  ) -> NonlinearDynamics:
+    """The port's :class:`NonlinearDynamics` over the JAX model's params
+    (``numpy_tree`` of its params tuple, or the arrays themselves), with
+    ``f`` the port's counterpart of the model's function (the same
+    one-lane contract) and ``lane_axes`` flagging the leaves that carry the
+    lane axis. Floating leaves take ``dtype``, integer leaves keep
+    theirs."""
+    def leaf(a):
+        a = np.asarray(a)
+        if np.issubdtype(a.dtype, np.floating):
+            return _t(a, device, dtype)
+        return torch.as_tensor(a, device=device)
+    return NonlinearDynamics(f=f, params=tuple(leaf(a) for a in params),
+                             n_=n, m_=m, N_=N, lane_axes=tuple(lane_axes))
 
 
 def duals_from_numpy(tree: list, device="cpu",

@@ -1,16 +1,20 @@
-"""Discrete-time linear dynamics (PyTorch counterpart of the LTV part of
-``altro_tpu/dynamics.py``, with its exact zero-order-hold discretization).
+"""Discrete-time dynamics (PyTorch counterpart of ``altro_tpu/dynamics.py``):
+linear-time-varying stacks, nonlinear models linearized by forward-mode
+autodiff, and the exact zero-order-hold, Euler and RK4 discretizations.
 
-The stacks have a knot axis of length N-1 and are either shared by the
+The LTV stacks have a knot axis of length N-1 and are either shared by the
 batch ([N-1, ...]) or per scenario ([B, N-1, ...], as when every scenario is
 linearized about its own contact schedule); states and controls carry
-leading batch axes.
+leading batch axes. A nonlinear model is a function of one lane, batched
+with ``torch.func.vmap``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Callable, Tuple
 
 import torch
+from torch.func import jacfwd, vmap
 
 
 @dataclass
@@ -61,6 +65,108 @@ class LTVDynamics:
         for k in range(U.shape[-2]):
             xs.append(self.step(xs[-1], U[..., k, :], k))
         return torch.stack(xs, dim=-2)
+
+
+@dataclass
+class NonlinearDynamics:
+    """Discrete nonlinear dynamics ``x+ = f(params, x, u, k)``.
+
+    ``f`` acts on one lane: x [n], u [m] and the knot k (an int, or a 0-d
+    integer tensor under ``vmap``), with ``params`` the tuple of tensors of
+    that lane; the same contract as the JAX package's, so one model function
+    serves both packages. ``lane_axes`` says, per leaf of ``params``,
+    whether it carries the lane axis in front ([B, ...]: that lane's data)
+    or is shared by every lane (a flag, not a guess from shapes: a [N, 4]
+    leaf and a [B, N] leaf look alike at B = N). :meth:`step`,
+    :meth:`rollout` and :meth:`linearize` batch ``f`` over the lanes of a
+    batch x [B, n] (and over further axes of x, which share their lane's
+    params, as the rungs of the line-search ladder do)."""
+
+    f: Callable
+    params: Tuple[torch.Tensor, ...]
+    n_: int
+    m_: int
+    N_: int
+    lane_axes: Tuple[bool, ...] = ()
+
+    def __post_init__(self):
+        self.params = tuple(self.params)
+        self.lane_axes = (tuple(self.lane_axes) if self.lane_axes
+                          else (False,) * len(self.params))
+        if len(self.lane_axes) != len(self.params):
+            raise ValueError(f"lane_axes has {len(self.lane_axes)} flags "
+                             f"for {len(self.params)} params")
+
+    @property
+    def per_lane(self) -> bool:
+        """The linearization is per lane, whatever the params are."""
+        return True
+
+    @property
+    def N(self) -> int:
+        return self.N_
+
+    @property
+    def n(self) -> int:
+        return self.n_
+
+    @property
+    def m(self) -> int:
+        return self.m_
+
+    def _batched(self, fn, depth: int):
+        """``fn(params, *args)`` of one lane, vmapped over the lane axis of
+        its tensor arguments (and of the per-lane params), then over
+        ``depth`` further leading axes of the tensor arguments that share
+        their lane's params. The knot argument (last) is not batched."""
+        for _ in range(depth):
+            fn = vmap(fn, in_dims=(None, 0, 0, None))
+        dims = tuple(0 if lane else None for lane in self.lane_axes)
+        return vmap(fn, in_dims=(dims, 0, 0, None))
+
+    def step(self, x, u, k: int):
+        """x [B, ..., n], u [B, ..., m] -> x+ [B, ..., n] at knot k: lane b
+        steps with its own params."""
+        return self._batched(self.f, x.dim() - 2)(self.params, x, u, k)
+
+    def rollout(self, x0, U):
+        """Open-loop rollout of U [B, N-1, m] from x0 [B, n]; returns
+        X [B, N, n]."""
+        step = self._batched(self.f, 0)
+        xs = [x0]
+        for k in range(U.shape[-2]):
+            xs.append(step(self.params, xs[-1], U[:, k], k))
+        return torch.stack(xs, dim=-2)
+
+    def linearize(self, X, U):
+        """Per-lane, per-knot (A [B, N-1, n, n], B [B, N-1, n, m],
+        d [B, N-1, n]) by forward-mode autodiff, vmapped over the lanes and
+        the knots: d is the affine residual f(xbar, ubar) - A xbar - B ubar,
+        as in the JAX package."""
+        f = self.f
+
+        def lin_one(params, x, u, k):
+            A = jacfwd(lambda xx: f(params, xx, u, k))(x)
+            B = jacfwd(lambda uu: f(params, x, uu, k))(u)
+            d = f(params, x, u, k) - A @ x - B @ u
+            return A, B, d
+
+        dims = tuple(0 if lane else None for lane in self.lane_axes)
+        over_knots = vmap(lin_one, in_dims=(None, 0, 0, 0))
+        ks = torch.arange(U.shape[-2], device=U.device)
+        A, B, d = vmap(over_knots, in_dims=(dims, 0, 0, None))(
+            self.params, X[:, :-1], U, ks)
+        return A.contiguous(), B.contiguous(), d.contiguous()
+
+
+def rk4(f: Callable, x, u, dt, *args):
+    """Classic RK4 step of length dt for continuous dynamics
+    ``xdot = f(x, u, *args)``."""
+    k1 = f(x, u, *args)
+    k2 = f(x + 0.5 * dt * k1, u, *args)
+    k3 = f(x + 0.5 * dt * k2, u, *args)
+    k4 = f(x + dt * k3, u, *args)
+    return x + (dt / 6.0) * (k1 + 2 * k2 + 2 * k3 + k4)
 
 
 def lti_dynamics(Ad, Bd, N: int, dd=None) -> LTVDynamics:

@@ -8,7 +8,9 @@ linearization A_d = I + A_c dt, B_d = B_c dt, d = (f(xbar, ubar) - A_c xbar
 (``torch.func.jacfwd``, vmapped over knots). The plant of the closed loop
 integrates the same nonlinear dynamics with RK4 (:func:`rk4_plant`), with
 mass and inertia scales for a plant that differs from the controller's
-model. The body constants are taken onto the input's device and dtype once
+model. :func:`nonlinear_dynamics` gives the MPC the RK4 model itself, as a
+``NonlinearDynamics`` over the horizon's contact schedule, for the solver to
+relinearize at every iterate. The body constants are taken onto the input's device and dtype once
 per pair, so no call copies from the host.
 """
 from __future__ import annotations
@@ -19,7 +21,7 @@ import numpy as np
 import torch
 from torch.func import jacfwd, vmap
 
-from ...dynamics import LTVDynamics
+from ...dynamics import LTVDynamics, NonlinearDynamics, rk4
 from .config import woofer as _w
 
 SPRUNG_MASS = _w.inertial.sprung_mass
@@ -143,3 +145,29 @@ def rk4_plant(x, u, foot_locs, contacts, dt, mass_scale=1.0,
     k3 = f(x + 0.5 * dt * k2)
     k4 = f(x + dt * k3)
     return x + (dt / 6.0) * (k1 + 2 * k2 + 2 * k3 + k4)
+
+
+@functools.lru_cache(maxsize=None)
+def rk4_knot_fn(dt: float):
+    """The discrete model of one lane at knot k, ``f(params, x, u, k) =
+    rk4(continuous_dynamics, x, u, dt, foot_locs[k], contacts[k])`` with
+    params (foot_locs [N, 4, 3], contacts [N, 4]); one function object per
+    dt, so that two builds of a problem match as a graph's buffers (which
+    compare a model's function by identity)."""
+    def f(params, x, u, k):
+        foot_locs, contacts = params
+        return rk4(continuous_dynamics, x, u, dt, foot_locs[k], contacts[k])
+    return f
+
+
+def nonlinear_dynamics(foot_locs, contacts, dt: float) -> NonlinearDynamics:
+    """The RK4 SRB model over a horizon's contact schedule: foot_locs
+    [(B,) N, 4, 3] and contacts [(B,) N, 4], shared or one schedule per
+    lane (both per lane or both shared)."""
+    per_lane = foot_locs.dim() == 4
+    if contacts.dim() != foot_locs.dim() - 1:
+        raise ValueError(f"foot_locs {tuple(foot_locs.shape)} and contacts "
+                         f"{tuple(contacts.shape)} differ in their lane axis")
+    return NonlinearDynamics(
+        f=rk4_knot_fn(float(dt)), params=(foot_locs, contacts), n_=12,
+        m_=12, N_=foot_locs.shape[-3], lane_axes=(per_lane, per_lane))

@@ -1,10 +1,12 @@
-"""Rocket soft-landing benchmark with second-order-cone constraints
-(PyTorch counterpart of ``altro_tpu/models/rocket.py``, its conic form).
+"""Rocket soft-landing benchmark (PyTorch counterpart of
+``altro_tpu/models/rocket.py``).
 
 - linear rocket model with planet rotation, exact ZOH discretization;
 - three SOC families: max thrust ||u|| <= m|g|k, thrust angle
   ||[ux, uy]|| <= tan(theta) uz, glideslope ||[x, y]|| <= tan(theta_gs) z
-  active from knot ``glide_recover_k``;
+  active from knot ``glide_recover_k``; or, with ``conic=False``, their
+  nonconvex quadratic counterparts ||A z||^2 <= (c'z + offset)^2 (the
+  SOC-against-Inequality comparison);
 - hover warm start U0 = -m g;
 - position/velocity-split MPC process noise.
 """
@@ -12,7 +14,8 @@ from __future__ import annotations
 
 import torch
 
-from ..constraints import goal_constraint, norm_constraint, norm_constraint2
+from ..constraints import (goal_constraint, norm_constraint, norm_constraint2,
+                           quad_norm_constraint)
 from ..costs import lqr_objective
 from ..dynamics import lti_dynamics, zoh_discretize
 from ..problem import Problem
@@ -52,11 +55,12 @@ def rocket_problem(N: int = 301, tf: float = 15.0, *,
                    theta_glideslope: float = 45.0,
                    glide_recover_k: int = 8, include_goal: bool = True,
                    include_thrust_angle: bool = True,
-                   include_glideslope: bool = True,
+                   include_glideslope: bool = True, conic: bool = True,
                    dtype=torch.float64, device=None) -> Problem:
     """n=6, m=3 soft-landing problem: LQR cost to the origin, a terminal
-    goal (ZERO) and the max-thrust, thrust-angle and glideslope SOC
-    blocks."""
+    goal (ZERO) and the max-thrust, thrust-angle and glideslope blocks,
+    second-order cones (``conic``) or their quadratic NONPOS counterparts
+    (``QuadNormConstraint``)."""
     n, m = 6, 3
     kw = dict(dtype=dtype, device=device)
     dt = tf / (N - 1)
@@ -73,14 +77,22 @@ def rocket_problem(N: int = 301, tf: float = 15.0, *,
     if include_goal:
         cons.append(goal_constraint(N, n, m, xf, **kw))
     u_bnd = mass * abs(float(g[2])) * per_weight_max
-    cons.append(norm_constraint(N, n, m, u_bnd, on="control", **kw))
+    if conic:
+        cons.append(norm_constraint(N, n, m, u_bnd, on="control", **kw))
+    else:
+        cons.append(quad_norm_constraint(N, n, m, torch.eye(3, **kw),
+                                         offset=u_bnd, on="control", **kw))
     if include_thrust_angle:
         alpha = torch.tan(torch.deg2rad(torch.tensor(theta_thrust_max,
                                                      **kw)))
         A_ang = torch.tensor([[1.0, 0, 0], [0, 1.0, 0], [0, 0, 0]], **kw)
         c_ang = torch.tensor([0.0, 0.0, 1.0], **kw) * alpha
-        cons.append(norm_constraint2(N, n, m, A_ang, c_ang, on="control",
-                                     **kw))
+        if conic:
+            cons.append(norm_constraint2(N, n, m, A_ang, c_ang,
+                                         on="control", **kw))
+        else:
+            cons.append(quad_norm_constraint(N, n, m, A_ang, c=c_ang,
+                                             on="control", **kw))
     if include_glideslope:
         alpha_g = torch.tan(torch.deg2rad(torch.tensor(theta_glideslope,
                                                        **kw)))
@@ -89,8 +101,14 @@ def rocket_problem(N: int = 301, tf: float = 15.0, *,
         c_gs = torch.zeros(6, **kw)
         c_gs[2] = alpha_g
         # active from knot glide_recover_k (1-indexed) to N-1
-        cons.append(norm_constraint2(N, n, m, A_gs, c_gs, on="state",
-                                     start=glide_recover_k - 1, **kw))
+        if conic:
+            cons.append(norm_constraint2(N, n, m, A_gs, c_gs, on="state",
+                                         start=glide_recover_k - 1, **kw))
+        else:
+            cons.append(quad_norm_constraint(N, n, m, A_gs, c=c_gs,
+                                             on="state",
+                                             start=glide_recover_k - 1,
+                                             **kw))
     return Problem(dynamics=dyn, cost=cost, constraints=tuple(cons), x0=x0)
 
 

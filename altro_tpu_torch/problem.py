@@ -1,29 +1,35 @@
 """Trajectory-optimization problem container (PyTorch counterpart of
 ``altro_tpu/problem.py``).
 
-``x0`` carries the batch: [B, n] for a batched solve. The dynamics stacks
-are shared ([N-1, ...]) or carry the batch ([B, N-1, ...]: every scenario
-linearized about its own schedule); the cost's linear terms are shared or
-carry the batch (every scenario tracking its own window); the cost's
-Hessians and the constraint stacks are shared by every scenario.
+``x0`` carries the batch: [B, n] for a batched solve. The dynamics are
+LTV stacks, shared ([N-1, ...]) or carrying the batch ([B, N-1, ...]: every
+scenario linearized about its own schedule), or a nonlinear model with
+shared or per-lane params, linearized per lane at every iterate; the cost's
+linear terms are shared or carry the batch (every scenario tracking its own
+window); the cost's Hessians and the constraint stacks are shared by every
+scenario (a nonlinear block's Jacobians, taken at each lane's iterate, are
+per lane).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Tuple, Union
 
 import torch
 
-from .constraints import ConicConstraint, DualState
+from .constraints import ConicConstraint, DualState, QuadNormConstraint
 from .costs import QuadCost
-from .dynamics import LTVDynamics
+from .dynamics import LTVDynamics, NonlinearDynamics
+
+Dynamics = Union[LTVDynamics, NonlinearDynamics]
+Block = Union[ConicConstraint, QuadNormConstraint]
 
 
 @dataclass
 class Problem:
-    dynamics: LTVDynamics   # stacks [N-1, ...] or per scenario [B, N-1, ...]
+    dynamics: Dynamics      # LTV stacks, shared or [B, N-1, ...]; or f
     cost: QuadCost          # Hessians shared; q, r, c shared or [B, N, ...]
-    constraints: Tuple[ConicConstraint, ...]  # shared
+    constraints: Tuple[Block, ...]  # shared
     x0: torch.Tensor  # [B, n] (or [n] for an unbatched problem)
 
     @property

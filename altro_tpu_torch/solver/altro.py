@@ -1,6 +1,6 @@
 """ALTRO-style augmented-Lagrangian iLQR solver: the batched PyTorch port of
-``altro_tpu/solver/altro.py`` for LTV dynamics with affine ZERO/NONPOS/SOC
-constraint blocks.
+``altro_tpu/solver/altro.py`` for LTV or nonlinear dynamics with affine
+ZERO/NONPOS/SOC constraint blocks and nonlinear (quadratic norm) blocks.
 
 Every entry point takes an explicit leading batch axis B (``prob.x0`` is
 [B, n]); constraint stacks are shared by the batch, the cost's linear terms
@@ -8,21 +8,25 @@ and the dynamics stacks are shared or per scenario. Each iteration runs
 
 - the AL expansion and the Riccati backward pass, either
   - fused into one pass (ops/riccati_fused.py: a CUDA kernel on the card),
-    where the dynamics and the cost are shared and
+    where the dynamics are shared LTV stacks, every block is affine
+    (:func:`ltv_affine`, the JAX package's gate), the cost is shared and
     ``SolverOptions.fused_expansion`` is on, or
-  - split (per-lane dynamics, a per-lane cost, or the fused expansion
-    off): the expansion in PyTorch, then :func:`backward_pass`
-    (ops/riccati.py: a CUDA kernel on the card),
+  - split (otherwise): the dynamics linearized about the iterate
+    (per lane and knot for a nonlinear model), the expansion in PyTorch
+    (a nonlinear block's Jacobians per lane, plus its exact curvature),
+    then :func:`backward_pass` (ops/riccati.py: a CUDA kernel on the card),
 - the whole line-search ladder of step sizes plus a trailing alpha = 0 rung
   in one closed-loop rollout, either
   - classical: the ladder rollout (ops/rollout.py: a CUDA kernel on the
-    card), whose AL cost and constraint residuals are evaluated in
-    PyTorch for every rung, or
-  - fused (``SolverOptions.ls_fused``): the ladder rollout with each
-    rung's AL merit accumulated in the same pass (ops/rollout_al.py: a
-    CUDA kernel on the card; with per-lane dynamics or a per-lane cost the
-    ladder-rollout kernel followed by the merit in PyTorch), the residuals
-    then evaluated once on the adopted trajectory,
+    card; for a nonlinear model :func:`rollout_closed_loop` through the
+    model in PyTorch), whose AL cost and constraint residuals are
+    evaluated in PyTorch for every rung, or
+  - fused (``SolverOptions.ls_fused``, LTV dynamics with affine blocks
+    only): the ladder rollout with each rung's AL merit accumulated in the
+    same pass (ops/rollout_al.py: a CUDA kernel on the card; with per-lane
+    dynamics or a per-lane cost the ladder-rollout kernel followed by the
+    merit in PyTorch), the residuals then evaluated once on the adopted
+    trajectory,
 - the AL round bookkeeping (dual update by polar-cone projection, penalty
   scaling, violation check) inline under a per-lane mask.
 
@@ -49,6 +53,7 @@ import torch
 
 from ..cones import project_polar, violation
 from ..constraints import DualState, al_terms_structured
+from ..dynamics import LTVDynamics
 from ..ops.blocks import PackedBlocks, pack_blocks
 from ..ops.riccati import batched_riccati
 from ..ops.riccati_fused import fused_expand_backward
@@ -170,35 +175,51 @@ def _al_expansion_cd(cost, constraints, duals, X, U):
 
     Returns lx [B,N,n], lu [B,N,m], lxx [(B,)N,n,n], luu [(B,)N,m,m],
     lux [(B,)N,m,n]: the Hessians stay shared when no block adds per-lane
-    curvature. Blocks are affine, so the Gauss-Newton curvature
-    C' (rho J_polar) C is exact up to the projection kink; each block's
-    curvature comes in its structured form (al_terms_structured)."""
+    curvature. Each block's curvature in c comes in its structured form
+    (al_terms_structured) and is contracted with the block's Jacobians:
+    shared stacks [N, p, .] for an affine block, where the Gauss-Newton
+    curvature C' (rho J_polar) C is exact up to the projection kink, or
+    per-lane stacks [B, N, p, .] at the iterate for a nonlinear block,
+    which also adds its exact multiplier-weighted curvature
+    (``second_order``)."""
     lx, lu, lxx, luu, lux = cost.expansion(X, U)
     for con, dual in zip(constraints, duals):
         g, (kind, H) = al_terms_structured(con, dual, X, U)
         Cx, Cu = con.jacobians(X, U)
-        lx = lx + torch.einsum("kpn,...kp->...kn", Cx, g)
-        lu = lu + torch.einsum("kpm,...kp->...km", Cu, g)
+        j = "" if Cx.dim() == 3 else "..."    # shared or per-lane Jacobians
+        lx = lx + torch.einsum(f"{j}kpn,...kp->...kn", Cx, g)
+        lu = lu + torch.einsum(f"{j}kpm,...kp->...km", Cu, g)
         if kind == "dense":
             # small cones: contract the [N, p, p] curvature directly
-            lxx = lxx + torch.einsum("kpi,...kpq,kqj->...kij", Cx, H, Cx)
-            luu = luu + torch.einsum("kpi,...kpq,kqj->...kij", Cu, H, Cu)
-            lux = lux + torch.einsum("kpi,...kpq,kqj->...kij", Cu, H, Cx)
-            continue
-        w, ranks = (H, ()) if kind == "diag" else H
-        WCx = w[..., None] * Cx
-        WCu = w[..., None] * Cu
-        lxx = lxx + torch.einsum("kpi,...kpj->...kij", Cx, WCx)
-        luu = luu + torch.einsum("kpi,...kpj->...kij", Cu, WCu)
-        lux = lux + torch.einsum("kpi,...kpj->...kij", Cu, WCx)
-        for coef, u in ranks:
-            # 'diag_lr': coef (C'u)(C'u)', the SOC Jacobian's rank-1 terms
-            ax = torch.einsum("kpn,...kp->...kn", Cx, u)
-            au = torch.einsum("kpm,...kp->...km", Cu, u)
-            c3 = coef[..., None, None]
-            lxx = lxx + c3 * (ax[..., :, None] * ax[..., None, :])
-            luu = luu + c3 * (au[..., :, None] * au[..., None, :])
-            lux = lux + c3 * (au[..., :, None] * ax[..., None, :])
+            dense = f"{j}kpi,...kpq,{j}kqj->...kij"
+            lxx = lxx + torch.einsum(dense, Cx, H, Cx)
+            luu = luu + torch.einsum(dense, Cu, H, Cu)
+            lux = lux + torch.einsum(dense, Cu, H, Cx)
+        else:
+            w, ranks = (H, ()) if kind == "diag" else H
+            WCx = w[..., None] * Cx
+            WCu = w[..., None] * Cu
+            gram = f"{j}kpi,...kpj->...kij"
+            lxx = lxx + torch.einsum(gram, Cx, WCx)
+            luu = luu + torch.einsum(gram, Cu, WCu)
+            lux = lux + torch.einsum(gram, Cu, WCx)
+            for coef, u in ranks:
+                # 'diag_lr': coef (C'u)(C'u)', the SOC Jacobian's rank-1
+                # terms
+                ax = torch.einsum(f"{j}kpn,...kp->...kn", Cx, u)
+                au = torch.einsum(f"{j}kpm,...kp->...km", Cu, u)
+                c3 = coef[..., None, None]
+                lxx = lxx + c3 * (ax[..., :, None] * ax[..., None, :])
+                luu = luu + c3 * (au[..., :, None] * au[..., None, :])
+                lux = lux + c3 * (au[..., :, None] * ax[..., None, :])
+        if not con.is_affine:
+            # the exact multiplier-weighted constraint curvature (full
+            # Newton on the AL of a nonlinear block; affine blocks have
+            # none)
+            Hxx, Huu, Hux = con.second_order(X, U, g)
+            lxx = lxx + Hxx
+            luu = luu + Huu
+            lux = lux + Hux
     return lx, lu, lxx, luu, lux
 
 
@@ -265,6 +286,42 @@ def _expand_backward_base(cost, dynA, dynB, blocks, X, U, lams, rhos, reg):
     duals = tuple(DualState(lam=l, rho=r) for l, r in zip(lams, rhos))
     lx, lu, lxx, luu, lux = _al_expansion_cd(cost, blocks, duals, X, U)
     return _backward_pass(dynA, dynB, lx, lu, lxx, luu, lux, reg)
+
+
+# ----------------------------------------------------------------------------
+# Forward closed-loop rollout
+# ----------------------------------------------------------------------------
+
+def rollout_closed_loop(dynamics, Xbar, Ubar, K, d, alphas,
+                        alphas_dev: Optional[torch.Tensor] = None):
+    """Closed-loop rollout of every rung alpha of a ladder:
+    u = ubar + alpha d + K (x - xbar), x+ = f(x, u), x0 = xbar0, for the
+    batch Xbar [B, N, n], Ubar and d [B, N-1, m], K [B, N-1, m, n]. Returns
+    Xs [B, L, N, n], Us [B, L, N-1, m]. LTV dynamics take the ladder
+    rollout (ops/rollout.py: kernel A on the card); a nonlinear model runs
+    all rungs of a knot in one call of its batched step, each rung with its
+    lane's params (by index, no copy per rung). A rung alpha = 0 started on
+    a trajectory of this rollout reproduces it bit for bit. ``alphas_dev``:
+    the ladder as a tensor on the batch's device (made from ``alphas`` when
+    None: a copy from the host, which a CUDA graph capture refuses)."""
+    alphas = tuple(float(a) for a in alphas)
+    if isinstance(dynamics, LTVDynamics):
+        return batched_ls_rollout(dynamics.A, dynamics.B, dynamics.d, Xbar,
+                                  Ubar, K, d, alphas)
+    if alphas_dev is None:
+        alphas_dev = torch.tensor(alphas, dtype=Xbar.dtype,
+                                  device=Xbar.device)
+    al = alphas_dev[None, :, None]                                # [1, L, 1]
+    x = Xbar[:, None, 0, :].expand(-1, len(alphas), -1)           # [B, L, n]
+    xs, us = [x], []
+    for k in range(Ubar.shape[1]):
+        dx = x - Xbar[:, None, k, :]
+        u = (Ubar[:, None, k, :] + al * d[:, None, k, :]
+             + torch.einsum("bij,blj->bli", K[:, k], dx))
+        x = dynamics.step(x, u, k)
+        xs.append(x)
+        us.append(u)
+    return torch.stack(xs, dim=2), torch.stack(us, dim=2)
 
 
 # ----------------------------------------------------------------------------
@@ -343,6 +400,9 @@ def _warmstart_state(prob: Problem, opts: SolverOptions,
     if X0 is not None:
         X0 = X0.clone()
         X0[:, 0] = x0
+    elif not isinstance(prob.dynamics, LTVDynamics):
+        # a nonlinear model: its own open-loop rollout
+        X0 = prob.dynamics.rollout(x0, U0)
     else:
         # Open-loop rollout through the ladder-rollout kernel: with K = 0,
         # d = 0 the closed-loop ladder (L = 1, alpha = 1) reduces to
@@ -393,12 +453,20 @@ def _flat_while(prob: Problem, opts: SolverOptions, s,
     return s
 
 
+def ltv_affine(prob: Problem) -> bool:
+    """Whether the problem has LTV dynamics and only affine blocks: the
+    fused kernels (the expansion, B; the ladder + merit, C) take nothing
+    else, whatever the options say (the JAX package's gate)."""
+    return (isinstance(prob.dynamics, LTVDynamics)
+            and all(c.is_affine for c in prob.constraints))
+
+
 def _uses_fused_ladder(opts: SolverOptions, prob: Problem, X) -> bool:
-    """Whether the line search takes the fused ladder + merit pass:
-    ``ls_fused`` "on" always, "off" never, "auto" on a CUDA device for
-    multi-block constraint sets (the classical ladder stays the CPU
-    default, as in the JAX package)."""
-    if opts.ls_fused == "off":
+    """Whether the line search takes the fused ladder + merit pass: never
+    unless :func:`ltv_affine`; then ``ls_fused`` "on" always, "off" never,
+    "auto" on a CUDA device for multi-block constraint sets (the classical
+    ladder stays the CPU default, as in the JAX package)."""
+    if opts.ls_fused == "off" or not ltv_affine(prob):
         return False
     return opts.ls_fused == "on" or (X.device.type == "cuda"
                                      and len(prob.constraints) > 1)
@@ -439,13 +507,14 @@ def loop_context(prob: Problem, opts: SolverOptions,
     [B, N, n]: the lane index, the alpha ladder plus the trailing alpha = 0
     rung (whose rollout reproduces the current trajectory: Jts[:, -1] is the
     current AL cost) and the fused kernels' row-concatenated constraint
-    stacks, where either fused kernel runs (per-lane data takes
-    neither)."""
+    stacks, where either fused kernel runs (per-lane data, nonlinear
+    dynamics and nonlinear blocks take neither)."""
     alphas_t = tuple(opts.ls_decrease ** i
                      for i in range(opts.iterations_linesearch)) + (0.0,)
     per_lane = prob.dynamics.per_lane or prob.cost.per_lane
-    fused = not per_lane and (opts.fused_expansion
-                              or _uses_fused_ladder(opts, prob, X_0))
+    fused = (not per_lane and ltv_affine(prob)
+             and (opts.fused_expansion
+                  or _uses_fused_ladder(opts, prob, X_0)))
     packed = (pack_blocks(prob.constraints, prob.N, prob.n, prob.m, X_0)
               if X_0.device.type == "cuda" and fused else None)
     return LoopContext(
@@ -474,13 +543,14 @@ def loop_fns(prob: Problem, opts: SolverOptions, s0, it_cap=None,
     packed = ctx.packed
     dyn = prob.dynamics
     fused_ladder = _uses_fused_ladder(opts, prob, X_0)
-    # the fused kernels read shared data only. Per-lane data take the
-    # split route (the expansion in PyTorch, then the Riccati pass), as
-    # does any problem with opts.fused_expansion off; on per-lane data the
-    # line search's fused branch runs the ladder rollout and the merit in
-    # PyTorch
+    # the fused kernels read shared LTV data and affine blocks only.
+    # Per-lane data, nonlinear dynamics and nonlinear blocks take the split
+    # route (the linearization and the expansion in PyTorch, then the
+    # Riccati pass), as does any problem with opts.fused_expansion off; on
+    # per-lane LTV data the line search's fused branch runs the ladder
+    # rollout and the merit in PyTorch
     per_lane = dyn.per_lane or prob.cost.per_lane
-    split = per_lane or not opts.fused_expansion
+    split = per_lane or not opts.fused_expansion or not ltv_affine(prob)
 
     def round_end_update(cs, cts, duals, lam_ok):
         """AL round bookkeeping from the adopted trajectory's residuals (cs)
@@ -521,20 +591,22 @@ def loop_fns(prob: Problem, opts: SolverOptions, s0, it_cap=None,
         lams = tuple(d.lam for d in duals)
         rhos = tuple(d.rho for d in duals)
         if split:
+            # relinearize about the iterate (the LTV stacks as they are)
+            A, B, _ = dyn.linearize(X, U)
             lx, lu, lxx, luu, lux = _al_expansion_cd(prob.cost,
                                                      prob.constraints,
                                                      duals, X, U)
-            Knew, dff, dV1, dV2 = backward_pass(dyn.A, dyn.B, lx, lu, lxx,
-                                                luu, lux, reg)
+            Knew, dff, dV1, dV2 = backward_pass(A, B, lx, lu, lxx, luu, lux,
+                                                reg)
         else:
             Knew, dff, dV1, dV2 = fused_expand_backward(
                 prob.cost, dyn.A, dyn.B, prob.constraints, X, U, lams, rhos,
                 reg, packed=packed)
-        if len(rhos) > 1:
+        if (not split or fused_ladder) and len(rhos) > 1:
             # the fused expansion and the fused ladder read one shared
             # penalty schedule (rhos[0]): poison the feedforward of lanes
             # whose blocks diverge, so the wrongness is loud instead of
-            # silent
+            # silent (the classical split route reads every block's own)
             rho_dev = sum(torch.amax(torch.abs(r - rhos[0]), dim=-1)
                           for r in rhos[1:])
             dff = torch.where((rho_dev > 0)[:, None, None], math.nan, dff)
@@ -560,8 +632,8 @@ def loop_fns(prob: Problem, opts: SolverOptions, s0, it_cap=None,
                 prob.cost, dyn.A, dyn.B, dyn.d, prob.constraints, X, U, Knew,
                 dff, lams, rho0, alphas_t, packed=packed)
         else:
-            Xts, Uts = batched_ls_rollout(dyn.A, dyn.B, dyn.d, X, U, Knew,
-                                          dff, alphas_t)
+            Xts, Uts = rollout_closed_loop(dyn, X, U, Knew, dff, alphas_t,
+                                           alphas)
             duals_l = tuple(DualState(lam=d.lam[:, None], rho=d.rho[:, None])
                             for d in duals)
             Jts, (Cts, CTts) = total_al_cost_res(prob, duals_l, Xts, Uts)

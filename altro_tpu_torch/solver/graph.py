@@ -113,7 +113,8 @@ def uncounted():
 
 def _spec(tree, path: str = "") -> list:
     """(path, description) of every node: a tensor's shape, dtype and
-    device, any other leaf's type and value."""
+    device, any other leaf's type and value (a static leaf: an int, a
+    string, a cone, a model's function, compared by its repr)."""
     if isinstance(tree, torch.Tensor):
         return [(path, f"a tensor of shape {tuple(tree.shape)} and dtype "
                        f"{tree.dtype} on {tree.device}")]
@@ -338,19 +339,20 @@ class LoopGraph:
 # ----------------------------------------------------------------------------
 
 class GraphedSolve:
-    """``solver.altro.solve(prob, opts, U0)`` of a batch with no duals and
-    no states to start from, as a start graph (the init rollout and the
-    fresh duals), a :class:`LoopGraph` and a finish graph, captured for the
-    problem's shapes. ``prob.x0`` is [batch, n] (or [n], broadcast to
-    ``batch``).
+    """``solver.altro.solve(prob, opts, U0)`` of a batch with no duals to
+    start from, as a start graph (the init rollout, or with ``states`` the
+    given states, and the fresh duals), a :class:`LoopGraph` and a finish
+    graph, captured for the problem's shapes. ``prob.x0`` is [batch, n]
+    (or [n], broadcast to ``batch``).
 
-    ``gs(x0, U0)`` copies the initial states [batch, n] and controls
-    [batch, N-1, m] (zeros when None) into their buffers, replays and
-    returns the solution (clones)."""
+    ``gs(x0, U0, X0)`` copies the initial states [batch, n], controls
+    [batch, N-1, m] (zeros when None) and, with ``states``, the states to
+    start from [batch, N, n] (``solve(..., X0=X0)``: no init rollout) into
+    their buffers, replays and returns the solution (clones)."""
 
     def __init__(self, prob: Problem, opts: SolverOptions,
                  batch: Optional[int] = None, *, check_every: int = 1,
-                 pool=None):
+                 pool=None, states: bool = False):
         x0 = prob.x0
         if x0.dim() == 1:
             if batch is None:
@@ -365,8 +367,11 @@ class GraphedSolve:
         self.opts = opts
         self.U0 = torch.zeros((x0.shape[0], prob.N - 1, prob.m),
                               dtype=x0.dtype, device=dev)
+        self.X0 = (torch.zeros((x0.shape[0], prob.N, prob.n),
+                               dtype=x0.dtype, device=dev)
+                   if states else None)
         with torch.no_grad(), uncounted():
-            s0 = _warmstart_state(prob, opts, self.U0, None)
+            s0 = _warmstart_state(prob, opts, self.U0, None, self.X0)
         self.loop = LoopGraph(prob, opts, s0, check_every=check_every,
                               pool=pool, capture=False)
         with capturing():
@@ -379,7 +384,7 @@ class GraphedSolve:
 
     def _start_fn(self) -> None:
         self.loop.load(state=_warmstart_state(self.loop.prob, self.opts,
-                                              self.U0, None))
+                                              self.U0, None, self.X0))
 
     @property
     def capture_s(self) -> float:
@@ -387,7 +392,11 @@ class GraphedSolve:
                 + self._finish.capture_s)
 
     def __call__(self, x0: Optional[torch.Tensor] = None,
-                 U0: Optional[torch.Tensor] = None) -> Solution:
+                 U0: Optional[torch.Tensor] = None,
+                 X0: Optional[torch.Tensor] = None) -> Solution:
+        if (X0 is None) != (self.X0 is None):
+            raise ValueError("X0 is given exactly when the solve was built "
+                             "with states=True")
         with torch.no_grad():
             if x0 is not None:
                 copy_into(self.loop.prob.x0, x0, "x0")
@@ -395,6 +404,8 @@ class GraphedSolve:
                 self.U0.zero_()
             else:
                 copy_into(self.U0, U0, "U0")
+            if X0 is not None:
+                copy_into(self.X0, X0, "X0")
             self._start.replay()
             self.replays += self.loop.run()
             self._finish.replay()
@@ -402,11 +413,13 @@ class GraphedSolve:
 
 
 def solve(prob: Problem, opts: SolverOptions,
-          U0: Optional[torch.Tensor] = None, *,
+          U0: Optional[torch.Tensor] = None,
+          X0: Optional[torch.Tensor] = None, *,
           graphed: Optional[bool] = None, check_every: int = 1) -> Solution:
-    """One cold batch solve: through a :class:`GraphedSolve` captured for
-    this call when ``graphed`` (None: on a CUDA device), else
-    ``solver.altro.solve``."""
+    """One cold batch solve (from states ``X0`` when given): through a
+    :class:`GraphedSolve` captured for this call when ``graphed`` (None: on
+    a CUDA device), else ``solver.altro.solve``."""
     if not use_graphs(graphed, prob.x0.device):
-        return altro.solve(prob, opts, U0=U0)
-    return GraphedSolve(prob, opts, check_every=check_every)(U0=U0)
+        return altro.solve(prob, opts, U0=U0, X0=X0)
+    return GraphedSolve(prob, opts, check_every=check_every,
+                        states=X0 is not None)(U0=U0, X0=X0)

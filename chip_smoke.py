@@ -63,6 +63,14 @@ Phases, each printing its findings; any failure raises (non-zero exit):
       inputs: the flagship, the rocket window and grasp's window, B=1024),
       under 3a's gates, float32 and float64, each timed beside its plain
       version and its bound; the float32 errors count in max_abs_err;
+   k. kernels D and A at the naive rocket's shapes (N=301, n=6, m=3; the
+      goal ZERO block and three quadratic norm blocks), B=1024 and B=1,
+      float32 and float64 (``bench/kernels.py: naive_rocket_inputs``): D
+      with shared A/B on the solver's per-lane expansion of a mid-solve
+      iterate (per-lane Hessians), A at the L=11 ladder, under 3a's gates;
+      then each path's accepted rung (equal in float64, at most B/100 lanes
+      apart in float32); each timed beside its plain version and its bound;
+      the float32 errors count in max_abs_err;
 4. main paths, each on CUDA graphs (``altro_tpu_torch/solver/graph.py``:
    every MPC step, batch solve and cold solve as start, loop and finish
    graphs, the loop replayed with one host sync per k passes), with the
@@ -119,10 +127,36 @@ Phases, each printing its findings; any failure raises (non-zero exit):
       of every step, from the card's carry cast to float64, against the
       port's plain float64 step on the CPU (gate: equal status, max|U32 -
       U64| <= 1e-3); step ms p50 printed beside the shared-k step's;
+   k. the naive rocket's one landing (``bench/conic.py:
+      naive_rocket_setup``: the cold N=301 solve from the hover controls
+      under the cold options, the default x0, B=1; the quadratic norm
+      blocks take the split route), float32 and float64 on graphs, beside
+      the conic form's cold solve in the same call (iterations, solve ms):
+      status 1; kernel D once per counted pass, A once per pass and once
+      more (the init rollout), B and C never; no entry into the host-driven
+      loop; the float64 card solve against the port's plain float64 solve
+      on the CPU (equal status and iterations, max|dU| <= 1e-6);
+   l. the naive rocket's Monte-Carlo of 1024 landings (x0 = the default +
+      0.5 N(0, 1) per component, numpy default_rng(0)), float32 on graphs:
+      success >= 0.99, every succeeded lane's violation <= 1e-4, 4k's
+      launch gates; iterations mean and lane-max, passes, solves/s and the
+      solve's ms printed; then float64 on the same lanes (the same launch
+      gates): success and the float32 controls' relative true-cost gap
+      (mean, p99, max) printed;
+   m. the nonlinear SRB trot (the flat quadruped batch on the RK4 SRB model
+      itself, ``families.quadruped_setup(nonlinear=True)``: per-lane
+      params, every pass relinearized per lane and knot, the ladder rolled
+      out through the model), B=1024, both friction modes, float32 and
+      float64, a warm-up solve and 2 cold rounds from the reference states:
+      success 1.0, violation <= 1e-4, kernel D once per counted pass, A, B
+      and C never; 64 lanes of the float64 card solve against the port's
+      plain float64 solve on the CPU (equal status and iterations,
+      max|dU| <= 1e-6);
    f. graphed against eager on the card, every run from one carry: the
       flagship (B=1024, 10 steps), the rocket, grasp and flexsat in their
       shipped schedules (5 steps), the quadruped (2 rounds in each friction
-      mode), the closed loop (10 periods in each friction form)
+      mode), the closed loop (10 periods in each friction form), the naive
+      rocket's one landing and the nonlinear SRB trot (one QP solve)
       (gate: equal status and iterations on every lane-step; max|dU| and
       the bit-equality of X, U and the duals printed, and per path the step
       ms p50 of both forms, passes and replays per step and the capture
@@ -206,13 +240,20 @@ Phases, each printing its findings; any failure raises (non-zero exit):
 
 The line before the last is the kernel table as JSON (with each kernel's
 bound_ms and bound_by at the shapes it was timed at, and library_ms null: no
-single PyTorch call computes these knot recursions); the last line is
-{"ok": true, "device": {...}}. Imports nothing of JAX.
+single PyTorch call computes these knot recursions): a row per kernel with
+its launches over every main path, and three rows for the nonlinear and
+non-affine path, D and A at the naive rocket's N=301 (launches over 4k-4l)
+and D at the nonlinear SRB's linearization (launches over 4m; float32 and
+float64, the float32 result held to the float64 plain version within 4x
+the plain float32 pass's own distance from it, as its Quu is
+ill-conditioned); the last line is {"ok": true, "device": {...}}.
+Imports nothing of JAX.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import re
 import time
 
@@ -263,6 +304,13 @@ WIDE_BATCHES = (1, 1024)
 MULTI_T, MULTI_TOLS = 2, (1e-2, 1e-8)
 CPP_RACE_TF = 0.15
 STATE_DIM_WIDE = (35, 45, 55)
+# 3k, 4k, 4l: the naive rocket's Monte-Carlo batch (its kernels also run at
+# one lane), the success gate of the batch, and the card-vs-CPU gate of the
+# one landing in float64
+NAIVE_B, NAIVE_SUCCESS, NAIVE_DU = 1024, 0.99, 1e-6
+# 4m: the nonlinear SRB trot's batch, cold rounds per friction mode and
+# dtype, and the lanes of its card-vs-CPU float64 comparison and its gate
+SRB_B, SRB_ROUNDS, SRB_AGREE_B, SRB_DU = 1024, 2, 64, 1e-6
 
 
 def errors(got, ref, names, tol: float) -> dict:
@@ -276,6 +324,28 @@ def errors(got, ref, names, tol: float) -> dict:
             raise AssertionError(f"{name}: max|kernel - plain| = {err:.3e} > "
                                  f"{bound:.3e}")
         errs[name] = err
+    return errs
+
+
+def against_f64(label, got, ref32, ref64, names, factor: float = 4.0,
+                tol: float = F32_TOL) -> dict:
+    """Float32 parity where the inputs are ill-conditioned (the nonlinear
+    SRB's Quu): the plain float32 pass is itself far from the answer, so
+    the kernel is held to the float64 plain version on the same inputs,
+    within ``factor`` times the plain float32 version's own distance from
+    it, or tol max(1, max|ref64|) where that is larger. Returns {output:
+    max|kernel - plain float32|} and prints both distances from float64."""
+    errs = {}
+    for name, g, r, t in zip(names, got, ref32, ref64):
+        e_k = float((g.double() - t).abs().max())
+        e_p = float((r.double() - t).abs().max())
+        bound = max(factor * e_p, tol * max(1.0, float(t.abs().max())))
+        print(f"{label} {name}: max|kernel - f64| {e_k:.3e}, max|plain f32 "
+              f"- f64| {e_p:.3e}, gate {bound:.3e}")
+        if not e_k <= bound:
+            raise AssertionError(f"{label} {name}: max|kernel - f64| "
+                                 f"{e_k:.3e} > {bound:.3e}")
+        errs[name] = float((g.double() - r.double()).abs().max())
     return errs
 
 
@@ -1322,6 +1392,296 @@ def gate_modules(card, su32, gsu32):
     agreement.check(ag)
 
 
+def naive_rocket_parity(dtype, tol, B):
+    """Phase 3k: kernels D and A at the naive rocket's shapes (N=301, n=6,
+    m=3): D with shared A/B on the solver's per-lane expansion of a
+    mid-solve iterate (per-lane Hessians of the quadratic norm blocks), A at
+    the solver's L=11 ladder on the plain version's gains; each against its
+    plain version (``errors``' gate) and then each path's accepted rung
+    (the kernels' rungs scored by the merit, with the kernel's dV, against
+    the plain versions'): equal in float64, at most B/100 lanes apart in
+    float32. Returns {kernel: ({output: max_abs_err}, ms, plain_ms,
+    (bytes, flops))}."""
+    from altro_tpu_torch.bench.kernels import QUAD_LADDER, naive_rocket_inputs
+    from altro_tpu_torch.constraints import DualState
+    from altro_tpu_torch.ops import riccati, rollout
+    from altro_tpu_torch.solver.altro import _ladder_choice, total_al_cost_res
+
+    dev = torch.device("cuda")
+    inp = naive_rocket_inputs(dtype, dev, B)
+    args, ref = inp["riccati"], inp["riccati_ref"]
+    bp, bp_ref = riccati.batched_riccati, riccati.batched_riccati_reference
+    got = bp(*args)
+    torch.cuda.synchronize()
+    if not all(bool(torch.isfinite(r).all()) for r in ref):
+        raise AssertionError("naive rocket parity inputs make Quu + reg "
+                             "indefinite")
+    # the plain versions' 300-knot loops take 50-400 ms a call: 3 timed
+    res = {"batched_riccati": (
+        errors(got, ref, ("K", "d", "dV1", "dV2"), tol),
+        time_ms(lambda: bp(*args), kernel=True),
+        time_ms(lambda: bp_ref(*args), reps=3), inp["riccati_work"])}
+    largs = inp["ladder"]
+    ls, ls_ref = rollout.batched_ls_rollout, rollout.batched_ls_rollout_reference
+    Xs, Us = ls(*largs)
+    Xr, Ur = ls_ref(*largs)
+    torch.cuda.synchronize()
+    res["batched_ls_rollout"] = (
+        errors((Xs, Us), (Xr, Ur), ("Xs L=11", "Us L=11"), tol),
+        time_ms(lambda: ls(*largs), kernel=True),
+        time_ms(lambda: ls_ref(*largs), reps=3), inp["ladder_work"])
+    duals = tuple(DualState(lam=lam[:, None], rho=rho[:, None])
+                  for lam, rho in zip(inp["lams"], inp["rhos"]))
+    alphas = torch.tensor(QUAD_LADDER, dtype=dtype, device=dev)
+    Jk = total_al_cost_res(inp["prob"], duals, Xs, Us)[0]
+    Jp = total_al_cost_res(inp["prob"], duals, Xr, Ur)[0]
+    idx_k, acc_k, _, _ = _ladder_choice(Jk, alphas, got[2], got[3], 1e-4)
+    idx_p, acc_p, _, _ = _ladder_choice(Jp, alphas, ref[2], ref[3], 1e-4)
+    differ = int(((idx_k != idx_p) | (acc_k != acc_p)).sum())
+    print(f"naive rocket parity B={B} ({dtype}): accepted rung differs on "
+          f"{differ} of {B} lanes; rungs taken "
+          f"{torch.bincount(idx_p[acc_p], minlength=len(QUAD_LADDER)).tolist()}"
+          f", none on {int((~acc_p).sum())}")
+    if differ > (0 if dtype == torch.float64 else B // 100):
+        raise AssertionError(f"naive rocket: accepted rung differs on "
+                             f"{differ} lanes")
+    return res
+
+
+def _naive_gates(label, launches, passes, solves, eager):
+    """The launch gates of a naive rocket run: D once per pass, A once per
+    pass and once more per solve (the init rollout), B and C never, no
+    entry into the host-driven loop."""
+    if not (passes > 0 and launches["batched_riccati"] == passes
+            and launches["batched_ls_rollout"] == passes + solves
+            and launches["fused_expand_backward"] == 0
+            and launches["batched_ls_rollout_al"] == 0 and eager == 0):
+        raise AssertionError(f"{label} launch counts {launches} do not match"
+                             f" {passes} passes of {solves} solves, or the "
+                             f"host-driven loop ran ({eager})")
+
+
+def naive_rocket_one(card, reset_counts, read_counts):
+    """Phase 4k: the naive rocket's one landing (the default x0, B=1) on
+    graphs in float32 and float64, beside the conic form's cold solve in
+    the same call; each solve's graphs captured and run once, then the
+    counted, timed solve. Gates the naive solves (status 1 and
+    ``_naive_gates``), then the float64 card solve against the port's plain
+    float64 solve on the CPU (equal status and iterations, max|dU| <=
+    NAIVE_DU). Returns the naive solves' launches."""
+    from altro_tpu_torch.bench.conic import naive_rocket_setup
+    from altro_tpu_torch.solver import altro, graph
+
+    total, card64 = {}, None
+    for dtype in (torch.float32, torch.float64):
+        row = {}
+        for conic in (False, True):
+            su = naive_rocket_setup(1, dtype, "cuda", conic=conic)
+            gs = graph.GraphedSolve(su.prob, su.opts)
+            gs(U0=su.U0)                                   # warm
+            reset_counts()
+            sol, ms = _timed(lambda: gs(U0=su.U0))
+            launches, passes = read_counts(), altro.pass_count
+            row[conic] = (sol, ms, passes, launches)
+            if conic:
+                continue
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            if int(sol.stats.status[0]) != 1:
+                raise AssertionError(f"naive rocket ({dtype}): status "
+                                     f"{int(sol.stats.status[0])}")
+            _naive_gates(f"naive rocket B=1 ({dtype})", launches, passes, 1,
+                         altro.eager_loop_count)
+        (ns, nms, np_, nl), (cs, cms, cp, cl) = row[False], row[True]
+        print(f"SOC vs naive rocket B=1 N=301 ({dtype}) [{card}]: "
+              f"iterations conic {int(cs.stats.iterations[0])} naive "
+              f"{int(ns.stats.iterations[0])}; status conic "
+              f"{int(cs.stats.status[0])} naive {int(ns.stats.status[0])}; "
+              f"solve ms conic {cms:.3f} naive {nms:.3f}; passes conic "
+              f"{cp} naive {np_}; cost conic {float(cs.stats.cost[0]):.9g} "
+              f"naive {float(ns.stats.cost[0]):.9g}; max_viol naive "
+              f"{float(ns.stats.viol[0]):.3e}; launches conic {cl} naive "
+              f"{nl}", flush=True)
+        if dtype == torch.float64:
+            card64 = ns
+    t0 = time.perf_counter()
+    su = naive_rocket_setup(1, torch.float64, "cpu")
+    cpu = altro.solve(su.prob, su.opts, U0=su.U0)
+    dU = float((card64.U.cpu() - cpu.U).abs().max())
+    same = (int(card64.stats.status[0]) == int(cpu.stats.status[0])
+            and int(card64.stats.iterations[0])
+            == int(cpu.stats.iterations[0]))
+    print(f"naive rocket B=1 f64, card (kernels) vs CPU (plain): status "
+          f"{int(card64.stats.status[0])} / {int(cpu.stats.status[0])}, "
+          f"iterations {int(card64.stats.iterations[0])} / "
+          f"{int(cpu.stats.iterations[0])}; max|dU| {dU:.3e} (gate "
+          f"{NAIVE_DU:.0e}; CPU solve {time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    if not (same and dU <= NAIVE_DU):
+        raise AssertionError(f"naive rocket f64: card and CPU part (max|dU| "
+                             f"{dU:.3e})")
+    return total
+
+
+def naive_rocket_batch(card, reset_counts, read_counts):
+    """Phase 4l: the naive rocket's Monte-Carlo of NAIVE_B landings on
+    graphs, float32 (gates: success >= NAIVE_SUCCESS, every succeeded
+    lane's violation <= 1e-4, ``_naive_gates``), then float64 on the same
+    lanes (the same launch gates; reported: success and the float32
+    controls' relative true-cost gap against the float64 ones, both rolled
+    out in float64). Returns the launches of both."""
+    from altro_tpu_torch.bench.conic import naive_rocket_setup
+    from altro_tpu_torch.solver import altro, graph
+
+    total, sols = {}, {}
+    for dtype in (torch.float32, torch.float64):
+        su = naive_rocket_setup(NAIVE_B, dtype, "cuda")
+        gs = graph.GraphedSolve(su.prob, su.opts)
+        reset_counts()
+        sol, ms = _timed(lambda: gs(U0=su.U0))
+        launches, passes = read_counts(), altro.pass_count
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        st = sol.stats
+        ok = st.status == 1
+        it = st.iterations.double()
+        viol_ok = float(st.viol[ok].double().max()) if bool(ok.any()) \
+            else math.nan
+        print(f"naive rocket main path B={NAIVE_B} ({dtype}) [{card}]: "
+              f"success {float(ok.double().mean()):.5f}; max_viol of the "
+              f"succeeded {viol_ok:.3e}; iterations mean "
+              f"{float(it.mean()):.2f} lane-max {int(it.max())} p99 "
+              f"{float(torch.quantile(it, 0.99)):.1f}; passes {passes}; "
+              f"solve ms {ms:.1f}; solves/s {NAIVE_B / (ms / 1e3):.1f}; "
+              f"launches {launches}", flush=True)
+        _naive_gates(f"naive rocket B={NAIVE_B} ({dtype})", launches, passes,
+                     1, altro.eager_loop_count)
+        if dtype == torch.float32 and not (
+                float(ok.double().mean()) >= NAIVE_SUCCESS
+                and viol_ok <= 1e-4):
+            raise AssertionError(f"naive rocket B={NAIVE_B} quality: success "
+                                 f"{float(ok.double().mean())}, viol "
+                                 f"{viol_ok}")
+        sols[dtype] = (su, sol)
+    (su64, s64), (_, s32) = sols[torch.float64], sols[torch.float32]
+    prob = su64.prob
+    dyn, cost = prob.dynamics, prob.cost
+    U32 = s32.U.double()
+    J32 = cost.total(dyn.rollout(prob.x0, U32), U32)
+    J64 = cost.total(dyn.rollout(prob.x0, s64.U), s64.U)
+    both = (s32.stats.status == 1) & (s64.stats.status == 1)
+    gap = ((J32 - J64) / J64.abs().clamp(min=1e-12))[both].cpu()
+    print(f"naive rocket B={NAIVE_B} f32 vs f64 on the same lanes [{card}]: "
+          f"success f64 {float((s64.stats.status == 1).double().mean()):.5f}"
+          f"; relative true-cost gap over the {int(both.sum())} lanes both "
+          f"solved: mean {float(gap.mean()):.3e}, p99 |gap| "
+          f"{float(torch.quantile(gap.abs(), 0.99)):.3e}, max |gap| "
+          f"{float(gap.abs().max()):.3e}", flush=True)
+    return total
+
+
+def srb_nonlinear(card, reset_counts, read_counts):
+    """Phase 4m: the nonlinear SRB trot (the flat quadruped batch on the RK4
+    model, ``families.quadruped_batched(nonlinear=True)``), SRB_B lanes,
+    both friction modes, float32 and float64, on graphs (gates: success
+    1.0, violation <= 1e-4, D once per pass, A, B and C never, no entry
+    into the host-driven loop); then SRB_AGREE_B lanes of the float64 card
+    solve against the port's plain float64 solve on the CPU from the same
+    instances (equal status and iterations, max|dU| <= SRB_DU). Returns the
+    launches."""
+    from altro_tpu_torch.bench.families import (quadruped_batched,
+                                                quadruped_setup)
+    from altro_tpu_torch.convert import tree_to
+    from altro_tpu_torch.solver import altro, graph
+
+    total = {}
+    for lin in (True, False):
+        mode = "qp" if lin else "socp"
+        for dtype in (torch.float32, torch.float64):
+            reset_counts()
+            res = quadruped_batched(B=SRB_B, rounds=SRB_ROUNDS,
+                                    linearized_friction=lin, device="cuda",
+                                    nonlinear=True, dtype=dtype)
+            launches, passes = read_counts(), altro.pass_count
+            eager = altro.eager_loop_count
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            print(f"nonlinear SRB main path [{mode}] ({dtype}) [{card}]: "
+                  f"{json.dumps(res)} passes={passes}", flush=True)
+            if not (res["success_rate"] == 1.0 and res["max_viol"] <= 1e-4):
+                raise AssertionError(f"nonlinear SRB [{mode}] ({dtype}) "
+                                     f"quality: {res}")
+            if not (passes > 0 and launches["batched_riccati"] == passes
+                    and launches["batched_ls_rollout"] == 0
+                    and launches["fused_expand_backward"] == 0
+                    and launches["batched_ls_rollout_al"] == 0
+                    and eager == 0):
+                raise AssertionError(f"nonlinear SRB [{mode}] launch counts "
+                                     f"{launches} do not match {passes} "
+                                     f"passes, or the host-driven loop ran "
+                                     f"({eager})")
+        s64 = quadruped_setup(SRB_B, lin, torch.float64, "cpu",
+                              nonlinear=True)
+        x0 = s64.draw_x0()
+        sc = tree_to(s64, "cuda")
+        gs = graph.GraphedSolve(sc.prob, sc.opts, states=True)
+        on_card = gs(x0.cuda(), sc.U0, sc.X0)
+        n = SRB_AGREE_B
+        dyn = s64.prob.dynamics
+        sub = dataclasses.replace(
+            s64.prob, x0=x0[:n],
+            dynamics=dataclasses.replace(dyn, params=tuple(
+                p[:n] for p in dyn.params)))
+        t0 = time.perf_counter()
+        cpu = altro.solve(sub, s64.opts, U0=s64.U0[:n], X0=s64.X0[:n])
+        differ = int(((on_card.stats.status[:n].cpu() != cpu.stats.status)
+                      | (on_card.stats.iterations[:n].cpu()
+                         != cpu.stats.iterations)).sum())
+        dU = float((on_card.U[:n].cpu() - cpu.U).abs().max())
+        print(f"nonlinear SRB [{mode}] f64, {n} lanes, card (kernel D) vs "
+              f"CPU (plain): status or iterations differ on {differ} lanes;"
+              f" max|dU| {dU:.3e} (gate {SRB_DU:.0e}; CPU solve "
+              f"{time.perf_counter() - t0:.1f} s)", flush=True)
+        if differ or not dU <= SRB_DU:
+            raise AssertionError(f"nonlinear SRB [{mode}] f64: card and CPU "
+                                 f"part on {differ} lanes, max|dU| {dU:.3e}")
+    return total
+
+
+def nonlinear_forms(card):
+    """Phase 4f's nonlinear paths: the naive rocket's one landing (float32)
+    and the nonlinear SRB trot (SRB_B lanes, QP friction, float32),
+    graphed against eager on the card from the same inputs (gate: equal
+    status and iterations)."""
+    from altro_tpu_torch.bench.conic import naive_rocket_setup
+    from altro_tpu_torch.bench.families import quadruped_setup
+    from altro_tpu_torch.solver import altro, graph
+
+    nsu = naive_rocket_setup(1, torch.float32, "cuda")
+    qsu = quadruped_setup(SRB_B, True, torch.float32, "cuda", nonlinear=True)
+    x0 = qsu.draw_x0().to("cuda", torch.float32)
+    for label, prob, opts, U0, X0 in (
+            ("naive rocket B=1", nsu.prob, nsu.opts, nsu.U0, None),
+            ("nonlinear SRB qp", dataclasses.replace(qsu.prob, x0=x0),
+             qsu.opts, qsu.U0, qsu.X0)):
+        gs = graph.GraphedSolve(prob, opts, states=X0 is not None)
+        gs(prob.x0, U0, X0)                                # warm
+        runs, stats = {}, {}
+        for form in ("graphed", "eager"):
+            p0, r0 = altro.pass_count, gs.replays
+            if form == "graphed":
+                sol, ms = _timed(lambda: gs(prob.x0, U0, X0))
+            else:
+                sol, ms = _timed(lambda: altro.solve(prob, opts, U0=U0,
+                                                     X0=X0))
+            runs[form] = [((sol.X, sol.U, sol.duals), sol.stats.status,
+                           sol.stats.iterations, sol.U)]
+            stats[form] = ([ms], altro.pass_count - p0,
+                           (gs.replays - r0) if form == "graphed" else 0, 1,
+                           gs.capture_s if form == "graphed" else 0.0)
+        _compare(label, runs["graphed"], runs["eager"], card, stats)
+
+
 def quickstart_on_card():
     """Phase 7: the quickstart's five sections at ``--fast`` on the card."""
     from altro_tpu_torch.examples import quickstart
@@ -1433,6 +1793,21 @@ def main() -> None:
                   f"{plain_ms:.4f} ms, bound {bnd:.4f} ms ({by}: "
                   f"{work[0] / 1e6:.2f} MB, {work[1] / 1e9:.4f} GFLOP), share"
                   f" {bnd / ms:.2%} [{card}]", flush=True)
+
+    # ---- 3k. kernels D and A at the naive rocket's N=301, B=1024 and B=1
+    par_k = {}
+    for label, dtype, tol in (("f32", torch.float32, F32_TOL),
+                              ("f64", torch.float64, F64_TOL)):
+        for B in (NAIVE_B, 1):
+            par_k[label, B] = naive_rocket_parity(dtype, tol, B)
+            for name, (errs, ms, plain_ms, work) in par_k[label, B].items():
+                errs_s = " ".join(f"{k}={v:.3e}" for k, v in errs.items())
+                bnd, by = bound_ms(*work, 4 if label == "f32" else 8)
+                print(f"parity {name} naive rocket N=301 B={B} {label}: "
+                      f"max|kernel - plain| {errs_s}; kernel {ms:.4f} ms, "
+                      f"plain {plain_ms:.4f} ms, bound {bnd:.4f} ms ({by}: "
+                      f"{work[0] / 1e6:.2f} MB, {work[1] / 1e9:.4f} GFLOP), "
+                      f"share {bnd / ms:.2%} [{card}]", flush=True)
 
     def reset_counts():
         rollout.launch_count = 0
@@ -1599,6 +1974,25 @@ def main() -> None:
     # (gated there: its float64 comparison on the CPU enters the host loop)
     jlaunches = lane_flagship(card, reset_counts, read_counts)
 
+    # ---- 4k, 4l. main path: the naive rocket (the quadratic norm blocks
+    # take the split route: D and A once per pass, A once more per solve);
+    # 4k's one landing beside the conic form, 4l's Monte-Carlo batch
+    # (gated there: 4k's float64 comparison on the CPU enters the host
+    # loop)
+    t0 = time.perf_counter()
+    klaunches = naive_rocket_one(card, reset_counts, read_counts)
+    for k, v in naive_rocket_batch(card, reset_counts, read_counts).items():
+        klaunches[k] += v
+    print(f"phase 4k-4l ({time.perf_counter() - t0:.1f} s) launches: "
+          f"{klaunches}", flush=True)
+
+    # ---- 4m. main path: the nonlinear SRB trot (D once per pass, no
+    # other kernel)
+    t0 = time.perf_counter()
+    mlaunches = srb_nonlinear(card, reset_counts, read_counts)
+    print(f"phase 4m ({time.perf_counter() - t0:.1f} s) launches: "
+          f"{mlaunches}", flush=True)
+
     # ---- 4h. main path: the quadruped closed loop, both friction forms;
     # A once per solve (each starts without states), B and C once per pass
     def loop_counts():
@@ -1640,6 +2034,7 @@ def main() -> None:
     # ---- 4f. graphed against eager on the card
     graphed_against_eager(card, su32, gsu32, fsu)
     closed_loop_forms(card)
+    nonlinear_forms(card)
 
     # ---- 5a. agreement: f32 kernel path on the card vs f64 plain on the CPU
     s64 = flagship_setup(AGREE_B, AGREE_T, dtype=torch.float64, device="cpu")
@@ -1756,7 +2151,8 @@ def main() -> None:
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": (launches[name] + rlaunches[name] + qlaunches[name]
                          + glaunches[name] + flaunches[name]
-                         + jlaunches[name] + llaunches[name]
+                         + jlaunches[name] + klaunches[name]
+                         + mlaunches[name] + llaunches[name]
                          + glaunches5[name] + p6launches[name]
                          + qslaunches[name]),
             "max_abs_err": max(
@@ -1769,8 +2165,61 @@ def main() -> None:
                    for k, r in res.items() if k.split(" ")[0] == name
                    for v in r[0].values()]
                 + [v for r in par_d["f32"].values()
-                   if name == "batched_riccati" for v in r[0].values()]),
+                   if name == "batched_riccati" for v in r[0].values()]
+                + [v for B in (NAIVE_B, 1)
+                   for k, r in par_k["f32", B].items() if k == name
+                   for v in r[0].values()]),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+            "library_ms": None})
+    # the nonlinear and non-affine path's rows: D and A at the naive
+    # rocket's N=301 (3k at B=1024, float32; launches over 4k-4l), and D
+    # at the nonlinear SRB's per-lane linearization (launches over 4m;
+    # ill-conditioned Quu: gated against the float64 answer, see
+    # ``against_f64``)
+    from altro_tpu_torch.bench.kernels import quadruped_inputs
+    srb = {}
+    for label, dtype in (("f32", torch.float32), ("f64", torch.float64)):
+        sn = quadruped_inputs(dtype, torch.device("cuda"), nonlinear=True)
+        sn_args = sn["riccati"]
+        got = riccati.batched_riccati(*sn_args)
+        if dtype == torch.float32:
+            errs = against_f64("D (nonlinear SRB)", got, sn["riccati_ref"],
+                               riccati.batched_riccati_reference(
+                                   *(a.double() for a in sn_args)),
+                               ("K", "d", "dV1", "dV2"))
+        else:
+            errs = errors(got, sn["riccati_ref"], ("K", "d", "dV1", "dV2"),
+                          F64_TOL)
+        srb[label] = (errs,
+                      time_ms(lambda: riccati.batched_riccati(*sn_args),
+                              kernel=True),
+                      time_ms(lambda: riccati.batched_riccati_reference(
+                          *sn_args)), sn["riccati_work"])
+    print(f"D (nonlinear SRB) f64: max|kernel - plain| "
+          + " ".join(f"{k}={v:.3e}" for k, v in srb["f64"][0].items())
+          + f"; kernel {srb['f64'][1]:.4f} ms, plain {srb['f64'][2]:.4f} ms, "
+          f"bound {bound_ms(*srb['f64'][3], 8)[0]:.4f} ms [{card}]")
+    srb_row = srb["f32"]
+    for row_name, name, (errs, ms, plain_ms, work), path in (
+            ("batched_riccati (naive rocket, N=301)", "batched_riccati",
+             par_k["f32", NAIVE_B]["batched_riccati"], klaunches),
+            ("batched_ls_rollout (naive rocket, N=301, L=11)",
+             "batched_ls_rollout",
+             par_k["f32", NAIVE_B]["batched_ls_rollout"], klaunches),
+            ("batched_riccati (nonlinear SRB)", "batched_riccati", srb_row,
+             mlaunches)):
+        src, rep_, _ = sources[name]
+        bnd, by = bound_ms(*work, 4)
+        print(f"{row_name}: max|kernel - plain| "
+              + " ".join(f"{k}={v:.3e}" for k, v in errs.items())
+              + f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bnd:.4f} ms ({by}), share {bnd / ms:.2%}; launches "
+              f"{path[name]} [{card}]")
+        table.append({
+            "name": row_name, "route": "cuda", "source": src,
+            "replaces": rep_, "launches": path[name],
+            "max_abs_err": max(errs.values()), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
             "library_ms": None})
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

@@ -84,3 +84,37 @@ def test_flexsat_window_counts_passes(compact):
     least one solver-loop pass."""
     window = dp.flexsat_window(compact, B=8, device="cpu")
     assert window() >= dp.FLEX_STEPS
+
+
+def test_naive_rocket_cold_window_and_pieces():
+    """A window of cold solves of the naive rocket (two landings at a
+    21-knot horizon on the CPU, as the naive rocket's window makes them at
+    N=301) counts its passes; the sections of one pass run in order on a
+    mid-solve iterate and take the split route's pieces: no fused
+    kernel."""
+    import dataclasses
+
+    from altro_tpu_torch.bench.conic import COLD_OPTS
+    from altro_tpu_torch.models import rocket
+    from altro_tpu_torch.ops import riccati_fused, rollout_al
+    from altro_tpu_torch.solver.options import SolverOptions
+    counts = riccati_fused.launch_count, rollout_al.launch_count
+    prob = rocket.rocket_problem(N=21, tf=1.0, conic=False,
+                                 dtype=torch.float32)
+    prob = dataclasses.replace(prob, x0=prob.x0.expand(2, 6).contiguous())
+    U0 = rocket.hover_controls(prob).expand(2, -1, -1).contiguous()
+    window = dp._cold_window(prob, SolverOptions(**COLD_OPTS), U0, None,
+                             dp.NAIVE_SOLVES, "cpu", None)
+    assert window() >= 1
+    pieces = window.pieces()
+    assert tuple(pieces) == dp.PASS_SECTIONS
+    for fn in pieces.values():
+        fn()
+    assert (riccati_fused.launch_count, rollout_al.launch_count) == counts
+
+
+def test_srb_nonlinear_window_counts_passes():
+    window = dp.srb_nonlinear_window(B=8, device="cpu")
+    assert window(1) >= 1
+    for fn in window.pieces().values():
+        fn()

@@ -5,7 +5,8 @@ problem (n=12, m=6, N=11), the rocket window (N=21, three SOC blocks), the
 grasp window (N=11 at knot 3 of the N=61 problem: torque balance, max
 force, two friction cones) and the quadruped's per-lane linearization (two
 contact schedules as two lanes of one batch, in both friction models); the
-four in-place refreshers; and both packages refusing a nonlinear block.
+four in-place refreshers; and both packages refusing a nonlinear block
+(the quadratic norm block) and nonlinear dynamics.
 Each package builds its problems from the same seeds and numpy arrays.
 """
 import dataclasses
@@ -23,7 +24,9 @@ from altro_tpu.mpc import gen_tracking_mpc as jgen  # noqa: E402
 from altro_tpu.solver import knot_admm as jknot  # noqa: E402
 
 from altro_tpu_torch import transcribe as ttr  # noqa: E402
-from altro_tpu_torch.constraints import ConicConstraint  # noqa: E402
+from altro_tpu_torch.constraints import (  # noqa: E402
+    quad_norm_constraint as tquad_norm_constraint)
+from altro_tpu_torch.dynamics import NonlinearDynamics as TNonlinear  # noqa: E402,E501
 from altro_tpu_torch.mpc import gen_tracking_mpc as tgen  # noqa: E402
 from altro_tpu_torch.solver import knot_admm as tknot  # noqa: E402
 
@@ -210,23 +213,46 @@ def test_refreshers_match_jax():
         assert torch.equal(getattr(fresh, k), getattr(set_both, k)), k
 
 
-class _Nonlinear(ConicConstraint):
-    @property
-    def is_affine(self) -> bool:
-        return False
-
-
 def test_both_packages_refuse_a_nonlinear_block():
     jp, tp = _random_linear()
     from altro_tpu.constraints import quad_norm_constraint
     jblk = quad_norm_constraint(jp.N, jp.n, jp.m, jnp.eye(jp.m), offset=1.0)
     jbad = jp.replace(constraints=jp.constraints + (jblk,))
-    c = tp.constraints[0]
-    tbad = dataclasses.replace(tp, constraints=tp.constraints + (_Nonlinear(
-        Cx=c.Cx, Cu=c.Cu, b=c.b, mask=c.mask, cone=c.cone, name="bad"),))
+    tblk = tquad_norm_constraint(tp.N, tp.n, tp.m,
+                                 torch.eye(tp.m, dtype=torch.float64),
+                                 offset=1.0)
+    tbad = dataclasses.replace(tp, constraints=tp.constraints + (tblk,))
     for fn in (jtr.to_batch_qp, jtr.to_batch_conic, jknot.to_knot_qp):
         with pytest.raises(TypeError):
             fn(jbad)
     for fn in (ttr.to_batch_qp, ttr.to_batch_conic, tknot.to_knot_qp):
         with pytest.raises(TypeError, match="nonlinear"):
+            fn(tbad)
+
+
+def test_both_packages_refuse_nonlinear_dynamics():
+    """A nonlinear model (the random-linear model's own step as a function
+    of one lane) is refused by every transcription of both packages: they
+    take LTV stacks only (relinearize first)."""
+    jp, tp = _random_linear()
+    from altro_tpu.dynamics import NonlinearDynamics as JNonlinear
+
+    def jf(params, x, u, k):
+        A, B = params
+        return A[k] @ x + B[k] @ u
+
+    def tf(params, x, u, k):
+        A, B = params
+        return A[k] @ x + B[k] @ u
+    jbad = jp.replace(dynamics=JNonlinear(
+        f=jf, params=(jp.dynamics.A, jp.dynamics.B), n_=jp.n, m_=jp.m,
+        N_=jp.N))
+    tbad = dataclasses.replace(tp, dynamics=TNonlinear(
+        f=tf, params=(tp.dynamics.A, tp.dynamics.B), n_=tp.n, m_=tp.m,
+        N_=tp.N))
+    for fn in (jtr.to_batch_qp, jtr.to_batch_conic, jknot.to_knot_qp):
+        with pytest.raises(TypeError, match="LTVDynamics"):
+            fn(jbad)
+    for fn in (ttr.to_batch_qp, ttr.to_batch_conic, tknot.to_knot_qp):
+        with pytest.raises(TypeError, match="LTVDynamics"):
             fn(tbad)
