@@ -4,6 +4,7 @@ over warm work on one card, per path.
     python -m altro_tpu_torch.bench.device_profile [flagship] [rocket]
                                                    [grasp] [flexsat]
                                                    [quadruped]
+                                                   [quadruped_grouped]
                                                    [flagship_lanes] [split]
                                                    [naive_rocket]
                                                    [srb_nonlinear]
@@ -29,7 +30,9 @@ pass per replay) and on the host-driven loop:
   schedule (``bench/families.py: FLEXSAT_SCHEDULE``): the cold solve and
   one warm-up step, then windows of 5 regulator steps;
 - quadruped, in both friction modes: one warm-up solve, then windows of 2
-  cold batch solves, each with a fresh x0 draw;
+  cold batch solves, each with a fresh x0 draw; quadruped_grouped, the
+  same in the grouped layout (each schedule's stacks shared by its lanes:
+  kernels B and C every pass, A once per solve);
 - naive_rocket: the rocket's cold N=301 solve in its quadratic norm form
   (``bench/conic.py: naive_rocket_setup``, B landings), windows of one
   cold solve: the split route with shared A/B (the expansion in PyTorch,
@@ -247,10 +250,13 @@ def flexsat_window(compact: bool, B: int = FLEX_B, device="cuda",
 
 
 def quadruped_window(linearized_friction: bool, B: int = QUAD_B,
-                     device="cuda", graphed=None):
+                     device="cuda", graphed=None, grouped: bool = False):
+    """Windows of cold batch solves of the quadruped, flat or (``grouped``)
+    in the grouped layout, each from a fresh x0 draw."""
     from altro_tpu_torch.bench.families import quadruped_setup
 
-    su = quadruped_setup(B, linearized_friction, torch.float32, device)
+    su = quadruped_setup(B, linearized_friction, torch.float32, device,
+                         grouped=grouped)
     gs = (graph.GraphedSolve(su.prob, su.opts)
           if graph.use_graphs(graphed, device) else None)
 
@@ -571,6 +577,11 @@ PATHS = {
                   ("quadruped socp", QUAD_B, f"{QUAD_SOLVES} cold solves",
                    QUAD_SOLVES,
                    lambda g: quadruped_window(False, graphed=g))),
+    "quadruped_grouped": tuple(
+        (f"quadruped grouped {mode}", QUAD_B, f"{QUAD_SOLVES} cold solves",
+         QUAD_SOLVES,
+         lambda g, lin=lin: quadruped_window(lin, graphed=g, grouped=True))
+        for mode, lin in (("qp", True), ("socp", False))),
 }
 
 

@@ -1,6 +1,7 @@
 """Batched benchmarks of the port's remaining families (the counterpart of
 ``altro_tpu/bench/batched_families.py``): the quadruped trot MPC in its flat
-per-lane layout (``quadruped_setup``, ``quadruped_batched``) and the
+per-lane layout, with or without straggler compaction, and its grouped
+layout (``quadruped_setup``, ``quadruped_batched``) and the
 flexible-satellite regulator MPC (``flexsat_setup``, ``flexsat_batched``).
 
 Flexsat: the N=80 regulator (n=12, m=3, one NONPOS block of 6 control-bound
@@ -17,41 +18,49 @@ compaction schedule the JAX package ships (cap 8, block 256, one level
 kernel (ops/rollout_al.py); the cold solve runs the ladder-rollout kernel
 once for its init rollout, and the warm solves none.
 
-Quadruped: the Woofer trot MPC at N=15 (n = m = 12; four friction blocks
-and one vertical-force bound block), linearized about 8 contact schedules
-sampled across one trot cycle, B/8 lanes each, every lane with its own
-dynamics stack and an initial state x_des + noise (2 cm / 0.05 rad scale).
-Every round solves the whole batch cold from the gravity-distributing stance
-forces, with a fresh x0 draw. On a CUDA device every solver iteration runs
-the AL expansion in PyTorch, the Riccati kernel (ops/riccati.py) and the
-ladder-rollout kernel (ops/rollout.py) with the line-search merit in
-PyTorch; every solve runs the ladder-rollout kernel once more for its init
-rollout. With ``nonlinear`` (modes ``qp_nl`` and ``socp_nl``) the same
-instances keep the RK4 SRB model itself (``srb.nonlinear_dynamics`` over
-each lane's contact schedule) in place of its Euler linearization: every
-iteration relinearizes it per lane and knot (``torch.func.jacfwd``), runs
-the Riccati kernel on the per-lane stacks and rolls out the ladder through
-the model in PyTorch; no other kernel runs.
+Quadruped: the Woofer trot MPC at N=15 (n = m = 12; four friction blocks and
+one vertical-force bound block), linearized about 8 contact schedules sampled
+across one trot cycle, B/8 lanes each, every lane with its own dynamics stack
+and an initial state x_des + noise (2 cm / 0.05 rad scale). Every round solves
+the whole batch cold from the gravity-distributing stance forces, with a fresh
+x0 draw. On a CUDA device every solver iteration runs the AL expansion in
+PyTorch, the Riccati kernel (ops/riccati.py) and the ladder-rollout kernel
+(ops/rollout.py) with the line-search merit in PyTorch; every solve runs the
+ladder-rollout kernel once more for its init rollout. With ``--compact-cap``
+the flat layout runs with straggler compaction (the same kernels; the gathered
+block of lanes takes its own loop graph). ``--grouped``: the same instances in
+the grouped layout (the JAX package's shipped row), each schedule's stacks
+shared by its lanes, so every iteration runs the fused expansion + Riccati
+kernel (ops/riccati_fused.py) and the fused ladder + merit kernel
+(ops/rollout_al.py) with a group axis, and the ladder-rollout kernel only for
+the init rollout. With ``nonlinear`` (modes ``qp_nl`` and ``socp_nl``) the same
+instances keep the RK4 SRB model itself (``srb.nonlinear_dynamics`` over each
+lane's contact schedule) in place of its Euler linearization: every iteration
+relinearizes it per lane and knot (``torch.func.jacfwd``), runs the Riccati
+kernel on the per-lane stacks and rolls out the ladder through the model in
+PyTorch; no other kernel runs.
 
 Run as a script on a CUDA machine (B=1024, f32):
 
     python -m altro_tpu_torch.bench.families [qp] [socp] [qp_nl] [socp_nl]
-        [flexsat] [--flexsat-compact-cap C] [--eager] [--check-every K]
+        [flexsat] [--grouped | --compact-cap C [--compact-block K]]
+        [--flexsat-compact-cap C] [--eager] [--check-every K]
 
-It prints one JSON line per mode (default: qp and socp) with the JAX
-package's row keys: for the quadruped label, batch, rounds, solves_per_s,
-success_rate, max_viol, mean_iters, iters_max, iters_p99, wall_s plus the
-device, per-round ms, solver-loop passes, graph replays, capture seconds
-and kernel launches; for flexsat label, batch, steps, solves_per_s,
-success_rate, max_viol, mean_iters, iters_p99, wall_s plus step ms p50 and
-p99, the steps' mean lane-max iterations, loop passes and graph replays per
-step, the cold solve, capture seconds and kernel launches. Every quadruped
-round replays one ``solver.graph.GraphedSolve`` and every flexsat step its
-graphs (K body passes per loop replay, 1 by default, the fastest of 1, 2, 4
-and 8 on the card); ``--eager`` runs the host-driven loop instead.
-``--flexsat-compact-cap``: -1 (default) the shipped schedule, 0 the plain
-step, C > 0 cap C, block 128 and no level (as the JAX benchmark reads it).
-Knobs: BENCH_BATCH (1024), BENCH_ROUNDS (10), BENCH_STEPS (45, flexsat).
+It prints one JSON line per mode (default: qp and socp) with the JAX package's
+row keys: for the quadruped label, batch, rounds, solves_per_s, success_rate,
+max_viol, mean_iters, iters_max, iters_p99, wall_s plus the device, per-round
+ms, solver-loop passes, graph replays, capture seconds and kernel launches (and
+``grouped`` or ``compact_it_cap`` and ``compact_block`` as the JAX row has
+them); for flexsat label, batch, steps, solves_per_s, success_rate, max_viol,
+mean_iters, iters_p99, wall_s plus step ms p50 and p99, the steps' mean
+lane-max iterations, loop passes and graph replays per step, the cold solve,
+capture seconds and kernel launches. Every quadruped round replays one
+``solver.graph.GraphedSolve`` and every flexsat step its graphs (K body passes
+per loop replay, 1 by default, the fastest of 1, 2, 4 and 8 on the card);
+``--eager`` runs the host-driven loop instead. ``--flexsat-compact-cap``: -1
+(default) the shipped schedule, 0 the plain step, C > 0 cap C, block 128 and no
+level (as the JAX benchmark reads it). Knobs: BENCH_BATCH (1024), BENCH_ROUNDS
+(10), BENCH_STEPS (45, flexsat).
 """
 from __future__ import annotations
 
@@ -97,20 +106,24 @@ class QuadrupedSetup:
 
 def quadruped_setup(B: int, linearized_friction: bool = True,
                     dtype=torch.float32, device="cuda",
-                    nonlinear: bool = False) -> QuadrupedSetup:
+                    nonlinear: bool = False, grouped: bool = False,
+                    phase: float = 0.0) -> QuadrupedSetup:
     """The flat batched quadruped instance: 8 contact schedules at
-    t = i * cycle / 8 (i < 8), each linearized about x_des and repeated to
-    B/8 lanes, the stance-force warm start, the benchmark's options and the
-    seeded x0 sampler (``numpy.random.default_rng(3)``; each call draws the
-    next batch). ``nonlinear``: the lanes keep the RK4 SRB model over their
-    schedule (per-lane params foot_locs [B, N, 4, 3], contacts [B, N, 4])
-    in place of its linearization, and start from the states about which
-    the linearized instance is built (``X0``: x_des at every knot; the
-    solver puts x0 at knot 0). The model's own open-loop rollout of the
-    stance forces is no start: from an x0 off x_des their torques spin the
-    body within the 0.42 s horizon, and on some lanes the attitude's MRP
-    overflows to NaN before the last knot (the JAX package's solve fails
-    those lanes alike).
+    t = (i + phase) * cycle / 8 (i < 8), each linearized about x_des and
+    repeated to B/8 lanes, the stance-force warm start, the benchmark's options
+    and the seeded x0 sampler (``numpy.random.default_rng(3)``; each call draws
+    the next batch). ``grouped``: the same instances, lane for lane, with the 8
+    schedules' stacks not repeated (a grouped ``LTVDynamics`` [8, N-1, ...]:
+    lane b in group b // (B/8)). ``phase``: 0 samples the bench's phase
+    boundaries, 0.5 mid-phase (the agreement module's instances).
+    ``nonlinear``: the lanes keep the RK4 SRB model over their schedule
+    (per-lane params foot_locs [B, N, 4, 3], contacts [B, N, 4]) in place of
+    its linearization, and start from the states about which the linearized
+    instance is built (``X0``: x_des at every knot; the solver puts x0 at knot
+    0). The model's own open-loop rollout of the stance forces is no start:
+    from an x0 off x_des their torques spin the body within the 0.42 s horizon,
+    and on some lanes the attitude's MRP overflows to NaN before the last knot
+    (the JAX package's solve fails those lanes alike).
 
     Everything is built once in float64 on the CPU and then cast: t lands
     exactly on gait phase boundaries, where float32 and float64 round to
@@ -119,6 +132,10 @@ def quadruped_setup(B: int, linearized_friction: bool = True,
     """
     if B % N_SCHED:
         raise ValueError(f"B must be a multiple of {N_SCHED}, got {B}")
+    if grouped and nonlinear:
+        raise ValueError("the grouped layout takes the linearized "
+                         "instances: grouped and nonlinear exclude each "
+                         "other")
     f64 = torch.float64
     cfg = config.MPCConfig(linearized_friction=linearized_friction)
     gait = GAITS[cfg.gait_type](cfg.stance_time, cfg.swing_time)
@@ -131,7 +148,7 @@ def quadruped_setup(B: int, linearized_friction: bool = True,
     x_ref = x_des.expand(N, 12)
     dyns, scheds = [], []
     for i in range(N_SCHED):
-        t = torch.tensor(i * cycle / N_SCHED, dtype=f64)
+        t = torch.tensor((i + phase) * cycle / N_SCHED, dtype=f64)
         contacts, foot_locs, _ = planner.foot_history(
             t, x_ref, feet0, feet0, gait, x_des, N, dt)
         scheds.append((foot_locs, contacts))
@@ -143,6 +160,9 @@ def quadruped_setup(B: int, linearized_friction: bool = True,
         dyn = srb.nonlinear_dynamics(
             *(torch.stack(leaf).repeat_interleave(reps, dim=0)
               for leaf in zip(*scheds)), dt)
+    elif grouped:
+        dyn = LTVDynamics(**{k: torch.stack([getattr(d, k) for d in dyns])
+                             for k in ("A", "B", "d")}, grouped=True)
     else:
         dyn = LTVDynamics(**{k: torch.stack([getattr(d, k) for d in dyns])
                              .repeat_interleave(reps, dim=0)
@@ -175,41 +195,58 @@ def _launches() -> dict:
 
 
 def quadruped_batched(B: int = 1024, rounds: int = 10,
-                      linearized_friction: bool = True, device="cuda",
+                      linearized_friction: bool = True,
+                      compact_cap: int = 0, compact_block: int = 128,
+                      grouped: bool = False, device="cuda",
                       graphed: Optional[bool] = None,
                       check_every: int = 1, nonlinear: bool = False,
                       dtype=torch.float32) -> dict:
-    """Per-solve throughput of the flat batched quadruped MPC in float32
-    (the JAX benchmark's precision): one warm-up solve (which captures the
-    solve's graphs: ``capture_s``), then ``rounds`` timed batch solves, each
-    cold from the stance forces with a fresh x0 draw, each synchronised and
-    timed (``round_ms_p50``/``p99``). ``graphed`` (None: on a CUDA device):
-    every solve replays one ``solver.graph.GraphedSolve`` with
+    """Per-solve throughput of the batched quadruped MPC in float32 (the
+    JAX benchmark's precision): one warm-up solve (which captures the solve's
+    graphs: ``capture_s``), then ``rounds`` timed batch solves, each cold from
+    the stance forces with a fresh x0 draw, each synchronised and timed
+    (``round_ms_p50``/``p99``). The JAX package's options
+    (``batched_families.py:255-372``): ``grouped``, the grouped layout (the 8
+    schedules' stacks shared by their B/8 lanes: kernels B and C every
+    iteration, A once per solve); ``compact_cap`` > 0, straggler compaction on
+    the flat layout (every lane to the cap, the ``compact_block``
+    unconverged-first lanes gathered with their dynamics and finished as a
+    batch of their own, scattered back, a catch-all); the two exclude each
+    other (ValueError). Any B that is a multiple of 8. ``graphed`` (None: on a
+    CUDA device): every solve replays one ``solver.graph.GraphedSolve`` with
     ``check_every`` body passes per loop replay; else the host-driven loop.
-    ``loop_iterations`` counts the solver-loop body passes of every solve
-    that ran, the warm-up included (``solver.altro.pass_count``, the frozen
-    passes of a replay included), ``lane_max_iters`` the sum of each
-    solve's largest lane iteration count and ``graph_replays`` the loop
-    graph's replays; ``solves`` counts the solves; ``launches`` are the
-    kernel launches of this call. ``nonlinear``: the RK4 SRB model in place
-    of its linearization (:func:`quadruped_setup`); ``dtype``: float64 for
-    the f64 rows."""
+    ``loop_iterations`` counts the solver-loop body passes of every solve that
+    ran, the warm-up included (``solver.altro.pass_count``, the frozen passes
+    of a replay included), ``lane_max_iters`` the sum of each solve's largest
+    lane iteration count and ``graph_replays`` the loop graph's replays;
+    ``solves`` counts the solves; ``launches`` are the kernel launches of this
+    call. ``nonlinear``: the RK4 SRB model in place of its linearization
+    (:func:`quadruped_setup`); ``dtype``: float64 for the f64 rows."""
+    if grouped and compact_cap:
+        raise ValueError("the grouped layout and straggler compaction "
+                         "exclude each other (the compaction gather would "
+                         "mix the schedules' groups)")
     dev = torch.device(device)
     graphed = graph.use_graphs(graphed, dev)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    su = quadruped_setup(B, linearized_friction, dtype, dev, nonlinear)
+    su = quadruped_setup(B, linearized_friction, dtype, dev, nonlinear,
+                         grouped)
+    compact = (compact_cap, compact_block) if compact_cap else None
     before, passes0 = _launches(), altro.pass_count
     gs = (graph.GraphedSolve(su.prob, su.opts, check_every=check_every,
-                             states=su.X0 is not None)
+                             states=su.X0 is not None, compact=compact)
           if graphed else None)
 
     def solve_batch():
         x0 = su.draw_x0().to(device=dev, dtype=dtype)
         if gs is not None:
             return gs(x0, su.U0, su.X0).stats
-        sol = altro.solve(dataclasses.replace(su.prob, x0=x0), su.opts,
-                          U0=su.U0, X0=su.X0)
-        return sol.stats
+        prob = dataclasses.replace(su.prob, x0=x0)
+        if compact:
+            return altro.solve_compacted(
+                prob, su.opts, U0=su.U0, X0=su.X0, it_cap=compact_cap,
+                block=compact_block, check_every=check_every).stats
+        return altro.solve(prob, su.opts, U0=su.U0, X0=su.X0).stats
 
     st = solve_batch()                                     # warm-up
     lane_max = [int(st.iterations.max())]
@@ -230,7 +267,7 @@ def quadruped_batched(B: int = 1024, rounds: int = 10,
             + ("_nonlinear" if nonlinear else ""))
     after = _launches()
     p50, p99 = np.percentile(round_ms, [50, 99])
-    return dict(label=f"quadruped_trot_mpc_N15_{mode}", batch=B,
+    res = dict(label=f"quadruped_trot_mpc_N15_{mode}", batch=B,
                 rounds=rounds, solves_per_s=B * rounds / wall,
                 success_rate=float(status.mean()),
                 max_viol=float(np.nanmax(viol)),
@@ -244,6 +281,12 @@ def quadruped_batched(B: int = 1024, rounds: int = 10,
                 graph_replays=gs.replays if gs is not None else 0,
                 solves=len(lane_max),
                 launches={k: after[k] - before[k] for k in after})
+    if compact_cap:
+        res["compact_it_cap"] = compact_cap
+        res["compact_block"] = compact_block
+    if grouped:
+        res["grouped"] = True
+    return res
 
 
 # the flexible satellite's warm solves (batched_families.py:69-72): the
@@ -388,6 +431,14 @@ def main():
     ap.add_argument("--flexsat-compact-cap", type=int, default=-1,
                     help="flexsat: -1 the shipped schedule, 0 the plain "
                     "step, C > 0 cap C, block 128, no level")
+    ap.add_argument("--grouped", action="store_true",
+                    help="quadruped: the grouped layout (shared stacks per "
+                    "schedule: kernels B, C and A)")
+    ap.add_argument("--compact-cap", type=int, default=0,
+                    help="quadruped: straggler compaction on the flat "
+                    "layout, every lane to this cap (0: none)")
+    ap.add_argument("--compact-block", type=int, default=128,
+                    help="quadruped: lanes gathered at the cap")
     ap.add_argument("--eager", action="store_true",
                     help="the host-driven loop instead of CUDA graphs")
     ap.add_argument("--check-every", type=int, default=1,
@@ -415,6 +466,9 @@ def main():
             res = quadruped_batched(B=B, rounds=rounds,
                                     linearized_friction=mode.startswith(
                                         "qp"),
+                                    compact_cap=args.compact_cap,
+                                    compact_block=args.compact_block,
+                                    grouped=args.grouped,
                                     graphed=not args.eager,
                                     check_every=args.check_every,
                                     nonlinear=mode.endswith("_nl"))

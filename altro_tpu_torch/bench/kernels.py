@@ -114,12 +114,13 @@ def bound_ms(nbytes: float, flops: float, itemsize: int) -> tuple:
             else (t_ops, "operations"))
 
 
-def rollout_work(Bt, N, n, m, L, per_lane, itemsize) -> tuple:
-    """(bytes, FLOPs) of kernel A: A/B/dd (shared or per lane), Xbar, Ubar,
-    K, d read; Xs, Us written; per (scenario, rung, knot) u = ubar +
-    alpha d + K dx and x+ = A x + B u + dd."""
+def rollout_work(Bt, N, n, m, L, per_lane, itemsize, groups: int = 1
+                 ) -> tuple:
+    """(bytes, FLOPs) of kernel A: A/B/dd (shared, per lane or per group of
+    ``groups``), Xbar, Ubar, K, d read; Xs, Us written; per (scenario,
+    rung, knot) u = ubar + alpha d + K dx and x+ = A x + B u + dd."""
     N1 = N - 1
-    dyn = N1 * (n * n + n * m + n) * (Bt if per_lane else 1)
+    dyn = N1 * (n * n + n * m + n) * (Bt if per_lane else groups)
     elems = (dyn + Bt * N * n + Bt * N1 * (2 * m + m * n)
              + Bt * L * (N * n + N1 * m))
     flops = Bt * L * N1 * (n + 2 * m * n + 2 * m + 2 * n * n + 2 * n * m
@@ -127,16 +128,17 @@ def rollout_work(Bt, N, n, m, L, per_lane, itemsize) -> tuple:
     return elems * itemsize, flops
 
 
-def fused_work(Bt, N, n, m, P, soc_p, itemsize) -> tuple:
-    """(bytes, FLOPs) of kernel B. Read: the shared cost, dynamics and
-    packed constraint stacks, X, U, the multipliers, rho, reg; written: K,
-    d, dV1, dV2. FLOPs per scenario-knot: the rows' residuals, V A and V B,
-    the expansion entries (upper triangles of Qxx and Quu), one m x m
-    Cholesky, the n + 1 solves, Quu K, and V; an SOC block adds its norm,
-    its projections and two rank-1 terms per expansion entry."""
+def fused_work(Bt, N, n, m, P, soc_p, itemsize, groups: int = 1) -> tuple:
+    """(bytes, FLOPs) of kernel B. Read: the shared cost, dynamics (one
+    stack per group of ``groups``) and packed constraint stacks, X, U, the
+    multipliers, rho, reg; written: K, d, dV1, dV2. FLOPs per
+    scenario-knot: the rows' residuals, V A and V B, the expansion entries
+    (upper triangles of Qxx and Quu), one m x m Cholesky, the n + 1 solves,
+    Quu K, and V; an SOC block adds its norm, its projections and two
+    rank-1 terms per expansion entry."""
     N1 = N - 1
-    shared = (N * (n * n + n + m * m + m + m * n + 1) + N1 * (n * n + n * m)
-              + N * P * (n + m + 2))
+    shared = (N * (n * n + n + m * m + m + m * n + 1)
+              + groups * N1 * (n * n + n * m) + N * P * (n + m + 2))
     elems = (shared + Bt * (N * n + N1 * m + N * P + N + 1)
              + Bt * (N1 * (m * n + m) + 2))
     tri_n, tri_m = n * (n + 1) // 2, m * (m + 1) // 2
@@ -151,12 +153,12 @@ def fused_work(Bt, N, n, m, P, soc_p, itemsize) -> tuple:
     return elems * itemsize, Bt * N * knot
 
 
-def rollout_al_work(Bt, N, n, m, P, L, itemsize) -> tuple:
+def rollout_al_work(Bt, N, n, m, P, L, itemsize, groups: int = 1) -> tuple:
     """(bytes, FLOPs) of kernel C: kernel A's rollout plus, per (scenario,
     rung, knot), the quadratic cost and each constraint row's residual and
     AL merit term; reads the shared cost and packed constraint stacks, the
     multipliers and rho, writes Xs, Us and J."""
-    nbytes, flops = rollout_work(Bt, N, n, m, L, False, itemsize)
+    nbytes, flops = rollout_work(Bt, N, n, m, L, False, itemsize, groups)
     shared = N * (n * n + n + m * m + m + m * n + 1) + N * P * (n + m + 2)
     nbytes += (shared + Bt * N * (P + 1) + Bt * L) * itemsize
     flops += Bt * L * N * (2 * (n * n + m * m + m * n + n + m)
@@ -524,6 +526,93 @@ def quadruped_inputs(dtype, dev, B: int = QUAD_B,
         ladder=(A, Bd, dd, X, U, K, d, QUAD_LADDER),
         ladder_work=rollout_work(B, N, n, m, len(QUAD_LADDER), True,
                                  X.element_size()))
+
+
+def grouped_inputs(dtype, dev, B: int = QUAD_B,
+                   linearized_friction: bool = False) -> dict:
+    """Kernels B, C and A with a group axis at the grouped quadruped's
+    shapes (``families.quadruped_setup(grouped=True)``: G = 8 contact
+    schedules of B/8 lanes, n = m = 12, N=15; the friction cones, 4 SOC
+    blocks and a NONPOS block, or the pyramids; seed 10): forces 10 N
+    around the stance forces, states off the grouped rollout, rho 100 and
+    multipliers of rho (|c| + 1) times a normal draw (both signs of
+    lam + rho c on the NONPOS rows, cones inside, polar and between), half
+    the lanes regularised. B's arguments (with ``grouped=True``), C's at
+    the solver's L=11 ladder on the plain version's gains, A's init form
+    (L=1, K = d = 0: the grouped solve's one use of A) and its L=11 ladder;
+    and, beside them, B's and C's arguments with group 0's stacks shared
+    by the whole batch (``shared_fused``, ``shared_ladder_al``: the shared
+    launch at the same B)."""
+    import torch
+    from altro_tpu_torch.bench.families import quadruped_setup
+    from altro_tpu_torch.ops import riccati_fused
+    from altro_tpu_torch.ops.blocks import pack_blocks
+
+    su = quadruped_setup(B, linearized_friction, dtype, dev, grouped=True)
+    prob, dyn = su.prob, su.prob.dynamics
+    blocks, G = prob.constraints, dyn.groups
+    N, n, m = prob.N, prob.n, prob.m
+    rng = np.random.default_rng(10)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=dev)
+
+    x0 = su.draw_x0().to(device=dev, dtype=dtype)
+    U = su.U0 + t(10.0 * rng.standard_normal((B, N - 1, m)))
+    X = dyn.rollout(x0, U) + t(0.05 * rng.standard_normal((B, N, n)))
+    rho = torch.full((B, N), 1e2, dtype=dtype, device=dev)
+    lams = tuple(rho[..., None] * (c.evaluate(X, U).abs() + 1.0)
+                 * t(rng.standard_normal((B, N, c.p))) for c in blocks)
+    rhos = (rho,) * len(blocks)
+    reg = t(np.where(rng.random(B) < 0.5, 0.0, 1e-2))
+    packed = pack_blocks(blocks, N, n, m, X)
+    fused = (prob.cost, dyn.A, dyn.B, blocks, X, U, lams, rhos, reg)
+    ref = riccati_fused.fused_expand_backward_reference(*fused, grouped=True)
+    K, d = ref[0].contiguous(), ref[1].contiguous()
+    soc_p = tuple(c.p for c in blocks if c.cone.name == "SOC")
+    item, L = X.element_size(), len(QUAD_LADDER)
+    return dict(
+        prob=prob, fused=fused, fused_ref=ref, packed=packed,
+        fused_work=fused_work(B, N, n, m, packed.P, soc_p, item, G),
+        shared_fused=(prob.cost, dyn.A[0], dyn.B[0]) + fused[3:],
+        shared_fused_work=fused_work(B, N, n, m, packed.P, soc_p, item),
+        ladder_al=(prob.cost, dyn.A, dyn.B, dyn.d, blocks, X, U, K, d, lams,
+                   rho, QUAD_LADDER),
+        ladder_al_work=rollout_al_work(B, N, n, m, packed.P, L, item, G),
+        shared_ladder_al=(prob.cost, dyn.A[0], dyn.B[0], dyn.d[0], blocks,
+                          X, U, K, d, lams, rho, QUAD_LADDER),
+        shared_ladder_al_work=rollout_al_work(B, N, n, m, packed.P, L, item),
+        ladder=(dyn.A, dyn.B, dyn.d, X, U, K, d, QUAD_LADDER),
+        ladder_work=rollout_work(B, N, n, m, L, False, item, G),
+        init=(dyn.A, dyn.B, dyn.d, X, U, torch.zeros_like(K),
+              torch.zeros_like(d), (1.0,)),
+        init_work=rollout_work(B, N, n, m, 1, False, item, G))
+
+
+# the places of the per-lane tensors and of the grouped stacks among the
+# positional arguments of each kernel wrapper that takes a group axis
+GROUPED_ARGS = {"fused_expand_backward": ((4, 5, 6, 7, 8), (1, 2)),
+                "batched_ls_rollout_al": ((5, 6, 7, 8, 9, 10), (1, 2, 3)),
+                "batched_ls_rollout": ((3, 4, 5, 6), (0, 1, 2))}
+
+
+def per_group_launches(fn, args, G: int, **kw) -> tuple:
+    """The shared kernel wrapper ``fn`` (B, C or A) called once per group
+    of ``args`` (a grouped call's positional arguments, G groups of equal
+    size) on the group's lanes and stacks, its outputs concatenated: what
+    the group-indexed call must give bit for bit, since a scenario's
+    arithmetic does not depend on the other scenarios of its block."""
+    import torch
+    lane_at, group_at = GROUPED_ARGS[fn.__name__]
+    reps = args[lane_at[0]].shape[0] // G
+    outs = []
+    for g in range(G):
+        sl = slice(g * reps, (g + 1) * reps)
+        outs.append(fn(*(
+            (tuple(t[sl] for t in a) if isinstance(a, tuple) else a[sl])
+            if i in lane_at else a[g] if i in group_at else a
+            for i, a in enumerate(args)), **kw))
+    return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
 def quadloop_inputs(dtype, dev, linearized_friction: bool = True) -> dict:

@@ -80,23 +80,27 @@ def _block(c: dict, i: int, device, dtype):
 
 
 def problem_from_numpy(tree: dict, device="cpu", dtype=torch.float64,
-                       dynamics: Optional[NonlinearDynamics] = None
-                       ) -> Problem:
+                       dynamics: Optional[NonlinearDynamics] = None,
+                       grouped: bool = False) -> Problem:
     """Build a :class:`Problem` from ``numpy_tree`` of a problem with affine
     conic blocks and quadratic norm blocks, shared or batched (as the JAX
     package stacks a per-lane problem for ``vmap``). LTV dynamics come from
     the tree, batched ones staying per lane; a nonlinear model is given as
     ``dynamics`` (its function is code: see
-    :func:`nonlinear_dynamics_from_numpy`). Cost and constraint stacks must
-    be equal across lanes and are taken from lane 0 (the port keeps them
-    shared)."""
+    :func:`nonlinear_dynamics_from_numpy`). ``grouped``: the tree is the
+    JAX package's grouped problem (``tree_map(lambda a: a[::reps],
+    prob_b)``, one entry per group of lanes), whose LTV stacks become a
+    grouped :class:`LTVDynamics` [G, N-1, ...]. Cost and constraint stacks
+    must be equal across lanes (or groups) and are taken from lane 0 (the
+    port keeps them shared)."""
     dyn, cost = tree["dynamics"], tree["cost"]
     if dynamics is None:
         if "A" not in dyn:
             raise ValueError("the problem has nonlinear dynamics: pass "
                              "dynamics=nonlinear_dynamics_from_numpy(...)")
         dynamics = LTVDynamics(**{k: _t(dyn[k], device, dtype)
-                                  for k in ("A", "B", "d")})
+                                  for k in ("A", "B", "d")},
+                               grouped=grouped)
     return Problem(
         dynamics=dynamics,
         cost=QuadCost(**{k: _t(_shared(cost[k], r, k), device, dtype)

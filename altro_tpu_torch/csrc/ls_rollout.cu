@@ -9,7 +9,10 @@
 //
 // Xs [Bt, L, N, n] and Us [Bt, L, N-1, m] are written whole (knot 0 of Xs
 // included). A/B/dd are either shared [N-1, ...] (per_lane = 0: the solver's
-// LTI/LTV problem data) or per lane [Bt, N-1, ...]. The solver's open-loop
+// LTI/LTV problem data), shared per group of scenarios ([G, N-1, ...],
+// per_lane = 0, Bt / G contiguous scenarios to a group: the quadruped's
+// contact schedules; a block's scenarios lie in one group, grid.y runs over
+// the groups) or per lane [Bt, N-1, ...]. The solver's open-loop
 // init rollout is the L = 1 form with K = d = 0 and alpha = 1.
 //
 // Thread mapping: a group of G = 16 lanes (n, m <= 16) or 32 lanes (up to
@@ -73,10 +76,17 @@ ls_rollout_kernel(const T* __restrict__ A, const T* __restrict__ Bm,
   const int l = grp % L;
   const bool in_block = grp / L < S;  // the last warp may hold padding
   const int s = in_block ? grp / L : 0;
-  const int b0 = blockIdx.x * S;
+  // grid.y: the group of scenarios whose shared dynamics the block reads
+  // (one group of Bt when shared or per lane); no block straddles two
+  const int reps = Bt / (int)gridDim.y;
+  const int bg = blockIdx.x * S;  // the block's first scenario in the group
+  const int b0 = (int)blockIdx.y * reps + bg;
   const int b = b0 + s;
-  const bool active = in_block && b < Bt;
-  const int nscen = min(S, Bt - b0);
+  const bool active = in_block && bg + s < reps;
+  const int nscen = min(S, reps - bg);
+  A += (size_t)blockIdx.y * N1 * n * n;
+  Bm += (size_t)blockIdx.y * N1 * n * m;
+  dd += (size_t)blockIdx.y * N1 * n;
 
   const int mn = m * n;
   const int sw = shared_elems(n, m, per_lane);
@@ -177,14 +187,15 @@ ls_rollout_kernel(const T* __restrict__ A, const T* __restrict__ Bm,
 }
 
 template <typename T, int G>
-int launch_group(const T* A, const T* Bm, const T* dd, int per_lane,
+int launch_group(const T* A, const T* Bm, const T* dd, int per_lane, int NG,
                  const T* Xbar, const T* Ubar, const T* K, const T* d,
                  const Ladder<T>& ladder, int L, T* Xs, T* Us, int Bt, int N,
                  int n, int m, cudaStream_t stream) {
   // S scenarios per block: up to 128 threads, fewer while that leaves
-  // under two blocks per SM (264 on the H100's 132)
+  // under two blocks per SM (264 on the H100's 132), at most a group's
   const int per = L * G;
-  const int S = std::max(1, std::min(128 / per, (Bt + 263) / 264));
+  const int reps = Bt / NG;
+  const int S = std::max(1, std::min({128 / per, (Bt + 263) / 264, reps}));
   const int threads = (S * per + 31) / 32 * 32;
   const size_t bytes = 2 * (size_t)(shared_elems(n, m, per_lane) +
                                     S * scen_elems(n, m, per_lane)) *
@@ -196,8 +207,8 @@ int launch_group(const T* A, const T* Bm, const T* dd, int per_lane,
         (int)bytes);
     if (e != cudaSuccess) return (int)e;
   }
-  const unsigned blocks = (unsigned)((Bt + S - 1) / S);
-  ls_rollout_kernel<T, G><<<blocks, threads, bytes, stream>>>(
+  const dim3 grid((unsigned)((reps + S - 1) / S), (unsigned)NG);
+  ls_rollout_kernel<T, G><<<grid, threads, bytes, stream>>>(
       A, Bm, dd, per_lane, Xbar, Ubar, K, d, ladder, L, S, Xs, Us, Bt, N, n,
       m);
   return (int)cudaGetLastError();
@@ -291,8 +302,8 @@ ls_rollout_wide(const T* __restrict__ A, const T* __restrict__ Bm,
                 const T* __restrict__ Xbar, const T* __restrict__ Ubar,
                 const T* __restrict__ K, const T* __restrict__ d,
                 Ladder<T> ladder, int L, int Lc, int vec_n, int vec_m,
-                T* __restrict__ Xs, T* __restrict__ Us, int Bt, int N, int n,
-                int m) {
+                T* __restrict__ Xs, T* __restrict__ Us, int Bt, int NG, int N,
+                int n, int m) {
   namespace wd = altro::wide;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
@@ -336,7 +347,8 @@ ls_rollout_wide(const T* __restrict__ A, const T* __restrict__ Bm,
   };
   auto stage_ab = [&](int k) {
     T* dst = smem + lo.abuf;
-    const size_t kd = per_lane ? (size_t)b * N1 + k : (size_t)k;
+    // the lane's rows, or its group's (NG groups; NG = 1: shared)
+    const size_t kd = (size_t)(per_lane ? b : b / (Bt / NG)) * N1 + k;
     altro::stage_rows(dst, ldx, A + kd * n * n, n, n, vec_n, sp_n);
     altro::stage_rows(dst + lo.oB, ldu, Bm + kd * n * m, n, m, vec_m, sp_m);
     altro::stage_rows(dst + lo.odd, 0, dd + kd * n, 1, n, false, sp_n1);
@@ -494,7 +506,7 @@ ls_rollout_wide_rung(const T* __restrict__ A, const T* __restrict__ Bm,
                 const T* __restrict__ Xbar, const T* __restrict__ Ubar,
                 const T* __restrict__ K, const T* __restrict__ d,
                 Ladder<T> ladder, int L, T* __restrict__ Xs,
-                T* __restrict__ Us, int Bt, int N, int n, int m) {
+                T* __restrict__ Us, int Bt, int NG, int N, int n, int m) {
   __shared__ T xs[altro::kMaxDim], dxs[altro::kMaxDim], us[altro::kMaxDim];
   const int b = blockIdx.x, l = blockIdx.y, t = threadIdx.x, N1 = N - 1;
   T alpha = T(0);
@@ -523,7 +535,7 @@ ls_rollout_wide_rung(const T* __restrict__ A, const T* __restrict__ Bm,
     __syncthreads();
     T x = T(0);
     if (t < n) {
-      const size_t kd = per_lane ? (size_t)b * N1 + k : (size_t)k;
+      const size_t kd = (size_t)(per_lane ? b : b / (Bt / NG)) * N1 + k;
       const T* Ar = A + (kd * n + t) * n;
       const T* Br = Bm + (kd * n + t) * m;
       T acc = T(0);
@@ -540,7 +552,7 @@ ls_rollout_wide_rung(const T* __restrict__ A, const T* __restrict__ Bm,
 }
 
 template <typename T>
-int launch_wide(const T* A, const T* Bm, const T* dd, int per_lane,
+int launch_wide(const T* A, const T* Bm, const T* dd, int per_lane, int NG,
                 const T* Xbar, const T* Ubar, const T* K, const T* d,
                 const Ladder<T>& ladder, int L, T* Xs, T* Us, int Bt, int N,
                 int n, int m, cudaStream_t stream) {
@@ -557,8 +569,8 @@ int launch_wide(const T* A, const T* Bm, const T* dd, int per_lane,
   if (Lc < kLadderRungs) {
     ls_rollout_wide_rung<T>
         <<<dim3((unsigned)Bt, (unsigned)L), kRungThreads, 0, stream>>>(
-            A, Bm, dd, per_lane, Xbar, Ubar, K, d, ladder, L, Xs, Us, Bt, N,
-            n, m);
+            A, Bm, dd, per_lane, Xbar, Ubar, K, d, ladder, L, Xs, Us, Bt, NG,
+            N, n, m);
     return (int)cudaGetLastError();
   }
   // as many threads as the tiles need (at least 128, at most kRollThreads)
@@ -576,18 +588,20 @@ int launch_wide(const T* A, const T* Bm, const T* dd, int per_lane,
   ls_rollout_wide<T>
       <<<dim3((unsigned)Bt, (unsigned)chunks), threads, bytes, stream>>>(
           A, Bm, dd, per_lane, Xbar, Ubar, K, d, ladder, L, Lc, vec_n, vec_m,
-          Xs, Us, Bt, N, n, m);
+          Xs, Us, Bt, NG, N, n, m);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_ls_rollout(const void* A, const void* Bm, const void* dd,
-                      int per_lane, const void* Xbar, const void* Ubar,
+                      int per_lane, int NG, const void* Xbar,
+                      const void* Ubar,
                       const void* K, const void* d, const double* alphas,
                       int L, void* Xs, void* Us, int Bt, int N, int n, int m,
                       void* stream) {
   if (L < 1 || L > altro::kMaxRungs || n < 1 || m < 1 ||
-      n > altro::kMaxDim || m > altro::kMaxDim || N < 2 || Bt < 1)
+      n > altro::kMaxDim || m > altro::kMaxDim || N < 2 || Bt < 1 ||
+      NG < 1 || Bt % NG != 0 || NG > 65535 || (per_lane && NG != 1))
     return (int)cudaErrorInvalidValue;
   Ladder<T> ladder;
   for (int l = 0; l < altro::kMaxRungs; ++l)
@@ -601,35 +615,35 @@ int launch_ls_rollout(const void* A, const void* Bm, const void* dd,
   const T* df = (const T*)d;
   cudaStream_t s = (cudaStream_t)stream;
   if (n > altro::kNarrowDim || m > altro::kNarrowDim)
-    return launch_wide<T>(a, bm, dv, per_lane, xb, ub, k, df, ladder, L,
+    return launch_wide<T>(a, bm, dv, per_lane, NG, xb, ub, k, df, ladder, L,
                           (T*)Xs, (T*)Us, Bt, N, n, m, s);
   if (n <= 16 && m <= 16)
-    return launch_group<T, 16>(a, bm, dv, per_lane, xb, ub, k, df, ladder, L,
-                               (T*)Xs, (T*)Us, Bt, N, n, m, s);
-  return launch_group<T, 32>(a, bm, dv, per_lane, xb, ub, k, df, ladder, L,
-                             (T*)Xs, (T*)Us, Bt, N, n, m, s);
+    return launch_group<T, 16>(a, bm, dv, per_lane, NG, xb, ub, k, df, ladder,
+                               L, (T*)Xs, (T*)Us, Bt, N, n, m, s);
+  return launch_group<T, 32>(a, bm, dv, per_lane, NG, xb, ub, k, df, ladder,
+                             L, (T*)Xs, (T*)Us, Bt, N, n, m, s);
 }
 
 }  // namespace
 
 extern "C" int altro_ls_rollout_f32(const void* A, const void* Bm,
-                                    const void* dd, int per_lane,
+                                    const void* dd, int per_lane, int NG,
                                     const void* Xbar, const void* Ubar,
                                     const void* K, const void* d,
                                     const double* alphas, int L, void* Xs,
                                     void* Us, int Bt, int N, int n, int m,
                                     void* stream) {
-  return launch_ls_rollout<float>(A, Bm, dd, per_lane, Xbar, Ubar, K, d,
+  return launch_ls_rollout<float>(A, Bm, dd, per_lane, NG, Xbar, Ubar, K, d,
                                   alphas, L, Xs, Us, Bt, N, n, m, stream);
 }
 
 extern "C" int altro_ls_rollout_f64(const void* A, const void* Bm,
-                                    const void* dd, int per_lane,
+                                    const void* dd, int per_lane, int NG,
                                     const void* Xbar, const void* Ubar,
                                     const void* K, const void* d,
                                     const double* alphas, int L, void* Xs,
                                     void* Us, int Bt, int N, int n, int m,
                                     void* stream) {
-  return launch_ls_rollout<double>(A, Bm, dd, per_lane, Xbar, Ubar, K, d,
+  return launch_ls_rollout<double>(A, Bm, dd, per_lane, NG, Xbar, Ubar, K, d,
                                    alphas, L, Xs, Us, Bt, N, n, m, stream);
 }

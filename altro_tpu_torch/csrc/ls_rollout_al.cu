@@ -17,10 +17,13 @@
 //
 // i.e. the AL cost without the rung-independent -|lam|^2/(2 rho) term.
 // rho is the first block's penalty schedule [Bt, N], shared by every block
-// as the solver keeps it. Outputs: Xs [Bt, L, N, n] (knot 0 = xbar_0),
-// Us [Bt, L, N-1, m], J [Bt, L]. The terminal rows of R, r, H and Cu are not
-// read. L <= kMaxRungs, n, m <= kMaxDim, at most kMaxRows rows in kMaxBlocks
-// blocks (common.cuh).
+// as the solver keeps it. A, B and dd may come per group of scenarios
+// ([G, N-1, ...], Bt / G contiguous scenarios to a group; the cost and the
+// blocks stay shared): grid.z runs over the groups and a block's scenarios
+// lie in one group, whose rows it stages once for them. Outputs:
+// Xs [Bt, L, N, n] (knot 0 = xbar_0), Us [Bt, L, N-1, m], J [Bt, L]. The
+// terminal rows of R, r, H and Cu are not read. L <= kMaxRungs, n, m <=
+// kMaxDim, at most kMaxRows rows in kMaxBlocks blocks (common.cuh).
 //
 // Thread mapping (kernel A's, ls_rollout.cu, plus the merit): a group of
 // G = 16 lanes (n, m <= 16) or 32 lanes carries one (scenario, rung); lane i
@@ -133,10 +136,17 @@ __global__ void __launch_bounds__(kMaxThreads) ls_rollout_al_kernel(
   const int l = blockIdx.y * LC + grp % LC;
   const bool in_block = grp / LC < S;  // the last warp may hold padding
   const int s = in_block ? grp / LC : 0;
-  const int b0 = blockIdx.x * S;
+  // grid.z: the group of scenarios whose dynamics the block reads (one
+  // group of Bt when they are shared); no block straddles two groups
+  const int reps = Bt / (int)gridDim.z;
+  const int bg = blockIdx.x * S;  // the block's first scenario in the group
+  const int b0 = (int)blockIdx.z * reps + bg;
   const int b = b0 + s;
-  const bool active = in_block && b < Bt && l < L;
-  const int nscen = min(S, Bt - b0);
+  const bool active = in_block && bg + s < reps && l < L;
+  const int nscen = min(S, reps - bg);
+  A += (size_t)blockIdx.z * N1 * n * n;
+  Bm += (size_t)blockIdx.z * N1 * n * m;
+  dd += (size_t)blockIdx.z * N1 * n;
 
   if (tid == 0) tab = table;
   __syncthreads();
@@ -396,12 +406,17 @@ __global__ void __launch_bounds__(kWideThreads) ls_rollout_al_wide(
     const T* __restrict__ K, const T* __restrict__ d,
     const T* __restrict__ rho, Ladder<T> ladder, int L,
     T* __restrict__ Xs, T* __restrict__ Us, T* __restrict__ Jout, int Bt,
-    int N, int n, int m, int P) {
+    int NG, int N, int n, int m, int P) {
   __shared__ altro::BlockTable<T> tab;
   __shared__ T xs[altro::kMaxDim], dxs[altro::kMaxDim], us[altro::kMaxDim];
   __shared__ double zs[altro::kMaxRows], vs[altro::kMaxRows];
   __shared__ double red[kWideThreads / 32];
   const int b = blockIdx.x, l = blockIdx.y, t = threadIdx.x, N1 = N - 1;
+  // the scenario's group of NG (NG = 1: shared dynamics)
+  const size_t grp = (size_t)(b / (Bt / NG));
+  A += grp * N1 * n * n;
+  Bm += grp * N1 * n * m;
+  dd += grp * N1 * n;
   if (t == 0) tab = table;
   T alpha = T(0);
 #pragma unroll
@@ -522,7 +537,7 @@ struct Args {
   const T *Q, *q, *R, *r, *H, *c, *A, *Bm, *dd, *Cx, *Cu, *cb, *cmask;
   const T *Xbar, *Ubar, *K, *d, *rho;
   T *Xs, *Us, *J;
-  int L, Bt, N, n, m, P;
+  int L, Bt, NG, N, n, m, P;  // NG groups of Bt / NG scenarios
 };
 
 template <typename T, int G, int RP>
@@ -539,7 +554,9 @@ int launch_group(const Args<T>& a, const altro::BlockTable<T>& table,
   // scenarios per block: up to kMaxThreads, fewer while that leaves under
   // two blocks per SM (264 on the H100's 132) or overflows shared memory
   const int per = LC * G;
-  int S = std::max(1, std::min(kMaxThreads / per, (a.Bt + 263) / 264));
+  const int reps = a.Bt / a.NG;
+  int S = std::max(
+      1, std::min({kMaxThreads / per, (a.Bt + 263) / 264, reps}));
   size_t bytes = 0;
   for (;;) {
     // two buffers and the table of their elements' sources
@@ -556,7 +573,8 @@ int launch_group(const Args<T>& a, const altro::BlockTable<T>& table,
     if (e != cudaSuccess) return (int)e;
   }
   const int threads = (S * per + 31) / 32 * 32;
-  const dim3 grid((unsigned)((a.Bt + S - 1) / S), (unsigned)chunks);
+  const dim3 grid((unsigned)((reps + S - 1) / S), (unsigned)chunks,
+                  (unsigned)a.NG);
   kern<<<grid, threads, bytes, stream>>>(
       a.Q, a.q, a.R, a.r, a.H, a.c, a.A, a.Bm, a.dd, a.Cx, a.Cu, a.cb,
       a.cmask, table, a.Xbar, a.Ubar, a.K, a.d, a.rho, ladder, a.L, LC, S,
@@ -573,11 +591,12 @@ int launch_ls_rollout_al(const void* Q, const void* q, const void* R,
                          const void* const* lams, const void* Xbar,
                          const void* Ubar, const void* K, const void* d,
                          const void* rho, const double* alphas, int L,
-                         void* Xs, void* Us, void* J, int Bt, int N, int n,
-                         int m, int P, void* stream) {
+                         void* Xs, void* Us, void* J, int Bt, int NG, int N,
+                         int n, int m, int P, void* stream) {
   if (L < 1 || L > altro::kMaxRungs || n < 1 || m < 1 ||
       n > altro::kMaxDim || m > altro::kMaxDim || P < 0 ||
-      P > altro::kMaxRows || N < 2 || Bt < 1)
+      P > altro::kMaxRows || N < 2 || Bt < 1 || NG < 1 || Bt % NG != 0 ||
+      NG > 65535)
     return (int)cudaErrorInvalidValue;
   altro::BlockTable<T> table;
   if (!altro::make_table(nblocks, meta, lams, P, &table))
@@ -591,15 +610,15 @@ int launch_ls_rollout_al(const void* Q, const void* q, const void* R,
       (const T*)dd,   (const T*)Cx,   (const T*)Cu, (const T*)cb,
       (const T*)cmask, (const T*)Xbar, (const T*)Ubar, (const T*)K,
       (const T*)d,    (const T*)rho,  (T*)Xs,       (T*)Us,
-      (T*)J,          L,              Bt,           N,
-      n,              m,              P};
+      (T*)J,          L,              Bt,           NG,
+      N,              n,              m,            P};
   cudaStream_t s = (cudaStream_t)stream;
   if (n > altro::kNarrowDim || m > altro::kNarrowDim) {
     ls_rollout_al_wide<T><<<dim3((unsigned)Bt, (unsigned)L), kWideThreads, 0,
                             s>>>(
         a.Q, a.q, a.R, a.r, a.H, a.c, a.A, a.Bm, a.dd, a.Cx, a.Cu, a.cb,
         a.cmask, table, a.Xbar, a.Ubar, a.K, a.d, a.rho, ladder, a.L, a.Xs,
-        a.Us, a.J, a.Bt, a.N, a.n, a.m, a.P);
+        a.Us, a.J, a.Bt, a.NG, a.N, a.n, a.m, a.P);
     return (int)cudaGetLastError();
   }
   // 16 lanes per (scenario, rung) up to n, m = 16, 32 above; the lane's
@@ -623,12 +642,12 @@ int launch_ls_rollout_al(const void* Q, const void* q, const void* R,
       const void* cmask, int nblocks, const int* meta,                       \
       const void* const* lams, const void* Xbar, const void* Ubar,           \
       const void* K, const void* d, const void* rho, const double* alphas,   \
-      int L, void* Xs, void* Us, void* J, int Bt, int N, int n, int m,       \
-      int P, void* stream) {                                                 \
+      int L, void* Xs, void* Us, void* J, int Bt, int NG, int N, int n,      \
+      int m, int P, void* stream) {                                          \
     return launch_ls_rollout_al<T>(Q, q, R, r, H, c, A, Bm, dd, Cx, Cu, cb,  \
                                    cmask, nblocks, meta, lams, Xbar, Ubar,   \
-                                   K, d, rho, alphas, L, Xs, Us, J, Bt, N,   \
-                                   n, m, P, stream);                         \
+                                   K, d, rho, alphas, L, Xs, Us, J, Bt, NG,  \
+                                   N, n, m, P, stream);                      \
   }
 
 ALTRO_LSAL_ENTRY(altro_ls_rollout_al_f32, float)

@@ -30,6 +30,13 @@
 // the first block's penalty rho, as on the TPU. Comparisons follow jnp's, so
 // a NaN in a lane's inputs stays NaN in its outputs.
 //
+// The dynamics rows may also come per group of scenarios (A, B [G, N-1,
+// ...], Bt / G contiguous scenarios to a group: the quadruped's contact
+// schedules, which the JAX package batches by a vmap over schedules around
+// a vmap over their lanes). grid.y then runs over the groups and a block's
+// scenarios all lie in one group, so the block still stages each knot's
+// rows once for all its scenarios; G = 1 is the shared case.
+//
 // Thread mapping: a group of TG threads (64, or 128 above 256 expansion
 // entries) works one scenario; a block of 256 threads holds 256 / TG
 // groups, and each group syncs on its own named barrier (bar.sync 1 + group,
@@ -553,11 +560,19 @@ fused_expand_backward_kernel(
   const int grp = threadIdx.x / TG;
   const int t = threadIdx.x % TG;
   const int bar = 1 + grp;
-  const int b0 = blockIdx.x * gpb;
-  const int b_raw = b0 + grp;
-  const bool active = b_raw < Bt;
-  const int b = active ? b_raw : Bt - 1;  // a spare group mirrors the last
   const int N1 = N - 1;
+  // grid.y runs over the groups of scenarios that share a dynamics stack
+  // (one group of Bt when the dynamics are shared): a block's scenarios
+  // all lie in its group, whose A and B rows it stages once for them
+  const int reps = Bt / (int)gridDim.y;
+  const int lane0 = (int)blockIdx.y * reps;
+  A += (size_t)blockIdx.y * N1 * n * n;
+  Bm += (size_t)blockIdx.y * N1 * n * m;
+  const int b0 = blockIdx.x * gpb;  // in the group
+  const int b_raw = b0 + grp;
+  const bool active = b_raw < reps;
+  // a spare group mirrors the group's last scenario
+  const int b = lane0 + (active ? b_raw : reps - 1);
 
   if (threadIdx.x == 0) tab = table;
   for (int rr = threadIdx.x; rr < P; rr += blockDim.x) {
@@ -620,7 +635,7 @@ fused_expand_backward_kernel(
     rows(off, cmask + (size_t)k * P, P);
     for (int e = tid; e < gpb * le; e += nt) {
       const int gi = e / le, j = e % le;
-      const size_t bb = (size_t)min(b0 + gi, Bt - 1);
+      const size_t bb = (size_t)(lane0 + min(b0 + gi, reps - 1));
       const T* src;
       if (j < n) {
         src = X + (bb * N + k) * n + j;
@@ -810,7 +825,8 @@ int launch_group(const void* Q, const void* q, const void* R, const void* r,
                  const void* cmask, const altro::BlockTable<T>& table,
                  const void* X, const void* U, const void* rho,
                  const void* reg, void* K, void* d, void* dV1, void* dV2,
-                 int Bt, int N, int n, int m, int P, cudaStream_t stream) {
+                 int Bt, int NG, int N, int n, int m, int P,
+                 cudaStream_t stream) {
   cudaFuncAttributes attr;
   cudaError_t e =
       cudaFuncGetAttributes(&attr, fused_expand_backward_kernel<T, TG, MM>);
@@ -833,9 +849,10 @@ int launch_group(const void* Q, const void* q, const void* R, const void* r,
                              (int)bytes);
     if (e != cudaSuccess) return (int)e;
   }
-  const unsigned blocks = (unsigned)((Bt + gpb - 1) / gpb);
+  // grid (blocks of a group, groups): no block straddles two groups
+  const dim3 grid((unsigned)((Bt / NG + gpb - 1) / gpb), (unsigned)NG);
   fused_expand_backward_kernel<T, TG, MM>
-      <<<blocks, gpb * TG, bytes, stream>>>(
+      <<<grid, gpb * TG, bytes, stream>>>(
           (const T*)Q, (const T*)q, (const T*)R, (const T*)r, (const T*)H,
           (const T*)A, (const T*)Bm, (const T*)Cx, (const T*)Cu,
           (const T*)cb, (const T*)cmask, table, (const T*)X, (const T*)U,
@@ -1241,8 +1258,8 @@ fused_expand_backward_wide(
     const T* __restrict__ X, const T* __restrict__ U,
     const T* __restrict__ rho, const T* __restrict__ reg,
     T* __restrict__ Kout, T* __restrict__ dout, T* __restrict__ dV1out,
-    T* __restrict__ dV2out, int Bt, int N, int n, int m, int P, int vec,
-    int kp, int depth) {
+    T* __restrict__ dV2out, int Bt, int NG, int N, int n, int m, int P,
+    int vec, int kp, int depth) {
   namespace wd = altro::wide;
   // 4 x 4 tiles per thread: G has at most 16 x 32 = 512 (the small blocks:
   // 256), Qfull's upper triangle at most 32 x 33 / 2 = 528 (128)
@@ -1254,6 +1271,9 @@ fused_expand_backward_wide(
   T* smem = reinterpret_cast<T*>(smem_raw);
   const int t = threadIdx.x, nt = blockDim.x;
   const int b = blockIdx.x, N1 = N - 1;
+  // the scenario's group's dynamics (NG = 1: shared)
+  A += (size_t)(b / (Bt / NG)) * N1 * n * n;
+  Bm += (size_t)(b / (Bt / NG)) * N1 * n * m;
   if (t == 0) tab = table;
   for (int rr = t; rr < P; rr += nt) {
     int bi = 0;
@@ -1417,8 +1437,8 @@ int launch_wide_nt(const void* Q, const void* q, const void* R,
                    const void* cb, const void* cmask,
                    const altro::BlockTable<T>& table, const void* X,
                    const void* U, const void* rho, const void* reg, void* K,
-                   void* d, void* dV1, void* dV2, int Bt, int N, int n,
-                   int m, int P, cudaStream_t stream) {
+                   void* d, void* dV1, void* dV2, int Bt, int NG, int N,
+                   int n, int m, int P, cudaStream_t stream) {
   auto kern = fused_expand_backward_wide<T, NT>;
   cudaFuncAttributes attr;
   cudaError_t e = cudaFuncGetAttributes(&attr, kern);
@@ -1449,8 +1469,8 @@ int launch_wide_nt(const void* Q, const void* q, const void* R,
       (const T*)Q, (const T*)q, (const T*)R, (const T*)r, (const T*)H,
       (const T*)A, (const T*)Bm, (const T*)Cx, (const T*)Cu, (const T*)cb,
       (const T*)cmask, table, (const T*)X, (const T*)U, (const T*)rho,
-      (const T*)reg, (T*)K, (T*)d, (T*)dV1, (T*)dV2, Bt, N, n, m, P, vec, kp,
-      depth);
+      (const T*)reg, (T*)K, (T*)d, (T*)dV1, (T*)dV2, Bt, NG, N, n, m, P, vec,
+      kp, depth);
   return (int)cudaGetLastError();
 }
 
@@ -1476,13 +1496,16 @@ fused_expand_backward_wide_entry(
     const T* __restrict__ X, const T* __restrict__ U,
     const T* __restrict__ rho, const T* __restrict__ reg,
     T* __restrict__ Kout, T* __restrict__ dout, T* __restrict__ dV1out,
-    T* __restrict__ dV2out, int Bt, int N, int n, int m, int P) {
+    T* __restrict__ dV2out, int Bt, int NG, int N, int n, int m, int P) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ altro::BlockTable<T> tab;
   __shared__ int8_t row_blk[altro::kMaxRows];
   T* smem = reinterpret_cast<T*>(smem_raw);
   const int TG = blockDim.x, t = threadIdx.x;
   const int b = blockIdx.x, N1 = N - 1;
+  // the scenario's group's dynamics (NG = 1: shared)
+  A += (size_t)(b / (Bt / NG)) * N1 * n * n;
+  Bm += (size_t)(b / (Bt / NG)) * N1 * n * m;
   if (t == 0) tab = table;
   for (int rr = t; rr < P; rr += TG) {
     int bi = 0;
@@ -1605,8 +1628,8 @@ int launch_wide_entry(const void* Q, const void* q, const void* R,
                       const void* cb, const void* cmask,
                       const altro::BlockTable<T>& table, const void* X,
                       const void* U, const void* rho, const void* reg,
-                      void* K, void* d, void* dV1, void* dV2, int Bt, int N,
-                      int n, int m, int P, cudaStream_t stream) {
+                      void* K, void* d, void* dV1, void* dV2, int Bt, int NG,
+                      int N, int n, int m, int P, cudaStream_t stream) {
   const size_t bytes =
       (size_t)(2 * n + m + P + work_elems(n, m, P, table.nsoc)) * sizeof(T);
   cudaError_t e =
@@ -1618,7 +1641,7 @@ int launch_wide_entry(const void* Q, const void* q, const void* R,
           (const T*)A, (const T*)Bm, (const T*)Cx, (const T*)Cu,
           (const T*)cb, (const T*)cmask, table, (const T*)X, (const T*)U,
           (const T*)rho, (const T*)reg, (T*)K, (T*)d, (T*)dV1, (T*)dV2, Bt,
-          N, n, m, P);
+          NG, N, n, m, P);
   return (int)cudaGetLastError();
 }
 
@@ -1628,8 +1651,8 @@ int launch_wide(const void* Q, const void* q, const void* R, const void* r,
                 const void* Cu, const void* cb, const void* cmask,
                 const altro::BlockTable<T>& table, const void* X,
                 const void* U, const void* rho, const void* reg, void* K,
-                void* d, void* dV1, void* dV2, int Bt, int N, int n, int m,
-                int P, cudaStream_t stream) {
+                void* d, void* dV1, void* dV2, int Bt, int NG, int N, int n,
+                int m, int P, cudaStream_t stream) {
   const int W4 = altro::wide::pad4(n + m) / 4;
   const bool small = (n + 3) / 4 * W4 <= 2 * kSmallThreads &&
                      W4 * (W4 + 1) / 2 <= kSmallThreads &&
@@ -1638,7 +1661,7 @@ int launch_wide(const void* Q, const void* q, const void* R, const void* r,
                 : small              ? launch_wide_nt<T, kSmallThreads>
                                      : launch_wide_nt<T, kLargeThreads>;
   return launch(Q, q, R, r, H, A, Bm, Cx, Cu, cb, cmask, table, X, U, rho,
-                reg, K, d, dV1, dV2, Bt, N, n, m, P, stream);
+                reg, K, d, dV1, dV2, Bt, NG, N, n, m, P, stream);
 }
 
 template <typename T>
@@ -1648,10 +1671,11 @@ int launch_fused(const void* Q, const void* q, const void* R, const void* r,
                  const void* cmask, int nblocks, const int* meta,
                  const void* const* lams, const void* X, const void* U,
                  const void* rho, const void* reg, void* K, void* d,
-                 void* dV1, void* dV2, int Bt, int N, int n, int m, int P,
-                 void* stream) {
+                 void* dV1, void* dV2, int Bt, int NG, int N, int n, int m,
+                 int P, void* stream) {
   if (n < 1 || m < 1 || n > altro::kMaxDim || m > altro::kMaxDim || P < 0 ||
-      P > altro::kMaxRows || N < 2 || Bt < 1)
+      P > altro::kMaxRows || N < 2 || Bt < 1 || NG < 1 || Bt % NG != 0 ||
+      NG > 65535)
     return (int)cudaErrorInvalidValue;
   altro::BlockTable<T> table;
   if (!altro::make_table(nblocks, meta, lams, P, &table))
@@ -1659,7 +1683,7 @@ int launch_fused(const void* Q, const void* q, const void* R, const void* r,
   cudaStream_t s = (cudaStream_t)stream;
   if (n > altro::kNarrowDim || m > altro::kNarrowDim)
     return launch_wide<T>(Q, q, R, r, H, A, Bm, Cx, Cu, cb, cmask, table, X,
-                          U, rho, reg, K, d, dV1, dV2, Bt, N, n, m, P, s);
+                          U, rho, reg, K, d, dV1, dV2, Bt, NG, N, n, m, P, s);
   // 64 threads per scenario up to kSmallEntries expansion entries (the
   // flagship's 189: at 128 registers 8 groups of 2 warps fit an SM, so
   // B=1024 runs in one wave), 128 above
@@ -1668,7 +1692,8 @@ int launch_fused(const void* Q, const void* q, const void* R, const void* r,
   // the groups of 128 take the generic instantiations
 #define ALTRO_FUSED_LAUNCH(TG, MM)                                          \
   launch_group<T, TG, MM>(Q, q, R, r, H, A, Bm, Cx, Cu, cb, cmask, table,   \
-                          X, U, rho, reg, K, d, dV1, dV2, Bt, N, n, m, P, s)
+                          X, U, rho, reg, K, d, dV1, dV2, Bt, NG, N, n, m, P, \
+                          s)
   if (entries > kSmallEntries) return ALTRO_FUSED_LAUNCH(128, 0);
   static_assert(kRegM == 8, "one constant-m instantiation per m <= kRegM");
   switch (m) {
@@ -1694,11 +1719,11 @@ int launch_fused(const void* Q, const void* q, const void* R, const void* r,
       const void* Cu, const void* cb, const void* cmask, int nblocks,       \
       const int* meta, const void* const* lams, const void* X,              \
       const void* U, const void* rho, const void* reg, void* K, void* d,    \
-      void* dV1, void* dV2, int Bt, int N, int n, int m, int P,             \
+      void* dV1, void* dV2, int Bt, int NG, int N, int n, int m, int P,      \
       void* stream) {                                                       \
     return launch_fused<T>(Q, q, R, r, H, A, Bm, Cx, Cu, cb, cmask,         \
                            nblocks, meta, lams, X, U, rho, reg, K, d, dV1,  \
-                           dV2, Bt, N, n, m, P, stream);                    \
+                           dV2, Bt, NG, N, n, m, P, stream);                 \
   }
 
 ALTRO_FUSED_ENTRY(altro_fused_expand_backward_f32, float)

@@ -2,10 +2,11 @@
 linear-time-varying stacks, nonlinear models linearized by forward-mode
 autodiff, and the exact zero-order-hold, Euler and RK4 discretizations.
 
-The LTV stacks have a knot axis of length N-1 and are either shared by the
-batch ([N-1, ...]) or per scenario ([B, N-1, ...], as when every scenario is
-linearized about its own contact schedule); states and controls carry
-leading batch axes. A nonlinear model is a function of one lane, batched
+The LTV stacks have a knot axis of length N-1 and are shared by the batch
+([N-1, ...]), per scenario ([B, N-1, ...], as when every scenario is
+linearized about its own contact schedule) or per group of scenarios
+([G, N-1, ...], flagged ``grouped``); states and controls carry leading
+batch axes. A nonlinear model is a function of one lane, batched
 with ``torch.func.vmap``.
 """
 from __future__ import annotations
@@ -20,16 +21,35 @@ from torch.func import jacfwd, vmap
 @dataclass
 class LTVDynamics:
     """x_{k+1} = A_k x_k + B_k u_k + d_k, k = 0..N-2. LTI models are stored
-    broadcast to the horizon."""
+    broadcast to the horizon.
 
-    A: torch.Tensor  # [(B,) N-1, n, n]
-    B: torch.Tensor  # [(B,) N-1, n, m]
-    d: torch.Tensor  # [(B,) N-1, n]
+    The stacks are shared by the batch ([N-1, ...]), per lane ([B, N-1,
+    ...]) or, with ``grouped``, per group of lanes ([G, N-1, ...]): the
+    batch is G contiguous groups of B / G lanes, lane b in group
+    b // (B / G), each group with its own stacks (the JAX package's nested
+    vmap over contact schedules, ``batched_families.py:292-306``). Grouping
+    is a flag, not a guess from shapes: a [8, N-1, n, n] stack is per lane
+    unless flagged."""
+
+    A: torch.Tensor  # [(B or G,) N-1, n, n]
+    B: torch.Tensor  # [(B or G,) N-1, n, m]
+    d: torch.Tensor  # [(B or G,) N-1, n]
+    grouped: bool = False
+
+    def __post_init__(self):
+        if self.grouped and self.A.dim() != 4:
+            raise ValueError(f"grouped stacks are [G, N-1, n, n], got A of "
+                             f"shape {tuple(self.A.shape)}")
 
     @property
     def per_lane(self) -> bool:
-        """Whether the stacks carry a batch axis."""
-        return self.A.dim() == 4
+        """Whether the stacks carry a lane axis (not a group axis)."""
+        return self.A.dim() == 4 and not self.grouped
+
+    @property
+    def groups(self) -> int:
+        """G for grouped stacks, 0 otherwise."""
+        return self.A.shape[0] if self.grouped else 0
 
     @property
     def N(self) -> int:
@@ -43,20 +63,44 @@ class LTVDynamics:
     def m(self) -> int:
         return self.B.shape[-1]
 
+    def group_index(self, batch: int, device=None) -> torch.Tensor:
+        """The group of each lane of a batch of ``batch`` lanes, [batch]."""
+        G = self.groups
+        if batch % G:
+            raise ValueError(f"a batch of {batch} lanes is not {G} equal "
+                             f"groups")
+        return torch.arange(G, device=device or self.A.device
+                            ).repeat_interleave(batch // G)
+
+    def lanes(self, batch: int) -> "LTVDynamics":
+        """The per-lane view of the stacks for a batch of ``batch`` lanes
+        ([batch, N-1, ...], materialized): each group's stacks repeated to
+        its lanes; per-lane and shared dynamics as they are."""
+        if not self.grouped:
+            return self
+        g = self.group_index(batch)
+        return LTVDynamics(A=self.A[g], B=self.B[g], d=self.d[g])
+
     def step(self, x, u, k: int):
-        """x [..., n], u [..., m] -> x+ [..., n] at knot k; with per-lane
-        stacks x and u are [B, n] and [B, m]."""
-        if self.per_lane:
-            return (torch.einsum("bij,bj->bi", self.A[:, k], x)
-                    + torch.einsum("bij,bj->bi", self.B[:, k], u)
-                    + self.d[:, k])
-        return (torch.einsum("ij,...j->...i", self.A[k], x)
-                + torch.einsum("ij,...j->...i", self.B[k], u) + self.d[k])
+        """x [..., n], u [..., m] -> x+ [..., n] at knot k; with per-lane or
+        grouped stacks x and u are [B, n] and [B, m] (a grouped step takes
+        each lane's group's knot-k rows)."""
+        if self.grouped:
+            g = self.group_index(x.shape[0], x.device)
+            A, B, d = self.A[:, k][g], self.B[:, k][g], self.d[:, k][g]
+        elif self.per_lane:
+            A, B, d = self.A[:, k], self.B[:, k], self.d[:, k]
+        else:
+            return (torch.einsum("ij,...j->...i", self.A[k], x)
+                    + torch.einsum("ij,...j->...i", self.B[k], u) + self.d[k])
+        return (torch.einsum("bij,bj->bi", A, x)
+                + torch.einsum("bij,bj->bi", B, u) + d)
 
     def linearize(self, X, U):
-        """(A, B, d) stacks about a trajectory: exact for linear models."""
-        del X, U
-        return self.A, self.B, self.d
+        """(A, B, d) stacks about a trajectory: exact for linear models;
+        grouped stacks come per lane (:meth:`lanes`)."""
+        dyn = self.lanes(X.shape[0])
+        return dyn.A, dyn.B, dyn.d
 
     def rollout(self, x0, U):
         """Open-loop rollout of U [..., N-1, m] from x0 [..., n]; returns

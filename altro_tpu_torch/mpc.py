@@ -52,7 +52,8 @@ from .dynamics import LTVDynamics
 from .problem import Problem
 from .solver import graph
 from .solver.altro import _finalize, _flat_while, _warmstart_state
-from .solver.graph import LoopGraph, Replayable, clone_tree, copy_into, tensors
+from .solver.altro import map_state as _state_map
+from .solver.graph import LoopGraph, Replayable, clone_tree, copy_into
 from .solver.options import SolverOptions
 
 
@@ -371,27 +372,6 @@ class _RelinearizedPieces(_Pieces):
         return (x0, U, duals), out
 
 
-def _gather_fn(parent: LoopGraph, child: LoopGraph, blk: int):
-    """Gather the ``blk`` unconverged-first lanes of ``parent``'s state (a
-    stable argsort of the done flags) into ``child``'s; returns the lane
-    index."""
-    def gather():
-        take = torch.argsort(parent.state[10].to(torch.int32),
-                             stable=True)[:blk]
-        child.load(state=_state_map(lambda a: a[take], parent.state))
-        return take
-    return gather
-
-
-def _scatter_fn(parent: LoopGraph, child: LoopGraph, gather: Replayable):
-    """Scatter ``child``'s state back into the lanes of ``parent``'s that
-    ``gather`` took, in place."""
-    def scatter():
-        for a, b in zip(tensors(parent.state), tensors(child.state)):
-            a.index_copy_(0, gather.out, b)
-    return scatter
-
-
 class _GraphedStep:
     """An MPC step factory's graphs, one set per batch size, sharing one
     CUDA graph memory pool: the start graph, one loop graph per level batch
@@ -463,12 +443,12 @@ class _GraphedStep:
         gathers = []
         for parent, child in zip(loops, loops[1:]):
             gathers.append(Replayable(
-                _gather_fn(parent, child, child.state[0].shape[0]), dev,
+                graph.gather_fn(parent, child, child.state[0].shape[0]), dev,
                 pool))
             child.capture()
         scatters = [None] * len(gathers)
         for lvl in reversed(range(len(gathers))):
-            scatters[lvl] = Replayable(_scatter_fn(
+            scatters[lvl] = Replayable(graph.scatter_fn(
                 loops[lvl], loops[lvl + 1], gathers[lvl]), dev, pool)
         finish = Replayable(lambda: self.pieces.finish(
             loops[0].prob, loops[0].state, start.out), dev, pool)
@@ -658,19 +638,6 @@ def make_mpc_step_compacted(prob_mpc: Problem, opts: SolverOptions,
         return pieces.init_carry(batch, graphed, check_every)
 
     return partial, resume, extract, init_carry
-
-
-def _state_map(fn, *states):
-    """Apply ``fn`` leafwise over matching solver states (tuples of tensors
-    and DualStates, every leaf with the batch leading)."""
-    a = states[0]
-    if isinstance(a, torch.Tensor):
-        return fn(*states)
-    if dataclasses.is_dataclass(a):
-        return dataclasses.replace(a, **{
-            f.name: _state_map(fn, *(getattr(s, f.name) for s in states))
-            for f in dataclasses.fields(a)})
-    return tuple(_state_map(fn, *leaves) for leaves in zip(*states))
 
 
 def make_mpc_step_device_compacted(prob_mpc: Problem, opts: SolverOptions,

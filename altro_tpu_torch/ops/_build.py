@@ -30,12 +30,12 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # A block table is (int count, int* meta, void** multiplier pointers).
 _TABLE = [_I, _P, _P]
 _SIGNATURES = {
-    "altro_ls_rollout_f32": [_P] * 3 + [_I] + [_P] * 5 + [_I] + [_P] * 2
-                            + [_I] * 4 + [_P],
+    "altro_ls_rollout_f32": [_P] * 3 + [_I] * 2 + [_P] * 5 + [_I]
+                            + [_P] * 2 + [_I] * 4 + [_P],
     "altro_fused_expand_backward_f32": [_P] * 11 + _TABLE + [_P] * 8
-                                       + [_I] * 5 + [_P],
+                                       + [_I] * 6 + [_P],
     "altro_ls_rollout_al_f32": [_P] * 13 + _TABLE + [_P] * 6 + [_I]
-                               + [_P] * 3 + [_I] * 5 + [_P],
+                               + [_P] * 3 + [_I] * 6 + [_P],
     "altro_riccati_f32": [_P] * 2 + [_I] + [_P] * 10 + [_I] * 4 + [_P],
 }
 for _name in list(_SIGNATURES):

@@ -2,7 +2,9 @@
 ``csrc/riccati_fused.cu`` and its plain PyTorch version.
 
 The shared problem data (cost stacks, dynamics A/B, constraint rows) has no
-batch axis; the per-scenario inputs are x, u, lambda, rho and reg. Every
+batch axis, except that the dynamics may carry a group axis (``grouped``:
+A/B [G, N-1, ...], Bt / G contiguous scenarios to a group); the
+per-scenario inputs are x, u, lambda, rho and reg. Every
 block's penalty follows one schedule (the kernel reads the first block's
 rho), as the solver keeps it. ZERO, NONPOS and SOC blocks are taken; an SOC
 block's curvature is its polar projection's diagonal plus two rank-1 terms.
@@ -18,27 +20,38 @@ import torch
 
 from . import _build
 from .blocks import PackedBlocks, pack_blocks, table_args
-from .rollout import MAX_DIM, _check_args
+from .rollout import MAX_DIM, _check_args, check_groups, per_group
 
 # Kernel launches since the last reset (see ops/rollout.py).
 launch_count = 0
 
 
 def fused_expand_backward_reference(cost, dynA, dynB, blocks, X, U, lams,
-                                    rhos, reg) -> Tuple:
+                                    rhos, reg, grouped: bool = False
+                                    ) -> Tuple:
     """Plain PyTorch expansion + Riccati recursion (a Python loop over
-    knots, batched over scenarios, ``torch.linalg.cholesky_ex`` per knot).
-    Returns K [Bt, N-1, m, n], d [Bt, N-1, m], dV1 [Bt], dV2 [Bt]."""
+    knots, batched over scenarios, ``torch.linalg.cholesky_ex`` per knot;
+    with ``grouped``, each group's scenarios as a shared batch of their
+    own). Returns K [Bt, N-1, m, n], d [Bt, N-1, m], dV1 [Bt], dV2 [Bt]."""
     from ..solver.altro import _expand_backward_base
+    if grouped:
+        return per_group(
+            lambda g, sl: _expand_backward_base(
+                cost, dynA[g], dynB[g], blocks, X[sl], U[sl],
+                tuple(lam[sl] for lam in lams),
+                tuple(rho[sl] for rho in rhos), reg[sl]),
+            dynA.shape[0], X.shape[0])
     return _expand_backward_base(cost, dynA, dynB, blocks, X, U, lams, rhos,
                                  reg)
 
 
 def fused_expand_backward(cost, dynA, dynB, blocks, X, U, lams, rhos, reg,
-                          packed: Optional[PackedBlocks] = None) -> Tuple:
+                          packed: Optional[PackedBlocks] = None,
+                          grouped: bool = False) -> Tuple:
     """Fused AL-expansion + Riccati backward pass.
 
-    cost: QuadCost (shared); dynA [N-1,n,n], dynB [N-1,n,m] (shared);
+    cost: QuadCost (shared); dynA [N-1,n,n], dynB [N-1,n,m] (shared, or
+    with ``grouped`` [G,N-1,...]: scenario b reads group b // (Bt / G));
     blocks: tuple of ConicConstraint (shared); X [Bt,N,n], U [Bt,N-1,m];
     lams: tuple of [Bt,N,p]; rhos: tuple of [Bt,N]; reg [Bt]. ``packed``
     (:func:`ops.blocks.pack_blocks` of ``blocks``) saves packing the
@@ -48,10 +61,12 @@ def fused_expand_backward(cost, dynA, dynB, blocks, X, U, lams, rhos, reg,
     global launch_count
     Bt, N, n = X.shape
     m = U.shape[-1]
+    G = check_groups(grouped, dynA, Bt)
+    lead = (G, N - 1) if grouped else (N - 1,)
     expect = {"Q": (cost.Q, (N, n, n)), "q": (cost.q, (N, n)),
               "R": (cost.R, (N, m, m)), "r": (cost.r, (N, m)),
-              "H": (cost.H, (N, m, n)), "A": (dynA, (N - 1, n, n)),
-              "B": (dynB, (N - 1, n, m)), "X": (X, (Bt, N, n)),
+              "H": (cost.H, (N, m, n)), "A": (dynA, lead + (n, n)),
+              "B": (dynB, lead + (n, m)), "X": (X, (Bt, N, n)),
               "U": (U, (Bt, N - 1, m)), "reg": (reg, (Bt,))}
     for i, (c, lam, rho) in enumerate(zip(blocks, lams, rhos)):
         expect.update({f"Cx{i}": (c.Cx, (N, c.p, n)),
@@ -62,7 +77,7 @@ def fused_expand_backward(cost, dynA, dynB, blocks, X, U, lams, rhos, reg,
     _check_args(expect, X)
     if X.device.type == "cpu":
         return fused_expand_backward_reference(cost, dynA, dynB, blocks, X,
-                                               U, lams, rhos, reg)
+                                               U, lams, rhos, reg, grouped)
     if X.device.type != "cuda":
         raise ValueError(f"unsupported device {X.device}")
     if n > MAX_DIM or m > MAX_DIM:
@@ -89,7 +104,7 @@ def fused_expand_backward(cost, dynA, dynB, blocks, X, U, lams, rhos, reg,
              packed.b.data_ptr(), packed.mask.data_ptr(), nb, meta, lam_ptrs,
              X.data_ptr(), U.data_ptr(), rho0.data_ptr(), reg.data_ptr(),
              K.data_ptr(), d.data_ptr(), dV1.data_ptr(), dV2.data_ptr(), Bt,
-             N, n, m, packed.P, stream)
+             max(G, 1), N, n, m, packed.P, stream)
     _build.check(err, "altro_fused_expand_backward")
     launch_count += 1
     return K, d, dV1, dV2

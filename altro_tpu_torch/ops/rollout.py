@@ -5,6 +5,10 @@ For every scenario and every rung alpha of the step-size ladder:
 
     u = ubar + alpha d + K (x - xbar);   x+ = A x + B u + dd,   x0 = xbar0
 
+The dynamics A, B, dd are shared [N-1, ...], per scenario [Bt, N-1, ...]
+or, with ``grouped``, per group of scenarios [G, N-1, ...]: Bt / G
+contiguous scenarios to a group (``dynamics.LTVDynamics.grouped``).
+
 Dispatch: a CPU tensor goes to :func:`batched_ls_rollout_reference`; a CUDA
 tensor goes to the kernel, or raises on what the kernel does not take.
 """
@@ -28,14 +32,22 @@ MAX_DIM = 64
 
 
 def batched_ls_rollout_reference(A, B, dd, Xbar, Ubar, K, d,
-                                 alphas: Sequence[float]) -> Tuple:
+                                 alphas: Sequence[float],
+                                 grouped: bool = False) -> Tuple:
     """Plain PyTorch ladder rollout (a Python loop over knots, batched over
     scenarios and rungs).
 
     A [N-1, n, n] or [Bt, N-1, n, n], B [(Bt,) N-1, n, m], dd [(Bt,) N-1, n]
-    (shared or per scenario), Xbar [Bt, N, n], Ubar/d [Bt, N-1, m],
-    K [Bt, N-1, m, n]. Returns Xs [Bt, L, N, n], Us [Bt, L, N-1, m].
+    (shared or per scenario; with ``grouped`` [G, N-1, ...], each group's
+    scenarios rolled out as a shared batch of their own), Xbar [Bt, N, n],
+    Ubar/d [Bt, N-1, m], K [Bt, N-1, m, n]. Returns Xs [Bt, L, N, n],
+    Us [Bt, L, N-1, m].
     """
+    if grouped:
+        return per_group(
+            lambda g, sl: batched_ls_rollout_reference(
+                A[g], B[g], dd[g], Xbar[sl], Ubar[sl], K[sl], d[sl], alphas),
+            A.shape[0], Xbar.shape[0])
     N1 = Ubar.shape[1]
     al = torch.as_tensor(tuple(alphas), dtype=Xbar.dtype,
                          device=Xbar.device)[None, :, None]       # [1, L, 1]
@@ -65,7 +77,8 @@ def batched_ls_rollout_reference(A, B, dd, Xbar, Ubar, K, d,
 
 
 def batched_ls_rollout(A, B, dd, Xbar, Ubar, K, d,
-                       alphas: Sequence[float]) -> Tuple:
+                       alphas: Sequence[float], grouped: bool = False
+                       ) -> Tuple:
     """Ladder rollout; see :func:`batched_ls_rollout_reference` for the
     shapes. CUDA tensors run the hand-written kernel."""
     global launch_count
@@ -73,8 +86,10 @@ def batched_ls_rollout(A, B, dd, Xbar, Ubar, K, d,
     Bt, N, n = Xbar.shape
     m = Ubar.shape[-1]
     L = len(alphas)
-    per_lane = A.dim() == 4
-    lead = (Bt, N - 1) if per_lane else (N - 1,)
+    G = check_groups(grouped, A, Bt)
+    per_lane = A.dim() == 4 and not grouped
+    lead = ((Bt, N - 1) if per_lane else (G, N - 1) if grouped
+            else (N - 1,))
     expect = {"A": (A, lead + (n, n)), "B": (B, lead + (n, m)),
               "dd": (dd, lead + (n,)), "Xbar": (Xbar, (Bt, N, n)),
               "Ubar": (Ubar, (Bt, N - 1, m)), "K": (K, (Bt, N - 1, m, n)),
@@ -82,7 +97,7 @@ def batched_ls_rollout(A, B, dd, Xbar, Ubar, K, d,
     _check_args(expect, Xbar)
     if Xbar.device.type == "cpu":
         return batched_ls_rollout_reference(A, B, dd, Xbar, Ubar, K, d,
-                                            alphas)
+                                            alphas, grouped)
     if Xbar.device.type != "cuda":
         raise ValueError(f"unsupported device {Xbar.device}")
     if not (1 <= L <= MAX_RUNGS and n <= MAX_DIM and m <= MAX_DIM):
@@ -96,12 +111,35 @@ def batched_ls_rollout(A, B, dd, Xbar, Ubar, K, d,
     ladder = (ctypes.c_double * L)(*alphas)
     stream = torch.cuda.current_stream(Xbar.device).cuda_stream
     err = fn(A.data_ptr(), B.data_ptr(), dd.data_ptr(), int(per_lane),
-             Xbar.data_ptr(), Ubar.data_ptr(), K.data_ptr(), d.data_ptr(),
-             ctypes.cast(ladder, ctypes.c_void_p), L, Xs.data_ptr(),
-             Us.data_ptr(), Bt, N, n, m, stream)
+             max(G, 1), Xbar.data_ptr(), Ubar.data_ptr(), K.data_ptr(),
+             d.data_ptr(), ctypes.cast(ladder, ctypes.c_void_p), L,
+             Xs.data_ptr(), Us.data_ptr(), Bt, N, n, m, stream)
     _build.check(err, "altro_ls_rollout")
     launch_count += 1
     return Xs, Us
+
+
+def check_groups(grouped: bool, A: torch.Tensor, Bt: int) -> int:
+    """G of grouped dynamics stacks A [G, N-1, n, n] for a batch of ``Bt``
+    scenarios (which must be G equal groups), 0 without ``grouped``."""
+    if not grouped:
+        return 0
+    G = A.shape[0] if A.dim() == 4 else 0
+    if G < 1 or Bt % G:
+        raise ValueError(f"grouped dynamics: A of shape {tuple(A.shape)} "
+                         f"for a batch of {Bt} is not [G, N-1, n, n] with "
+                         f"G dividing the batch")
+    return G
+
+
+def per_group(fn, G: int, Bt: int):
+    """The plain versions' group axis: ``fn(g, lanes)`` for each group g and
+    the slice of its Bt / G contiguous lanes, its output tuples
+    concatenated along the batch: exactly the shared version run group by
+    group."""
+    reps = Bt // G
+    outs = [fn(g, slice(g * reps, (g + 1) * reps)) for g in range(G)]
+    return tuple(torch.cat(parts, dim=0) for parts in zip(*outs))
 
 
 def _check_args(expect: dict, ref: torch.Tensor) -> None:

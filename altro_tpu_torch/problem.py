@@ -2,8 +2,10 @@
 ``altro_tpu/problem.py``).
 
 ``x0`` carries the batch: [B, n] for a batched solve. The dynamics are
-LTV stacks, shared ([N-1, ...]) or carrying the batch ([B, N-1, ...]: every
-scenario linearized about its own schedule), or a nonlinear model with
+LTV stacks, shared ([N-1, ...]), carrying the batch ([B, N-1, ...]: every
+scenario linearized about its own schedule) or a group axis ([G, N-1, ...],
+flagged ``grouped``: each group of B / G scenarios shares a schedule), or
+a nonlinear model with
 shared or per-lane params, linearized per lane at every iterate; the cost's
 linear terms are shared or carry the batch (every scenario tracking its own
 window); the cost's Hessians and the constraint stacks are shared by every
@@ -27,7 +29,7 @@ Block = Union[ConicConstraint, QuadNormConstraint]
 
 @dataclass
 class Problem:
-    dynamics: Dynamics      # LTV stacks, shared or [B, N-1, ...]; or f
+    dynamics: Dynamics      # LTV stacks, shared, [B or G, N-1, ...]; or f
     cost: QuadCost          # Hessians shared; q, r, c shared or [B, N, ...]
     constraints: Tuple[Block, ...]  # shared
     x0: torch.Tensor  # [B, n] (or [n] for an unbatched problem)

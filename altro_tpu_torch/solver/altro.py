@@ -4,7 +4,10 @@ ZERO/NONPOS/SOC constraint blocks and nonlinear (quadratic norm) blocks.
 
 Every entry point takes an explicit leading batch axis B (``prob.x0`` is
 [B, n]); constraint stacks are shared by the batch, the cost's linear terms
-and the dynamics stacks are shared or per scenario. Each iteration runs
+and the dynamics stacks are shared or per scenario, and LTV stacks may be
+shared per group of scenarios (``LTVDynamics.grouped``: the fused kernels
+index each scenario's group, as the JAX package's kernels run once per
+group under a vmap over groups). Each iteration runs
 
 - the AL expansion and the Riccati backward pass, either
   - fused into one pass (ops/riccati_fused.py: a CUDA kernel on the card),
@@ -45,6 +48,7 @@ on.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Optional, Tuple
@@ -307,7 +311,7 @@ def rollout_closed_loop(dynamics, Xbar, Ubar, K, d, alphas,
     alphas = tuple(float(a) for a in alphas)
     if isinstance(dynamics, LTVDynamics):
         return batched_ls_rollout(dynamics.A, dynamics.B, dynamics.d, Xbar,
-                                  Ubar, K, d, alphas)
+                                  Ubar, K, d, alphas, dynamics.grouped)
     if alphas_dev is None:
         alphas_dev = torch.tensor(alphas, dtype=Xbar.dtype,
                                   device=Xbar.device)
@@ -347,7 +351,8 @@ def solve(prob: Problem, opts: SolverOptions,
           X0: Optional[torch.Tensor] = None) -> Solution:
     """Solve a batch of trajectory-optimization problems that share their
     cost and constraints and differ in ``prob.x0`` [B, n] and, with
-    per-lane stacks [B, N-1, ...], in their dynamics.
+    per-lane stacks [B, N-1, ...] or grouped stacks [G, N-1, ...], in their
+    dynamics.
 
     Warm start: ``U0`` [B, N-1, m] (shifted controls) and ``duals``
     (shifted multipliers, [B, ...]) from the previous MPC solve. Without
@@ -372,6 +377,56 @@ def solve_partial(prob: Problem, opts: SolverOptions,
     resuming them gives the uncapped result."""
     s0 = _warmstart_state(prob, opts, U0, duals, X0)
     return _flat_while(prob, opts, s0, it_cap)
+
+
+@torch.no_grad()
+def solve_compacted(prob: Problem, opts: SolverOptions,
+                    U0: Optional[torch.Tensor] = None,
+                    X0: Optional[torch.Tensor] = None, *, it_cap: int,
+                    block: int, check_every: int = 1) -> Solution:
+    """:func:`solve` with straggler compaction (the JAX package's
+    ``quadruped_batched(compact_cap=)``, ``batched_families.py:308-336``):
+    every lane runs to ``it_cap`` iterations, the ``block``
+    unconverged-first lanes (a stable argsort of the done flags) are
+    gathered with their problem data (:func:`take_lanes`) and resumed as a
+    batch of their own, scattered back, and a catch-all resumes the whole
+    batch. Each lane's iterates are the plain solve's."""
+    s = solve_partial(prob, opts, U0, X0=X0, it_cap=it_cap)
+    take = torch.argsort(s[10].to(torch.int32), stable=True)[:block]
+    sub = _flat_while(take_lanes(prob, take), opts,
+                      map_state(lambda a: a[take], s), None, check_every)
+    s = map_state(lambda a, b: a.index_copy(0, take, b), s, sub)
+    return _finalize(prob, _flat_while(prob, opts, s, None, check_every))
+
+
+def map_state(fn, *states):
+    """Apply ``fn`` leafwise over matching solver states (tuples of tensors
+    and DualStates, every leaf with the batch leading)."""
+    a = states[0]
+    if isinstance(a, torch.Tensor):
+        return fn(*states)
+    if dataclasses.is_dataclass(a):
+        return dataclasses.replace(a, **{
+            f.name: map_state(fn, *(getattr(s, f.name) for s in states))
+            for f in dataclasses.fields(a)})
+    return tuple(map_state(fn, *leaves) for leaves in zip(*states))
+
+
+def take_lanes(prob: Problem, take: torch.Tensor) -> Problem:
+    """The problem of the lanes ``take`` [b] of a batch: x0 and the LTV
+    stacks when per lane gathered, shared data as it is. Grouped stacks
+    refuse (the gathered lanes would mix groups: gather
+    ``dynamics.lanes(B)`` instead), as do a nonlinear model and a per-lane
+    cost, which no compacted path gathers."""
+    dyn = prob.dynamics
+    if (not isinstance(dyn, LTVDynamics) or dyn.grouped
+            or prob.cost.per_lane):
+        raise ValueError("take_lanes gathers LTV stacks, shared or per lane, "
+                         "under a shared cost; grouped stacks would mix "
+                         "groups: take dynamics.lanes(B) first")
+    if dyn.per_lane:
+        dyn = LTVDynamics(A=dyn.A[take], B=dyn.B[take], d=dyn.d[take])
+    return dataclasses.replace(prob, dynamics=dyn, x0=prob.x0[take])
 
 
 @torch.no_grad()
@@ -412,7 +467,7 @@ def _warmstart_state(prob: Problem, opts: SolverOptions,
         Xb0[:, 0] = x0
         Xts, _ = batched_ls_rollout(
             dyn.A, dyn.B, dyn.d, Xb0, U0, torch.zeros((Bt, N - 1, m, n), **kw),
-            torch.zeros((Bt, N - 1, m), **kw), (1.0,))
+            torch.zeros((Bt, N - 1, m), **kw), (1.0,), dyn.grouped)
         X0 = Xts[:, 0]
 
     if duals is None:
@@ -543,14 +598,16 @@ def loop_fns(prob: Problem, opts: SolverOptions, s0, it_cap=None,
     packed = ctx.packed
     dyn = prob.dynamics
     fused_ladder = _uses_fused_ladder(opts, prob, X_0)
-    # the fused kernels read shared LTV data and affine blocks only.
-    # Per-lane data, nonlinear dynamics and nonlinear blocks take the split
-    # route (the linearization and the expansion in PyTorch, then the
-    # Riccati pass), as does any problem with opts.fused_expansion off; on
-    # per-lane LTV data the line search's fused branch runs the ladder
-    # rollout and the merit in PyTorch
+    # the fused kernels read shared LTV data (or LTV stacks with a group
+    # axis) and affine blocks only. Per-lane data, nonlinear dynamics and
+    # nonlinear blocks take the split route (the linearization and the
+    # expansion in PyTorch, then the Riccati pass; grouped stacks come per
+    # lane from the linearization), as does any problem with
+    # opts.fused_expansion off; on per-lane LTV data the line search's
+    # fused branch runs the ladder rollout and the merit in PyTorch
     per_lane = dyn.per_lane or prob.cost.per_lane
     split = per_lane or not opts.fused_expansion or not ltv_affine(prob)
+    grouped = isinstance(dyn, LTVDynamics) and dyn.grouped
 
     def round_end_update(cs, cts, duals, lam_ok):
         """AL round bookkeeping from the adopted trajectory's residuals (cs)
@@ -601,7 +658,7 @@ def loop_fns(prob: Problem, opts: SolverOptions, s0, it_cap=None,
         else:
             Knew, dff, dV1, dV2 = fused_expand_backward(
                 prob.cost, dyn.A, dyn.B, prob.constraints, X, U, lams, rhos,
-                reg, packed=packed)
+                reg, packed=packed, grouped=grouped)
         if (not split or fused_ladder) and len(rhos) > 1:
             # the fused expansion and the fused ladder read one shared
             # penalty schedule (rhos[0]): poison the feedforward of lanes
@@ -630,7 +687,7 @@ def loop_fns(prob: Problem, opts: SolverOptions, s0, it_cap=None,
         elif fused_ladder:
             Xts, Uts, Jts = batched_ls_rollout_al(
                 prob.cost, dyn.A, dyn.B, dyn.d, prob.constraints, X, U, Knew,
-                dff, lams, rho0, alphas_t, packed=packed)
+                dff, lams, rho0, alphas_t, packed=packed, grouped=grouped)
         else:
             Xts, Uts = rollout_closed_loop(dyn, X, U, Knew, dff, alphas_t,
                                            alphas)

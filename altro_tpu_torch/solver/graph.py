@@ -39,7 +39,7 @@ import contextlib
 import dataclasses
 import gc
 import time
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -47,7 +47,8 @@ from ..ops import riccati, riccati_fused, rollout, rollout_al
 from ..ops.blocks import pack_blocks
 from ..problem import Problem
 from . import altro
-from .altro import Solution, _finalize, _warmstart_state, loop_fns
+from .altro import (Solution, _finalize, _warmstart_state, loop_fns,
+                    map_state, take_lanes)
 from .options import SolverOptions
 
 # the cap of an uncapped loop: no lane reaches it
@@ -334,6 +335,30 @@ class LoopGraph:
                 return replays
 
 
+def gather_fn(parent: LoopGraph, child: LoopGraph, blk: int):
+    """Gather the ``blk`` unconverged-first lanes of ``parent``'s state (a
+    stable argsort of the done flags) into ``child``'s, with their problem
+    data when ``child`` has problem buffers of its own (per-lane data:
+    :func:`solver.altro.take_lanes`); returns the lane index."""
+    def gather():
+        take = torch.argsort(parent.state[10].to(torch.int32),
+                             stable=True)[:blk]
+        prob = (None if child.prob is parent.prob
+                else take_lanes(parent.prob, take))
+        child.load(prob, map_state(lambda a: a[take], parent.state))
+        return take
+    return gather
+
+
+def scatter_fn(parent: LoopGraph, child: LoopGraph, gather: Replayable):
+    """Scatter ``child``'s state back into the lanes of ``parent``'s that
+    ``gather`` took, in place."""
+    def scatter():
+        for a, b in zip(tensors(parent.state), tensors(child.state)):
+            a.index_copy_(0, gather.out, b)
+    return scatter
+
+
 # ----------------------------------------------------------------------------
 # a cold batch solve
 # ----------------------------------------------------------------------------
@@ -348,11 +373,19 @@ class GraphedSolve:
     ``gs(x0, U0, X0)`` copies the initial states [batch, n], controls
     [batch, N-1, m] (zeros when None) and, with ``states``, the states to
     start from [batch, N, n] (``solve(..., X0=X0)``: no init rollout) into
-    their buffers, replays and returns the solution (clones)."""
+    their buffers, replays and returns the solution (clones).
+
+    ``compact`` = (it_cap, block): straggler compaction, as
+    ``solver.altro.solve_compacted``: the loop runs every lane to
+    ``it_cap``, a gather graph takes the ``block`` unconverged-first lanes
+    with their problem data into a loop graph of the block's batch, a
+    scatter graph puts them back, and the loop resumes the whole batch
+    (a catch-all)."""
 
     def __init__(self, prob: Problem, opts: SolverOptions,
                  batch: Optional[int] = None, *, check_every: int = 1,
-                 pool=None, states: bool = False):
+                 pool=None, states: bool = False,
+                 compact: Optional[Tuple[int, int]] = None):
         x0 = prob.x0
         if x0.dim() == 1:
             if batch is None:
@@ -374,9 +407,26 @@ class GraphedSolve:
             s0 = _warmstart_state(prob, opts, self.U0, None, self.X0)
         self.loop = LoopGraph(prob, opts, s0, check_every=check_every,
                               pool=pool, capture=False)
+        self.compact = compact
+        if compact is not None:
+            blk = min(compact[1], x0.shape[0])
+            head = torch.arange(blk, device=dev)
+            self.block = LoopGraph(
+                take_lanes(self.loop.prob, head), opts,
+                map_state(lambda a: a[:blk], s0), check_every=check_every,
+                pool=pool, capture=False)
         with capturing():
             self._start = Replayable(self._start_fn, dev, pool)
             self.loop.capture()
+            if compact is not None:
+                # in the order of their first replay (see the module's
+                # docstring)
+                self._gather = Replayable(
+                    gather_fn(self.loop, self.block, blk), dev, pool)
+                self.block.capture()
+                self._scatter = Replayable(
+                    scatter_fn(self.loop, self.block, self._gather), dev,
+                    pool)
             self._finish = Replayable(
                 lambda: _finalize(self.loop.prob, self.loop.state), dev,
                 pool)
@@ -389,7 +439,9 @@ class GraphedSolve:
     @property
     def capture_s(self) -> float:
         return (self._start.capture_s + self.loop.capture_s
-                + self._finish.capture_s)
+                + self._finish.capture_s
+                + (self._gather.capture_s + self.block.capture_s
+                   + self._scatter.capture_s if self.compact else 0.0))
 
     def __call__(self, x0: Optional[torch.Tensor] = None,
                  U0: Optional[torch.Tensor] = None,
@@ -407,7 +459,16 @@ class GraphedSolve:
             if X0 is not None:
                 copy_into(self.X0, X0, "X0")
             self._start.replay()
-            self.replays += self.loop.run()
+            if self.compact is None:
+                self.replays += self.loop.run()
+            else:
+                self.loop.set_cap(self.compact[0])
+                self.replays += self.loop.run()
+                self._gather.replay()
+                self.replays += self.block.run()
+                self._scatter.replay()
+                self.loop.set_cap(None)
+                self.replays += self.loop.run()    # the catch-all
             self._finish.replay()
             return clone_tree(self._finish.out)
 

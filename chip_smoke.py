@@ -71,6 +71,17 @@ Phases, each printing its findings; any failure raises (non-zero exit):
       then each path's accepted rung (equal in float64, at most B/100 lanes
       apart in float32); each timed beside its plain version and its bound;
       the float32 errors count in max_abs_err;
+   n. kernels B, C and A with a group axis at the grouped quadruped's
+      shapes (``bench/kernels.py: grouped_inputs``: G = 8 contact
+      schedules, n = m = 12, N=15, the friction cones), at B=1024 (128
+      lanes a group) and B=24 (a ragged 3 lanes a group, fewer than a
+      block's scenarios), float32 and float64, under 3a's gates (the
+      plain versions run the shared plain version group by group): B, C
+      at L=11 (J per lane, the accepted rung as in b), A's init form
+      (L=1) and its L=11 ladder; each timed beside its plain version and
+      its bound, and B and C beside their shared launch at the same B
+      (group 0's stacks for every lane); the float32 errors count in
+      max_abs_err;
 4. main paths, each on CUDA graphs (``altro_tpu_torch/solver/graph.py``:
    every MPC step, batch solve and cold solve as start, loop and finish
    graphs, the loop replayed with one host sync per k passes), with the
@@ -88,6 +99,20 @@ Phases, each printing its findings; any failure raises (non-zero exit):
       QUAD_ROUNDS cold rounds after a warm-up solve): success 1.0,
       violation <= 1e-4, the Riccati kernel once and the ladder rollout once
       per counted pass (plus once per solve), kernels B and C never;
+   n. the grouped quadruped (``families.quadruped_batched(grouped=True)``:
+      each schedule's stacks shared by its lanes), B=1024, float32, both
+      friction modes, QUAD_ROUNDS cold rounds after a warm-up solve:
+      success 1.0, violation <= 1e-4, kernels B and C once per counted
+      pass, A once per solve (the init rollout), D never, no entry into the
+      host-driven loop; solves/s, round ms, iterations and passes printed
+      beside 4c's flat row;
+   o. the flat quadruped with straggler compaction (cap 4, block 128: the
+      unconverged-first lanes gathered with their per-lane dynamics) from
+      the same x0 as the plain flat solve, B=1024, both friction modes
+      (gate: equal status and iterations on every lane; max|dU|, the
+      bit-equality and the passes printed); then its row
+      (``quadruped_batched(compact_cap=4)``) beside 4c's, with 4c's launch
+      gates;
    d. the compacted step against the plain step on the card, rocket,
       grasp and flexsat, B=1024, 5 steps from one carry (gate: equal
       status and iterations on every lane-step; max|dU| and bit-equality
@@ -154,13 +179,13 @@ Phases, each printing its findings; any failure raises (non-zero exit):
       max|dU| <= 1e-6);
    f. graphed against eager on the card, every run from one carry: the
       flagship (B=1024, 10 steps), the rocket, grasp and flexsat in their
-      shipped schedules (5 steps), the quadruped (2 rounds in each friction
-      mode), the closed loop (10 periods in each friction form), the naive
-      rocket's one landing and the nonlinear SRB trot (one QP solve)
-      (gate: equal status and iterations on every lane-step; max|dU| and
-      the bit-equality of X, U and the duals printed, and per path the step
-      ms p50 of both forms, passes and replays per step and the capture
-      seconds);
+      shipped schedules (5 steps), the quadruped, flat and grouped (2 rounds
+      in each friction mode), the closed loop (10 periods in each friction
+      form), the naive rocket's one landing and the nonlinear SRB trot (one
+      QP solve) (gate: equal status and iterations on every lane-step;
+      max|dU| and the bit-equality of X, U and the duals printed, and per
+      path the step ms p50 of both forms, passes and replays per step and
+      the capture seconds);
 5. agreement of the float32 kernel path on the card with the float64 plain
    path on the CPU:
    a. flagship, the same 64 lanes for 10 steps (gate: equal status,
@@ -191,6 +216,14 @@ Phases, each printing its findings; any failure raises (non-zero exit):
       constraint tolerance), B and D each on its own route) and
       ``bench/agreement.py`` at T=3 (the ``shared_k=False`` flagship,
       B=1024, tolerances 1e-4 and 1e-6; gate: success 1.0 at both);
+   h. the grouped quadruped's agreement module
+      (``bench/agreement_quadruped.py``, B=512, instances at mid-phase):
+      the flat and grouped float32 solves and a tight grouped float32
+      re-solve on the card, 16 grouped lanes against float64 truths at
+      1e-7 on the CPU, both friction modes (gates on the grouped layout:
+      every truth solve succeeds, at most one lane whose status differs
+      from the flat layout's, full-batch true-cost gap against the tight
+      re-solve |mean| <= 1e-4 and p99 |gap| <= 1e-3);
 
 6. baselines on the card (``altro_tpu_torch/bench/baselines.py`` and
    ``bench/drivers.py``), float64 unless the driver's dtype says otherwise;
@@ -246,7 +279,9 @@ non-affine path, D and A at the naive rocket's N=301 (launches over 4k-4l)
 and D at the nonlinear SRB's linearization (launches over 4m; float32 and
 float64, the float32 result held to the float64 plain version within 4x
 the plain float32 pass's own distance from it, as its Quu is
-ill-conditioned); the last line is {"ok": true, "device": {...}}.
+ill-conditioned), and three for the grouped quadruped, B, C (L=11) and
+A's init form with a group axis (3n at B=1024, float32; launches over
+4n); the last line is {"ok": true, "device": {...}}.
 Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -277,6 +312,12 @@ FUSED_CHECK_T, AGREEMENT_T = 6, 3
 # compacted-vs-plain comparison: batch and steps from one carry
 COMPARE_B, COMPARE_T = 1024, 5
 QUAD_B, QUAD_ROUNDS, QUAD_AGREE_B = 1024, 5, 64
+# 3n: the grouped kernels' batches (G = 8 groups of 128 lanes, and the
+# ragged 3 lanes); 4o: the flat quadruped's compaction (cap, block); 5h:
+# the quadruped agreement module's batch (its default)
+GROUPED_BATCHES = (1024, 24)
+QUAD_COMPACT = (4, 128)
+AQ_B = 512
 QUAD_GATE_BIAS, QUAD_GATE_P99 = 1e-4, 1e-3
 # graphed-against-eager comparison: flagship steps, conic and flexsat
 # steps, quadruped rounds per friction mode
@@ -530,6 +571,117 @@ def quadruped_parity(dtype, tol):
     return res
 
 
+def grouped_parity(dtype, tol, B):
+    """Kernels B, C and A with a group axis (the grouped quadruped: G = 8
+    contact schedules of B/8 lanes, the friction cones) against their
+    plain versions, which run the shared plain version group by group
+    (float32 B held to the float64 plain version within 4x the plain
+    float32 pass's own distance from it, ``against_f64``: the quadruped's
+    Quu is ill-conditioned), and against the shared kernel launched once
+    per group on its lanes (gate: bit for bit): B, C at L=11 (J per lane
+    and the accepted rung as in 3b), A's init form (L=1) and its L=11
+    ladder; each timed beside its bound, and B and C also launched with
+    group 0's stacks shared by the whole batch (the shared launch at the
+    same B). Returns {kernel: ({output: max_abs_err}, ms, plain_ms,
+    (bytes, flops))}."""
+    from altro_tpu_torch.bench.kernels import (QUAD_LADDER, grouped_inputs,
+                                               per_group_launches)
+    from altro_tpu_torch.convert import tree_to
+    from altro_tpu_torch.ops import riccati_fused, rollout, rollout_al
+    from altro_tpu_torch.solver.altro import _ladder_choice
+
+    dev = torch.device("cuda")
+    gi = grouped_inputs(dtype, dev, B)
+    args, packed, ref = gi["fused"], gi["packed"], gi["fused_ref"]
+    blocks, (X, U, lams, rhos) = gi["prob"].constraints, args[4:8]
+    cases = row_cases(blocks, X, U, lams, rhos)
+    G = gi["prob"].dynamics.groups
+    reps = B // G
+
+    def bit_equal(label, fn, gargs, got, **kw):
+        exact = all(torch.equal(a, b) for a, b in zip(
+            got, per_group_launches(fn, gargs, G, **kw)))
+        print(f"{label} grouped B={B} ({dtype}): bit-equal to {G} shared "
+              f"launches, one per group: {exact}")
+        if not exact:
+            raise AssertionError(f"{label}: the group-indexed launch differs"
+                                 f" from the shared launches per group")
+    print(f"grouped quadruped parity inputs ({dtype}, B={B}, reps={reps}): "
+          f"{len(blocks)} blocks, {packed.P} rows; row cases {cases}")
+    if min(v for k, v in cases.items() if k != "apex") == 0:
+        raise AssertionError(f"grouped parity inputs miss a row case: "
+                             f"{cases}")
+
+    fb = riccati_fused.fused_expand_backward
+    fb_ref = riccati_fused.fused_expand_backward_reference
+    out = fb(*args, packed=packed, grouped=True)
+    torch.cuda.synchronize()
+    names = ("K", "d", "dV1", "dV2")
+    if dtype == torch.float32:
+        errs = against_f64(f"B grouped B={B}", out, ref,
+                           fb_ref(*tree_to(args, dtype=torch.float64),
+                                  grouped=True), names)
+    else:
+        errs = errors(out, ref, names, tol)
+    bit_equal("B", fb, args, out, packed=packed)
+    res = {"fused_expand_backward": (
+        errs,
+        time_ms(lambda: fb(*args, packed=packed, grouped=True), kernel=True),
+        time_ms(lambda: fb_ref(*args, grouped=True)), gi["fused_work"])}
+    sargs = gi["shared_fused"]
+    res["fused_expand_backward shared"] = (
+        {}, time_ms(lambda: fb(*sargs, packed=packed), kernel=True),
+        time_ms(lambda: fb_ref(*sargs)), gi["shared_fused_work"])
+
+    _, _, dV1, dV2 = ref
+    cargs = gi["ladder_al"]
+    la = rollout_al.batched_ls_rollout_al
+    la_ref = rollout_al.batched_ls_rollout_al_reference
+    Xs, Us, J = la(*cargs, packed=packed, grouped=True)
+    Xr, Ur, Jr = la_ref(*cargs, grouped=True)
+    torch.cuda.synchronize()
+    bit_equal("C", la, cargs, (Xs, Us, J), packed=packed)
+    errs = errors((Xs, Us), (Xr, Ur), ("Xs", "Us"), tol)
+    J_err = (J - Jr).abs()
+    if not bool((J_err <= tol * torch.clamp(Jr.abs(), min=1.0)).all()):
+        raise AssertionError(f"J: max|kernel - plain| / max(1, |J|) = "
+                             f"{float((J_err / Jr.abs().clamp(min=1.0)).max()):.3e}"
+                             f" > {tol:.0e}")
+    errs["J"] = float(J_err.max())
+    alphas = torch.tensor(QUAD_LADDER, dtype=dtype, device=dev)
+    idx_k, acc_k, _, _ = _ladder_choice(J, alphas, dV1, dV2, 1e-4)
+    idx_p, acc_p, _, _ = _ladder_choice(Jr, alphas, dV1, dV2, 1e-4)
+    differ = int(((idx_k != idx_p) | (acc_k != acc_p)).sum())
+    print(f"grouped quadruped parity ({dtype}, B={B}): accepted rung differs"
+          f" on {differ} of {B} lanes; rungs taken "
+          f"{torch.bincount(idx_p).tolist()}")
+    if differ > (0 if dtype == torch.float64 else B // 100):
+        raise AssertionError(f"accepted rung differs on {differ} lanes")
+    res["batched_ls_rollout_al"] = (
+        errs, time_ms(lambda: la(*cargs, packed=packed, grouped=True),
+                      kernel=True),
+        time_ms(lambda: la_ref(*cargs, grouped=True)), gi["ladder_al_work"])
+    sargs = gi["shared_ladder_al"]
+    res["batched_ls_rollout_al shared"] = (
+        {}, time_ms(lambda: la(*sargs, packed=packed), kernel=True),
+        time_ms(lambda: la_ref(*sargs)), gi["shared_ladder_al_work"])
+
+    ls = rollout.batched_ls_rollout
+    ls_ref = rollout.batched_ls_rollout_reference
+    for name, key, work in (("batched_ls_rollout", "init", "init_work"),
+                            ("batched_ls_rollout L=11", "ladder",
+                             "ladder_work")):
+        a = gi[key]
+        L = len(a[-1])
+        bit_equal(f"A L={L}", ls, a, ls(*a, grouped=True))
+        res[name] = (
+            errors(ls(*a, grouped=True), ls_ref(*a, grouped=True),
+                   (f"Xs L={L}", f"Us L={L}"), tol),
+            time_ms(lambda: ls(*a, grouped=True), kernel=True),
+            time_ms(lambda: ls_ref(*a, grouped=True)), gi[work])
+    return res
+
+
 def phase6_parity(dtype, tol):
     """Kernels A, B and C against their plain versions at the shapes phase 6
     gives them, one lane (B=1) and the ladder of the drivers' options (ten
@@ -726,6 +878,153 @@ def quadruped_agreement():
                                  f"{float(gap.mean()):.3e}, p99 {p99:.3e}")
 
 
+def grouped_main(card, reset_counts, read_counts, flat_rows):
+    """Phase 4n: the grouped quadruped (``families.quadruped_batched(
+    grouped=True)``), B=QUAD_B, both friction modes, float32 on graphs,
+    beside 4c's flat rows (``flat_rows``: mode -> 4c's row); returns the
+    launches. Gates: success 1.0, violation <= 1e-4, kernels B and C once
+    per counted pass, A once per solve (its init rollout), D never, no
+    entry into the host-driven loop."""
+    from altro_tpu_torch.bench.families import quadruped_batched
+    from altro_tpu_torch.solver import altro
+
+    launches = {}
+    for lin in (True, False):
+        mode = "qp" if lin else "socp"
+        reset_counts()
+        res = quadruped_batched(B=QUAD_B, rounds=QUAD_ROUNDS,
+                                linearized_friction=lin, grouped=True,
+                                device="cuda")
+        gl, passes = read_counts(), altro.pass_count
+        eager = altro.eager_loop_count
+        print(f"grouped quadruped main path [{card}]: {json.dumps(res)} "
+              f"passes={passes} launches={gl}")
+        rows = {"grouped": res, "flat": flat_rows[mode]}
+        print(f"grouped vs flat [{mode}] B={QUAD_B} [{card}]: " + "; ".join(
+            f"{k} solves/s {r['solves_per_s']:.1f}, round ms p50 "
+            f"{r['round_ms_p50']:.3f} p99 {r['round_ms_p99']:.3f}, mean "
+            f"iters {r['mean_iters']:.3f}, lane-max iters per solve "
+            f"{r['lane_max_iters'] / r['solves']:.2f}, passes per solve "
+            f"{r['loop_iterations'] / r['solves']:.2f}"
+            for k, r in rows.items()))
+        if not (res["success_rate"] == 1.0 and res["max_viol"] <= 1e-4):
+            raise AssertionError(f"grouped quadruped quality: {res}")
+        if not (passes > 0 and passes == res["loop_iterations"]
+                and gl["fused_expand_backward"] == passes
+                and gl["batched_ls_rollout_al"] == passes
+                and gl["batched_ls_rollout"] == res["solves"]
+                and gl["batched_riccati"] == 0 and eager == 0):
+            raise AssertionError(f"grouped quadruped launch counts {gl} do "
+                                 f"not match {passes} solver-loop passes of "
+                                 f"{res['solves']} solves (host-loop "
+                                 f"entries {eager})")
+        for k, v in gl.items():
+            launches[k] = launches.get(k, 0) + v
+    return launches
+
+
+def compacted_quadruped(card, reset_counts, read_counts, flat_rows):
+    """Phase 4o: the flat quadruped with straggler compaction (cap and
+    block QUAD_COMPACT: every lane to the cap, the unconverged-first block
+    gathered with its per-lane dynamics, resumed on a loop graph of its
+    own, scattered back, a catch-all) against the plain flat solve from the
+    same x0, B=QUAD_B, both friction modes, float32 on graphs (gate: equal
+    status and iterations on every lane; max|dU| and bit-equality
+    printed); then the compacted row (``quadruped_batched(compact_cap=)``)
+    beside 4c's plain one, with 4c's launch gates. Returns the row's
+    launches."""
+    from altro_tpu_torch.bench.families import (quadruped_batched,
+                                                quadruped_setup)
+    from altro_tpu_torch.solver import altro, graph
+
+    cap, block = QUAD_COMPACT
+    launches = {}
+    for lin in (True, False):
+        mode = "qp" if lin else "socp"
+        su = quadruped_setup(QUAD_B, lin, torch.float32, "cuda")
+        x0 = su.draw_x0().to("cuda", torch.float32)
+        sols, passes = {}, {}
+        for form, compact in (("plain", None), ("compacted", (cap, block))):
+            gs = graph.GraphedSolve(su.prob, su.opts, compact=compact)
+            gs(x0, su.U0)                                  # capture, warm
+            p0 = altro.pass_count
+            sols[form] = gs(x0, su.U0)
+            passes[form] = altro.pass_count - p0
+        p, c = sols["plain"], sols["compacted"]
+        differ = int(((p.stats.status != c.stats.status)
+                      | (p.stats.iterations != c.stats.iterations)).sum())
+        bit_equal = all(torch.equal(a, b) for a, b in
+                        ((p.X, c.X), (p.U, c.U), (p.stats.viol,
+                                                  c.stats.viol)))
+        unconverged = int((p.stats.iterations > cap).sum())
+        print(f"quadruped [{mode}] compacted (cap {cap}, block {block}) vs "
+              f"plain, {QUAD_B} lanes from one x0 [{card}]: status or "
+              f"iterations differ on {differ} lanes; max|dU| "
+              f"{float((p.U - c.U).abs().max()):.3e}; bit-equal X, U, viol:"
+              f" {bit_equal}; lanes past the cap {unconverged}; passes "
+              f"plain {passes['plain']}, compacted {passes['compacted']} "
+              f"(lane-max iterations {int(p.stats.iterations.max())})")
+        if differ:
+            raise AssertionError(f"quadruped [{mode}] compacted differs "
+                                 f"from plain on {differ} lanes")
+        reset_counts()
+        res = quadruped_batched(B=QUAD_B, rounds=QUAD_ROUNDS,
+                                linearized_friction=lin, compact_cap=cap,
+                                compact_block=block, device="cuda")
+        ol, opasses = read_counts(), altro.pass_count
+        eager = altro.eager_loop_count
+        flat = flat_rows[mode]
+        print(f"compacted quadruped main path [{card}]: {json.dumps(res)} "
+              f"passes={opasses} launches={ol}; plain flat: solves/s "
+              f"{flat['solves_per_s']:.1f}, round ms p50 "
+              f"{flat['round_ms_p50']:.3f} p99 {flat['round_ms_p99']:.3f}, "
+              f"passes per solve "
+              f"{flat['loop_iterations'] / flat['solves']:.2f}")
+        if not (res["success_rate"] == 1.0 and res["max_viol"] <= 1e-4):
+            raise AssertionError(f"compacted quadruped quality: {res}")
+        if not (opasses > 0 and ol["batched_riccati"] == opasses
+                and ol["batched_ls_rollout"] == opasses + res["solves"]
+                and ol["fused_expand_backward"] == 0
+                and ol["batched_ls_rollout_al"] == 0 and eager == 0):
+            raise AssertionError(f"compacted quadruped launch counts {ol} "
+                                 f"do not match {opasses} solver-loop "
+                                 f"passes of {res['solves']} solves "
+                                 f"(host-loop entries {eager})")
+        for k, v in ol.items():
+            launches[k] = launches.get(k, 0) + v
+    return launches
+
+
+def grouped_agreement(card):
+    """Phase 5h: ``bench/agreement_quadruped.py`` at AQ_B lanes: the flat
+    and grouped float32 solves and a tight grouped float32 re-solve on the
+    card, SAMPLE grouped lanes against float64 truths on the CPU; its gates
+    (``agreement_quadruped.check``)."""
+    from altro_tpu_torch.bench import agreement_quadruped as aq
+
+    t0 = time.perf_counter()
+    res = aq.run(AQ_B, "cuda")
+    for mode, r in res["modes"].items():
+        g, f = r["fullbatch_grouped"], r["fullbatch_flat"]
+        print(f"quadruped agreement [{mode}] [{card}] {AQ_B} lanes at "
+              f"mid-phase: success grouped {r['tpu_success_rate']:.4f}, flat"
+              f" {r['flat_success_rate']:.4f}, tight "
+              f"{r['tight_success_rate']:.4f}; status differs on "
+              f"{r['status_differs']} lanes; max_viol "
+              f"{r['tpu_max_viol']:.3e}; gap vs tight f32, grouped mean "
+              f"{g['gap_mean']:.3e} p99 |gap| {g['gap_abs_p99']:.3e} max "
+              f"{g['gap_max']:.3e}, flat mean {f['gap_mean']:.3e} p99 |gap| "
+              f"{f['gap_abs_p99']:.3e} max {f['gap_max']:.3e}; "
+              f"{res['config']['sample']} lanes against f64 truth at 1e-7 "
+              f"(CPU): success {r['truth_success']}, max|dU| "
+              f"{r['err_U_max']:.3e} (mean {r['err_U_mean']:.3e}), max|du0| "
+              f"{r['err_u0_max']:.3e}, cost gap max "
+              f"{r['cost_rel_gap_max']:.3e} mean "
+              f"{r['cost_rel_gap_mean']:.3e}")
+    aq.check(res)
+    print(f"phase 5h: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def conic_noise(su, T):
     """A conic family's benchmark noise for T steps of COMPARE_B lanes."""
     return torch.as_tensor(np.random.default_rng(su.noise_seed)
@@ -846,8 +1145,10 @@ def graphed_against_eager(card, su32, gsu32, fsu):
     make = (lambda g: flexsat_step(fsu, *FLEXSAT_SCHEDULE, graphed=g))
     compare_steps("flexsat compacted", make, make(False)[1](COMPARE_B),
                   fsu.noise, FORMS_CONIC_T)
-    for lin in (True, False):
-        qsu = quadruped_setup(QUAD_B, lin, torch.float32, "cuda")
+    for lin, grouped in ((True, False), (False, False), (True, True),
+                         (False, True)):
+        qsu = quadruped_setup(QUAD_B, lin, torch.float32, "cuda",
+                              grouped=grouped)
         x0s = [qsu.draw_x0().to("cuda", torch.float32)
                for _ in range(FORMS_QUAD_ROUNDS)]
         gs = graph.GraphedSolve(qsu.prob, qsu.opts)
@@ -871,7 +1172,8 @@ def graphed_against_eager(card, su32, gsu32, fsu):
                            (gs.replays - r0) if form == "graphed" else 0,
                            len(x0s), gs.capture_s if form == "graphed"
                            else 0.0)
-        _compare(f"quadruped {'qp' if lin else 'socp'}", runs["graphed"],
+        _compare(f"quadruped {'grouped ' if grouped else ''}"
+                 f"{'qp' if lin else 'socp'}", runs["graphed"],
                  runs["eager"], card, stats)
 
 
@@ -1809,6 +2111,24 @@ def main() -> None:
                       f"{work[0] / 1e6:.2f} MB, {work[1] / 1e9:.4f} GFLOP), "
                       f"share {bnd / ms:.2%} [{card}]", flush=True)
 
+    # ---- 3n. kernels B, C and A with a group axis (the grouped quadruped)
+    t0 = time.perf_counter()
+    par_n = {}
+    for label, dtype, tol in (("f32", torch.float32, F32_TOL),
+                              ("f64", torch.float64, F64_TOL)):
+        for B in GROUPED_BATCHES:
+            par_n[label, B] = grouped_parity(dtype, tol, B)
+            for name, (errs, ms, plain_ms, work) in par_n[label, B].items():
+                errs_s = " ".join(f"{k}={v:.3e}" for k, v in errs.items())
+                bnd, by = bound_ms(*work, 4 if label == "f32" else 8)
+                print(f"parity {name} grouped quadruped B={B} G=8 {label}: "
+                      f"max|kernel - plain| {errs_s or '(shared launch)'}; "
+                      f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                      f"{bnd:.4f} ms ({by}: {work[0] / 1e6:.2f} MB, "
+                      f"{work[1] / 1e9:.4f} GFLOP), share {bnd / ms:.2%} "
+                      f"[{card}]", flush=True)
+    print(f"phase 3n: {time.perf_counter() - t0:.1f} s", flush=True)
+
     def reset_counts():
         rollout.launch_count = 0
         riccati_fused.launch_count = 0
@@ -1902,11 +2222,12 @@ def main() -> None:
     conic_main_path(rres, rlaunches, altro.pass_count, rres["solves"])
 
     # ---- 4c. main path: the flat quadruped batch, both friction modes
-    qlaunches = {}
+    qlaunches, qrows = {}, {}
     for lin in (True, False):
         reset_counts()
         qres = quadruped_batched(B=QUAD_B, rounds=QUAD_ROUNDS,
                                  linearized_friction=lin, device="cuda")
+        qrows["qp" if lin else "socp"] = qres
         ql, qpasses = read_counts(), altro.pass_count
         eager_entries += altro.eager_loop_count
         print(f"quadruped main path [{card}]: {json.dumps(qres)} "
@@ -1922,6 +2243,15 @@ def main() -> None:
                                  f"{qres['solves']} solves")
         for k, v in ql.items():
             qlaunches[k] = qlaunches.get(k, 0) + v
+
+    # ---- 4n. main path: the grouped quadruped (B and C once per pass, A
+    # once per solve); 4o. the flat quadruped with straggler compaction
+    # (gated there, host-loop entries included)
+    t0 = time.perf_counter()
+    nlaunches = grouped_main(card, reset_counts, read_counts, qrows)
+    olaunches = compacted_quadruped(card, reset_counts, read_counts, qrows)
+    print(f"phase 4n-4o ({time.perf_counter() - t0:.1f} s) launches: 4n "
+          f"{nlaunches}, 4o {olaunches}", flush=True)
 
     # ---- 4e. main path: grasp (cold N=61 solve + B=1024, T=15) in the
     # shipped compaction schedule; the warm solves start from the
@@ -2059,6 +2389,11 @@ def main() -> None:
     # ---- 5c. quadruped agreement
     quadruped_agreement()
 
+    # ---- 5h. the grouped quadruped's agreement module
+    reset_counts()
+    grouped_agreement(card)
+    hlaunches = read_counts()
+
     # ---- 5d. grasp agreement
     agreement_conic.conic_agreement(gsu32, GRASP_AGREE_B, GRASP_AGREE_T)
 
@@ -2150,11 +2485,12 @@ def main() -> None:
         table.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": (launches[name] + rlaunches[name] + qlaunches[name]
+                         + nlaunches[name] + olaunches[name]
                          + glaunches[name] + flaunches[name]
                          + jlaunches[name] + klaunches[name]
                          + mlaunches[name] + llaunches[name]
-                         + glaunches5[name] + p6launches[name]
-                         + qslaunches[name]),
+                         + hlaunches[name] + glaunches5[name]
+                         + p6launches[name] + qslaunches[name]),
             "max_abs_err": max(
                 [v for shape in par if name in par[shape][0]
                  for v in par[shape][0][name][0].values()]
@@ -2168,7 +2504,10 @@ def main() -> None:
                    if name == "batched_riccati" for v in r[0].values()]
                 + [v for B in (NAIVE_B, 1)
                    for k, r in par_k["f32", B].items() if k == name
-                   for v in r[0].values()]),
+                   for v in r[0].values()]
+                + [v for B in GROUPED_BATCHES
+                   for k, r in par_n["f32", B].items()
+                   if k.split(" ")[0] == name for v in r[0].values()]),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
             "library_ms": None})
     # the nonlinear and non-affine path's rows: D and A at the naive
@@ -2207,7 +2546,16 @@ def main() -> None:
              "batched_ls_rollout",
              par_k["f32", NAIVE_B]["batched_ls_rollout"], klaunches),
             ("batched_riccati (nonlinear SRB)", "batched_riccati", srb_row,
-             mlaunches)):
+             mlaunches),
+            ("fused_expand_backward (grouped quadruped, G=8)",
+             "fused_expand_backward",
+             par_n["f32", QUAD_B]["fused_expand_backward"], nlaunches),
+            ("batched_ls_rollout_al (grouped quadruped, G=8, L=11)",
+             "batched_ls_rollout_al",
+             par_n["f32", QUAD_B]["batched_ls_rollout_al"], nlaunches),
+            ("batched_ls_rollout (grouped quadruped, G=8, init L=1)",
+             "batched_ls_rollout",
+             par_n["f32", QUAD_B]["batched_ls_rollout"], nlaunches)):
         src, rep_, _ = sources[name]
         bnd, by = bound_ms(*work, 4)
         print(f"{row_name}: max|kernel - plain| "

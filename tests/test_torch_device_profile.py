@@ -34,6 +34,15 @@ def test_quadruped_window_counts_iterations(linearized):
     assert window() >= dp.QUAD_SOLVES
 
 
+def test_quadruped_grouped_window_counts_iterations():
+    """The grouped layout's window (the profile's quadruped_grouped path)
+    at B=8 on the CPU: every solve runs at least one pass."""
+    window = dp.quadruped_window(False, B=8, device="cpu", grouped=True)
+    assert window() >= dp.QUAD_SOLVES
+    assert [p[0] for p in dp.PATHS["quadruped_grouped"]] == [
+        "quadruped grouped qp", "quadruped grouped socp"]
+
+
 @pytest.mark.parametrize("compact", [False, True], ids=["plain", "compacted"])
 def test_grasp_window_counts_passes(compact):
     """Grasp's window on the CPU at B=8, plain and in its shipped schedule
