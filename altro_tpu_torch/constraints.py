@@ -4,9 +4,12 @@ affine ZERO, NONPOS and SOC blocks,
     c_k = Cx_k @ x_k + Cu_k @ u_k + b_k   in  K       (for knots with mask=1)
 
 and the nonlinear quadratic norm block :class:`QuadNormConstraint`. The
-stacks carry a leading knot axis and are shared problem data (no batch
-axis); trajectories and multipliers carry leading batch axes, and so do a
-nonlinear block's Jacobians and curvature, taken at each lane's iterate.
+stacks carry a leading knot axis and are shared problem data, or (an
+affine block, ``per_lane``) carry a lane axis in front of it: every lane's
+own window of a time-varying block ([B, N, p, .]); trajectories and
+multipliers carry leading batch axes, and so do a nonlinear block's
+Jacobians and curvature, taken at each lane's iterate. The mask [N] is
+shared either way.
 """
 from __future__ import annotations
 
@@ -24,31 +27,49 @@ from .costs import pad_terminal
 @dataclass
 class ConicConstraint:
     """One block of p-row affine conic constraints applied along the
-    horizon."""
+    horizon: shared stacks [N, p, .], or (``per_lane``) one window per
+    lane [B, N, p, .] (a lane axis, never guessed: a shared stack has
+    three axes)."""
 
-    Cx: torch.Tensor    # [N, p, n]
-    Cu: torch.Tensor    # [N, p, m]
-    b: torch.Tensor     # [N, p]
+    Cx: torch.Tensor    # [(B,) N, p, n]
+    Cu: torch.Tensor    # [(B,) N, p, m]
+    b: torch.Tensor     # [(B,) N, p]
     mask: torch.Tensor  # [N] float {0,1}: knots where the block is active
     cone: Cone
     name: str = ""
 
     @property
+    def per_lane(self) -> bool:
+        """Whether the stacks carry a lane axis."""
+        return self.Cx.dim() == 4
+
+    @property
     def N(self) -> int:
-        return self.Cx.shape[0]
+        return self.Cx.shape[-3]
 
     @property
     def p(self) -> int:
-        return self.Cx.shape[1]
+        return self.Cx.shape[-2]
 
     def evaluate(self, X, U):
-        """Residual stack c [..., N, p]; u at the terminal knot is zero."""
-        return (torch.einsum("kpn,...kn->...kp", self.Cx, X)
-                + torch.einsum("kpm,...km->...kp", self.Cu, pad_terminal(U))
-                + self.b)
+        """Residual stack c [..., N, p]; u at the terminal knot is zero.
+        Per-lane stacks take X [B, ..., N, n]: lane b's rows act on every
+        trajectory of lane b (the rungs of a ladder)."""
+        Up = pad_terminal(U)
+        if not self.per_lane:
+            return (torch.einsum("kpn,...kn->...kp", self.Cx, X)
+                    + torch.einsum("kpm,...km->...kp", self.Cu, Up)
+                    + self.b)
+        # the lane axis first, then the axes between it and the knot axis
+        lead = (X.shape[0],) + (1,) * (X.dim() - 3)
+        Cx = self.Cx.reshape(lead + tuple(self.Cx.shape[1:]))
+        Cu = self.Cu.reshape(lead + tuple(self.Cu.shape[1:]))
+        return ((Cx @ X[..., None])[..., 0] + (Cu @ Up[..., None])[..., 0]
+                + self.b.reshape(lead + tuple(self.b.shape[1:])))
 
     def jacobians(self, X, U):
-        """(Cx [N,p,n], Cu [N,p,m]): constant for affine blocks."""
+        """(Cx [(B,) N,p,n], Cu [(B,) N,p,m]): constant for affine
+        blocks."""
         del X, U
         return self.Cx, self.Cu
 
@@ -96,6 +117,11 @@ class QuadNormConstraint:
 
     @property
     def is_affine(self) -> bool:
+        return False
+
+    @property
+    def per_lane(self) -> bool:
+        """The stacks are shared (the Jacobians, per lane, are not data)."""
         return False
 
     def _z(self, X, U):

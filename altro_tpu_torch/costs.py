@@ -88,8 +88,11 @@ class QuadCost:
             q, r, c = (_lanes(t, X) for t in (self.q, self.r, self.c))
             lin = torch.sum(X * q, dim=-1) + torch.sum(Upad * r, dim=-1)
         else:
-            lin = (torch.einsum("...ki,ki->...k", X, self.q)
-                   + torch.einsum("...ki,ki->...k", Upad, self.r))
+            # one small product per lane and knot, not an einsum (which
+            # folds the lanes into the rows of one product, whose rounding
+            # follows its size): a lane's bits do not depend on the batch
+            lin = ((X[..., None, :] @ self.q[..., None])[..., 0, 0]
+                   + (Upad[..., None, :] @ self.r[..., None])[..., 0, 0])
             c = self.c
         per_knot = 0.5 * xQx + 0.5 * uRu + uHx + lin + c
         return torch.sum(per_knot, dim=-1)

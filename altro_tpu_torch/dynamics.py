@@ -18,6 +18,13 @@ import torch
 from torch.func import jacfwd, vmap
 
 
+def lane_mv(M, v):
+    """M [..., r, c] times v [..., c] -> [..., r], broadcast over the
+    leading axes as one small product per lane, so that every lane's
+    result is the same bits whatever the batch it runs in."""
+    return (M @ v[..., None])[..., 0]
+
+
 @dataclass
 class LTVDynamics:
     """x_{k+1} = A_k x_k + B_k u_k + d_k, k = 0..N-2. LTI models are stored
@@ -91,8 +98,11 @@ class LTVDynamics:
         elif self.per_lane:
             A, B, d = self.A[:, k], self.B[:, k], self.d[:, k]
         else:
-            return (torch.einsum("ij,...j->...i", self.A[k], x)
-                    + torch.einsum("ij,...j->...i", self.B[k], u) + self.d[k])
+            # one matrix-vector product per lane: a lane's bits do not
+            # depend on the batch around it (an einsum folds the batch into
+            # the rows of one product, whose rounding follows its size)
+            return (lane_mv(self.A[k], x) + lane_mv(self.B[k], u)
+                    + self.d[k])
         return (torch.einsum("bij,bj->bi", A, x)
                 + torch.einsum("bij,bj->bi", B, u) + d)
 

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from ..cones import Cone
-from ..constraints import (ConicConstraint, goal_constraint,
+from ..constraints import (ConicConstraint, _range_mask, goal_constraint,
                            linear_constraint, norm_constraint2)
 from ..costs import lqr_objective
 from ..dynamics import lti_dynamics
@@ -111,12 +111,18 @@ def grasp_dynamics(o: GraspObject, N: int, dt):
     return lti_dynamics(Ad, Bd, N, dd)
 
 
-def grasp_constraints(o: GraspObject, N: int, k0: int = 0,
+def grasp_constraints(o: GraspObject, N: int, k0=0,
                       include_goal: bool = False,
                       xf=None) -> Tuple[ConicConstraint, ...]:
     """The constraint window [k0, k0 + N) as four blocks (torque balance,
     max force, two friction cones), cut from the object's stacks. ``k0`` is
-    clamped to [0, Nt - N], as ``lax.dynamic_slice`` clamps it."""
+    clamped to [0, Nt - N], as ``lax.dynamic_slice`` clamps it. An int64
+    tensor ``k0`` [B] gives every lane its own window: per-lane blocks
+    (stacks [B, N, ...]; :func:`_lane_windows`)."""
+    if isinstance(k0, torch.Tensor):
+        if include_goal:
+            raise ValueError("per-lane windows take no goal block")
+        return _lane_windows(o, N, k0)
     n, m = 6, 6
     kw = dict(dtype=o.theta.dtype, device=o.theta.device)
     k0 = min(max(int(k0), 0), o.theta.shape[0] - N)
@@ -153,6 +159,51 @@ def grasp_constraints(o: GraspObject, N: int, k0: int = 0,
     if include_goal:
         blocks = (goal_constraint(N, n, m, xf, **kw),) + blocks
     return blocks
+
+
+def _lane_windows(o: GraspObject, N: int, k0) -> Tuple[ConicConstraint,
+                                                      ...]:
+    """:func:`grasp_constraints`'s four blocks for every lane's window
+    [k0_b, k0_b + N), k0 an integer tensor [B]: the stacks gathered on the
+    device (no host sync, so a CUDA graph can capture it) and each block
+    built with the int branch's arithmetic over the lane axis, so lane b's
+    blocks equal ``grasp_constraints(o, N, int(k0[b]))`` bit for bit."""
+    n = 6
+    kx = torch.clamp(k0, 0, o.theta.shape[0] - N)
+    idx = kx[:, None] + torch.arange(N, device=k0.device)       # [B, N]
+    v1, v2, B1, B2, thdd = (s[idx] for s in (o.v1, o.v2, o.B1, o.B2,
+                                               o.thdd))
+    mask = _range_mask(N, 0, N - 1, o.theta.dtype, o.theta.device)
+
+    def block(Cu, b, cone, name):
+        Cx = Cu.new_zeros(Cu.shape[:-1] + (n,))
+        return ConicConstraint(Cx=Cx, Cu=Cu.contiguous(), b=b.contiguous(),
+                               mask=mask, cone=cone, name=name)
+
+    # torque balance: [B1 B2] u = [thdd, 0, 0]
+    z = torch.zeros_like(thdd)
+    torque = block(torch.cat([B1, B2], dim=3), -torch.stack([thdd, z, z], -1),
+                   Cone.ZERO, "torque")
+    # max normal force: v1'F1 <= f_max, v2'F2 <= f_max
+    z3 = torch.zeros_like(v1)
+    force = block(torch.stack([torch.cat([v1, z3], -1),
+                               torch.cat([z3, v2], -1)], dim=2),
+                  torch.full(v1.shape[:2] + (2,), -o.f_max, dtype=v1.dtype,
+                             device=v1.device), Cone.NONPOS, "max_force")
+
+    # SOC friction cones ||(I - v v')F_i|| <= mu v'F_i, rows (A z, c'z)
+    def cone_block(v, first):
+        P = (torch.eye(3, dtype=v.dtype, device=v.device)
+             - torch.einsum("bki,bkj->bkij", v, v))
+        zero = torch.zeros_like(P)
+        A_full = torch.cat([P, zero] if first else [zero, P], dim=3)
+        cvec = o.mu * v
+        zv = torch.zeros_like(cvec)
+        c_full = torch.cat([cvec, zv] if first else [zv, cvec], dim=2)
+        M = torch.cat([A_full, c_full[:, :, None, :]], dim=2)
+        return block(M, M.new_zeros(M.shape[:-1]), Cone.SOC, "norm_soc")
+
+    return (torque, force, cone_block(v1, True), cone_block(v2, False))
 
 
 def grasp_problem(o: GraspObject, N: int = 61, tf: float = 6.0,

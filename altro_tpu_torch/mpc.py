@@ -48,7 +48,7 @@ import torch
 
 from .constraints import DualState
 from .costs import retarget_tracking, tracking_objective
-from .dynamics import LTVDynamics
+from .dynamics import LTVDynamics, lane_mv
 from .problem import Problem
 from .solver import graph
 from .solver.altro import _finalize, _flat_while, _warmstart_state
@@ -80,16 +80,19 @@ def gen_tracking_mpc(prob: Problem, X_track, U_track, N_mpc: int,
     # d, whether or not the stacks carry a batch axis in front
     dyn_mpc = LTVDynamics(A=dyn.A[..., :N_mpc - 1, :, :].contiguous(),
                           B=dyn.B[..., :N_mpc - 1, :, :].contiguous(),
-                          d=dyn.d[..., :N_mpc - 1, :].contiguous())
+                          d=dyn.d[..., :N_mpc - 1, :].contiguous(),
+                          grouped=dyn.grouped)
     cons = []
     for c in prob.constraints:
         if c.name == "goal":
             continue
         mask = c.mask[:N_mpc].clone()
         mask[N_mpc - 1] = 0.0
+        # the knot axis leads the block's stacks, after a lane axis if any
         cons.append(dataclasses.replace(
-            c, Cx=c.Cx[:N_mpc].contiguous(), Cu=c.Cu[:N_mpc].contiguous(),
-            b=c.b[:N_mpc].contiguous(), mask=mask))
+            c, Cx=c.Cx[..., :N_mpc, :, :].contiguous(),
+            Cu=c.Cu[..., :N_mpc, :, :].contiguous(),
+            b=c.b[..., :N_mpc, :].contiguous(), mask=mask))
     return Problem(dynamics=dyn_mpc, cost=cost, constraints=tuple(cons),
                    x0=X_track[0])
 
@@ -136,9 +139,9 @@ def _xws_corrector(dyn):
     trajectory plus one contraction with the build-time constants
     ``Phi_k = A^k``. The tail knot extends the old trajectory one step under
     the repeated last control. Returns ``None`` for time-varying stacks and
-    for per-lane stacks.
+    for per-lane or grouped stacks (the solve then runs its init rollout).
     """
-    if not isinstance(dyn, LTVDynamics) or dyn.per_lane:
+    if not isinstance(dyn, LTVDynamics) or dyn.per_lane or dyn.grouped:
         return None
     A = dyn.A.cpu().numpy()
     Bm = dyn.B.cpu().numpy()
@@ -155,12 +158,13 @@ def _xws_corrector(dyn):
     A_l, B_l, d_l = dyn.A[-1], dyn.B[-1], dyn.d[-1]
 
     def correct(X, U_ws, x0_new):
-        """X [B, N, n], U_ws [B, N-1, m], x0_new [B, n] -> [B, N, n]."""
-        x_ext = (torch.einsum("ij,bj->bi", A_l, X[:, -1])
-                 + torch.einsum("ij,bj->bi", B_l, U_ws[:, -1]) + d_l)
+        """X [B, N, n], U_ws [B, N-1, m], x0_new [B, n] -> [B, N, n]; each
+        lane's products its own (a lane's bits do not depend on the
+        batch)."""
+        x_ext = lane_mv(A_l, X[:, -1]) + lane_mv(B_l, U_ws[:, -1]) + d_l
         Xs = torch.cat([X[:, 1:], x_ext[:, None]], dim=1)
         e0 = x0_new - Xs[:, 0]
-        return Xs + torch.einsum("kij,bj->bki", Phis, e0)
+        return Xs + lane_mv(Phis, e0[:, None, :])
 
     return correct
 
@@ -250,10 +254,12 @@ class _LanePieces(_StepPieces):
     """The step of :class:`_StepPieces` with the window index in the carry,
     one per lane (``make_mpc_step(shared_k=False)``): carry = (x0, X, U,
     duals, k) with k an int64 tensor [B]. The host part is empty; the
-    tensor part advances k, gathers every lane's tracking window and
-    retargets the cost per lane, so the solve runs on a per-lane cost (the
-    solver's split route). ``finish`` returns the next carry with the
-    advanced k."""
+    tensor part advances k, gathers every lane's tracking window, retargets
+    the cost per lane and (with ``constraints_fn``) builds every lane's
+    constraint blocks at its own window (``constraints_fn(k_new)`` with the
+    [B] tensor: per-lane blocks), all on the device, so the solve runs on
+    per-lane data (the solver's split route). ``finish`` returns the next
+    carry with the advanced k."""
 
     def window(self, k_new: int):
         return ()
@@ -263,8 +269,10 @@ class _LanePieces(_StepPieces):
         k_new = k + 1
         Xw, Uw = track_window(self.X_track, self.U_track, k_new,
                               self.prob_mpc.N)
+        cons = (None if self.constraints_fn is None
+                else tuple(self.constraints_fn(k_new)))
         prob_k, s0, x0_new = super().start_from(tuple(rest), noise_i, Xw,
-                                                Uw, None)
+                                                Uw, cons)
         return prob_k, s0, (x0_new, k_new)
 
     def finish(self, prob_k, state, out):
@@ -298,8 +306,11 @@ class _RegulatorPieces(_Pieces):
 
     def __init__(self, prob: Problem, opts: SolverOptions):
         dyn = prob.dynamics
-        if not isinstance(dyn, LTVDynamics) or dyn.per_lane:
-            raise ValueError("the regulator step takes shared LTI dynamics")
+        if not isinstance(dyn, LTVDynamics) or dyn.per_lane or dyn.grouped:
+            raise ValueError("the regulator step takes shared LTI dynamics: "
+                             "its exact re-basing X + A^k e0 reads one A "
+                             "for every lane, not per-lane or grouped "
+                             "stacks")
         self.prob_mpc, self.opts = prob, opts
         # Phi[k] = A^k, built in float64 from the problem's own A and cast
         A0 = dyn.A[0].double().cpu().numpy()
@@ -320,7 +331,7 @@ class _RegulatorPieces(_Pieces):
         x0, X, U, duals = carry
         x0_new = (self.prob_mpc.dynamics.step(x0, U[:, 0], 0)
                   + REGULATOR_NOISE * noise_i)
-        X0 = X + torch.einsum("kij,bj->bki", self.Phis, x0_new - X[:, 0])
+        X0 = X + lane_mv(self.Phis, (x0_new - X[:, 0])[:, None, :])
         prob_k = dataclasses.replace(self.prob_mpc, x0=x0_new)
         return (prob_k, _warmstart_state(prob_k, self.opts, U, duals, X0),
                 x0_new)
@@ -546,12 +557,14 @@ def make_mpc_step(prob_mpc: Problem, opts: SolverOptions, X_track, U_track,
     takes the split route: the AL expansion in PyTorch, then the Riccati
     pass (kernel D on the card), and the classical ladder (or, with
     ``opts.ls_fused`` on, the ladder rollout and the merit in PyTorch).
-    ``constraints_fn`` is not supported there (the JAX package's batched
-    use shares the constraint window): NotImplementedError.
 
     ``constraints_fn(k)``: the constraint blocks of the window starting at
     knot ``k`` (time-varying constraints, as grasp's rotating contact
     frames), refreshed every step; ``None`` keeps ``prob_mpc``'s blocks.
+    With ``shared_k=False`` it is called with the int64 tensor [B] of the
+    lanes' window indices and returns per-lane blocks (stacks [B, N, ...],
+    as ``models.grasp.grasp_constraints`` builds them), built on the
+    device with no host sync (the graphed step captures the call).
 
     ``warm_start``: "shift" carries the previous solution (controls shifted
     one knot, duals shifted, states seam-corrected by
@@ -570,11 +583,8 @@ def make_mpc_step(prob_mpc: Problem, opts: SolverOptions, X_track, U_track,
         pieces = _StepPieces(prob_mpc, opts, X_track, U_track, noise_model,
                              constraints_fn, warm_start)
         return _make_step(pieces, opts, (), graphed, check_every)
-    if constraints_fn is not None:
-        raise NotImplementedError("shared_k=False takes no constraints_fn: "
-                                  "the constraint window is shared")
-    lanes = _LanePieces(prob_mpc, opts, X_track, U_track, noise_model, None,
-                        warm_start)
+    lanes = _LanePieces(prob_mpc, opts, X_track, U_track, noise_model,
+                        constraints_fn, warm_start)
 
     def init_carry(batch: int, start_k=0):
         return lanes.init_carry(batch, graphed, check_every, start_k)
@@ -665,10 +675,13 @@ def make_mpc_step_device_compacted(prob_mpc: Problem, opts: SolverOptions,
     ``(step, init_carry)`` with the signatures of :func:`make_mpc_step`;
     ``graphed`` and ``check_every`` as there (graphed, each level's batch
     has a loop graph of its own, and the gathers and scatters between
-    levels are graphs too)."""
-    if prob_mpc.dynamics.per_lane:
+    levels are graphs too). The level batches share the window's problem,
+    so its data must be shared by the lanes: per-lane or grouped dynamics
+    and per-lane constraint blocks raise."""
+    if prob_mpc.per_lane or getattr(prob_mpc.dynamics, "grouped", False):
         raise NotImplementedError("compaction gathers the solver state "
-                                  "only, not per-lane dynamics stacks")
+                                  "only, not per-lane or grouped dynamics "
+                                  "stacks or per-lane constraint blocks")
     pieces = _StepPieces(prob_mpc, opts, X_track, U_track, noise_model,
                          constraints_fn, warm_start)
     return _make_step(pieces, opts, ((it_cap, block),) + tuple(levels),

@@ -8,9 +8,10 @@ flagged ``grouped``: each group of B / G scenarios shares a schedule), or
 a nonlinear model with
 shared or per-lane params, linearized per lane at every iterate; the cost's
 linear terms are shared or carry the batch (every scenario tracking its own
-window); the cost's Hessians and the constraint stacks are shared by every
-scenario (a nonlinear block's Jacobians, taken at each lane's iterate, are
-per lane).
+window); the cost's Hessians are shared by every scenario, and the
+constraint stacks are shared or (an affine block's) carry the batch: every
+scenario's own window of a time-varying block (a nonlinear block's
+Jacobians, taken at each lane's iterate, are per lane).
 """
 from __future__ import annotations
 
@@ -31,8 +32,17 @@ Block = Union[ConicConstraint, QuadNormConstraint]
 class Problem:
     dynamics: Dynamics      # LTV stacks, shared, [B or G, N-1, ...]; or f
     cost: QuadCost          # Hessians shared; q, r, c shared or [B, N, ...]
-    constraints: Tuple[Block, ...]  # shared
+    constraints: Tuple[Block, ...]  # shared, or [B, N, ...] (affine)
     x0: torch.Tensor  # [B, n] (or [n] for an unbatched problem)
+
+    @property
+    def per_lane(self) -> bool:
+        """Whether the problem's data differs between lanes: per-lane
+        dynamics (a nonlinear model's linearization among them), a
+        per-lane cost or per-lane constraint blocks (grouped stacks are
+        shared by their group's lanes)."""
+        return (self.dynamics.per_lane or self.cost.per_lane
+                or any(c.per_lane for c in self.constraints))
 
     @property
     def N(self) -> int:

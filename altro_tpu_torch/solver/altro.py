@@ -3,17 +3,18 @@
 ZERO/NONPOS/SOC constraint blocks and nonlinear (quadratic norm) blocks.
 
 Every entry point takes an explicit leading batch axis B (``prob.x0`` is
-[B, n]); constraint stacks are shared by the batch, the cost's linear terms
-and the dynamics stacks are shared or per scenario, and LTV stacks may be
-shared per group of scenarios (``LTVDynamics.grouped``: the fused kernels
-index each scenario's group, as the JAX package's kernels run once per
-group under a vmap over groups). Each iteration runs
+[B, n]); the constraint stacks (of an affine block), the cost's linear
+terms and the dynamics stacks are shared or per scenario, and LTV stacks
+may be shared per group of scenarios (``LTVDynamics.grouped``: the fused
+kernels index each scenario's group, as the JAX package's kernels run once
+per group under a vmap over groups). Each iteration runs
 
 - the AL expansion and the Riccati backward pass, either
   - fused into one pass (ops/riccati_fused.py: a CUDA kernel on the card),
     where the dynamics are shared LTV stacks, every block is affine
     (:func:`ltv_affine`, the JAX package's gate), the cost is shared and
-    ``SolverOptions.fused_expansion`` is on, or
+    ``SolverOptions.fused_expansion`` is on (``Problem.per_lane`` false),
+    or
   - split (otherwise): the dynamics linearized about the iterate
     (per lane and knot for a nonlinear model), the expansion in PyTorch
     (a nonlinear block's Jacobians per lane, plus its exact curvature),
@@ -416,14 +417,17 @@ def take_lanes(prob: Problem, take: torch.Tensor) -> Problem:
     """The problem of the lanes ``take`` [b] of a batch: x0 and the LTV
     stacks when per lane gathered, shared data as it is. Grouped stacks
     refuse (the gathered lanes would mix groups: gather
-    ``dynamics.lanes(B)`` instead), as do a nonlinear model and a per-lane
-    cost, which no compacted path gathers."""
+    ``dynamics.lanes(B)`` instead), as do a nonlinear model, a per-lane
+    cost and per-lane constraint blocks, which no compacted path
+    gathers."""
     dyn = prob.dynamics
     if (not isinstance(dyn, LTVDynamics) or dyn.grouped
-            or prob.cost.per_lane):
+            or prob.cost.per_lane
+            or any(c.per_lane for c in prob.constraints)):
         raise ValueError("take_lanes gathers LTV stacks, shared or per lane, "
-                         "under a shared cost; grouped stacks would mix "
-                         "groups: take dynamics.lanes(B) first")
+                         "under a shared cost and shared constraint blocks; "
+                         "grouped stacks would mix groups: take "
+                         "dynamics.lanes(B) first")
     if dyn.per_lane:
         dyn = LTVDynamics(A=dyn.A[take], B=dyn.B[take], d=dyn.d[take])
     return dataclasses.replace(prob, dynamics=dyn, x0=prob.x0[take])
@@ -566,8 +570,7 @@ def loop_context(prob: Problem, opts: SolverOptions,
     dynamics and nonlinear blocks take neither)."""
     alphas_t = tuple(opts.ls_decrease ** i
                      for i in range(opts.iterations_linesearch)) + (0.0,)
-    per_lane = prob.dynamics.per_lane or prob.cost.per_lane
-    fused = (not per_lane and ltv_affine(prob)
+    fused = (not prob.per_lane and ltv_affine(prob)
              and (opts.fused_expansion
                   or _uses_fused_ladder(opts, prob, X_0)))
     packed = (pack_blocks(prob.constraints, prob.N, prob.n, prob.m, X_0)
@@ -599,13 +602,14 @@ def loop_fns(prob: Problem, opts: SolverOptions, s0, it_cap=None,
     dyn = prob.dynamics
     fused_ladder = _uses_fused_ladder(opts, prob, X_0)
     # the fused kernels read shared LTV data (or LTV stacks with a group
-    # axis) and affine blocks only. Per-lane data, nonlinear dynamics and
-    # nonlinear blocks take the split route (the linearization and the
-    # expansion in PyTorch, then the Riccati pass; grouped stacks come per
-    # lane from the linearization), as does any problem with
-    # opts.fused_expansion off; on per-lane LTV data the line search's
-    # fused branch runs the ladder rollout and the merit in PyTorch
-    per_lane = dyn.per_lane or prob.cost.per_lane
+    # axis) and shared affine blocks only. Per-lane data (dynamics, cost or
+    # constraint blocks), nonlinear dynamics and nonlinear blocks take the
+    # split route (the linearization and the expansion in PyTorch, then the
+    # Riccati pass; grouped stacks come per lane from the linearization),
+    # as does any problem with opts.fused_expansion off; on per-lane LTV
+    # data the line search's fused branch runs the ladder rollout and the
+    # merit in PyTorch
+    per_lane = prob.per_lane
     split = per_lane or not opts.fused_expansion or not ltv_affine(prob)
     grouped = isinstance(dyn, LTVDynamics) and dyn.grouped
 
@@ -680,7 +684,7 @@ def loop_fns(prob: Problem, opts: SolverOptions, s0, it_cap=None,
             # the fused branch's arithmetic with per-lane dynamics: the
             # ladder rollout, then each rung's cost and AL merit tail
             Xts, Uts = batched_ls_rollout(dyn.A, dyn.B, dyn.d, X, U, Knew,
-                                          dff, alphas_t)
+                                          dff, alphas_t, grouped)
             Jts = prob.cost.total(Xts, Uts) + _al_merit_tail(
                 prob.constraints, tuple(lam[:, None] for lam in lams),
                 rho0[:, None], Xts, Uts)

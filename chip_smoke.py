@@ -24,8 +24,12 @@ Phases, each printing its findings; any failure raises (non-zero exit):
       against max(1, |J|), and the accepted rung compared);
    c. the flat quadruped batch (B=1024, n=m=12, N=15, per-lane dynamics of
       8 contact schedules, SOC friction cones): the Riccati pass on the
-      solver's own AL expansion at perturbed X, U and multipliers, and the
-      ladder rollout with per-lane dynamics at the solver's L=11 ladder;
+      solver's own AL expansion at perturbed X, U and multipliers (its
+      float32 result held to the float64 plain version on the same inputs
+      within 1.5x the plain float32 pass's own distance from it, or 1e-3
+      max(1, max|f64|) where larger: the quadruped's Quu is
+      ill-conditioned, ``against_f64``), and the ladder rollout with
+      per-lane dynamics at the solver's L=11 ladder;
    d. grasp (B=1024, n = m = 6; torque balance ZERO, max force NONPOS, two
       SOC friction cones): the fused expansion on the MPC window (N=21, 13
       rows in 4 blocks) and on the cold problem (N=61, a goal ZERO block
@@ -177,6 +181,28 @@ Phases, each printing its findings; any failure raises (non-zero exit):
       and C never; 64 lanes of the float64 card solve against the port's
       plain float64 solve on the CPU (equal status and iterations,
       max|dU| <= 1e-6);
+   p. scenario sharding over ``torch.distributed`` (``altro_tpu_torch/
+      parallel``) at world size 1 on NCCL, in this process: the flagship's
+      ``sharded_mpc_step`` (B=1024, SHARD_T steps, float32, on graphs)
+      against a fresh ``make_mpc_step(shared_k=True)`` from the same state
+      (gates: equal status and iterations on every lane-step, U equal bit
+      for bit, the three all-reduced metrics equal to the local sum, max
+      and sum; success 1.0, violation <= 1e-4; B and A once per counted
+      pass, C and D never; no entry into the host-driven loop); the group
+      torn down; then ``parallel.dryrun.dryrun_multichip(1)`` (one spawned
+      NCCL rank: the dry run's three programs and their checks; its
+      launches count in the table) and ``bench/scaling.py: measure`` at
+      1024 lanes a card and 10 steps (one spawned rank; the rows for more
+      cards than the host has printed as not measured);
+   q. per-lane constraint windows (``make_mpc_step(shared_k=False,
+      constraints_fn=grasp_constraints)``: every lane's grasp window built
+      at its own index on the device), B=1024, float32, N=21, T=LANE_GRASP_T
+      steps, lanes started at windows 0-7, on graphs: success >= 0.999,
+      violation of the succeeded solves <= 1e-4; kernel D and kernel A once
+      per counted pass, B and C never; no entry into the host-driven loop;
+      then the float64 step on the card against the port's plain float64
+      step on the CPU from the card's carry, 16 lanes x 3 steps (gate:
+      equal status and iterations, max|dU| <= 1e-6);
    f. graphed against eager on the card, every run from one carry: the
       flagship (B=1024, 10 steps), the rocket, grasp and flexsat in their
       shipped schedules (5 steps), the quadruped, flat and grouped (2 rounds
@@ -281,7 +307,9 @@ float64, the float32 result held to the float64 plain version within 4x
 the plain float32 pass's own distance from it, as its Quu is
 ill-conditioned), and three for the grouped quadruped, B, C (L=11) and
 A's init form with a group axis (3n at B=1024, float32; launches over
-4n); the last line is {"ok": true, "device": {...}}.
+4n); the launches of 4p (the sharded step and the dry run's rank) and
+4q count in the four kernels' rows; the last line is {"ok": true,
+"device": {...}}.
 Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -352,6 +380,15 @@ NAIVE_B, NAIVE_SUCCESS, NAIVE_DU = 1024, 0.99, 1e-6
 # 4m: the nonlinear SRB trot's batch, cold rounds per friction mode and
 # dtype, and the lanes of its card-vs-CPU float64 comparison and its gate
 SRB_B, SRB_ROUNDS, SRB_AGREE_B, SRB_DU = 1024, 2, 64, 1e-6
+# 4p: the sharded flagship's batch and steps at world size 1; the scaling
+# study's lanes per card and steps
+SHARD_B, SHARD_T = 1024, 3
+SCALING_B, SCALING_T = 1024, 10
+# 4q: per-lane grasp windows: batch, steps, the spread of the start windows
+# (0 .. LANE_GRASP_SPREAD - 1), the float64 card-vs-CPU lanes, steps and
+# gate
+LANE_GRASP_B, LANE_GRASP_T, LANE_GRASP_SPREAD = 1024, 15, 8
+LANE_GRASP_AGREE_B, LANE_GRASP_AGREE_T, LANE_GRASP_DU = 16, 3, 1e-6
 
 
 def errors(got, ref, names, tol: float) -> dict:
@@ -548,6 +585,8 @@ def quadruped_parity(dtype, tol):
     from altro_tpu_torch.bench.kernels import quadruped_inputs
     from altro_tpu_torch.ops import riccati, rollout
 
+    from altro_tpu_torch.convert import tree_to
+
     qd = quadruped_inputs(dtype, torch.device("cuda"), QUAD_B)
     args, ref = qd["riccati"], qd["riccati_ref"]
     bp, bp_ref = riccati.batched_riccati, riccati.batched_riccati_reference
@@ -555,8 +594,19 @@ def quadruped_parity(dtype, tol):
     torch.cuda.synchronize()
     if not all(bool(torch.isfinite(r).all()) for r in ref):
         raise AssertionError("quadruped parity inputs make Quu indefinite")
-    res = {"batched_riccati": (errors(out, ref, ("K", "d", "dV1", "dV2"),
-                                      tol),
+    names = ("K", "d", "dV1", "dV2")
+    if dtype == torch.float32:
+        # the plain float32 pass is itself nearly a gate's width from the
+        # answer here: hold the kernel to the float64 answer instead, within
+        # 1.5x the plain float32 pass's own distance e from it (or tol
+        # max(1, max|f64|)), which is below what that gate let through
+        # (tol max|plain f32| + e) wherever e < 2 tol max|plain f32|
+        errs = against_f64("D quadruped", out, ref,
+                           bp_ref(*tree_to(args, dtype=torch.float64)),
+                           names, factor=1.5, tol=tol)
+    else:
+        errs = errors(out, ref, names, tol)
+    res = {"batched_riccati": (errs,
                                time_ms(lambda: bp(*args), kernel=True),
                                time_ms(lambda: bp_ref(*args)),
                                qd["riccati_work"])}
@@ -1652,6 +1702,191 @@ def lane_flagship(card, reset_counts, read_counts):
     return launches
 
 
+def sharded_flagship(card, reset_counts, read_counts):
+    """Phase 4p: the flagship's ``sharded_mpc_step`` at world size 1 on
+    NCCL in this process (the group torn down after it), gated bit for bit
+    against a fresh ``make_mpc_step(shared_k=True)`` from the same state;
+    then ``dryrun_multichip(1)`` and the scaling study's rows, each in a
+    spawned rank. Returns the launches of the sharded steps plus the dry
+    run's rank."""
+    from altro_tpu_torch.bench import scaling
+    from altro_tpu_torch.bench.flagship import flagship_setup
+    from altro_tpu_torch.mpc import make_mpc_step
+    from altro_tpu_torch.parallel import process_group, sharded_mpc_step
+    from altro_tpu_torch.parallel.dryrun import dryrun_multichip
+    from altro_tpu_torch.solver import altro
+
+    t0 = time.perf_counter()
+    su = flagship_setup(SHARD_B, SHARD_T, device="cuda")
+    x0s = su.prob_mpc.x0.expand(SHARD_B, su.prob_mpc.n)
+    with process_group(0, 1, "cuda") as mesh:
+        backend = torch.distributed.get_backend()
+        print(f"4p: process group of {mesh.size} on {backend}, rank "
+              f"{mesh.rank} on {mesh.device}", flush=True)
+        step = sharded_mpc_step(su.prob_mpc, su.opts, su.X_track,
+                                su.U_track, mesh)
+        state0 = step.init_state(x0s)
+        step(state0, su.noise[0])                      # capture, warm up
+        reset_counts()
+        state, outs, metrics, ms = state0, [], [], []
+        for t in range(SHARD_T):
+            (state, mt), t_ms = _timed(lambda: step(state, su.noise[t]))
+            outs.append(step.results)
+            metrics.append(tuple(v.item() for v in mt))
+            ms.append(t_ms)
+        launches, passes = read_counts(), altro.pass_count
+        eager = altro.eager_loop_count
+    ref_step, _ = make_mpc_step(su.prob_mpc, su.opts, su.X_track,
+                                su.U_track, shared_k=True)
+    carry, exact = state0[:4], True
+    for t, (out, mt) in enumerate(zip(outs, metrics)):
+        carry, ref = ref_step(carry, su.noise[t], t)
+        if not (torch.equal(out.status, ref.status)
+                and torch.equal(out.iters, ref.iters)):
+            raise AssertionError(f"4p step {t}: the sharded step's status or "
+                                 f"iterations differ from the plain step's")
+        exact &= torch.equal(out.U, ref.U) and torch.equal(out.X, ref.X)
+        local = (int(ref.iters.sum()), float(ref.viol.max()),
+                 int(ref.status.sum()))
+        if (int(mt[0]), float(mt[1]), int(mt[2])) != local:
+            raise AssertionError(f"4p step {t}: all-reduced metrics {mt} "
+                                 f"differ from the local ones {local}")
+    status = torch.stack([o.status for o in outs]).double()
+    viol = torch.stack([o.viol for o in outs]).double()
+    print(f"4p sharded flagship [{card}]: world size 1 ({backend}), "
+          f"B={SHARD_B}, "
+          f"{SHARD_T} steps, float32, graphs; step ms p50 "
+          f"{float(np.median(ms)):.3f}; success "
+          f"{float(status.mean()):.4f} max_viol {float(viol.max()):.3e}; "
+          f"fleet metrics per step {metrics}; bit-equal (X, U) to the plain "
+          f"step: {exact}; passes {passes}; launches {launches}", flush=True)
+    if not exact:
+        raise AssertionError("4p: the sharded step's X or U differs from the "
+                             "plain step's")
+    if not (float(status.mean()) == 1.0 and float(viol.max()) <= 1e-4):
+        raise AssertionError(f"4p quality: success {float(status.mean())}, "
+                             f"max_viol {float(viol.max())}")
+    if not (passes > 0 and launches["fused_expand_backward"] == passes
+            and launches["batched_ls_rollout"] == passes
+            and launches["batched_ls_rollout_al"] == 0
+            and launches["batched_riccati"] == 0 and eager == 0):
+        raise AssertionError(f"4p launch counts {launches} do not match "
+                             f"{passes} passes, or the host-driven loop ran "
+                             f"({eager})")
+    t1 = time.perf_counter()
+    dry = dryrun_multichip(1)[0]
+    print(f"4p dryrun_multichip(1) [{card}] ({time.perf_counter() - t1:.1f} "
+          f"s, one spawned rank): {dry}", flush=True)
+    for k, v in dry["launches"].items():
+        launches[k] += v
+    t1 = time.perf_counter()
+    rows = scaling.measure(batch_per_device=SCALING_B, steps=SCALING_T)
+    print(f"4p scaling ({time.perf_counter() - t1:.1f} s, "
+          f"{torch.cuda.device_count()} card(s)) [{card}]: "
+          f"{json.dumps(rows)}", flush=True)
+    if not (rows[0]["devices"] == 1
+            and rows[0]["n_success"] == SCALING_B
+            and all(r["solves_per_s"] == scaling.NOT_MEASURED
+                    for r in rows if r["devices"]
+                    > torch.cuda.device_count())):
+        raise AssertionError(f"4p scaling rows: {rows}")
+    print(f"phase 4p ({time.perf_counter() - t0:.1f} s) launches: "
+          f"{launches}", flush=True)
+    return launches
+
+
+def lane_grasp(card, reset_counts, read_counts):
+    """Phase 4q: per-lane constraint windows on grasp
+    (``make_mpc_step(shared_k=False, constraints_fn=...)``), float32 on
+    graphs with the counts reset after the capture; then the float64 step
+    on the card against the port's plain float64 step on the CPU from the
+    card's carry. Returns the launches."""
+    from altro_tpu_torch.bench.conic import grasp_setup
+    from altro_tpu_torch.convert import tree_to
+    from altro_tpu_torch.models import grasp
+    from altro_tpu_torch.mpc import make_mpc_step
+    from altro_tpu_torch.solver import altro
+
+    t0 = time.perf_counter()
+
+    def lane_step(su, opts=None, device="cuda"):
+        o = grasp.make_grasp_object(61, 6.0, dtype=su.prob_mpc.x0.dtype,
+                                    device=device)
+        su = tree_to(su, device)
+        return make_mpc_step(
+            su.prob_mpc, su.opts if opts is None else opts, su.X_track,
+            su.U_track, constraints_fn=lambda k: grasp.grasp_constraints(
+                o, su.prob_mpc.N, k), shared_k=False)
+
+    s32 = grasp_setup(torch.float32, device="cuda")
+    noise = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        (LANE_GRASP_T, LANE_GRASP_B, 6)), dtype=torch.float32, device="cuda")
+    step, init = lane_step(s32)
+    starts = torch.arange(LANE_GRASP_B, device="cuda") % LANE_GRASP_SPREAD
+    carry = init(LANE_GRASP_B, starts)
+    step(carry, noise[0])                               # capture, warm up
+    reset_counts()
+    outs, ms = [], []
+    for t in range(LANE_GRASP_T):
+        (carry, out), t_ms = _timed(lambda: step(carry, noise[t]))
+        outs.append(out)
+        ms.append(t_ms)
+    launches, passes = read_counts(), altro.pass_count
+    eager = altro.eager_loop_count
+    ok = torch.stack([o.status for o in outs]).cpu() == 1
+    viol = torch.stack([o.viol for o in outs]).double().cpu()
+    iters = torch.stack([o.iters for o in outs]).cpu().double()
+    success = float(ok.double().mean())
+    viol_ok = float(viol[ok].max()) if bool(ok.any()) else math.inf
+    print(f"4q per-lane grasp windows [{card}]: B={LANE_GRASP_B}, "
+          f"{LANE_GRASP_T} steps, start windows 0-{LANE_GRASP_SPREAD - 1}, "
+          f"float32, graphs; step ms p50 {float(np.median(ms)):.3f}; success "
+          f"{success:.5f} max_viol (succeeded) {viol_ok:.3e} mean_iters "
+          f"{float(iters.mean()):.3f} lane_max_iters {int(iters.max())}; "
+          f"passes {passes}; final windows "
+          f"{sorted(set(carry[4].tolist()))}; launches {launches}",
+          flush=True)
+    if not (success >= 0.999 and viol_ok <= 1e-4):
+        raise AssertionError(f"4q quality: success {success}, max_viol "
+                             f"{viol_ok}")
+    if not (passes > 0 and launches["batched_riccati"] == passes
+            and launches["batched_ls_rollout"] == passes
+            and launches["fused_expand_backward"] == 0
+            and launches["batched_ls_rollout_al"] == 0 and eager == 0):
+        raise AssertionError(f"4q launch counts {launches} do not match "
+                             f"{passes} passes, or the host-driven loop ran "
+                             f"({eager})")
+
+    # float64: the card's kernels against the CPU's plain path, each step
+    # from the card's carry (the CPU mirrors the card's ladder choice:
+    # ls_fused "auto" takes the fused branch's form on a card, "on" there)
+    s64 = grasp_setup(torch.float64, device="cuda")
+    o64 = s64.opts
+    step_c, init_c = lane_step(s64)
+    step_h, _ = lane_step(s64, dataclasses.replace(o64, ls_fused="on"),
+                          "cpu")
+    n64 = noise[:LANE_GRASP_AGREE_T, :LANE_GRASP_AGREE_B].double()
+    carry = init_c(LANE_GRASP_AGREE_B, starts[:LANE_GRASP_AGREE_B])
+    differ, dU = 0, 0.0
+    for t in range(LANE_GRASP_AGREE_T):
+        c_h = tree_to(carry, "cpu")
+        carry, oc = step_c(carry, n64[t])
+        _, oh = step_h(c_h, n64[t].cpu())
+        differ += int(((oc.status.cpu() != oh.status)
+                       | (oc.iters.cpu() != oh.iters)).sum())
+        dU = max(dU, float((oc.U.cpu() - oh.U).abs().max()))
+    print(f"4q float64 [{card}]: {LANE_GRASP_AGREE_B} lanes x "
+          f"{LANE_GRASP_AGREE_T} steps, card kernels vs CPU plain from the "
+          f"card's carry: status or iterations differ on {differ} "
+          f"lane-steps; max|dU| {dU:.3e} (gate {LANE_GRASP_DU:.0e})")
+    if differ or not dU <= LANE_GRASP_DU:
+        raise AssertionError(f"4q float64 card vs CPU: {differ} lane-steps "
+                             f"differ, max|dU| {dU:.3e}")
+    print(f"phase 4q ({time.perf_counter() - t0:.1f} s) launches: "
+          f"{launches}", flush=True)
+    return launches
+
+
 def gate_modules(card, su32, gsu32):
     """Phase 5g: ``bench/fused_check.py`` in full on both families (the
     setups of 4b and 4e) and ``bench/agreement.py`` at AGREEMENT_T steps;
@@ -2304,6 +2539,14 @@ def main() -> None:
     # (gated there: its float64 comparison on the CPU enters the host loop)
     jlaunches = lane_flagship(card, reset_counts, read_counts)
 
+    # ---- 4p. main path: scenario sharding at world size 1 on NCCL, the
+    # dry run and the scaling rows (gated there)
+    plaunches = sharded_flagship(card, reset_counts, read_counts)
+
+    # ---- 4q. main path: per-lane grasp windows (the split route: D and A
+    # once per pass; gated there)
+    qwlaunches = lane_grasp(card, reset_counts, read_counts)
+
     # ---- 4k, 4l. main path: the naive rocket (the quadratic norm blocks
     # take the split route: D and A once per pass, A once more per solve);
     # 4k's one landing beside the conic form, 4l's Monte-Carlo batch
@@ -2487,7 +2730,8 @@ def main() -> None:
             "launches": (launches[name] + rlaunches[name] + qlaunches[name]
                          + nlaunches[name] + olaunches[name]
                          + glaunches[name] + flaunches[name]
-                         + jlaunches[name] + klaunches[name]
+                         + jlaunches[name] + plaunches[name]
+                         + qwlaunches[name] + klaunches[name]
                          + mlaunches[name] + llaunches[name]
                          + hlaunches[name] + glaunches5[name]
                          + p6launches[name] + qslaunches[name]),

@@ -108,7 +108,8 @@ def test_lane_step_fixed_buffers_equal_eager():
     """The graphed form's route on the CPU (the same functions over fixed
     buffers, per-lane cost tensors among them) equals the host-driven step
     bit for bit, lanes at different windows; an int start index and a
-    constraints_fn are handled as documented."""
+    constraints_fn are handled as documented (one that returns the
+    problem's own shared blocks changes no bit of the step)."""
     T, B = 3, 4
     prob_mpc, X_track, U_track, noise = _flagship(T=T, B=B, seed=2)
     tp, X_t, U_t = _torch(prob_mpc, X_track, U_track)
@@ -128,9 +129,20 @@ def test_lane_step_fixed_buffers_equal_eager():
     assert torch.equal(oe.iters, og.iters) and torch.equal(oe.U, og.U)
     step, init = make_mpc_step(tp, opts, X_t, U_t, shared_k=False)
     assert init(2, 5)[4].tolist() == [5, 5]
-    with pytest.raises(NotImplementedError):
-        make_mpc_step(tp, opts, X_t, U_t, shared_k=False,
-                      constraints_fn=lambda k: tp.constraints)
+    seen = []
+
+    def same_blocks(k):
+        seen.append(k)
+        return tp.constraints
+
+    cstep, _ = make_mpc_step(tp, opts, X_t, U_t, shared_k=False,
+                             constraints_fn=same_blocks)
+    nz = torch.as_tensor(noise[0])
+    (c1, o1), (c2, o2) = step(carry0, nz), cstep(carry0, nz)
+    assert seen[0].tolist() == [4, 1, 2, 3]
+    for x, y in zip(tensors(c1), tensors(c2)):
+        assert torch.equal(x, y)
+    assert torch.equal(o1.iters, o2.iters)
 
 
 def test_track_window_per_lane_clamps_like_dynamic_slice():
