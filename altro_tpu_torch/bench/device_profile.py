@@ -101,7 +101,9 @@ LOOP_SECTIONS = ("prep", "solve", "ticks")
 KINDS = (("kernel B (fused_expand_backward)", ("fused_expand_backward",)),
          ("kernel C (ls_rollout_al)", ("ls_rollout_al",)),
          ("kernel A (ls_rollout)", ("ls_rollout",)),
-         ("kernel D (riccati)", ("riccati_kernel",)),
+         # every kernel D body (its translation unit names B's kernels too,
+         # which match first); before index/cat/copy, whose "cat" it holds
+         ("kernel D (riccati)", ("riccati",)),
          ("gemm/gemv", ("gemm", "gemv", "cublas", "xmma", "cutlass")),
          ("reduction", ("reduce",)),
          ("elementwise", ("elementwise",)),

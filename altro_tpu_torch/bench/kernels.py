@@ -2,7 +2,7 @@
 AL merit) and D (Riccati pass from an expansion) alone, at the main paths'
 shapes, timed on one card beside their bounds.
 
-    python -m altro_tpu_torch.bench.kernels [--against DIR]
+    python -m altro_tpu_torch.bench.kernels [--against DIR] [--wide]
 
 Prints one line per (kernel, shape, dtype): the kernel's device time (see
 :func:`time_ms`: CUDA events around REPS back-to-back launches queued behind
@@ -28,8 +28,8 @@ n = m = 64), N=21, at one lane and at B=1024: A at L=11 and L=1, B, C at
 L=11 and D (``wide_cases``). The naive rocket (N=301, n=6, m=3: the goal
 ZERO block and three quadratic norm blocks, which take the split route)
 runs D with shared A/B on its per-lane expansion and A at its L=11 ladder,
-at B=1024 and at one lane (``naive_rocket_inputs``). ``--against DIR``
-names the root
+at B=1024 and at one lane (``naive_rocket_inputs``); ``--wide`` times the
+wide bodies' rows alone. ``--against DIR`` names the root
 of another checkout of this repository (for example the parent commit,
 unpacked with ``git archive`` into ``build/``): each turn runs in a process
 of its own, in the order other, this, this, other, on the same inputs
@@ -168,14 +168,16 @@ def rollout_al_work(Bt, N, n, m, P, L, itemsize, groups: int = 1) -> tuple:
 
 def riccati_work(Bt, N, n, m, per_lane, itemsize) -> tuple:
     """(bytes, FLOPs) of kernel D: per-lane (or shared) A/B and the per-lane
-    expansion read, K, d, dV1, dV2 written; per knot V A, V B, the Q blocks,
-    one Cholesky, the n + 1 solves and V."""
+    expansion read, K, d, dV1, dV2 written; per knot V A, V B, the Q blocks
+    (upper triangles of Qxx and Quu, as ``fused_work`` counts them), one
+    Cholesky, the n + 1 solves and V."""
     N1 = N - 1
     dyn = N1 * (n * n + n * m) * (Bt if per_lane else 1)
     elems = (dyn + Bt * N * (n + m + n * n + m * m + m * n) + Bt
              + Bt * (N1 * (m * n + m) + 2))
-    knot = (2 * n * n * (n + m) + 2 * n * n * n + 4 * n * n * m
-            + 2 * m * m * n + 2 * n * (n + m) + 2 * m ** 3 // 3
+    tri_n, tri_m = n * (n + 1) // 2, m * (m + 1) // 2
+    knot = (2 * n * n * (n + m) + (tri_n + tri_m + m * n) * 2 * n
+            + 2 * n * (n + m) + 2 * m ** 3 // 3
             + 4 * (n + 1) * m * m + 3 * m * n * (n + 1) + 4 * m * n)
     return elems * itemsize, Bt * N1 * knot
 
@@ -768,96 +770,102 @@ def wide_cases(dtype, dev) -> list:
     return cases
 
 
-def measure() -> list:
-    """Time kernels A, B, C and D at every shape, f32 and f64, in the
-    checkout whose ``altro_tpu_torch`` is imported."""
+def _all_cases(dtype, dev) -> list:
+    """(kernel, shape, call, work) at every shape of the main paths, then
+    ``wide_cases`` and the naive rocket's."""
+    from altro_tpu_torch.ops import riccati, riccati_fused, rollout, rollout_al
+
+    fb, ls = riccati_fused.fused_expand_backward, rollout.batched_ls_rollout
+    la, bp = rollout_al.batched_ls_rollout_al, riccati.batched_riccati
+    fl = flagship_inputs(dtype, dev)
+    rk = rocket_inputs(dtype, dev)
+    gw = grasp_inputs(dtype, dev)
+    gc = grasp_inputs(dtype, dev, cold=True)
+    fx = flexsat_inputs(dtype, dev)
+    qd = quadruped_inputs(dtype, dev)
+    sn = quadruped_inputs(dtype, dev, nonlinear=True)
+    lq = quadloop_inputs(dtype, dev, True)
+    ls_ = quadloop_inputs(dtype, dev, False)
+    other = [(w, flagship_inputs(dtype, dev, widths=w))
+             for w in OTHER_WIDTHS]
+
+    def fused(inp):
+        return lambda: fb(*inp["fused"], packed=inp["packed"])
+
+    def pass_d(inp):
+        return lambda: bp(*inp["riccati"])
+    cases = [
+        ("B", "flagship", fused(fl), fl["fused_work"]),
+        ("B", "rocket", fused(rk), rk["fused_work"]),
+        ("B", "grasp window", fused(gw), gw["fused_work"]),
+        ("B", "grasp cold", fused(gc), gc["fused_work"]),
+        ("B", "flexsat", fused(fx), fx["fused_work"]),
+        ("B", "closed loop qp B=1", fused(lq), lq["fused_work"]),
+        ("B", "closed loop socp B=1", fused(ls_), ls_["fused_work"]),
+        *(("B", f"random-linear n={n} m={m}", fused(inp),
+           inp["fused_work"]) for (n, m), inp in other),
+        ("A", "flagship L=3", lambda: ls(*fl["ladder"]), fl["ladder_work"]),
+        ("A", "init L=1", lambda: ls(*fl["init"]), fl["init_work"]),
+        ("A", "quadruped L=11 per-lane", lambda: ls(*qd["ladder"]),
+         qd["ladder_work"]),
+        ("A", "closed loop init L=1 B=1", lambda: ls(*lq["init"]),
+         lq["init_work"]),
+        ("C", "rocket L=6",
+         lambda: la(*rk["ladder_al"], packed=rk["packed"]),
+         rk["ladder_al_work"]),
+        ("C", "grasp L=3",
+         lambda: la(*gw["ladder_al"], packed=gw["packed"]),
+         gw["ladder_al_work"]),
+        ("C", "flexsat L=6",
+         lambda: la(*fx["ladder_al"], packed=fx["packed"]),
+         fx["ladder_al_work"]),
+        *(("C", f"closed loop {mode} L=11 B=1",
+           (lambda q=q: la(*q["ladder_al"], packed=q["packed"])),
+           q["ladder_al_work"]) for mode, q in (("qp", lq), ("socp", ls_))),
+        ("D", "quadruped per-lane", pass_d(qd), qd["riccati_work"]),
+        ("D", "nonlinear SRB per-lane", pass_d(sn), sn["riccati_work"]),
+        ("D", "flagship shared", pass_d(fl), fl["riccati_work"]),
+        *(("D", f"random-linear shared n={n} m={m}", pass_d(inp),
+           inp["riccati_work"]) for (n, m), inp in other)]
+    cases += wide_cases(dtype, dev)
+    for B in NAIVE_BATCHES:
+        nr = naive_rocket_inputs(dtype, dev, B)
+        cases += [("D", f"naive rocket N=301 B={B}", pass_d(nr),
+                   nr["riccati_work"]),
+                  ("A", f"naive rocket N=301 L=11 B={B}",
+                   (lambda nr=nr: ls(*nr["ladder"])), nr["ladder_work"])]
+    return cases
+
+
+def measure(wide_only: bool = False) -> list:
+    """Time kernels A, B, C and D at every shape (``wide_only``: the wide
+    bodies' shapes, ``wide_cases``), f32 and f64, in the checkout whose
+    ``altro_tpu_torch`` is imported."""
     import torch
-    from altro_tpu_torch.ops import (_build, riccati, riccati_fused, rollout,
-                                     rollout_al)
+    from altro_tpu_torch.ops import _build
 
     _build.library()
     dev = torch.device("cuda")
-    fb, ls = riccati_fused.fused_expand_backward, rollout.batched_ls_rollout
-    la, bp = rollout_al.batched_ls_rollout_al, riccati.batched_riccati
     rows = []
     for dtype in (torch.float32, torch.float64):
         label = "f32" if dtype == torch.float32 else "f64"
-        fl = flagship_inputs(dtype, dev)
-        rk = rocket_inputs(dtype, dev)
-        gw = grasp_inputs(dtype, dev)
-        gc = grasp_inputs(dtype, dev, cold=True)
-        fx = flexsat_inputs(dtype, dev)
-        qd = quadruped_inputs(dtype, dev)
-        sn = quadruped_inputs(dtype, dev, nonlinear=True)
-        lq = quadloop_inputs(dtype, dev, True)
-        ls_ = quadloop_inputs(dtype, dev, False)
-        other = [(w, flagship_inputs(dtype, dev, widths=w))
-                 for w in OTHER_WIDTHS]
-        item = fl["fused"][4].element_size()
-
-        def fused(inp):
-            return lambda: fb(*inp["fused"], packed=inp["packed"])
-
-        def pass_d(inp):
-            return lambda: bp(*inp["riccati"])
-        cases = [
-            ("B", "flagship", fused(fl), fl["fused_work"]),
-            ("B", "rocket", fused(rk), rk["fused_work"]),
-            ("B", "grasp window", fused(gw), gw["fused_work"]),
-            ("B", "grasp cold", fused(gc), gc["fused_work"]),
-            ("B", "flexsat", fused(fx), fx["fused_work"]),
-            ("B", "closed loop qp B=1", fused(lq), lq["fused_work"]),
-            ("B", "closed loop socp B=1", fused(ls_), ls_["fused_work"]),
-            *(("B", f"random-linear n={n} m={m}", fused(inp),
-               inp["fused_work"]) for (n, m), inp in other),
-            ("A", "flagship L=3", lambda: ls(*fl["ladder"]),
-             fl["ladder_work"]),
-            ("A", "init L=1", lambda: ls(*fl["init"]), fl["init_work"]),
-            ("A", "quadruped L=11 per-lane", lambda: ls(*qd["ladder"]),
-             qd["ladder_work"]),
-            ("A", "closed loop init L=1 B=1", lambda: ls(*lq["init"]),
-             lq["init_work"]),
-            ("C", "rocket L=6",
-             lambda: la(*rk["ladder_al"], packed=rk["packed"]),
-             rk["ladder_al_work"]),
-            ("C", "grasp L=3",
-             lambda: la(*gw["ladder_al"], packed=gw["packed"]),
-             gw["ladder_al_work"]),
-            ("C", "flexsat L=6",
-             lambda: la(*fx["ladder_al"], packed=fx["packed"]),
-             fx["ladder_al_work"]),
-            *(("C", f"closed loop {mode} L=11 B=1",
-               (lambda q=q: la(*q["ladder_al"], packed=q["packed"])),
-               q["ladder_al_work"]) for mode, q in (("qp", lq),
-                                                     ("socp", ls_))),
-            ("D", "quadruped per-lane", pass_d(qd), qd["riccati_work"]),
-            ("D", "nonlinear SRB per-lane", pass_d(sn), sn["riccati_work"]),
-            ("D", "flagship shared", pass_d(fl), fl["riccati_work"]),
-            *(("D", f"random-linear shared n={n} m={m}", pass_d(inp),
-               inp["riccati_work"]) for (n, m), inp in other)]
-        cases += wide_cases(dtype, dev)
-        for B in NAIVE_BATCHES:
-            nr = naive_rocket_inputs(dtype, dev, B)
-            cases += [("D", f"naive rocket N=301 B={B}", pass_d(nr),
-                       nr["riccati_work"]),
-                      ("A", f"naive rocket N=301 L=11 B={B}",
-                       (lambda nr=nr: ls(*nr["ladder"])),
-                       nr["ladder_work"])]
+        item = torch.empty((), dtype=dtype).element_size()
+        cases = (wide_cases if wide_only else _all_cases)(dtype, dev)
         for kernel, shape, fn, (nbytes, flops) in cases:
             bnd, by = bound_ms(nbytes, flops, item)
             rows.append(dict(kernel=kernel, shape=shape, dtype=label,
                              ms=time_ms(fn, kernel=True), bound_ms=bnd,
                              bound_by=by, bytes=nbytes, flops=flops))
-        del fl, rk, gw, gc, fx, qd, sn, lq, ls_, other, nr
+        del cases
         torch.cuda.empty_cache()
     return rows
 
 
-def _worker(root: str, out: str) -> None:
+def _worker(root: str, out: str, wide_only: bool) -> None:
     # the checkout's root in place of this script's directory
     sys.path[0] = os.path.abspath(root)
     from altro_tpu_torch.ops import _build
-    rows = measure()
+    rows = measure(wide_only)
     ptxas = [line.split("ptxas info    :")[-1].strip()
              for line in _build.build_log().splitlines()
              if "Used" in line or "spill" in line or "Compiling entry" in line]
@@ -870,11 +878,13 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", help="root of another checkout to time in "
                     "turns with this one")
+    ap.add_argument("--wide", action="store_true",
+                    help="time the wide bodies' rows alone")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     ap.add_argument("--out", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        _worker(args.worker, args.out)
+        _worker(args.worker, args.out, args.wide)
         return
     import torch
     if not torch.cuda.is_available():
@@ -891,7 +901,8 @@ def main() -> None:
         for i, root in enumerate(turns):
             out = os.path.join(tmp, f"turn{i}.json")
             subprocess.run([sys.executable, os.path.abspath(__file__),
-                            "--worker", root, "--out", out], check=True)
+                            "--worker", root, "--out", out]
+                           + (["--wide"] if args.wide else []), check=True)
             with open(out) as f:
                 results.append(json.load(f))
     card = power_limit()

@@ -79,6 +79,7 @@
 
 #include "common.cuh"
 #include "ptx.cuh"
+#include "wide.cuh"
 
 namespace {
 
@@ -379,22 +380,539 @@ __global__ void __launch_bounds__(kMaxThreads) ls_rollout_al_kernel(
   if (active && lane == 0) Jout[(size_t)b * L + l] = (T)J;
 }
 
-// The wide body, for n or m above kNarrowDim (up to kMaxDim): a block of
-// kWideThreads = kMaxDim threads per (scenario, rung) on grid (Bt, L),
-// thread i owning row i of u and of x+ and constraint row i (kMaxRows =
-// kMaxDim), with x, dx and u exchanged through shared memory; the rows are
-// read from device memory. The merit's sums run in doubles as in the group
-// body: each thread's cost rows, one thread per block for its penalty (the
-// rows' squares summed in row order), then the knot's sum over the block by
-// two warp butterflies and their sum, before it joins the running sum.
-// Bound at n = m = 64, B = 1024, L = 11: the FLOPs (0.18 ms); it reaches
-// ~24 ms, kernel A's wide body's reads (the cost rows too) plus the
-// merit's double-precision sums (PERF.md).
-constexpr int kWideThreads = altro::kMaxDim;
-static_assert(altro::kMaxRows <= kWideThreads, "a thread per row");
+// The wide bodies, for n or m above kNarrowDim (up to kMaxDim); they
+// replace the TPU kernel altro_tpu/ops/rollout.py: batched_ls_rollout_al
+// at those widths. As kernel A's wide launcher does (ls_rollout.cu:
+// launch_wide), the launcher cuts a scenario's ladder into chunks of Lc
+// rungs along grid.y, as many as it takes to give every SM a block, and
+// picks the body by Lc.
+//
+// The ladder body (Lc >= kLadderRungs) is kernel A's ladder body
+// (ls_rollout.cu: ls_rollout_wide) with each rung's merit: one block
+// carries a chunk of a scenario's ladder, and the rungs are the columns of
+// tiled products per knot,
+//
+//   U_k     = ubar_k 1' + d_k alpha' + K_k (X_k - xbar_k 1')  [m x Lc]
+//   X_{k+1} = A_k X_k + B_k U_k + dd_k 1'                     [n x Lc]
+//   Q X_k [n x Lc], H X_k and R U_k [m x Lc], Cx X_k + Cu U_k [P x Lc]
+//
+// each as 4 rows x 2 rungs per pair of threads, which take alternate
+// 4-steps of the inner dimension (one 4-vector of each row and of each
+// rung's column per step) and add their sums by a shuffle. The merit's
+// products are summed in double whatever T, as in the group body (a
+// tracking cost's rows cancel to a small remainder): each tile's thread
+// adds its Q rows' x_i (q_i + (Q x)_i / 2), or its control rows'
+// u_i (r_i + (R u)_i / 2 + (H x)_i), and each constraint row gives its
+// z = lam + rho (Cx x + Cu u + b) and its square (max(z, 0)^2 for NONPOS,
+// 0 for an SOC block's last row). During the next knot's U product one
+// warp per rung adds the knot's terms in a fixed order (the tiles' sums
+// lane by lane, each block's penalty, the SOC cases as the group body
+// forms them, on the lane of its number, then a butterfly) to the rung's
+// J, kept in double across knots and rounded once.
+//
+// A knot's rows come into shared memory by cp.async (16-byte copies when
+// the widths allow), neighbouring threads on neighbouring addresses, each
+// read once per block: the scenario's K_k, d_k, ubar_k, xbar_k issued once
+// the U product has read knot k-1's, so they land during the second
+// product; the knot's A_k, B_k, dd_k (shared, or the group's) and its cost
+// and constraint rows (Q q c H R r, Cx Cu b mask) with the scenario's
+// multipliers and rho issued at the knot's start, landing during the U
+// product. Where these do not fit beside each other (float64 at
+// n = m = 64), or where their sharing one place lets two blocks onto an SM
+// instead of one (float32 at 64 x 64 with a grid of more blocks than SMs:
+// `alias`), the cost and constraint rows take the dynamics rows' place
+// once X_{k+1} is formed, one more barrier and wait per knot.
+// Rows are padded as row_ld pads them, and the padding holds zeros.
+//
+// What bounds it on the H100: at n = m = 64, B = 1024, L = 11, N = 21 the
+// FLOPs (~12 GFLOP, 0.18 ms at 67 TFLOP/s in float32) against ~0.5 GB of
+// bytes (0.14 ms). It reaches 2.44 ms there (PERF.md; H100 80GB HBM3,
+// 700 W), set by the two barriers and the products' chains per knot with
+// one or two blocks to an SM, and by the knot's shared rows, which every
+// block streams from L2 into shared memory once per knot (~110 KB in
+// float32 at 64 x 64: ~2.4 GB in all at B = 1024).
+//
+// The rung body (Lc < kLadderRungs: one lane, or a one-rung chunk): the
+// first wide body, a block of kRungThreads threads per (scenario, rung) on
+// grid (Bt, L), thread i owning row i of u and of x+ and constraint row i
+// (kMaxRows = kMaxDim), with x, dx and u exchanged through shared memory;
+// the rows are read from device memory. The merit's sums run in doubles as
+// in the group body: each thread's cost rows, one thread per block for its
+// penalty (the rows' squares summed in row order), then the knot's sum over
+// the block by two warp butterflies and their sum, before it joins the
+// running sum. A chunk of few rungs leaves the ladder body's tiles half
+// empty and its staging without reuse, and at one lane the rung body's L
+// blocks spread the ladder over L SMs.
+constexpr int kRollThreads = 256;
+constexpr int kRollBlocks = 2;  // the ladder body's blocks per SM, at most
+constexpr int kLadderRungs = 4;
+constexpr int kRungThreads = altro::kMaxDim;
+static_assert(altro::kMaxRows <= kRungThreads, "a thread per row");
+
+// Row stride for rows of w elements: a multiple of 4 elements (two for
+// float64) and an odd number of 16-byte pieces (ls_rollout.cu: row_ld).
+__host__ __device__ inline int row_ld(int w, int elem) {
+  const int v = 16 / elem;
+  const int ld = altro::wide::pad4(w);
+  return (ld / v) % 2 == 0 ? ld + v : ld;
+}
+
+// Offsets of the ladder body's shared memory, in elements of T: the
+// scenario's stage (K [m x ldx], d, ubar, xbar), the dynamics rows (A
+// [n x ldx], B [n x ldu], dd), the cost and constraint rows (Q [n x ldx],
+// q, c, H [m x ldx], R [m x ldu], r, Cx [P x ldx], Cu [P x ldu], b, mask,
+// the multipliers, rho; in the dynamics rows' place with `alias`), two
+// states [Lc x ldx], the controls [Lc x ldu] and the chunk's step sizes;
+// then in doubles: J [Lc], the tiles' cost sums [Lc x (gq + gu)], the
+// rows' z and squares [Lc x P] each, mask / (2 rho) [P] and c.
+struct AlLayout {
+  int ldx, ldu, gq, gu, gc;
+  int od, oub, oxb, dyn, oB, odd, cost, oq, oc, oH, oR, orr, oCx, oCu, ob,
+      omask, olam, orho, X, xst, U, alpha, total;
+  int dJ, dsum, dz, dv, dw, dc, dtotal;
+  __host__ __device__ AlLayout(int n, int m, int P, int Lc, int elem,
+                               int alias) {
+    using altro::wide::pad4;
+    ldx = row_ld(n, elem);
+    ldu = row_ld(m, elem);
+    gq = (n + 3) / 4;
+    gu = (m + 3) / 4;
+    gc = (P + 3) / 4;
+    od = pad4(m * ldx);
+    oub = od + pad4(m);
+    oxb = oub + pad4(m);
+    dyn = oxb + pad4(n);
+    oB = dyn + pad4(n * ldx);
+    odd = oB + pad4(n * ldu);
+    cost = alias ? dyn : odd + pad4(n);
+    oq = cost + pad4(n * ldx);
+    oc = oq + pad4(n);
+    oH = oc + 4;
+    oR = oH + pad4(m * ldx);
+    orr = oR + pad4(m * ldu);
+    oCx = orr + pad4(m);
+    oCu = oCx + pad4(P * ldx);
+    ob = oCu + pad4(P * ldu);
+    omask = ob + pad4(P);
+    olam = omask + pad4(P);
+    orho = olam + pad4(P);
+    const int rows_end = orho + 4;
+    X = rows_end > odd + pad4(n) ? rows_end : odd + pad4(n);
+    xst = pad4(Lc * ldx);
+    U = X + 2 * xst;
+    alpha = U + pad4(Lc * ldu);
+    total = alpha + altro::kMaxRungs;
+    dJ = 0;
+    dsum = dJ + Lc;
+    dz = dsum + Lc * (gq + gu);
+    dv = dz + Lc * P;
+    dw = dv + Lc * P;
+    dc = dw + P;
+    dtotal = dc + 1;
+  }
+  __host__ __device__ size_t bytes(int elem) const {
+    return (size_t)total * elem + (size_t)dtotal * sizeof(double);
+  }
+};
+
+// acc[r][c] += row i0 + r (clamped to rows - 1) of M [. x ld] dot rung
+// (la, lb)[c]'s row of V [. x ldv] (minus the row vsub with kSub; not read
+// without), over the width w; the pair's thread `part` takes every other
+// 4-step.
+template <typename S, bool kSub, typename T>
+__device__ __forceinline__ void rows_by_rungs(S (&acc)[4][2], const T* M,
+                                              int ld, int rows, int i0,
+                                              const T* V, int ldv, int la,
+                                              int lb, int w, const T* vsub,
+                                              int part) {
+  namespace wd = altro::wide;
+  for (int p = 4 * part; p < w; p += 8) {
+    T va[4], vb[4];
+    wd::ld4(V + la * ldv + p, va);
+    wd::ld4(V + lb * ldv + p, vb);
+    if constexpr (kSub) {
+      T s[4];
+      wd::ld4(vsub + p, s);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        va[c] -= s[c];
+        vb[c] -= s[c];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      T mr[4];
+      wd::ld4(M + min(i0 + r, rows - 1) * ld + p, mr);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        acc[r][0] += (S)mr[c] * (S)va[c];
+        acc[r][1] += (S)mr[c] * (S)vb[c];
+      }
+    }
+  }
+}
+
+// The pair's two halves of a tile's sums added, on both threads.
+template <typename S>
+__device__ __forceinline__ void pair_sum(S (&acc)[4][2]) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+      acc[r][c] += __shfl_xor_sync(kFull, acc[r][c], 1);
+}
 
 template <typename T>
-__global__ void __launch_bounds__(kWideThreads) ls_rollout_al_wide(
+__global__ void __launch_bounds__(kRollThreads, kRollBlocks)
+ls_rollout_al_wide(
+    const T* __restrict__ Q, const T* __restrict__ q,
+    const T* __restrict__ R, const T* __restrict__ r,
+    const T* __restrict__ H, const T* __restrict__ cc,
+    const T* __restrict__ A, const T* __restrict__ Bm,
+    const T* __restrict__ dd, const T* __restrict__ Cx,
+    const T* __restrict__ Cu, const T* __restrict__ cb,
+    const T* __restrict__ cmask, altro::BlockTable<T> table,
+    const T* __restrict__ Xbar, const T* __restrict__ Ubar,
+    const T* __restrict__ K, const T* __restrict__ d,
+    const T* __restrict__ rho, Ladder<T> ladder, int L, int Lc, int vec_n,
+    int vec_m, int alias, T* __restrict__ Xs, T* __restrict__ Us,
+    T* __restrict__ Jout, int Bt, int NG, int N, int n, int m, int P) {
+  namespace wd = altro::wide;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ altro::BlockTable<T> tab;
+  __shared__ int8_t row_blk[altro::kMaxRows];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  const AlLayout lo(n, m, P, Lc, (int)sizeof(T), alias);
+  double* dsm =
+      reinterpret_cast<double*>(smem_raw + (size_t)lo.total * sizeof(T));
+  const int t = threadIdx.x, nt = blockDim.x, N1 = N - 1;
+  const int b = blockIdx.x, l0 = blockIdx.y * Lc, lc = min(Lc, L - l0);
+  const int ldx = lo.ldx, ldu = lo.ldu, gq = lo.gq, gu = lo.gu;
+  // the scenario's group's dynamics (NG = 1: shared)
+  const size_t grp = (size_t)(b / (Bt / NG));
+  A += grp * N1 * n * n;
+  Bm += grp * N1 * n * m;
+  dd += grp * N1 * n;
+  T* al = smem + lo.alpha;
+
+  // zeros everywhere (the rows' padding stays zero, J starts at zero), the
+  // block table, each row's block, the chunk's step sizes, and the first
+  // state, copied to Xs
+  if (t == 0) tab = table;
+  for (int e = t; e < lo.total; e += nt) smem[e] = T(0);
+  for (int e = t; e < lo.dtotal; e += nt) dsm[e] = 0.0;
+  for (int rr = t; rr < P; rr += nt)
+    row_blk[rr] = (int8_t)altro::block_of(table, rr);
+  __syncthreads();
+  if (t < lc) {
+    T a = T(0);
+#pragma unroll
+    for (int i = 0; i < altro::kMaxRungs; ++i)
+      if (i == l0 + t) a = ladder.a[i];
+    al[t] = a;
+  }
+  for (int e = t; e < lc * n; e += nt) {
+    const int l = e / n, p = e - l * n;
+    const T v = Xbar[(size_t)b * N * n + p];
+    smem[lo.X + l * ldx + p] = v;
+    Xs[((size_t)b * L + l0 + l) * N * n + p] = v;
+  }
+
+  // each thread's place in the copies of rows of width n and m
+  const int v = 16 / (int)sizeof(T);
+  const altro::Spread sp_n(vec_n ? n / v : n, t, nt);
+  const altro::Spread sp_m(vec_m ? m / v : m, t, nt);
+  const altro::Spread sp_n1(n, t, nt), sp_m1(m, t, nt);  // single rows
+  // zeros into the padding of rows that another layout's rows may have
+  // covered (alias)
+  auto zero_pad = [&](T* M, int rows, int cols, int ld) {
+    const int pc = wd::pad4(cols) - cols;
+    for (int e = t; e < rows * pc; e += nt)
+      M[(e / pc) * ld + cols + e % pc] = T(0);
+  };
+  auto stage_k = [&](int k) {
+    const size_t bk = (size_t)b * N1 + k;
+    altro::stage_rows(smem, ldx, K + bk * m * n, m, n, vec_n, sp_n);
+    altro::stage_rows(smem + lo.od, 0, d + bk * m, 1, m, false, sp_m1);
+    altro::stage_rows(smem + lo.oub, 0, Ubar + bk * m, 1, m, false, sp_m1);
+    altro::stage_rows(smem + lo.oxb, 0, Xbar + ((size_t)b * N + k) * n, 1,
+                      n, false, sp_n1);
+  };
+  auto stage_dyn = [&](int k) {
+    altro::stage_rows(smem + lo.dyn, ldx, A + (size_t)k * n * n, n, n, vec_n,
+                      sp_n);
+    altro::stage_rows(smem + lo.oB, ldu, Bm + (size_t)k * n * m, n, m, vec_m,
+                      sp_m);
+    altro::stage_rows(smem + lo.odd, 0, dd + (size_t)k * n, 1, n, false,
+                      sp_n1);
+    if (alias) {
+      zero_pad(smem + lo.dyn, n, n, ldx);
+      zero_pad(smem + lo.oB, n, m, ldu);
+    }
+  };
+  auto stage_cost = [&](int k) {
+    const bool term = k == N1;
+    altro::stage_rows(smem + lo.cost, ldx, Q + (size_t)k * n * n, n, n,
+                      vec_n, sp_n);
+    altro::stage_rows(smem + lo.oq, 0, q + (size_t)k * n, 1, n, false,
+                      sp_n1);
+    altro::stage_vec(smem + lo.oc, cc + k, 1, t);
+    altro::stage_vec(smem + lo.orho, rho + (size_t)b * N + k, 1, t - 1);
+    if (!term) {
+      altro::stage_rows(smem + lo.oH, ldx, H + (size_t)k * m * n, m, n,
+                        vec_n, sp_n);
+      altro::stage_rows(smem + lo.oR, ldu, R + (size_t)k * m * m, m, m,
+                        vec_m, sp_m);
+      altro::stage_rows(smem + lo.orr, 0, r + (size_t)k * m, 1, m, false,
+                        sp_m1);
+    }
+    if (P) {
+      altro::stage_rows(smem + lo.oCx, ldx, Cx + (size_t)k * P * n, P, n,
+                        vec_n, sp_n);
+      if (!term)
+        altro::stage_rows(smem + lo.oCu, ldu, Cu + (size_t)k * P * m, P, m,
+                          vec_m, sp_m);
+      altro::stage_vec(smem + lo.ob, cb + (size_t)k * P, P, t);
+      altro::stage_vec(smem + lo.omask, cmask + (size_t)k * P, P,
+                       nt - 1 - t);
+      for (int rr = t; rr < P; rr += nt) {
+        const int bi = row_blk[rr];
+        altro::cp_async(smem + lo.olam + rr,
+                        tab.lam[bi] + ((size_t)b * N + k) * tab.p[bi] +
+                            (rr - tab.row0[bi]));
+      }
+    }
+    if (alias) {
+      zero_pad(smem + lo.cost, n, n, ldx);
+      zero_pad(smem + lo.oH, m, n, ldx);
+      zero_pad(smem + lo.oR, m, m, ldu);
+      zero_pad(smem + lo.oCx, P, n, ldx);
+      zero_pad(smem + lo.oCu, P, m, ldu);
+    }
+  };
+
+  // the merit of knot kk closed: one warp per rung adds the tiles' cost
+  // sums (lane-strided), each block's penalty (on the lane of its number)
+  // and c, by a fixed butterfly, to the rung's J (written out at `last`)
+  const int warp = t / 32, lane = t % 32, nwarps = nt / 32;
+  auto close_merit = [&](bool last) {
+    for (int l = warp; l < lc; l += nwarps) {
+      double s = 0.0;
+      for (int e = lane; e < gq + gu; e += 32)
+        s += dsm[lo.dsum + l * (gq + gu) + e];
+      if (lane < tab.count) {
+        const int r0 = tab.row0[lane], p = tab.p[lane];
+        const double* vr = dsm + lo.dv + l * P + r0;
+        double vsum = 0.0;
+        for (int i = 0; i < p; ++i) vsum += vr[i];
+        // an SOC block: vsum = |v|^2 of its first p - 1 rows, z its last
+        // row's; float flags multiplied in, as jnp does: a NaN z stays NaN
+        const double z = dsm[lo.dz + l * P + r0 + p - 1];
+        const double a = sqrt(vsum);
+        const double a_safe = a > 0.0 ? a : 1.0;
+        const double polar = a <= -z ? 1.0 : 0.0;
+        const double bnd = (a > z && a > -z) ? 1.0 : 0.0;
+        const double gamma = bnd * (a - z) / (2.0 * a_safe);
+        const double soc =
+            polar * (vsum + z * z) + ((2.0 * gamma) * gamma) * vsum;
+        const double ssq = tab.cone[lane] == altro::kSoc ? soc : vsum;
+        s += dsm[lo.dw + r0 + p - 1] * ssq;
+      }
+      if (lane == 0) s += dsm[lo.dc];
+#pragma unroll
+      for (int dl = 16; dl > 0; dl >>= 1) s += __shfl_xor_sync(kFull, s, dl);
+      if (lane == 0) {
+        const double J = dsm[lo.dJ + l] + s;
+        dsm[lo.dJ + l] = J;
+        if (last) Jout[(size_t)b * L + l0 + l] = (T)J;
+      }
+    }
+  };
+
+  stage_k(0);
+  altro::cp_async_commit();
+  const int LT = (lc + 1) / 2;
+  const int gall = gq + gu + lo.gc;
+  // two threads per tile: each takes every other 4-step of the inner
+  // dimension, they add their sums by a shuffle, and each stores every
+  // other row of the tile
+  const int part = t & 1, pair = t >> 1, pairs = nt >> 1;
+  const T* Kk = smem;
+  const T* dk = smem + lo.od;
+  const T* ubk = smem + lo.oub;
+  const T* xbk = smem + lo.oxb;
+  const T* Ak = smem + lo.dyn;
+  const T* Bk = smem + lo.oB;
+  const T* ddk = smem + lo.odd;
+  const T* sQ = smem + lo.cost;
+  const T* sq = smem + lo.oq;
+  const T* sH = smem + lo.oH;
+  const T* sR = smem + lo.oR;
+  const T* sr = smem + lo.orr;
+  const T* sCx = smem + lo.oCx;
+  const T* sCu = smem + lo.oCu;
+  T* Uc = smem + lo.U;
+  for (int k = 0; k <= N1; ++k) {
+    const bool term = k == N1;
+    // knot k's scenario rows have landed, and every thread is past knot
+    // k-1 (the closing of its merit excepted), whose rows the copies of
+    // knot k now take
+    altro::cp_async_wait_all();
+    __syncthreads();
+    if (!term) stage_dyn(k);
+    if (!alias || term) stage_cost(k);
+    altro::cp_async_commit();
+    const T* Xc = smem + lo.X + (k & 1) * lo.xst;
+    T* Xn = smem + lo.X + ((k + 1) & 1) * lo.xst;
+
+    // U_k: rows i0..i0+3, rungs 2 lt and 2 lt + 1 (the row tiles fastest,
+    // so that neighbouring threads store neighbouring entries); u = 0 at
+    // the terminal knot
+    for (int base = 0; !term && base < gu * LT; base += pairs) {
+      const int qq = min(base + pair, gu * LT - 1);
+      const bool on = base + pair < gu * LT;
+      const int i0 = (qq % gu) * 4, lt = qq / gu;
+      const int la = min(2 * lt, lc - 1), lb = min(2 * lt + 1, lc - 1);
+      T acc[4][2] = {};
+      rows_by_rungs<T, true>(acc, Kk, ldx, m, i0, Xc, ldx, la, lb, n, xbk,
+                             part);
+      pair_sum(acc);
+      if (!on) continue;
+#pragma unroll
+      for (int rr = 0; rr < 4; ++rr) {
+        const int i = i0 + rr;
+        if ((rr & 1) != part || i >= m) continue;
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int l = 2 * lt + c;
+          if (l >= lc) break;
+          const T u = (ubk[i] + al[l] * dk[i]) + acc[rr][c];
+          Uc[l * ldu + i] = u;
+          Us[(((size_t)b * L + l0 + l) * N1 + k) * m + i] = u;
+        }
+      }
+    }
+    if (k > 0) close_merit(false);
+    // U_k complete, and the knot's rows landed
+    altro::cp_async_wait_all();
+    __syncthreads();
+    if (k + 1 < N1) {
+      stage_k(k + 1);
+      altro::cp_async_commit();
+    }
+    // X_{k+1} = (A X + B U) + dd, split as U_k
+    for (int base = 0; !term && base < gq * LT; base += pairs) {
+      const int qq = min(base + pair, gq * LT - 1);
+      const bool on = base + pair < gq * LT;
+      const int i0 = (qq % gq) * 4, lt = qq / gq;
+      const int la = min(2 * lt, lc - 1), lb = min(2 * lt + 1, lc - 1);
+      T acc[4][2] = {};
+      rows_by_rungs<T, false>(acc, Ak, ldx, n, i0, Xc, ldx, la, lb, n, xbk,
+                              part);
+      rows_by_rungs<T, false>(acc, Bk, ldu, n, i0, Uc, ldu, la, lb, m, xbk,
+                              part);
+      pair_sum(acc);
+      if (!on) continue;
+#pragma unroll
+      for (int rr = 0; rr < 4; ++rr) {
+        const int i = i0 + rr;
+        if ((rr & 1) != part || i >= n) continue;
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int l = 2 * lt + c;
+          if (l >= lc) break;
+          const T x = acc[rr][c] + ddk[i];
+          Xn[l * ldx + i] = x;
+          Xs[(((size_t)b * L + l0 + l) * N + k + 1) * n + i] = x;
+        }
+      }
+    }
+    if (alias && !term) {
+      // the dynamics rows are read no more: the cost and constraint rows
+      // take their place
+      __syncthreads();
+      stage_cost(k);
+      altro::cp_async_commit();
+      altro::cp_async_wait_all();
+      __syncthreads();
+    }
+    // the merit's products of knot k (sums in double): tiles of the Q
+    // rows, the control rows, the constraint rows
+    for (int base = 0; base < gall * LT; base += pairs) {
+      const int qq = min(base + pair, gall * LT - 1);
+      const bool on = base + pair < gall * LT;
+      const int g = qq % gall, lt = qq / gall;
+      const int la = min(2 * lt, lc - 1), lb = min(2 * lt + 1, lc - 1);
+      const int kind = g < gq ? 0 : g < gq + gu ? 1 : 2;
+      const int i0 = 4 * (kind == 0 ? g : kind == 1 ? g - gq : g - gq - gu);
+      const int rows = kind == 0 ? n : kind == 1 ? m : P;
+      double sx[4][2] = {}, su[4][2] = {};
+      rows_by_rungs<double, false>(sx, kind == 0 ? sQ : kind == 1 ? sH : sCx,
+                                   ldx, rows, i0, Xc, ldx, la, lb, n, xbk,
+                                   part);
+      if (kind != 0 && !term)
+        rows_by_rungs<double, false>(su, kind == 1 ? sR : sCu, ldu, rows, i0,
+                                     Uc, ldu, la, lb, m, xbk, part);
+      pair_sum(sx);
+      pair_sum(su);
+      if (!on) continue;
+      if (kind < 2) {
+        if (part) continue;
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int l = 2 * lt + c;
+          if (l >= lc) break;
+          double s = 0.0;
+#pragma unroll
+          for (int rr = 0; rr < 4; ++rr) {
+            const int i = i0 + rr;
+            if (i >= rows) break;
+            if (kind == 0)
+              s += (double)Xc[l * ldx + i] *
+                   ((double)sq[i] + 0.5 * sx[rr][c]);
+            else if (!term)
+              s += (double)Uc[l * ldu + i] *
+                   (((double)sr[i] + 0.5 * su[rr][c]) + sx[rr][c]);
+          }
+          dsm[lo.dsum + l * (gq + gu) + g] = s;
+        }
+        continue;
+      }
+      const double rk = (double)smem[lo.orho];
+#pragma unroll
+      for (int rr = 0; rr < 4; ++rr) {
+        const int rw = i0 + rr;
+        if ((rr & 1) != part || rw >= P) continue;
+        const int bi = row_blk[rw];
+        const bool soc_last = tab.cone[bi] == altro::kSoc &&
+                              rw - tab.row0[bi] == tab.p[bi] - 1;
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int l = 2 * lt + c;
+          if (l >= lc) break;
+          const double z = (double)smem[lo.olam + rw] +
+                           rk * ((sx[rr][c] + su[rr][c]) +
+                                 (double)smem[lo.ob + rw]);
+          double sq2 = z * z;
+          // max(z, 0), NaN propagating like jnp.maximum
+          if (tab.cone[bi] == altro::kNonpos && !(z > 0.0) && z == z)
+            sq2 = 0.0;
+          if (soc_last) sq2 = 0.0;
+          dsm[lo.dz + l * P + rw] = z;
+          dsm[lo.dv + l * P + rw] = sq2;
+        }
+        if (lt == 0)
+          dsm[lo.dw + rw] = (double)smem[lo.omask + rw] * (0.5 / rk);
+      }
+    }
+    if (t == 0) dsm[lo.dc] = (double)smem[lo.oc];
+  }
+  __syncthreads();
+  close_merit(true);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kRungThreads) ls_rollout_al_wide_rung(
     const T* __restrict__ Q, const T* __restrict__ q,
     const T* __restrict__ R, const T* __restrict__ r,
     const T* __restrict__ H, const T* __restrict__ cc,
@@ -410,7 +928,7 @@ __global__ void __launch_bounds__(kWideThreads) ls_rollout_al_wide(
   __shared__ altro::BlockTable<T> tab;
   __shared__ T xs[altro::kMaxDim], dxs[altro::kMaxDim], us[altro::kMaxDim];
   __shared__ double zs[altro::kMaxRows], vs[altro::kMaxRows];
-  __shared__ double red[kWideThreads / 32];
+  __shared__ double red[kRungThreads / 32];
   const int b = blockIdx.x, l = blockIdx.y, t = threadIdx.x, N1 = N - 1;
   // the scenario's group of NG (NG = 1: shared dynamics)
   const size_t grp = (size_t)(b / (Bt / NG));
@@ -521,7 +1039,7 @@ __global__ void __launch_bounds__(kWideThreads) ls_rollout_al_wide(
     if (t == 0) {
       double knot = 0.0;
 #pragma unroll
-      for (int w = 0; w < kWideThreads / 32; ++w) knot += red[w];
+      for (int w = 0; w < kRungThreads / 32; ++w) knot += red[w];
       J += knot;
     }
     if (!term && t < n) {
@@ -583,6 +1101,70 @@ int launch_group(const Args<T>& a, const altro::BlockTable<T>& table,
 }
 
 template <typename T>
+int launch_wide(const Args<T>& a, const altro::BlockTable<T>& table,
+                const Ladder<T>& ladder, cudaStream_t stream) {
+  // rung chunks: as many as it takes to give every SM of this device a
+  // block, at most L
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  int chunks = std::min(a.L, std::max(1, (sms + a.Bt - 1) / a.Bt));
+  const int Lc = (a.L + chunks - 1) / chunks;
+  chunks = (a.L + Lc - 1) / Lc;
+  if (Lc < kLadderRungs) {
+    ls_rollout_al_wide_rung<T>
+        <<<dim3((unsigned)a.Bt, (unsigned)a.L), kRungThreads, 0, stream>>>(
+            a.Q, a.q, a.R, a.r, a.H, a.c, a.A, a.Bm, a.dd, a.Cx, a.Cu, a.cb,
+            a.cmask, table, a.Xbar, a.Ubar, a.K, a.d, a.rho, ladder, a.L,
+            a.Xs, a.Us, a.J, a.Bt, a.NG, a.N, a.n, a.m, a.P);
+    return (int)cudaGetLastError();
+  }
+  auto kern = ls_rollout_al_wide<T>;
+  cudaFuncAttributes attr;
+  e = cudaFuncGetAttributes(&attr, kern);
+  if (e != cudaSuccess) return (int)e;
+  // the dynamics rows beside the cost and constraint rows where they fit,
+  // unless their sharing one place lets more blocks onto an SM (of its
+  // 233,472 bytes, 1 KB per block reserved) and the grid has the blocks
+  // to fill them. On an H100 80GB HBM3 at 700 W (PERF.md), B = 1024,
+  // L = 11: float32 at 64 x 64 2.43 ms in one place against 3.52 side by
+  // side; at n = 35-55, m = 2 side by side 0.83-1.18 ms against 0.99-1.39
+  // in one place (float64 0.98-1.42 against 1.09-1.53)
+  const int elem = (int)sizeof(T);
+  const size_t own = AlLayout(a.n, a.m, a.P, Lc, elem, 0).bytes(elem);
+  const size_t shared = AlLayout(a.n, a.m, a.P, Lc, elem, 1).bytes(elem);
+  auto per_sm = [&](size_t b) {
+    return std::min(kRollBlocks,
+                    (int)(233472 / (b + attr.sharedSizeBytes + 1024)));
+  };
+  const int alias =
+      own > 232448 - attr.sharedSizeBytes ||
+      ((long)a.Bt * chunks > (long)sms * per_sm(own) &&
+       per_sm(shared) > per_sm(own));
+  const size_t bytes = alias ? shared : own;
+  e = altro::wide::prepare(kern, bytes);
+  if (e != cudaSuccess) return (int)e;
+  // as many threads as the tiles need (at least 128, at most kRollThreads)
+  const AlLayout lo(a.n, a.m, a.P, Lc, elem, alias);
+  const int tiles = (lo.gq + lo.gu + lo.gc) * ((Lc + 1) / 2) * 2;
+  const int threads =
+      std::min(kRollThreads, std::max(128, (tiles + 31) / 32 * 32));
+  const int v = 16 / elem;
+  auto aligned = [](const void* p) { return ((uintptr_t)p & 15) == 0; };
+  const int vec_n = a.n % v == 0 && aligned(a.A) && aligned(a.K) &&
+                    aligned(a.Q) && aligned(a.H) && aligned(a.Cx);
+  const int vec_m = a.m % v == 0 && aligned(a.Bm) && aligned(a.R) &&
+                    aligned(a.Cu);
+  kern<<<dim3((unsigned)a.Bt, (unsigned)chunks), threads, bytes, stream>>>(
+      a.Q, a.q, a.R, a.r, a.H, a.c, a.A, a.Bm, a.dd, a.Cx, a.Cu, a.cb,
+      a.cmask, table, a.Xbar, a.Ubar, a.K, a.d, a.rho, ladder, a.L, Lc,
+      vec_n, vec_m, alias, a.Xs, a.Us, a.J, a.Bt, a.NG, a.N, a.n, a.m, a.P);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
 int launch_ls_rollout_al(const void* Q, const void* q, const void* R,
                          const void* r, const void* H, const void* c,
                          const void* A, const void* Bm, const void* dd,
@@ -614,12 +1196,7 @@ int launch_ls_rollout_al(const void* Q, const void* q, const void* R,
       N,              n,              m,            P};
   cudaStream_t s = (cudaStream_t)stream;
   if (n > altro::kNarrowDim || m > altro::kNarrowDim) {
-    ls_rollout_al_wide<T><<<dim3((unsigned)Bt, (unsigned)L), kWideThreads, 0,
-                            s>>>(
-        a.Q, a.q, a.R, a.r, a.H, a.c, a.A, a.Bm, a.dd, a.Cx, a.Cu, a.cb,
-        a.cmask, table, a.Xbar, a.Ubar, a.K, a.d, a.rho, ladder, a.L, a.Xs,
-        a.Us, a.J, a.Bt, a.NG, a.N, a.n, a.m, a.P);
-    return (int)cudaGetLastError();
+    return launch_wide<T>(a, table, ladder, s);
   }
   // 16 lanes per (scenario, rung) up to n, m = 16, 32 above; the lane's
   // constraint rows (P / G, rounded up to 1, 2 or 4) as a constant

@@ -90,7 +90,6 @@
 #include "common.cuh"
 #include "ptx.cuh"
 #include "wide.cuh"
-#include "wide_entry.cuh"
 
 namespace {
 
@@ -811,112 +810,320 @@ int launch_group(const void* A, const void* Bm, int per_lane, const void* lx,
   return (int)cudaGetLastError();
 }
 
-// The wide body, for n or m above kNarrowDim (up to kMaxDim): one block of
-// wide::kWideThreads threads per scenario, the expansion and the dynamics
-// read from device memory, the work space in shared memory (Qxx's upper
-// triangle in Vxx's place, Qx beside it), and the entry-per-thread
-// Riccati tail of wide_entry.cuh (kernel B's blocked tail in wide.cuh cost
-// this body up to 57% at m = 2; see there). As in the group body, below
-// the terminal knot only the upper triangle of lxx and the lower triangle
-// of luu are read.
+// The wide body, for n or m above kNarrowDim (up to kMaxDim); it replaces
+// the TPU kernel altro_tpu/ops/riccati.py: batched_riccati at those
+// widths. It is kernel B's tiled wide body (riccati_fused.cu:
+// fused_expand_backward_wide) with the expansion read instead of formed,
+// and it is faster than the entry-per-thread body (wide_entry.cuh's tail)
+// that it replaced, at every wide shape measured, n = 35, m = 2 included
+// (PERF.md).
+// One block works one scenario: 128 threads at a narrow control (the
+// state_dim sweep's n <= 55 with m = 2: four scenarios per SM), 512 at
+// n = m = 64. Per knot, over the concatenated width W = n + m with
+// F = [A | B] (the shared rows or the scenario's):
+//
+//   G = Vxx F                                       [n x W]
+//   Qfull = F'G + [lxx lux'; lux luu]  (upper triangle) [W x W]
+//
+// as block-wide products of 4 x 4 register tiles, each tile's sums seeded
+// with its expansion entries (lxx's upper triangle, lux, luu's lower
+// triangle); F'Vx + (lx | lu) rides along as one extra column (Qx, Qu).
+// The expansion is written straight into the Riccati tail's layout, whose
+// blocked factor, solves, Quu K and V are wide.cuh's (pivots clamped as
+// sqrt(max(., 1e-12)), a NaN kept).
+//
+// The knot's F comes into padded shared rows by cp.async (16-byte copies
+// when n and m allow), issued once the knot's products have read the last
+// knot's, so that it lands during the tail; where that stage does not fit
+// beside the tail (float64 at n = 64, m >= 63), F lies behind G in the
+// region and is issued once the tail is done with it. The expansion rows are
+// read once, from device memory, straight into the tiles' sums (lxx's
+// upper triangle, lux, luu's lower triangle): staging them too, one knot
+// ahead, measured slower at every wide shape (PERF.md), for their
+// element-wise copies and the stage's shared memory (fewer blocks to an
+// SM).
+//
+// What bounds it on the H100: at n = m = 64, N = 21, B = 1024 its FLOPs
+// (~86 GFLOP with Qxx's and Quu's upper triangles, 1.28 ms at 67 TFLOP/s
+// in float32) against ~1.4 GB of bytes (0.42 ms). It reaches 14.1 ms there
+// (PERF.md; H100 80GB HBM3, 700 W), set, as in B's body, by
+// the tail's barriers (38 per knot at m = 64) and the products'
+// shared-memory reads, one scenario's knot chain per block; at m = 2, by
+// a knot's chain of eight barriers.
+constexpr int kSmallThreads = 128;
+constexpr int kLargeThreads = 512;
+
+// Offsets (in elements) of the tiled body's shared memory: Qx, Vx, Qu,
+// qdiag, inv; then, 16-byte aligned, Vq, Qux, the region (G, then aug and
+// Quu K) and F's stage [n x Wp]; with `behind`, F lies in the region
+// behind G instead.
+struct DLayout {
+  int Qx, Vx, Qu, qdiag, inv, Vq, Qux, region, F, total;
+  __host__ __device__ DLayout(int n, int m, bool behind) {
+    using altro::wide::pad4;
+    const altro::wide::TailDims td(n, m);
+    const int g = n * pad4(n + m), tail = m * (td.lda + td.ldk);
+    Qx = 0;
+    Vx = Qx + n;
+    Qu = Vx + n;
+    qdiag = Qu + m;
+    inv = qdiag + m;
+    Vq = pad4(inv + m);
+    Qux = Vq + n * td.ldn;
+    region = Qux + m * td.ldn;
+    const int used = behind ? 2 * g : g;
+    const int rg = pad4(used > tail ? used : tail);
+    F = behind ? region + g : region + rg;
+    total = region + rg + (behind ? 0 : g);
+  }
+};
+
+// A knot's expansion rows in device memory: lxx [n x n] (its upper
+// triangle read), lux [m x n], luu [m x m] (its lower triangle read), lx,
+// lu.
 template <typename T>
-__global__ void __launch_bounds__(altro::wide::kWideThreads) riccati_wide(
-    const T* __restrict__ A, const T* __restrict__ Bm, int per_lane,
-    const T* __restrict__ lx, const T* __restrict__ lu,
-    const T* __restrict__ lxx, const T* __restrict__ luu,
-    const T* __restrict__ lux, const T* __restrict__ reg,
-    T* __restrict__ Kout, T* __restrict__ dout, T* __restrict__ dV1out,
-    T* __restrict__ dV2out, int Bt, int N, int n, int m) {
+struct Seeds {
+  const T *lxx, *lux, *luu, *lx, *lu;
+};
+
+// G = Vxx F [n x Wp] (Vxx symmetric: row p of Vq is its column p), up to
+// KT 4 x 4 tiles per thread.
+template <typename T, int KT>
+__device__ __noinline__ void gain_product(const T* Vq, int ldn, const T* F,
+                                          int Wp, T* G, int n) {
+  namespace wd = altro::wide;
+  const int W4 = Wp / 4, t = threadIdx.x, nt = blockDim.x;
+  const int tiles = (n + 3) / 4 * W4;
+  T acc[KT][4][4];
+#pragma unroll
+  for (int s = 0; s < KT; ++s) {
+    wd::zero4(acc[s]);
+    const int q = t + s * nt;
+    if (q >= tiles) break;
+    const int i0 = q / W4 * 4, j0 = q % W4 * 4;
+#pragma unroll 4
+    for (int p = 0; p < n; ++p) {
+      T av[4], bv[4];
+      wd::ld4(Vq + p * ldn + i0, av);
+      wd::ld4(F + p * Wp + j0, bv);
+      wd::outer4(acc[s], av, bv);
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < KT; ++s) {
+    const int q = t + s * nt;
+    if (q >= tiles) break;
+    const int i0 = q / W4 * 4, j0 = q % W4 * 4;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      if (i0 + r >= n) break;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) G[(i0 + r) * Wp + j0 + c] = acc[s][r][c];
+    }
+  }
+}
+
+// Qfull = F'G + the expansion over the upper triangle of [W x W] (at the
+// terminal knot the expansion's x block alone), up to KT 4 x 4 tiles per
+// thread, and the extra column F'Vx + (lx | lu) on the first W threads;
+// then, once G is read no more, the expansion in the tail's layout: Qxx
+// (upper) in Vq, Qux and -Qux into aug's right-hand sides, Quu + reg I
+// (upper) and Quu (strict lower, diagonal in qdiag) into aug, Qx and Qu.
+// Ends on a barrier.
+template <typename T, int KT>
+__device__ __noinline__ void expansion(const altro::wide::Tail<T> tl,
+                                       const T* F, const T* G, int Wp,
+                                       const Seeds<T> sd, bool term, T regb) {
+  namespace wd = altro::wide;
+  const int n = tl.n, m = tl.m, W4 = Wp / 4, W = n + m, Wo = term ? n : W;
+  const int t = threadIdx.x, nt = blockDim.x;
+  const int ldn = tl.ldn, lda = tl.lda, ma = tl.ma;
+  int i2[KT], j2[KT];
+  bool act[KT];
+  T acc[KT][4][4];
+#pragma unroll
+  for (int s = 0; s < KT; ++s) {
+    int I = 0, J = 0;
+    act[s] = t + s * nt < W4 * (W4 + 1) / 2;
+    if (act[s]) wd::upper_ij(t + s * nt, W4, &I, &J);
+    i2[s] = 4 * I;
+    j2[s] = 4 * J;
+    act[s] = act[s] && (!term || j2[s] < n);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int i = i2[s] + r, j = j2[s] + c;
+        const bool in = act[s] && i <= j && j < Wo;
+        const int kind = j < n ? 0 : i < n ? 1 : 2;  // Qxx, Qxu, Quu
+        const T* src = kind == 0   ? sd.lxx + i * n + j
+                       : kind == 1 ? sd.lux + (j - n) * n + i
+                                   : sd.luu + (j - n) * m + (i - n);
+        acc[s][r][c] = in ? *src : T(0);
+      }
+  }
+  T gv = T(0);
+  if (!term) {
+    if (t < W)
+      for (int p = 0; p < n; ++p) gv += F[p * Wp + t] * tl.Vx[p];
+#pragma unroll
+    for (int s = 0; s < KT; ++s) {
+      if (!act[s]) continue;
+#pragma unroll 2
+      for (int p = 0; p < n; ++p) {
+        T av[4], bv[4];
+        wd::ld4(F + p * Wp + i2[s], av);
+        wd::ld4(G + p * Wp + j2[s], bv);
+        wd::outer4(acc[s], av, bv);
+      }
+    }
+  }
+  // G is read no more: aug and Quu K take its place
+  __syncthreads();
+#pragma unroll
+  for (int s = 0; s < KT; ++s) {
+    if (!act[s]) continue;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int i = i2[s] + r, j = j2[s] + c;
+        if (i > j || j >= Wo) continue;
+        const T v = acc[s][r][c];
+        if (j < n) {
+          tl.Vq[i * ldn + j] = v;
+        } else if (i < n) {
+          tl.Qux[(j - n) * ldn + i] = v;
+          tl.aug[(j - n) * lda + ma + i] = -v;
+        } else {
+          const int a = i - n, cc = j - n;
+          if (a == cc) {
+            tl.aug[a * lda + a] = v + regb;
+            tl.qdiag[a] = v;
+          } else {
+            tl.aug[a * lda + cc] = v;
+            tl.aug[cc * lda + a] = v;
+          }
+        }
+      }
+    }
+  }
+  if (t < Wo) {
+    const T v = (t < n ? sd.lx[t] : sd.lu[t - n]) + gv;
+    if (t < n) {
+      tl.Qx[t] = v;
+    } else {
+      tl.Qu[t - n] = v;
+      tl.aug[(t - n) * lda + ma + n] = -v;
+    }
+  }
+  __syncthreads();
+}
+
+template <typename T, int NT>
+__global__ void __launch_bounds__(NT, NT == kSmallThreads ? 4 : 1)
+riccati_wide(const T* __restrict__ A, const T* __restrict__ Bm, int per_lane,
+             const T* __restrict__ lx, const T* __restrict__ lu,
+             const T* __restrict__ lxx, const T* __restrict__ luu,
+             const T* __restrict__ lux, const T* __restrict__ reg,
+             T* __restrict__ Kout, T* __restrict__ dout,
+             T* __restrict__ dV1out, T* __restrict__ dV2out, int N, int n,
+             int m, int vec, int behind) {
+  namespace wd = altro::wide;
+  // 4 x 4 tiles per thread: G has at most 16 x 32 = 512 (the small blocks:
+  // 256), Qfull's upper triangle at most 32 x 33 / 2 = 528 (128)
+  constexpr int kT1 = NT == kSmallThreads ? 2 : 1;
+  constexpr int kT2 = NT == kSmallThreads ? 1 : 2;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Vx = reinterpret_cast<T*>(smem_raw);
-  T* Qx = Vx + n;
-  T* Vxx = Qx + n;
-  T* VA = Vxx + n * n;
-  T* VB = VA + (n * n > m * m ? n * n : m * m);
-  T* Quu = VB + n * m;
-  T* Qux = Quu + m * m;
-  T* Qu = Qux + m * n;
-  T* Quud = Qu + m;
-  T* KD = Quud + m;
-  T* Lc = VA;  // the Cholesky factor, after V A's last use
-  T* QuuK = VB;
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  const int t = threadIdx.x, nt = blockDim.x;
   const int b = blockIdx.x, N1 = N - 1;
-  const int n_tri = n * (n + 1) / 2;
+  const DLayout lo(n, m, behind);
+  const wd::TailDims td(n, m);
+  const int Wp = wd::pad4(n + m);
+  T* G = smem + lo.region;
+  const wd::Tail<T> tl{smem + lo.Vq, smem + lo.Qx, smem + lo.Vx,
+                       smem + lo.Qux, smem + lo.Qu, G, smem + lo.qdiag,
+                       smem + lo.inv, G + m * td.lda, n, m, td.ldn, td.ldk,
+                       td.ma, td.lda};
+  const int v = vec ? 16 / (int)sizeof(T) : 1;
+  const altro::Spread spn(n / v, t, nt), spm(m / v, t, nt);
+
+  T* F = smem + lo.F;
+  // knot k's F (below the terminal knot)
+  auto stage = [&](int k) {
+    const size_t kd = per_lane ? (size_t)b * N1 + k : (size_t)k;
+    altro::stage_rows(F, Wp, A + kd * n * n, n, n, vec, spn);
+    altro::stage_rows(F + n, Wp, Bm + kd * n * m, n, m, vec, spm);
+    altro::cp_async_commit();
+  };
+
   const T regb = reg[b];
   T dv1 = T(0), dv2 = T(0);
   for (int k = N1; k >= 0; --k) {
     const bool term = k == N1;
+    // knot k's F has landed, and every thread is past knot k+1
+    altro::cp_async_wait_all();
+    __syncthreads();
     const size_t kn = (size_t)b * N + k;
-    const T* lxk = lx + kn * n;
-    const T* lxxk = lxx + kn * n * n;
-    const T* luk = lu + kn * m;
-    const T* luuk = luu + kn * m * m;
-    const T* luxk = lux + kn * m * n;
-    const size_t kd = per_lane ? (size_t)b * N1 + k : (size_t)k;
-    const T* Ak = term ? A : A + kd * n * n;  // not read at the terminal
-    const T* Bk = term ? Bm : Bm + kd * n * m;
-    // pass 1: V A and V B
-    if (!term) altro::wide_entry::vab(Vxx, Ak, Bk, VA, VB, n, m);
-    __syncthreads();
-    // pass 2: Qxx (upper triangle, in Vxx's place), Qx, Qux, Qu, Quu
-    const int n_all =
-        term ? n_tri + n : n_tri + n + m * n + m + m * (m + 1) / 2;
-    for (int e = threadIdx.x; e < n_all; e += blockDim.x) {
-      if (e < n_tri) {
-        int i, j;
-        altro::wide::upper_ij(e, n, &i, &j);
-        T acc = T(0);
-        if (!term)
-          for (int p = 0; p < n; ++p) acc += Ak[p * n + i] * VA[p * n + j];
-        Vxx[i * n + j] = lxxk[i * n + j] + acc;
-      } else if (e < n_tri + n) {
-        const int i = e - n_tri;
-        T acc = T(0);
-        if (!term)
-          for (int p = 0; p < n; ++p) acc += Ak[p * n + i] * Vx[p];
-        Qx[i] = lxk[i] + acc;
-      } else if (e < n_tri + n + m * n) {
-        const int ee = e - n_tri - n, i = ee / n, j = ee % n;
-        T acc = T(0);
-        for (int p = 0; p < n; ++p) acc += Bk[p * m + i] * VA[p * n + j];
-        Qux[ee] = luxk[ee] + acc;
-      } else if (e < n_tri + n + m * n + m) {
-        const int i = e - n_tri - n - m * n;
-        T acc = T(0);
-        for (int p = 0; p < n; ++p) acc += Bk[p * m + i] * Vx[p];
-        Qu[i] = luk[i] + acc;
-      } else {
-        // the lower triangle (i >= j), mirrored
-        int i, j;
-        altro::wide::upper_ij(e - n_tri - n - m * n - m, m, &j, &i);
-        T acc = T(0);
-        for (int p = 0; p < n; ++p) acc += Bk[p * m + i] * VB[p * m + j];
-        const T v = luuk[i * m + j] + acc;
-        Quu[i * m + j] = v;
-        Quu[j * m + i] = v;
-      }
-    }
-    __syncthreads();
+    const Seeds<T> sd{lxx + kn * n * n, lux + kn * m * n, luu + kn * m * m,
+                      lx + kn * n, lu + kn * m};
     if (!term) {
-      // pass 3: (K | d), Quu K, Quu d, dV
-      altro::wide_entry::factor(Quu, Lc, regb, m);
-      altro::wide_entry::solve(Lc, Quu, Qux, Qu, KD, QuuK, Quud, n, m, &dv1,
-                               &dv2);
+      gain_product<T, kT1>(tl.Vq, td.ldn, F, Wp, G, n);
+      __syncthreads();  // G whole before the expansion reads it
+    }
+    expansion<T, kT2>(tl, F, G, Wp, sd, term, regb);
+    // F is read no more: the next knot's lands during the tail
+    if (!behind && k > 0) stage(k - 1);
+
+    // the Riccati tail: (K | d), Quu K, V; K and d stored
+    if (!term) {
+      wd::factor_solve(tl);
+      wd::quu_k(tl);
       __syncthreads();
     }
-    // pass 4: V; K and d stored
-    altro::wide_entry::value(Vxx, Vx, Qx, KD, QuuK, Qux, Quud, Qu, term, n,
-                             m);
+    wd::value(tl, term, &dv1, &dv2);
     if (!term)
-      altro::wide_entry::store_gains(
-          KD, Kout + ((size_t)b * N1 + k) * m * n,
-          dout + ((size_t)b * N1 + k) * m, n, m);
+      wd::store_gains(tl, Kout + ((size_t)b * N1 + k) * m * n,
+                      dout + ((size_t)b * N1 + k) * m);
     __syncthreads();
+    // F behind G: the next knot's lands once the tail is done
+    if (behind && k > 0) stage(k - 1);
   }
-  if (threadIdx.x == n) {
+  if (t == 0) {
     dV1out[b] = dv1;
     dV2out[b] = dv2;
   }
+}
+
+template <typename T, int NT>
+int launch_wide_nt(const void* A, const void* Bm, int per_lane,
+                   const void* lx, const void* lu, const void* lxx,
+                   const void* luu, const void* lux, const void* reg,
+                   void* K, void* d, void* dV1, void* dV2, int Bt, int N,
+                   int n, int m, cudaStream_t stream) {
+  auto kern = riccati_wide<T, NT>;
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, kern);
+  if (e != cudaSuccess) return (int)e;
+  // F's own stage where it fits beside the tail, else F behind G
+  int behind = 0;
+  size_t bytes = (size_t)DLayout(n, m, false).total * sizeof(T);
+  if (bytes > 232448 - attr.sharedSizeBytes) {
+    behind = 1;
+    bytes = (size_t)DLayout(n, m, true).total * sizeof(T);
+  }
+  e = altro::wide::prepare(kern, bytes);
+  if (e != cudaSuccess) return (int)e;
+  // 16-byte copies of the staged rows when every row starts aligned
+  const int v = 16 / (int)sizeof(T);
+  auto aligned = [](const void* p) { return ((uintptr_t)p & 15) == 0; };
+  const int vec = n % v == 0 && m % v == 0 && aligned(A) && aligned(Bm);
+  kern<<<Bt, NT, bytes, stream>>>(
+      (const T*)A, (const T*)Bm, per_lane, (const T*)lx, (const T*)lu,
+      (const T*)lxx, (const T*)luu, (const T*)lux, (const T*)reg, (T*)K,
+      (T*)d, (T*)dV1, (T*)dV2, N, n, m, vec, behind);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -925,17 +1132,13 @@ int launch_wide(const void* A, const void* Bm, int per_lane, const void* lx,
                 const void* lux, const void* reg, void* K, void* d,
                 void* dV1, void* dV2, int Bt, int N, int n, int m,
                 cudaStream_t stream) {
-  const int va = n * n > m * m ? n * n : m * m;
-  const size_t bytes = (size_t)(2 * n + n * n + va + 2 * n * m + m * m +
-                                2 * m + (n + 1) * m) *
-                       sizeof(T);
-  cudaError_t e = altro::wide::prepare(riccati_wide<T>, bytes);
-  if (e != cudaSuccess) return (int)e;
-  riccati_wide<T><<<Bt, altro::wide::kWideThreads, bytes, stream>>>(
-      (const T*)A, (const T*)Bm, per_lane, (const T*)lx, (const T*)lu,
-      (const T*)lxx, (const T*)luu, (const T*)lux, (const T*)reg, (T*)K,
-      (T*)d, (T*)dV1, (T*)dV2, Bt, N, n, m);
-  return (int)cudaGetLastError();
+  const int W4 = altro::wide::pad4(n + m) / 4;
+  const bool small = (n + 3) / 4 * W4 <= 2 * kSmallThreads &&
+                     W4 * (W4 + 1) / 2 <= kSmallThreads;
+  auto launch = small ? launch_wide_nt<T, kSmallThreads>
+                      : launch_wide_nt<T, kLargeThreads>;
+  return launch(A, Bm, per_lane, lx, lu, lxx, luu, lux, reg, K, d, dV1, dV2,
+                Bt, N, n, m, stream);
 }
 
 template <typename T>

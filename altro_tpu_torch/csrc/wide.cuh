@@ -1,10 +1,11 @@
-// The blocked Riccati tail of kernel B's tiled wide body (riccati_fused.cu:
-// fused_expand_backward_wide, which replaces the TPU kernel
-// altro_tpu/ops/riccati_fused.py: fused_expand_backward above n + m =
-// kEntryWidth), the block-wide tiled products it is built from, and the
-// helpers every wide body shares (pivot, upper_ij, prepare). The narrow
-// end's entry-per-thread tail, which kernel D's wide body also calls, is
-// wide_entry.cuh.
+// The blocked Riccati tail of the tiled wide bodies of kernel B
+// (riccati_fused.cu: fused_expand_backward_wide, which replaces the TPU
+// kernel altro_tpu/ops/riccati_fused.py: fused_expand_backward above
+// n + m = kEntryWidth) and kernel D (riccati.cu: riccati_wide, for
+// altro_tpu/ops/riccati.py: batched_riccati), the block-wide tiled
+// products they are built from, and the helpers every wide body shares
+// (pivot, upper_ij, prepare). The entry-per-thread tail of kernel B's
+// narrow end is wide_entry.cuh.
 //
 // One block works one scenario with its work space in shared memory. Per
 // knot, after the caller has formed the expansion, the tail takes it in
@@ -46,8 +47,8 @@
 // with Quu K and V), each behind a short chain of dependent shared-memory
 // loads; the FLOPs (~1.9 m^2 n + m^3 / 3 per knot) come second. The tail's
 // functions are not inlined: each gets its own registers. Times in
-// PERF.md. kWideThreads is the block of the entry-per-thread wide bodies
-// (kernel B's narrow end and kernel D's).
+// PERF.md. kWideThreads is the block of kernel B's entry-per-thread body
+// (its narrow end).
 #pragma once
 
 #include <cstddef>

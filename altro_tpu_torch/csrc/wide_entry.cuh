@@ -1,9 +1,8 @@
-// The entry-per-thread Riccati tail of the wide bodies' narrow end:
-// kernel D's wide body (riccati.cu: riccati_wide, for the TPU kernel
-// altro_tpu/ops/riccati.py: batched_riccati above n, m = 32) and kernel
-// B's entry body (riccati_fused.cu: fused_expand_backward_wide_entry, for
-// altro_tpu/ops/riccati_fused.py: fused_expand_backward at n + m <=
-// kEntryWidth). Per knot, after the caller has formed the expansion in
+// The entry-per-thread Riccati tail of kernel B's entry body, its wide
+// body's narrow end (riccati_fused.cu: fused_expand_backward_wide_entry,
+// for the TPU kernel altro_tpu/ops/riccati_fused.py: fused_expand_backward
+// at n + m <= kEntryWidth). Per knot, after the caller has formed the
+// expansion in
 // shared memory (Qxx's upper triangle in Vxx's place, Qx, Qux, Qu, Quu):
 //
 //   factor   L L' = Quu + reg I, column by column: thread 0 the pivot
@@ -18,9 +17,8 @@
 // At m = 2 this is 4 block barriers per knot and chains of a few dozen
 // operations, which is why kernel B's narrow end keeps it; wide.cuh's
 // blocked tail pays at a wide control (m = 64: here 2m barriers and n + 1
-// serial chains of ~3m^2). Kernel D's wide body calls it at every width:
-// on the blocked tail its registers rose and it lost up to 57% at m = 2
-// (PERF.md), so it stays here until its own expansion pass is redesigned.
+// serial chains of ~3m^2). Kernel D's wide body, first built on it, is on
+// wide.cuh's tail, faster at every wide shape measured (PERF.md).
 #pragma once
 
 #include <cstddef>

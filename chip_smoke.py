@@ -194,6 +194,18 @@ Phases, each printing its findings; any failure raises (non-zero exit):
       launches count in the table) and ``bench/scaling.py: measure`` at
       1024 lanes a card and 10 steps (one spawned rank; the rows for more
       cards than the host has printed as not measured);
+   r. the state_dim sweep's point n = 45 (m = 2, N = 21; seed 10, the
+      sweep's options) as an MPC batch, B=1024, float32, WIDE_MPC_T warm
+      steps on graphs, two ways: the split route
+      (``make_mpc_step(shared_k=False)``, lanes started at windows 0-4:
+      the wide bodies of D and A once per counted pass, B and C never) and
+      the shared-window step with ``ls_fused="on"`` (the wide bodies of B
+      and C once per counted pass, A and D never); no entry into the
+      host-driven loop; success 1.0, violation <= 1e-4; success, max_viol,
+      mean and lane-max iterations, step ms p50 and the profiled device ms
+      per pass (by kernel) printed; then 64 lanes of the float64 step on
+      the card against the port's plain float64 step on the CPU from the
+      card's carry (gate: equal status and iterations, max|dU| <= 1e-6);
    q. per-lane constraint windows (``make_mpc_step(shared_k=False,
       constraints_fn=grasp_constraints)``: every lane's grasp window built
       at its own index on the device), B=1024, float32, N=21, T=LANE_GRASP_T
@@ -307,9 +319,10 @@ float64, the float32 result held to the float64 plain version within 4x
 the plain float32 pass's own distance from it, as its Quu is
 ill-conditioned), and three for the grouped quadruped, B, C (L=11) and
 A's init form with a group axis (3n at B=1024, float32; launches over
-4n); the launches of 4p (the sharded step and the dry run's rank) and
-4q count in the four kernels' rows; the last line is {"ok": true,
-"device": {...}}.
+4n), and four for the wide bodies at 4r's n = 45, m = 2 (3h at B=1024,
+float32; launches over 4r); the launches of 4p (the sharded step and the
+dry run's rank), 4q and 4r count in the four kernels' rows; the last line
+is {"ok": true, "device": {...}}.
 Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -389,6 +402,10 @@ SCALING_B, SCALING_T = 1024, 10
 # gate
 LANE_GRASP_B, LANE_GRASP_T, LANE_GRASP_SPREAD = 1024, 15, 8
 LANE_GRASP_AGREE_B, LANE_GRASP_AGREE_T, LANE_GRASP_DU = 16, 3, 1e-6
+# 4r: the state_dim sweep's wide point (n, m, N) as an MPC batch, its
+# batch and warm steps, and the float64 card-vs-CPU lanes and gate
+WIDE_MPC, WIDE_MPC_B, WIDE_MPC_T = (45, 2, 21), 1024, 3
+WIDE_MPC_AGREE_B, WIDE_MPC_DU = 64, 1e-6
 
 
 def errors(got, ref, names, tol: float) -> dict:
@@ -1887,6 +1904,136 @@ def lane_grasp(card, reset_counts, read_counts):
     return launches
 
 
+def state_dim_wide(card, reset_counts, read_counts):
+    """Phase 4r: the state_dim sweep's random-linear tracking MPC at
+    (n, m, N) = WIDE_MPC (seed 10, the sweep's options), built in float64
+    on the CPU and cast, B=WIDE_MPC_B in float32 on graphs, run two ways:
+    the split route (``make_mpc_step(shared_k=False)``, lanes started at
+    windows 0 .. LANE_SPREAD - 1: kernels D and A, wide bodies) and the
+    shared-window step with ``ls_fused="on"`` (kernels B and C, wide
+    bodies). Per route: a warm-up step (the capture), WIDE_MPC_T counted and
+    timed steps (gates: success 1.0, violation <= 1e-4, the route's two
+    kernels once per counted pass and the others never, no entry into the
+    host-driven loop), then two steps under the profiler (device ms per
+    pass, by kernel); then WIDE_MPC_AGREE_B lanes of the float64 step on the
+    card against the port's plain float64 step on the CPU from the card's
+    carry, WIDE_MPC_T steps (gate: equal status and iterations, max|dU| <=
+    WIDE_MPC_DU). Returns the launches of the counted steps."""
+    from altro_tpu_torch.bench.device_profile import profile
+    from altro_tpu_torch.convert import tree_to
+    from altro_tpu_torch.models import random_linear as rl
+    from altro_tpu_torch.mpc import make_mpc_step
+    from altro_tpu_torch.solver import altro
+    from altro_tpu_torch.solver.options import SolverOptions
+
+    n, m, N = WIDE_MPC
+    B, T = WIDE_MPC_B, WIDE_MPC_T
+    steps = 1 + T + 2                  # warm-up, counted, two profiled
+    rng = np.random.default_rng(10)
+    N_track = N + steps + LANE_SPREAD + 2
+    full = rl.gen_random_linear(rng, n, m, N_track, dtype=torch.float64,
+                                device="cpu")
+    X_track, U_track = rl.gen_trajectory(rng, full, N_track)
+    prob64 = rl.gen_tracking_mpc(full, X_track, U_track, N)
+    noise64 = torch.as_tensor(rng.standard_normal((steps, B, n)))
+    total = {}
+    for route, shared, fused in (("split", False, "auto"),
+                                 ("fused", True, "on")):
+        opts = SolverOptions(cost_tolerance=1e-4, constraint_tolerance=1e-4,
+                             gradient_tolerance=1e-4, penalty_initial=1e3,
+                             penalty_scaling=100.0, reset_duals=False,
+                             ls_fused=fused)
+        args64 = (prob64, opts, X_track, U_track)
+        args32 = tree_to(args64, "cuda", torch.float32)
+        noise = noise64.to("cuda", torch.float32)
+        step, init = make_mpc_step(*args32, shared_k=shared)
+        if shared:
+            carry = init(B)
+
+            def run(c, t, step=step, noise=noise):
+                return step(c, noise[t], t)
+        else:
+            carry = init(B, torch.arange(B, device="cuda") % LANE_SPREAD)
+
+            def run(c, t, step=step, noise=noise):
+                return step(c, noise[t])
+        carry, _ = run(carry, 0)                        # capture, warm up
+        reset_counts()
+        outs, ms = [], []
+        for t in range(1, 1 + T):
+            (carry, out), t_ms = _timed(lambda: run(carry, t))
+            outs.append(out)
+            ms.append(t_ms)
+        launches, passes = read_counts(), altro.pass_count
+        eager = altro.eager_loop_count
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        state = {"carry": carry, "t": 1 + T}
+
+        def window(state=state, run=run):
+            p0 = altro.pass_count
+            state["carry"], _ = run(state["carry"], state["t"])
+            state["t"] += 1
+            return altro.pass_count - p0
+        prof = profile(window)
+        per_pass = prof["per_iteration"]
+        status = torch.stack([o.status for o in outs]).double().cpu()
+        viol = torch.stack([o.viol for o in outs]).double().cpu()
+        iters = torch.stack([o.iters for o in outs]).double().cpu()
+        print(f"state_dim wide MPC [{route}] [{card}]: n={n} m={m} N={N} "
+              f"B={B}, {T} warm steps, float32, graphs; success "
+              f"{float(status.mean()):.4f} max_viol {float(viol.max()):.3e}"
+              f" mean_iters {float(iters.mean()):.3f} lane_max_iters "
+              f"{int(iters.max())}; step ms p50 {float(np.median(ms)):.3f};"
+              f" passes {passes}; device ms per pass "
+              f"{prof['device_ms'] / prof['loop_iterations']:.4f} ("
+              + ", ".join(f"{k} {v['ms']:.4f}" for k, v in per_pass.items())
+              + f"), busy {prof['busy_share']:.1%}; launches {launches}",
+              flush=True)
+        if not (float(status.mean()) == 1.0 and float(viol.max()) <= 1e-4):
+            raise AssertionError(f"state_dim wide MPC [{route}] quality: "
+                                 f"status {float(status.mean())}, viol "
+                                 f"{float(viol.max())}")
+        mine = (("batched_riccati", "batched_ls_rollout") if not shared
+                else ("fused_expand_backward", "batched_ls_rollout_al"))
+        if not (passes > 0 and eager == 0
+                and all(launches[k] == (passes if k in mine else 0)
+                        for k in launches)):
+            raise AssertionError(f"state_dim wide MPC [{route}] launch "
+                                 f"counts {launches} do not match {passes} "
+                                 f"passes, or the host-driven loop ran "
+                                 f"({eager})")
+        # float64 on the card against the CPU, from the card's carry
+        a = WIDE_MPC_AGREE_B
+        step_c, init_c = make_mpc_step(*tree_to(args64, "cuda"),
+                                       shared_k=shared)
+        step_h, _ = make_mpc_step(*args64, shared_k=shared, graphed=False)
+        carry = (init_c(a) if shared else
+                 init_c(a, torch.arange(a, device="cuda") % LANE_SPREAD))
+        differ, dU = 0, 0.0
+        for t in range(T):
+            nz = noise64[t, :a]
+            c_h = tree_to(carry, "cpu")
+            if shared:
+                carry, o_c = step_c(carry, nz.cuda(), t)
+                _, o_h = step_h(c_h, nz, t)
+            else:
+                carry, o_c = step_c(carry, nz.cuda())
+                _, o_h = step_h(c_h, nz)
+            differ += int(((o_c.status.cpu() != o_h.status)
+                           | (o_c.iters.cpu() != o_h.iters)).sum())
+            dU = max(dU, float((o_c.U.cpu() - o_h.U).abs().max()))
+        print(f"state_dim wide MPC [{route}] f64, {a} lanes x {T} steps, card"
+              f" (kernels) vs CPU (plain) from the card's carry: status or "
+              f"iterations differ on {differ} lane-steps; max|dU| {dU:.3e} "
+              f"(gate {WIDE_MPC_DU:.0e})", flush=True)
+        if differ or not dU <= WIDE_MPC_DU:
+            raise AssertionError(f"state_dim wide MPC [{route}] f64: card and "
+                                 f"CPU part on {differ} lane-steps, max|dU| "
+                                 f"{dU:.3e}")
+    return total
+
+
 def gate_modules(card, su32, gsu32):
     """Phase 5g: ``bench/fused_check.py`` in full on both families (the
     setups of 4b and 4e) and ``bench/agreement.py`` at AGREEMENT_T steps;
@@ -2539,6 +2686,15 @@ def main() -> None:
     # (gated there: its float64 comparison on the CPU enters the host loop)
     jlaunches = lane_flagship(card, reset_counts, read_counts)
 
+    # ---- 4r. main path: the state_dim sweep's n = 45 as an MPC batch, on
+    # the split route (D and A wide) and on the fused route with the fused
+    # ladder (B and C wide); gated there (its float64 comparison on the CPU
+    # enters the host loop)
+    t0 = time.perf_counter()
+    rlaunches_wide = state_dim_wide(card, reset_counts, read_counts)
+    print(f"phase 4r ({time.perf_counter() - t0:.1f} s) launches: "
+          f"{rlaunches_wide}", flush=True)
+
     # ---- 4p. main path: scenario sharding at world size 1 on NCCL, the
     # dry run and the scaling rows (gated there)
     plaunches = sharded_flagship(card, reset_counts, read_counts)
@@ -2730,7 +2886,8 @@ def main() -> None:
             "launches": (launches[name] + rlaunches[name] + qlaunches[name]
                          + nlaunches[name] + olaunches[name]
                          + glaunches[name] + flaunches[name]
-                         + jlaunches[name] + plaunches[name]
+                         + jlaunches[name] + rlaunches_wide[name]
+                         + plaunches[name]
                          + qwlaunches[name] + klaunches[name]
                          + mlaunches[name] + llaunches[name]
                          + hlaunches[name] + glaunches5[name]
@@ -2799,7 +2956,12 @@ def main() -> None:
              par_n["f32", QUAD_B]["batched_ls_rollout_al"], nlaunches),
             ("batched_ls_rollout (grouped quadruped, G=8, init L=1)",
              "batched_ls_rollout",
-             par_n["f32", QUAD_B]["batched_ls_rollout"], nlaunches)):
+             par_n["f32", QUAD_B]["batched_ls_rollout"], nlaunches),
+            *((f"{name} (wide body, n={WIDE_MPC[0]} m={WIDE_MPC[1]})", name,
+               wide["f32", WIDE_BATCHES[-1]][WIDE_MPC[:2]][name],
+               rlaunches_wide)
+              for name in ("batched_ls_rollout", "fused_expand_backward",
+                           "batched_ls_rollout_al", "batched_riccati"))):
         src, rep_, _ = sources[name]
         bnd, by = bound_ms(*work, 4)
         print(f"{row_name}: max|kernel - plain| "

@@ -68,6 +68,16 @@ def test_grasp_split_window_counts_passes():
      "kernel A (ls_rollout)"),
     ("void (anonymous namespace)::fused_expand_backward_kernel<float, 64, 6>",
      "kernel B (fused_expand_backward)"),
+    # the wide bodies; "riccati" holds "cat", and the name of every kernel
+    # of riccati_fused.cu holds "riccati"
+    ("void (anonymous namespace)::riccati_wide<float, 128>(float const*, "
+     "float const*, int)", "kernel D (riccati)"),
+    ("void (anonymous namespace)::ls_rollout_al_wide<double>(double const*)",
+     "kernel C (ls_rollout_al)"),
+    ("void (anonymous namespace)::ls_rollout_wide<float>(float const*)",
+     "kernel A (ls_rollout)"),
+    ("_ZN49_GLOBAL__N__834bcba2_16_riccati_fused_cu_91d4de6126fused_expand_"
+     "backward_wideIdLi512EEEvPKT_", "kernel B (fused_expand_backward)"),
     ("void at::native::vectorized_elementwise_kernel<4, at::native::"
      "AddFunctor<float>>", "elementwise"),
     ("Memset (Device)", "other"),

@@ -155,12 +155,13 @@ def test_wrapper_checks():
 
 def test_work_counts_at_the_quadruped_shape():
     """The yardstick of the kernel's bound (bench/kernels.py): 53.5 MB and
-    0.52 GFLOP at B=1024, N=15, n=m=12 with per-lane dynamics in float32;
-    shared dynamics save all but one copy of A and B."""
+    0.42 GFLOP (the upper triangles of Qxx and Quu) at B=1024, N=15,
+    n=m=12 with per-lane dynamics in float32; shared dynamics save all but
+    one copy of A and B."""
     from altro_tpu_torch.bench.kernels import bound_ms, riccati_work
 
     nbytes, flops = riccati_work(1024, 15, 12, 12, True, 4)
-    assert (nbytes, flops) == (53_489_664, 518_160_384)
+    assert (nbytes, flops) == (53_489_664, 423_198_720)
     ms, by = bound_ms(nbytes, flops, 4)
     assert by == "bytes" and abs(ms - 0.01597) < 1e-5
     shared = riccati_work(1024, 15, 12, 12, False, 4)

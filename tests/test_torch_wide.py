@@ -1,12 +1,14 @@
 """The four kernels at the TPU kernels' full width (n, m <= 64): on a CUDA
 device each kernel's wide body (n or m above 32) against its plain version
 at n in {33, 55, 64}, and each wrapper refusing n or m = 65; the edges of
-kernel A's and B's wide mappings: one control, a narrow state beside the
+the four kernels' wide mappings: one control, a narrow state beside the
 widest control, a control just past the group bodies at full state, the
-shortest horizon, either side of each kernel's choice of body, one lane
-and 1023, ladders of 1 and 32 rungs, per-lane dynamics at 64, a NaN lane,
-rows that start off a 16-byte boundary, and a lane whose Quu + reg I is
-indefinite (the clamped pivots, against a clamped recursion); on the CPU the wide inputs at every edge through the wrappers'
+shortest horizon, either side of each kernel's choice of body (and of
+kernels C's and D's places for their staged rows), one lane and 1023,
+ladders of 1 and 32 rungs, per-lane dynamics at 64, kernel C with a group
+axis, a NaN lane, rows that start off a 16-byte boundary, and a lane whose
+Quu + reg I is indefinite (the clamped pivots, against a clamped
+recursion); on the CPU the wide inputs at every edge through the wrappers'
 plain dispatch, kernel A's byte count, and the state_dim sweep's widest
 point (n = 55, m = 2, N = 21) of the port's lockstep loop against the JAX
 package's.
@@ -176,6 +178,24 @@ def test_rollout_work_counts_k_once():
                                    + 2 * n * m)
 
 
+@pytest.mark.parametrize("n,m,knot", [(45, 2, 309_621),
+                                      (64, 64, 4_176_554)])
+def test_riccati_work_counts_the_q_blocks_triangles(n, m, knot):
+    """Kernel D's FLOPs per knot count the upper triangles of Qxx and Quu
+    and Qux once, as kernel B's count does: the hand count, and D's count
+    below B's at the same shape with no constraint row."""
+    tri_n, tri_m = n * (n + 1) // 2, m * (m + 1) // 2
+    hand = (2 * n * n * (n + m)                    # G = V [A | B]
+            + (tri_n + tri_m + m * n) * 2 * n      # [A | B]' G
+            + 2 * n * (n + m)                      # Qx, Qu
+            + 2 * m ** 3 // 3 + 4 * (n + 1) * m * m
+            + 3 * m * n * (n + 1) + 4 * m * n)     # Cholesky, solves, V
+    assert hand == knot
+    assert bk.riccati_work(1, 2, n, m, False, 4)[1] == knot
+    assert bk.riccati_work(1, 2, n, m, False, 4)[1] < bk.fused_work(
+        1, 1, n, m, 0, (), 4)[1]
+
+
 def test_clamped_reference_is_plain_where_definite():
     """Where every pivot of Quu + reg I stays above the clamp, the tests'
     clamped recursion is the plain version (to round-off)."""
@@ -184,13 +204,25 @@ def test_clamped_reference_is_plain_where_definite():
            riccati.batched_riccati_reference(*w["riccati"]), 1e-12)
 
 
+def _close_al(got, ref, tol, truth):
+    """Kernel C's outputs: Xs and Us under ``_close``, J per lane against
+    max(1, |J|) plus four times the plain version's own distance from the
+    float64 answer."""
+    _close(got[:2], ref[:2], tol, truth[:2])
+    J, Jr, J6 = got[2].double(), ref[2].double(), truth[2].double()
+    slack = 4.0 * (Jr - J6).abs()
+    assert bool(((J - Jr).abs() <= tol * Jr.abs().clamp(min=1.0)
+                 + slack).all())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", TOLS)
 @pytest.mark.parametrize("edge", EDGES, ids=_edge_id)
 @pytest.mark.parametrize("Bt", [1, 1023])
 def test_wide_edges_match_plain_versions(cuda, edge, Bt, dtype, tol):
-    """B, D and A (L=11 and its init form) at each edge against their plain
-    versions, under ``_close``; one launch each (A two)."""
+    """B, D, A (L=11 and its init form) and C (L=11) at each edge against
+    their plain versions, under ``_close`` (C's J per lane); one launch
+    each (A two)."""
     from altro_tpu_torch.convert import tree_to
     n, m, N = edge
     w = bk.wide_inputs(dtype, cuda, Bt, n, m, N=N)
@@ -209,7 +241,12 @@ def test_wide_edges_match_plain_versions(cuda, edge, Bt, dtype, tol):
         _close(rollout.batched_ls_rollout(*w[key]),
                rollout.batched_ls_rollout_reference(*w[key]), tol,
                truth(rollout.batched_ls_rollout_reference, w[key]))
-    assert _counts() == (counts[0] + 2, counts[1] + 1, counts[2],
+    _close_al(rollout_al.batched_ls_rollout_al(*w["ladder_al"],
+                                               packed=w["packed"]),
+              rollout_al.batched_ls_rollout_al_reference(*w["ladder_al"]),
+              tol, truth(rollout_al.batched_ls_rollout_al_reference,
+                         w["ladder_al"]))
+    assert _counts() == (counts[0] + 2, counts[1] + 1, counts[2] + 1,
                          counts[3] + 1)
 
 
@@ -218,17 +255,23 @@ def test_wide_edges_match_plain_versions(cuda, edge, Bt, dtype, tol):
 @pytest.mark.parametrize("L", [1, 32])
 @pytest.mark.parametrize("Bt", [1, 44, 1023])
 def test_wide_ladder_lengths(cuda, L, Bt, dtype, tol):
-    """Kernel A's wide bodies at n = m = 64 with ladders of 1 and 32 rungs:
-    the rung body (one rung, or one lane), the ladder body on chunks of
-    rungs (44 lanes: three chunks of 11 on the H100's 132 SMs) and on whole
-    ladders."""
+    """Kernels A's and C's wide bodies at n = m = 64 with ladders of 1 and
+    32 rungs: the rung body (one rung, or one lane), the ladder body on
+    chunks of rungs (44 lanes: three chunks of 11 on the H100's 132 SMs)
+    and on whole ladders."""
     from altro_tpu_torch.convert import tree_to
     w = bk.wide_inputs(dtype, cuda, Bt, 64, 64, N=9)
-    args = w["ladder"][:-1] + (tuple(0.5 ** i for i in range(L)),)
+    alphas = (tuple(0.5 ** i for i in range(L)),)
+    args = w["ladder"][:-1] + alphas
     _close(rollout.batched_ls_rollout(*args),
            rollout.batched_ls_rollout_reference(*args), tol,
            rollout.batched_ls_rollout_reference(
                *tree_to(args, cuda, torch.float64)))
+    args = w["ladder_al"][:-1] + alphas
+    _close_al(rollout_al.batched_ls_rollout_al(*args, packed=w["packed"]),
+              rollout_al.batched_ls_rollout_al_reference(*args), tol,
+              rollout_al.batched_ls_rollout_al_reference(
+                  *tree_to(args, cuda, torch.float64)))
 
 
 @pytest.mark.cuda
@@ -262,9 +305,9 @@ def test_wide_per_lane_dynamics_at_64(cuda, Bt, dtype, tol):
 @pytest.mark.parametrize("widths", [(40, 3), (64, 64)],
                          ids=lambda w: f"n{w[0]}m{w[1]}")
 def test_wide_nan_lane_stays_in_its_lane(cuda, widths, dtype, tol):
-    """A NaN state (B), gradient (D) or gain (A) of lane 1 at knot 2 gives
-    the plain version's NaN pattern in that lane; the other lanes agree
-    with the plain version."""
+    """A NaN state (B), gradient (D) or gain (A, C) of lane 1 at knot 2
+    gives the plain version's NaN pattern in that lane; the other lanes
+    agree with the plain version (C on 64 lanes: its ladder body)."""
     w = bk.wide_inputs(dtype, cuda, 5, *widths, N=6)
     f = list(w["fused"])
     f[4] = f[4].clone()
@@ -287,6 +330,19 @@ def test_wide_nan_lane_stays_in_its_lane(cuda, widths, dtype, tol):
             assert torch.equal(torch.isnan(g[1]), torch.isnan(rf[1]))
         assert any(bool(torch.isnan(rf[1]).any()) for rf in ref)
         _close([g[keep] for g in got], [rf[keep] for rf in ref], tol)
+    w = bk.wide_inputs(dtype, cuda, 64, *widths, N=6)
+    c = list(w["ladder_al"])
+    c[7] = c[7].clone()
+    c[7][1, 2, 0, 0] = float("nan")
+    got = rollout_al.batched_ls_rollout_al(*c, packed=w["packed"])
+    ref = rollout_al.batched_ls_rollout_al_reference(*c)
+    for g, rf in zip(got, ref):
+        assert torch.equal(torch.isnan(g[1]), torch.isnan(rf[1]))
+    assert bool(torch.isnan(ref[2][1]).all())
+    keep = [0] + list(range(2, 64))
+    _close([g[keep] for g in got[:2]], [rf[keep] for rf in ref[:2]], tol)
+    assert bool(((got[2][keep] - ref[2][keep]).abs().double()
+                 <= tol * ref[2][keep].abs().double().clamp(min=1.0)).all())
 
 
 @pytest.mark.cuda
@@ -421,6 +477,82 @@ def test_wide_ladder_per_lane_dynamics(cuda, per_lane):
     _close(riccati.batched_riccati(*rargs),
            riccati.batched_riccati_reference(*rargs), 1e-9)
 
+
+def _ladder_switch(sms: int, L: int = 11) -> int:
+    """The fewest lanes at which kernel C's (and A's) wide launcher gives
+    a block kLadderRungs = 4 rungs or more on ``sms`` SMs: below it the
+    rung body runs, from it the ladder body."""
+    Bt = 1
+    while -(-L // min(L, max(1, -(-sms // Bt)))) < 4:   # Lc = ceil(L / chunks)
+        Bt += 1
+    return Bt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("side", [-1, 0, 1])
+@pytest.mark.parametrize("widths", [(45, 2), (64, 64)],
+                         ids=lambda w: f"n{w[0]}m{w[1]}")
+def test_wide_al_body_switch(cuda, widths, side, dtype, tol):
+    """Kernel C at L=11 on either side of its launcher's choice between the
+    rung body and the ladder body (the lane count at which a block first
+    carries four rungs on this card, and one lane fewer), and, one lane
+    more, of its choice to put the cost rows in the dynamics rows' place
+    in float32 at 64 x 64 (from more blocks than SMs), against its plain
+    version."""
+    from altro_tpu_torch.convert import tree_to
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    Bt = _ladder_switch(sms) + side
+    w = bk.wide_inputs(dtype, cuda, Bt, *widths, N=7)
+    args = w["ladder_al"]
+    _close_al(rollout_al.batched_ls_rollout_al(*args, packed=w["packed"]),
+              rollout_al.batched_ls_rollout_al_reference(*args), tol,
+              rollout_al.batched_ls_rollout_al_reference(
+                  *tree_to(args, cuda, torch.float64)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("Bt", [4, 256])
+@pytest.mark.parametrize("widths", [(45, 2), (64, 64)],
+                         ids=lambda w: f"n{w[0]}m{w[1]}")
+def test_wide_al_grouped(cuda, widths, Bt, dtype, tol):
+    """Kernel C with a group axis at a wide shape (G = 4 groups of
+    dynamics, Bt / 4 lanes each: the rung body at 4 lanes, the ladder body
+    at 256), against its plain version group by group."""
+    from altro_tpu_torch.convert import tree_to
+    w = bk.wide_inputs(dtype, cuda, Bt, *widths, N=7)
+    cost, A, B, dd, blocks, X, U, K, d, lams, rho, alphas = w["ladder_al"]
+    scale = torch.tensor([1.0, 0.9, 1.1, 0.95], dtype=dtype,
+                         device=cuda)[:, None, None, None]
+    args = (cost, (A[None] * scale).contiguous(),
+            (B[None] * scale).contiguous(),
+            (dd[None] * scale[..., 0]).contiguous(), blocks, X, U, K, d,
+            lams, rho, alphas)
+    _close_al(rollout_al.batched_ls_rollout_al(*args, packed=w["packed"],
+                                               grouped=True),
+              rollout_al.batched_ls_rollout_al_reference(*args,
+                                                         grouped=True),
+              tol, rollout_al.batched_ls_rollout_al_reference(
+                  *tree_to(args, cuda, torch.float64), grouped=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("m", [62, 63])
+@pytest.mark.parametrize("Bt", [1, 300])
+def test_wide_riccati_stage_switch(cuda, m, Bt, dtype, tol):
+    """Kernel D's tiled body at n = 64 on either side of its launcher's
+    choice of where [A | B] lies: in float64, m = 62 is the widest control
+    whose stage fits beside the tail, m = 63 the first whose rows lie
+    behind G (in float32 both have their own stage), against its plain
+    version."""
+    from altro_tpu_torch.convert import tree_to
+    w = bk.wide_inputs(dtype, cuda, Bt, 64, m, N=5)
+    _close(riccati.batched_riccati(*w["riccati"]),
+           riccati.batched_riccati_reference(*w["riccati"]), tol,
+           riccati.batched_riccati_reference(
+               *tree_to(w["riccati"], cuda, torch.float64)))
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("widths", [(65, 2), (12, 65)])
