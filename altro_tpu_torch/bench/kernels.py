@@ -10,10 +10,12 @@ a sleep on the stream, divided by REPS) and its bound, the least time the
 card could take: the larger of the bytes the function must move (each input
 read once, each output written once) over 3.35 TB/s and its FLOPs over the
 card's peak for their type, 67 TFLOP/s in float32 (outside the tensor
-cores: the port keeps float32 at full precision, so TF32 is barred) and 67
-TFLOP/s in float64 (through the tensor cores' DMMA; 34 outside them) (H100
-SXM data sheet). A runs at the flagship's L=3 and L=1 and the quadruped's
-per-lane L=11, B on the flagship and the rocket window, C on the rocket
+cores: the port keeps float32 at full precision, so TF32 is barred) and 34
+TFLOP/s in float64 (outside the tensor cores too: the kernels issue DFMA,
+not the tensor cores' DMMA, whose 67 TFLOP/s they cannot reach) (H100 SXM
+data sheet; ``bench/roofline.py`` measures what the card issues). A runs
+at the flagship's L=3 and L=1 and the quadruped's per-lane L=11, B on the
+flagship and the rocket window, C on the rocket
 window at L=6, D on the quadruped's per-lane expansion; B also on grasp's
 window (13 rows in 4 blocks) and cold problem (19 rows in 5) and on the
 flexsat regulator (N=80, one NONPOS block of 6 rows), C on grasp's window
@@ -58,7 +60,10 @@ ROCKET_LADDER = (1.0, 0.5, 0.25, 0.125, 0.0625, 0.0)
 GRASP_LADDER = (1.0, 0.5, 0.0)
 FLEX_LADDER = (1.0, 0.5, 0.25, 0.125, 0.0625, 0.0)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {4: 67e12, 8: 67e12}   # by element size: f32, f64
+# by element size: f32, f64 (the vector units' FFMA and DFMA rates, data
+# sheet); ``bench/roofline.py``'s calibration kernel issues 63.99 and 32.84
+# TFLOP/s on an H100 80GB HBM3 at 700 W
+PEAK_FLOPS = {4: 67e12, 8: 34e12}
 # launches per timing, and the sleep they queue behind (cycles at the
 # H100's 1.98 GHz boost clock; a lower clock sleeps longer)
 REPS = 20
@@ -204,7 +209,8 @@ def flagship_inputs(dtype, dev, B: int = FLAG_B, widths=(12, 6),
     n=12, m=6, N=30, one NONPOS block of 2m rows; seed 7): X, U off any
     solve, |u| > 3 on a third of the entries (active and inactive rows),
     half the lanes regularised; the ladder at L=3 on the plain version's
-    gains, and the L=1 init form (K = d = 0, alpha = 1); and kernel D's, the
+    gains, and the L=1 init form (K = d = 0, alpha = 1); kernel C's on the
+    same ladder with the one NONPOS block's merit; and kernel D's, the
     shared dynamics with the solver's AL expansion of the same X, U and
     multipliers. ``widths`` and ``N``: the same random-linear model at
     another (n, m) and horizon."""
@@ -245,6 +251,10 @@ def flagship_inputs(dtype, dev, B: int = FLAG_B, widths=(12, 6),
         ladder=(dyn.A, dyn.B, dyn.d, X, U, K, d, FLAG_LADDER),
         ladder_work=rollout_work(B, N, n, m, len(FLAG_LADDER), False,
                                  X.element_size()),
+        ladder_al=(prob.cost, dyn.A, dyn.B, dyn.d, prob.constraints, X, U, K,
+                   d, (lam,), rho, FLAG_LADDER),
+        ladder_al_work=rollout_al_work(B, N, n, m, p, len(FLAG_LADDER),
+                                       X.element_size()),
         init=(dyn.A, dyn.B, dyn.d, X, U, torch.zeros_like(K),
               torch.zeros_like(d), (1.0,)),
         init_work=rollout_work(B, N, n, m, 1, False, X.element_size()))

@@ -19,6 +19,8 @@ gathered into a smaller batch that finishes alone (through nested levels of
 caps and blocks), and the results are scattered back. A lane's iterates do
 not depend on the batch it runs in, so the results are those of the plain
 step; only the batch size of the late passes changes.
+:func:`run_compacted_step` drives the same schedule from the host, from the
+pieces of :func:`make_mpc_step_compacted`.
 
 :func:`make_regulator_step` is the step of a regulator MPC (the flexible
 satellite's), plain or compacted: the window never moves, so every step
@@ -648,6 +650,27 @@ def make_mpc_step_compacted(prob_mpc: Problem, opts: SolverOptions,
         return pieces.init_carry(batch, graphed, check_every)
 
     return partial, resume, extract, init_carry
+
+
+def run_compacted_step(partial, resume, extract, carry, noise_t, k: int,
+                       block: int = 128):
+    """One compacted MPC step driven from the host, from the pieces of
+    :func:`make_mpc_step_compacted`: the capped full-batch pass
+    (``partial``), then the indices of the lanes not done, read on the
+    host, resumed to completion ``block`` at a time (each gather padded by
+    cycling its lanes, which is safe: a lane resumed twice scatters the
+    same converged state) and scattered back, then ``extract``. Returns
+    ``(carry, MPCResults)``, the plain step's results. The card's form is
+    :func:`make_mpc_step_device_compacted`: the same schedule with no host
+    read."""
+    state, x0_new = partial(carry, noise_t, k)
+    idx = torch.nonzero(~state[10])[:, 0]
+    for lo in range(0, idx.numel(), block):
+        chunk = idx[lo:lo + block]
+        take = chunk.repeat(-(-block // chunk.numel()))[:block]
+        sub = resume(_state_map(lambda a: a[take], state), k)
+        state = _state_map(lambda a, b: a.index_copy(0, take, b), state, sub)
+    return extract(state, x0_new, k)
 
 
 def make_mpc_step_device_compacted(prob_mpc: Problem, opts: SolverOptions,

@@ -37,6 +37,7 @@ _SIGNATURES = {
     "altro_ls_rollout_al_f32": [_P] * 13 + _TABLE + [_P] * 6 + [_I]
                                + [_P] * 3 + [_I] * 6 + [_P],
     "altro_riccati_f32": [_P] * 2 + [_I] + [_P] * 10 + [_I] * 4 + [_P],
+    "altro_calibrate_fma_f32": [_P] * 3 + [_I] * 4 + [_P],
 }
 for _name in list(_SIGNATURES):
     _SIGNATURES[_name.replace("_f32", "_f64")] = _SIGNATURES[_name]

@@ -42,7 +42,16 @@ def batched_riccati(A, B, lx, lu, lxx, luu, lux, reg) -> Tuple:
     and dV1, dV2 [Bt]: a step of size alpha is expected to change the cost
     by alpha dV1 + alpha^2 dV2.
     """
-    global launch_count
+    args = _prepare(A, B, lx, lu, lxx, luu, lux, reg)
+    if lx.device.type == "cpu":
+        return batched_riccati_reference(*args)
+    return _launch(*args)
+
+
+def _prepare(A, B, lx, lu, lxx, luu, lux, reg) -> Tuple:
+    """The wrapper's work before the launch: the argument checks and, on a
+    CUDA device, the kernel's arguments, shared Hessians expanded to the
+    batch (a copy each). On the CPU the arguments as given."""
     Bt, N, n = lx.shape
     m = lu.shape[-1]
     per_lane = A.dim() == 4
@@ -57,7 +66,7 @@ def batched_riccati(A, B, lx, lu, lxx, luu, lux, reg) -> Tuple:
               "lux": hess(lux, (N, m, n)), "reg": (reg, (Bt,))}
     _check_args(expect, lx)
     if lx.device.type == "cpu":
-        return batched_riccati_reference(A, B, lx, lu, lxx, luu, lux, reg)
+        return A, B, lx, lu, lxx, luu, lux, reg
     if lx.device.type != "cuda":
         raise ValueError(f"unsupported device {lx.device}")
     if n > MAX_DIM or m > MAX_DIM:
@@ -66,7 +75,16 @@ def batched_riccati(A, B, lx, lu, lxx, luu, lux, reg) -> Tuple:
     lxx, luu, lux = (t if t.dim() == 4
                      else t.expand((Bt,) + tuple(t.shape)).contiguous()
                      for t in (lxx, luu, lux))
+    return A, B, lx, lu, lxx, luu, lux, reg
 
+
+def _launch(A, B, lx, lu, lxx, luu, lux, reg) -> Tuple:
+    """The kernel on :func:`_prepare`'s arguments (per-scenario Hessians on
+    a CUDA device): allocates the outputs and launches."""
+    global launch_count
+    Bt, N, n = lx.shape
+    m = lu.shape[-1]
+    per_lane = A.dim() == 4
     kw = dict(dtype=lx.dtype, device=lx.device)
     K = torch.empty((Bt, N - 1, m, n), **kw)
     d = torch.empty((Bt, N - 1, m), **kw)

@@ -86,6 +86,29 @@ Phases, each printing its findings; any failure raises (non-zero exit):
       its bound, and B and C beside their shared launch at the same B
       (group 0's stacks for every lane); the float32 errors count in
       max_abs_err;
+   o. the probes (the counterparts of the repository's last two TPU
+      kernels, the probes under ``tools/``): the FMA-calibration kernel
+      (``ops/calibrate.py``, ``csrc/calibrate.cu``) against its plain
+      version in float32 and float64, 16 accumulators, a and x positive
+      draws, at a small grid (264 steps of [8, 128] lanes, inner=64; gate:
+      elementwise relative error <= 1e-5
+      in float32, 1e-12 in float64) and at the reference's defaults (4096
+      steps, inner=512; gate: inner x the type's machine epsilon, the
+      plain version's extra rounding per round); then, with the launch
+      counters reset just before and read just after,
+      ``bench/roofline.py: run`` at the flagship shapes (the calibration
+      at the defaults, timed, in TFLOP/s and as a share of the data
+      sheet's peak; the FMAs a work item runs, read from ``cuobjdump
+      -sass``, gated equal to streams x inner where the toolkit has
+      cuobjdump; kernels D, A, C and B rated against the calibrated
+      ceiling and their bounds; the flagship's useful FLOP rate from its
+      measured solves/s and mean iterations; gate: at least one launch of
+      the calibration kernel) and ``bench/layout.py: run`` (kernel D's
+      boundary at the flagship shapes in CUDA graphs of 200 dependent
+      calls: the wrapper whole, its preparation, the bare launch, the lxx
+      copy; gate: at least one launch of D); and the bare launch on the
+      layout probe's prepared inputs against the plain version under 3a's
+      gates, timed beside it;
 4. main paths, each on CUDA graphs (``altro_tpu_torch/solver/graph.py``:
    every MPC step, batch solve and cold solve as start, loop and finish
    graphs, the loop replayed with one host sync per k passes), with the
@@ -320,7 +343,10 @@ the plain float32 pass's own distance from it, as its Quu is
 ill-conditioned), and three for the grouped quadruped, B, C (L=11) and
 A's init form with a group axis (3n at B=1024, float32; launches over
 4n), and four for the wide bodies at 4r's n = 45, m = 2 (3h at B=1024,
-float32; launches over 4r); the launches of 4p (the sharded step and the
+float32; launches over 4r), and two for the probes of 3o: the calibration
+kernel (at the defaults in float32; launches over ``bench/roofline.py``'s
+run) and D's bare launch on the layout probe's inputs (launches over
+``bench/layout.py``'s run); the launches of 4p (the sharded step and the
 dry run's rank), 4q and 4r count in the four kernels' rows; the last line
 is {"ok": true, "device": {...}}.
 Imports nothing of JAX.
@@ -406,6 +432,11 @@ LANE_GRASP_AGREE_B, LANE_GRASP_AGREE_T, LANE_GRASP_DU = 16, 3, 1e-6
 # batch and warm steps, and the float64 card-vs-CPU lanes and gate
 WIDE_MPC, WIDE_MPC_B, WIDE_MPC_T = (45, 2, 21), 1024, 3
 WIDE_MPC_AGREE_B, WIDE_MPC_DU = 64, 1e-6
+# 3o: the calibration kernel's parity grids (grid steps, rounds) and its
+# relative gates at the small grid (the reference's defaults are gated at
+# inner x the type's epsilon)
+CAL_SMALL, CAL_DEFAULT, CAL_STREAMS = (264, 64), (4096, 512), 16
+CAL_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 
 
 def errors(got, ref, names, tol: float) -> dict:
@@ -2376,6 +2407,88 @@ def quickstart_on_card():
         raise AssertionError(f"quickstart: {bad}")
 
 
+def probes(card) -> dict:
+    """3o: the calibration kernel against its plain version (float32 and
+    float64, a small grid and the reference's defaults), ``bench/roofline``
+    and ``bench/layout`` at the flagship shapes with the counters of the
+    calibration kernel and of D read over each run, and D's bare launch on
+    the layout probe's prepared inputs against the plain version."""
+    from altro_tpu_torch.bench import layout, roofline
+    from altro_tpu_torch.bench.kernels import riccati_work
+    from altro_tpu_torch.ops import calibrate, riccati
+
+    t0 = time.perf_counter()
+    out = {"cal": {}}
+    rng = np.random.default_rng(16)
+    for dtype, label in ((torch.float32, "f32"), (torch.float64, "f64")):
+        # a and x positive, as the probe's (a = x = ones): no cancellation
+        # in the accumulators' sum
+        a, x = (torch.as_tensor(0.5 + rng.random((8, 128)), dtype=dtype,
+                                device="cuda") for _ in range(2))
+        errs = []
+        for (grid, inner), tol in ((CAL_SMALL, CAL_TOL[dtype]),
+                                   (CAL_DEFAULT,
+                                    CAL_DEFAULT[1] * torch.finfo(dtype).eps)):
+            got = calibrate.calibrate_fma(a, x, grid, inner, CAL_STREAMS)
+            want = calibrate.calibrate_fma_reference(a, x, grid, inner,
+                                                     CAL_STREAMS)
+            torch.cuda.synchronize()
+            rel = float(((got - want).abs()
+                         / want.abs().clamp_min(1.0)).max())
+            print(f"parity calibrate_fma grid={grid} inner={inner} "
+                  f"streams={CAL_STREAMS} {label}: max relative |kernel - "
+                  f"plain| {rel:.3e} (gate {tol:.1e})", flush=True)
+            if not rel <= tol:
+                raise AssertionError(f"calibrate_fma {label} inner={inner}: "
+                                     f"relative error {rel:.3e} > {tol:.1e}")
+            errs.append(float((got - want).abs().max()))
+        ones = torch.ones((8, 128), dtype=dtype, device="cuda")
+        plain_ms = time_ms(lambda: calibrate.calibrate_fma_reference(
+            ones, ones, *CAL_DEFAULT, CAL_STREAMS))
+        out["cal"][label] = dict(max_abs_err=max(errs), plain_ms=plain_ms)
+
+    calibrate.launch_count = 0
+    res = roofline.run()
+    out["cal_launches"] = calibrate.launch_count
+    if out["cal_launches"] == 0:
+        raise AssertionError("bench/roofline.py never launched the "
+                             "calibration kernel")
+    for label, dt in (("f32", "float32"), ("f64", "float64")):
+        out["cal"][label].update(res["calibration"][dt])
+        sass = (res["sass"] or {}).get(dt)
+        if sass is not None and sass["fma_per_item"] != sass["expected"]:
+            raise AssertionError(f"calibrate_fma {dt}: {sass['fma_per_item']}"
+                                 f" FMAs a work item in the SASS, expected "
+                                 f"{sass['expected']}")
+    out["sass"] = res["sass"]
+
+    riccati.launch_count = 0
+    out["layout"] = layout.run()
+    out["layout_launches"] = riccati.launch_count
+    if out["layout_launches"] == 0:
+        raise AssertionError("bench/layout.py never launched kernel D")
+
+    args = layout.inputs()
+    prep = riccati._prepare(*args)
+    got = riccati._launch(*prep)
+    ref = riccati.batched_riccati_reference(*args)
+    errs = errors(got, ref, ("K", "d", "dV1", "dV2"), F32_TOL)
+    B, N, n = args[2].shape
+    out["bare"] = (errs, time_ms(lambda: riccati._launch(*prep), kernel=True),
+                   time_ms(lambda: riccati.batched_riccati_reference(*args)),
+                   riccati_work(B, N, n, args[3].shape[-1], False, 4))
+    _, ms, plain_ms, work = out["bare"]
+    bnd, by = bound_ms(*work, 4)
+    print(f"parity batched_riccati bare launch (layout probe) f32: max|kernel"
+          f" - plain| " + " ".join(f"{k}={v:.3e}" for k, v in errs.items())
+          + f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bnd:.4f} ms ({by}), share {bnd / ms:.2%} [{card}]")
+    print(f"phase 3o ({time.perf_counter() - t0:.1f} s) launches: "
+          f"calibrate_fma {out['cal_launches']}, batched_riccati (layout) "
+          f"{out['layout_launches']}", flush=True)
+    return out
+
+
 def main() -> None:
     # ---- 1. device
     if not torch.cuda.is_available():
@@ -2510,6 +2623,10 @@ def main() -> None:
                       f"{work[1] / 1e9:.4f} GFLOP), share {bnd / ms:.2%} "
                       f"[{card}]", flush=True)
     print(f"phase 3n: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- 3o. the probes: the calibration kernel, bench/roofline.py and
+    # bench/layout.py (D's bare launch) at the flagship shapes
+    pr = probes(card)
 
     def reset_counts():
         rollout.launch_count = 0
@@ -2975,6 +3092,30 @@ def main() -> None:
             "max_abs_err": max(errs.values()), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
             "library_ms": None})
+    # the probes' rows (3o): the calibration kernel at the reference's
+    # defaults in float32, and D's bare launch on the layout probe's inputs
+    cal = pr["cal"]["f32"]
+    print(f"calibrate_fma f64: {pr['cal']['f64']['ms']:.4f} ms, "
+          f"{pr['cal']['f64']['flops_per_s'] / 1e12:.3f} TFLOP/s, "
+          f"{pr['cal']['f64']['share_of_peak']:.2%} of the data sheet's peak, "
+          f"plain {pr['cal']['f64']['plain_ms']:.4f} ms [{card}]")
+    table.append({
+        "name": "calibrate_fma", "route": "cuda",
+        "source": "altro_tpu_torch/csrc/calibrate.cu",
+        "replaces": "tools/exp_r5_roofline.py:47",
+        "launches": pr["cal_launches"], "max_abs_err": cal["max_abs_err"],
+        "ms": cal["ms"], "plain_ms": cal["plain_ms"],
+        "bound_ms": cal["bound_ms"], "bound_by": cal["bound_by"],
+        "library_ms": None})
+    errs, ms, plain_ms, work = pr["bare"]
+    bnd, by = bound_ms(*work, 4)
+    table.append({
+        "name": "batched_riccati (bare launch, layout probe)",
+        "route": "cuda", "source": sources["batched_riccati"][0],
+        "replaces": "tools/exp_layout.py:104",
+        "launches": pr["layout_launches"],
+        "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bnd, "bound_by": by, "library_ms": None})
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -12,6 +12,11 @@
   package's compacted step to atol 1e-8 (iterations and status equal);
 - the pieces of ``make_mpc_step_compacted`` (partial, block resume to an
   absolute cap, extract) give the plain step's results;
+- ``run_compacted_step`` (the host-driven schedule) on the random-linear
+  case of ``tests/test_compaction.py`` (cap 1, blocks of 4; no lane
+  outlasts the cap) and on the rocket window (cycle-padded gathers) equals
+  the port's plain step bit for bit and the JAX package's
+  ``run_compacted_step`` to 1e-8 (iterations and status equal);
 
 and, on a CUDA device, the compacted rocket and grasp steps against the
 plain ones (equal status and iterations on every lane-step).
@@ -27,7 +32,8 @@ import altro_tpu_torch as tt  # noqa: E402
 from altro_tpu_torch import convert  # noqa: E402
 from altro_tpu_torch.models import rocket as trocket  # noqa: E402
 from altro_tpu_torch.mpc import (make_mpc_step, make_mpc_step_compacted,  # noqa: E402
-                                 make_mpc_step_device_compacted)
+                                 make_mpc_step_device_compacted,
+                                 run_compacted_step)
 from altro_tpu_torch.solver import altro  # noqa: E402
 
 torch.set_num_threads(1)
@@ -210,6 +216,95 @@ def test_compacted_pieces_match_plain(rocket_window):
         ccarry, cout = extract(resume(state, t), x0n, t)
         for k in ("X", "U", "iters", "status", "viol"):
             assert torch.equal(getattr(cout, k), getattr(pout, k)), (t, k)
+
+
+def _random_linear_case():
+    """The case of ``tests/test_compaction.py:62-99``: a random-linear
+    tracking window (n=6, m=3, N_mpc=15) on the JAX package's cold solve,
+    B=8, T=4 (every lane converges within the cap of 1 iteration: no
+    gather)."""
+    import jax
+    import jax.numpy as jnp
+    import altro_tpu as at
+    from altro_tpu.models import random_linear as jrl
+    from altro_tpu.mpc import gen_tracking_mpc as j_gen
+
+    rng = np.random.default_rng(1)
+    prob = jrl.gen_random_linear(rng, 6, 3, 41, dtype=jnp.float64)
+    cold = jax.jit(at.solve)(prob, at.SolverOptions(
+        cost_tolerance=1e-6, constraint_tolerance=1e-6,
+        penalty_initial=1e3, penalty_scaling=100.0))
+    pm = j_gen(prob, cold.X, cold.U, 15)
+    kw = dict(cost_tolerance=1e-4, constraint_tolerance=1e-4,
+              penalty_initial=1e3, penalty_scaling=100.0, reset_duals=False)
+    noise = rng.standard_normal((4, 8, 6))
+    return (pm, convert.problem_from_numpy(convert.numpy_tree(pm)),
+            np.array(cold.X), np.array(cold.U), kw, noise, {})
+
+
+@pytest.mark.parametrize("case", ["random_linear", "rocket"])
+def test_run_compacted_step_matches_plain_and_jax(case, request):
+    """Cap 1, blocks of 4, host-driven loops in float64: the random-linear
+    case of ``tests/test_compaction.py``, and the rocket window (B=8, T=2,
+    its lanes 2 to 50 iterations a step: cycle-padded gathers of 4)."""
+    import jax
+    import jax.numpy as jnp
+    import altro_tpu as at
+    from altro_tpu.mpc import make_mpc_step_compacted as j_compacted
+    from altro_tpu.mpc import run_compacted_step as j_run
+
+    if case == "random_linear":
+        jw, tp, X_tr, U_tr, kw, noise, models = _random_linear_case()
+    else:
+        from altro_tpu.models import rocket as jrocket
+        from altro_tpu_torch.bench.conic import WARM_OPTS
+
+        jw, tp, X_t, U_t = request.getfixturevalue("rocket_window")
+        X_tr, U_tr, kw = X_t.numpy(), U_t.numpy(), WARM_OPTS
+        noise = np.random.default_rng(1).standard_normal((2, 8, 6))
+        models = dict(jax=jrocket.rocket_noise_model(),
+                      torch=trocket.rocket_noise_model())
+    T, B = noise.shape[:2]
+    jkw = {"noise_model": models["jax"]} if models else {}
+    tkw = {"noise_model": models["torch"]} if models else {}
+
+    pfn, rfn, efn, icc = j_compacted(jw, at.SolverOptions(**kw),
+                                     jnp.asarray(X_tr), jnp.asarray(U_tr),
+                                     it_cap=1, **jkw)
+    jp = jax.jit(jax.vmap(pfn, in_axes=(0, 0, None)))
+    jr = jax.jit(jax.vmap(rfn, in_axes=(0, None)))
+    je = jax.jit(jax.vmap(efn, in_axes=(0, 0, None)))
+    jcarry = jax.jit(jax.vmap(lambda _: icc()))(jnp.arange(B))
+
+    X_tr, U_tr = torch.as_tensor(X_tr), torch.as_tensor(U_tr)
+    opts = tt.SolverOptions(**kw)
+    pstep, pinit = make_mpc_step(tp, opts, X_tr, U_tr, graphed=False, **tkw)
+    partial, resume, extract, cinit = make_mpc_step_compacted(
+        tp, opts, X_tr, U_tr, it_cap=1, graphed=False, **tkw)
+    blocks = []
+
+    def counted_resume(state, k):
+        blocks.append(state[10].shape[0])
+        return resume(state, k)
+
+    pcarry, ccarry = pinit(B), cinit(B)
+    for t in range(T):
+        jcarry, jout = j_run(jp, jr, je, jcarry, jnp.asarray(noise[t]),
+                             jnp.asarray(t, jnp.int32), block=4)
+        n_t = torch.as_tensor(noise[t])
+        pcarry, pout = pstep(pcarry, n_t, t)
+        ccarry, cout = run_compacted_step(partial, counted_resume, extract,
+                                          ccarry, n_t, t, block=4)
+        for k in ("X", "U", "iters", "status", "viol"):
+            assert torch.equal(getattr(cout, k), getattr(pout, k)), (t, k)
+        assert cout.iters.tolist() == np.asarray(jout.iters).tolist(), t
+        assert cout.status.tolist() == np.asarray(jout.status).tolist(), t
+        np.testing.assert_allclose(cout.U.numpy(), np.asarray(jout.U),
+                                   atol=ATOL, rtol=0)
+    if case == "rocket":
+        assert blocks and set(blocks) == {4}        # the gathers ran
+    else:
+        assert not blocks
 
 
 @pytest.fixture

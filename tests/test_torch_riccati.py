@@ -269,6 +269,29 @@ def test_kernel_nan_lane_stays_in_its_lane(cuda, per_lane, dtype, tol):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_prepare_and_launch_are_the_wrapper(cuda, dtype):
+    """The wrapper's two halves (the layout probe times each): the
+    preparation expands shared Hessians into contiguous per-lane stacks, and
+    the bare launch on them gives the wrapper's outputs bit for bit."""
+    args = list(_torch(_inputs(37, 7, 5, 3, seed=6), dtype, cuda))
+    for i in (4, 5, 6):
+        args[i] = args[i][0].contiguous()
+    prep = riccati._prepare(*args)
+    for i in (4, 5, 6):
+        assert prep[i].shape == (37,) + tuple(args[i].shape)
+        assert prep[i].is_contiguous()
+        assert torch.equal(prep[i], args[i].expand_as(prep[i]))
+    before = riccati.launch_count
+    got = riccati._launch(*prep)
+    want = riccati.batched_riccati(*args)
+    torch.cuda.synchronize()
+    assert riccati.launch_count == before + 2
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
 def test_kernel_refuses_wide_problems(cuda):
     args = _torch(_inputs(2, 4, 65, 3), torch.float32, cuda)
     with pytest.raises(ValueError, match="n, m <= 64"):
