@@ -1,0 +1,5 @@
+"""kernel_a.roofline_pct: kernel A's share of its roofline in the traced
+stretch (see _roofline.py)."""
+from benchmark.metrics._roofline import reader
+
+read = reader("kernel_a")
