@@ -57,6 +57,7 @@ from .solver.altro import _finalize, _flat_while, _warmstart_state
 from .solver.altro import map_state as _state_map
 from .solver.graph import LoopGraph, Replayable, clone_tree, copy_into
 from .solver.options import SolverOptions
+from .utils import profiling
 
 
 def default_noise_model(x_prop, noise_i):
@@ -399,7 +400,9 @@ class _GraphedStep:
     the finish graph's results.
 
     Called as ``step(carry, noise_i, k)``. ``loop_replays`` counts the loop
-    graphs' replays and ``capture_s`` the host seconds spent capturing."""
+    graphs' replays and ``capture_s`` the host seconds spent capturing.
+    While tracing is on (``utils.profiling``) a call is a ``step`` request
+    with the spans that module lists."""
 
     def __init__(self, pieces: _StepPieces, opts: SolverOptions, sched,
                  check_every: int):
@@ -421,9 +424,13 @@ class _GraphedStep:
             self.sets[batch] = self._build(inputs)
         return self.sets[batch]
 
+    def _build(self, inputs):
+        with profiling.span("build", lanes=int(inputs[0][0].shape[0])):
+            return self._capture(inputs)
+
     @torch.no_grad()
     @graph.capturing()
-    def _build(self, inputs):
+    def _capture(self, inputs):
         t0 = time.perf_counter()
         dev = inputs[0][0].device
         pool = self._pool(dev)
@@ -445,34 +452,38 @@ class _GraphedStep:
                 _state_map(lambda a: a[:blk], loops[-1].state),
                 check_every=self.check_every, pool=pool, share=loops[-1],
                 capture=False))
+        for lvl, loop in enumerate(loops):
+            loop.name, loop.level = f"loop.L{lvl}", lvl
 
         def start_fn():
             p, s, x0_new = self.pieces.start_from(*ins)
             loops[0].load(p, s)
             return x0_new
 
-        start = Replayable(start_fn, dev, pool)
+        start = Replayable(start_fn, dev, pool, "graph.start")
         loops[0].capture()
         gathers = []
-        for parent, child in zip(loops, loops[1:]):
+        for lvl, (parent, child) in enumerate(zip(loops, loops[1:])):
             gathers.append(Replayable(
                 graph.gather_fn(parent, child, child.state[0].shape[0]), dev,
-                pool))
+                pool, f"graph.gather.L{lvl}"))
             child.capture()
         scatters = [None] * len(gathers)
         for lvl in reversed(range(len(gathers))):
             scatters[lvl] = Replayable(graph.scatter_fn(
-                loops[lvl], loops[lvl + 1], gathers[lvl]), dev, pool)
+                loops[lvl], loops[lvl + 1], gathers[lvl]), dev, pool,
+                f"graph.scatter.L{lvl}")
         finish = Replayable(lambda: self.pieces.finish(
-            loops[0].prob, loops[0].state, start.out), dev, pool)
+            loops[0].prob, loops[0].state, start.out), dev, pool,
+            "graph.finish")
         self.capture_s += time.perf_counter() - t0
         return SimpleNamespace(inputs=ins, start=start, loops=loops,
                                gathers=gathers, scatters=scatters,
                                finish=finish)
 
-    def _run(self, loop: LoopGraph, it_cap) -> None:
+    def _run(self, loop: LoopGraph, it_cap, rest: bool = False) -> None:
         loop.set_cap(it_cap)
-        self.loop_replays += loop.run()
+        self.loop_replays += loop.run(rest)
 
     def _compact(self, g, lvl: int, cum: int) -> None:
         # the level's batch has run to the absolute cap `cum`: gather its
@@ -486,25 +497,38 @@ class _GraphedStep:
         else:
             self._run(g.loops[lvl + 1], None)
         g.scatters[lvl].replay()
-        self._run(g.loops[lvl], None)
+        self._run(g.loops[lvl], None, rest=True)
 
-    def _start(self, carry, noise_i, k: int):
+    def _start(self, carry, noise_i, k: int, tr=None):
+        sp = None if tr is None else tr.open("step.inputs")
         inputs = (carry, noise_i) + self.pieces.window(k + 1)
         g = self._graphs(inputs)
         copy_into(g.inputs, inputs, "step inputs")
+        if sp is not None:
+            tr.close(sp)
         g.start.replay()
         return g
 
     @torch.no_grad()
     def __call__(self, carry, noise_i, k: int):
-        g = self._start(carry, noise_i, k)
+        tr = profiling.tracer
+        if tr is None:
+            return self._step(carry, noise_i, k, None)
+        with tr.request("step"):
+            return self._step(carry, noise_i, k, tr)
+
+    def _step(self, carry, noise_i, k: int, tr):
+        g = self._start(carry, noise_i, k, tr)
         if self.sched:
             self._run(g.loops[0], self.sched[0][0])
             self._compact(g, 0, self.sched[0][0])
         else:
             self._run(g.loops[0], None)
         g.finish.replay()
-        return clone_tree(g.finish.out)
+        if tr is None:
+            return clone_tree(g.finish.out)
+        with tr.span("step.out"):
+            return clone_tree(g.finish.out)
 
     @torch.no_grad()
     def partial(self, carry, noise_i, k: int, it_cap: int):
@@ -518,9 +542,11 @@ class _GraphedStep:
         batch = state[0].shape[0]
         if batch not in self.resumes:
             t0 = time.perf_counter()
-            self.resumes[batch] = LoopGraph(
-                prob_k, self.opts, state, check_every=self.check_every,
-                pool=self._pool(state[0].device))
+            with profiling.span("build", lanes=batch):
+                self.resumes[batch] = LoopGraph(
+                    prob_k, self.opts, state, check_every=self.check_every,
+                    pool=self._pool(state[0].device))
+            self.resumes[batch].name = "loop.resume"
             self.capture_s += time.perf_counter() - t0
         loop = self.resumes[batch]
         loop.load(prob_k, state)

@@ -588,7 +588,8 @@ def loop_fns(prob: Problem, opts: SolverOptions, s0, it_cap=None,
     ``s0``: ``ctx`` is the loop's :class:`LoopContext` (built from ``s0``
     unless given), ``cond(s)`` the per-lane live mask [B] and ``body(s)``
     one pass, which freezes every lane whose own ``cond`` is false, so
-    passes beyond a lane's end change nothing. ``it_cap``: lanes stop being
+    passes beyond a lane's end change nothing (``body(s, live)`` takes
+    ``cond(s)`` computed by the caller). ``it_cap``: lanes stop being
     live at that absolute iteration count (an int, or a 0-d int32 tensor on
     the batch's device, read at every pass). ``body`` reads nothing but the
     tensors of ``prob``, ``ctx``, ``it_cap`` and its state and makes no host
@@ -645,7 +646,7 @@ def loop_fns(prob: Problem, opts: SolverOptions, s0, it_cap=None,
             live = live & (it < it_cap)
         return live
 
-    def body(s):
+    def body(s, live=None):
         global pass_count
         pass_count += 1
         X, U, K, duals, reg, grad, viol, it_rd, it, rounds, done = s
@@ -754,7 +755,7 @@ def loop_fns(prob: Problem, opts: SolverOptions, s0, it_cap=None,
                it_rd_new, it + 1, rounds_new, done_new)
         # freeze a lane as soon as ITS OWN cond is false (done, the
         # outer-round cap without convergence, or the iteration cap)
-        return _where_tree(cond(s), out, s)
+        return _where_tree(cond(s) if live is None else live, out, s)
 
     return ctx, cond, body
 

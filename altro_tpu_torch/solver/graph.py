@@ -7,11 +7,12 @@ A :class:`LoopGraph` holds fixed buffers for everything the loop body reads:
 the problem's tensors, the packed constraint stacks, the loop state and the
 iteration cap (a 0-d device tensor, so one graph serves every absolute cap
 of a compaction schedule). Its graph runs k body passes (``check_every``),
-copies the final state back into the state buffers and the "any lane live"
-flag into pinned host memory. :meth:`LoopGraph.run` replays it until the
-flag says that no lane is live: one host sync per k passes. Every lane
-freezes on its own condition, so passes past the last lane's end, or past
-the cap, change no bit of the state.
+copies the final state back into the state buffers and two counts into
+pinned host memory: the lanes live when the replay began and when it
+ended. :meth:`LoopGraph.run` replays it until no lane is live at the end:
+one host sync per k passes. Every lane freezes on its own condition, so
+passes past the last lane's end, or past the cap, change no bit of the
+state.
 
 :class:`GraphedSolve` adds a start graph (the warm-start rollout and dual
 init) and a finish graph (the solution's statistics) around a loop graph;
@@ -32,6 +33,13 @@ pass_count`` are plain Python counters that a graph bumps only while it is
 captured. Each piece records at capture what one replay launches and adds
 it to the counters at every replay; the warm-up and the capture add
 nothing.
+
+Spans (``utils/profiling.py``, while tracing is on): a replay of a piece is
+a span named after it (``graph.start``, ``graph.gather.L0``, ...) with CUDA
+events around it; :meth:`LoopGraph.run` a ``loop.*`` span with a
+``replay`` and a ``sync`` span per replay, the live counts and the empty
+replays; a cold solve a ``solve`` request; set-up ``build`` and ``capture``
+spans.
 """
 from __future__ import annotations
 
@@ -46,6 +54,7 @@ import torch
 from ..ops import riccati, riccati_fused, rollout, rollout_al
 from ..ops.blocks import pack_blocks
 from ..problem import Problem
+from ..utils import profiling
 from . import altro
 from .altro import (Solution, _finalize, _warmstart_state, loop_fns,
                     map_state, take_lanes)
@@ -191,15 +200,16 @@ class Replayable:
 
     ``per_replay`` holds what one replay adds to the launch and pass
     counters; ``capture_s`` the host seconds of the warm-up and the
-    capture."""
+    capture. ``name``: the span of a replay while tracing is on."""
 
-    def __init__(self, fn: Callable, device, pool=None):
+    def __init__(self, fn: Callable, device, pool=None, name: str = "graph"):
         self.fn = fn
         self.graph = None
+        self.name = name
         saved = _read_counts()
         t0 = time.perf_counter()
         device = torch.device(device)
-        with torch.no_grad():
+        with torch.no_grad(), profiling.span("capture", graph=name):
             if device.type == "cuda":
                 side = torch.cuda.Stream(device)
                 side.wait_stream(torch.cuda.current_stream(device))
@@ -219,6 +229,16 @@ class Replayable:
         self.capture_s = time.perf_counter() - t0
 
     def replay(self) -> None:
+        tr = profiling.tracer
+        if tr is None:
+            self.launch()
+            return
+        sp = tr.open(self.name, timed=self.graph is not None)
+        self.launch()
+        tr.close(sp)
+
+    def launch(self) -> None:
+        """One replay, untraced."""
         if self.graph is None:
             with torch.no_grad():
                 copy_into(self.out, self.fn(), "results")
@@ -243,7 +263,10 @@ class LoopGraph:
     graphs of one step. :meth:`load` copies a step's problem and state into
     the buffers, :meth:`set_cap` sets the absolute iteration cap and
     :meth:`run` replays until no lane is live. ``state`` holds the result
-    between replays; a later replay or load overwrites it. ``capture``:
+    between replays; a later replay or load overwrites it. ``live``: the
+    pinned int32 pair the last replay wrote, the lanes live when it began
+    and when it ended. ``name`` and ``level`` label its runs' spans while
+    tracing is on (set where a step's graphs are built). ``capture``:
     capture the graph now, or leave it to :meth:`capture` (a step captures
     its graphs in the order it replays them)."""
 
@@ -265,8 +288,11 @@ class LoopGraph:
                 share.ctx, lanes=torch.arange(X_0.shape[0], device=dev))
         self.ctx = ctx
         self.cap = torch.full((), NO_CAP, dtype=torch.int32, device=dev)
+        self.it_cap = None
+        self.name, self.level = "loop", 0
         self.cuda = dev.type == "cuda"
-        self.flag = torch.ones((), dtype=torch.bool, pin_memory=self.cuda)
+        self.live = torch.ones(2, dtype=torch.int32, pin_memory=self.cuda)
+        self._live = self.live.numpy()
         self.event = torch.cuda.Event() if self.cuda else None
         _, self._cond, self._body = loop_fns(self.prob, opts, self.state,
                                              self.cap, ctx)
@@ -280,7 +306,7 @@ class LoopGraph:
 
     def capture(self) -> None:
         self.graph = Replayable(self._passes, self.state[0].device,
-                                self.pool)
+                                self.pool, "loop")
 
     @property
     def per_replay(self):
@@ -292,10 +318,14 @@ class LoopGraph:
 
     def _passes(self) -> None:
         s = self.state
+        live = self._cond(s)           # the first pass freezes by it
+        entering = live
         for _ in range(self.check_every):
-            s = self._body(s)
+            s = self._body(s, live)
+            live = None
         copy_into(self.state, s, "loop state")
-        self.flag.copy_(self._cond(s).any(), non_blocking=True)
+        self.live.copy_(torch.stack((entering, self._cond(s))).sum(
+            1, dtype=torch.int32), non_blocking=True)
 
     def load(self, prob: Optional[Problem] = None, state=None) -> None:
         """Copy ``prob`` (and its packed constraint stacks) and ``state``
@@ -314,25 +344,61 @@ class LoopGraph:
     def set_cap(self, it_cap: Optional[int]) -> None:
         """Lanes stop being live at the absolute iteration count ``it_cap``
         (None: no cap)."""
-        self.cap.fill_(NO_CAP if it_cap is None else int(it_cap))
+        self.it_cap = None if it_cap is None else int(it_cap)
+        self.cap.fill_(NO_CAP if it_cap is None else self.it_cap)
 
     def replay(self) -> None:
-        """One replay: k passes, without reading the flag."""
-        self.graph.replay()
+        """One replay: k passes, without reading the live counts."""
+        self.graph.launch()
 
-    def run(self) -> int:
-        """Replay until the flag says that no lane is live (a replay runs
-        first, so a batch with no live lane costs k frozen passes and one
-        sync); returns the number of replays."""
+    def run(self, rest: bool = False) -> int:
+        """Replay until no lane is live at the end of a replay (a replay
+        runs first, so a batch with no live lane costs k frozen passes and
+        one sync); returns the number of replays. ``rest``: the run is a
+        catch-all (its span's name ends in ``.rest``)."""
+        tr = profiling.tracer
+        if tr is not None:
+            return self._run_traced(tr, rest)
         replays = 0
         while True:
-            self.graph.replay()
+            self.graph.launch()
             replays += 1
             if self.cuda:
                 self.event.record()
                 self.event.synchronize()
-            if not bool(self.flag):
+            if not self._live[1]:
                 return replays
+
+    def _run_traced(self, tr, rest: bool) -> int:
+        """:meth:`run` in spans: the sync waits on the replay's
+        after-event; the device times of what came before are read while
+        the next replay runs."""
+        replays = empty = 0
+        with tr.span(self.name + (".rest" if rest else ""), level=self.level,
+                     lanes=int(self.state[0].shape[0]), cap=self.it_cap,
+                     check_every=self.check_every) as run:
+            while True:
+                rep = tr.open("replay", timed=self.cuda)
+                self.graph.launch()
+                tr.resolve()
+                tr.close(rep)
+                replays += 1
+                sync = tr.open("sync")
+                if rep.events is not None:
+                    rep.events[2].synchronize()
+                elif self.cuda:
+                    self.event.record()
+                    self.event.synchronize()
+                live_in, live_out = int(self._live[0]), int(self._live[1])
+                tr.close(sync)
+                tr.synced()
+                rep.args.update(live_in=live_in, live_out=live_out)
+                empty += live_in == 0
+                if not live_out:
+                    break
+            run.args.update(replays=replays,
+                            passes=replays * self.check_every, empty=empty)
+        return replays
 
 
 def gather_fn(parent: LoopGraph, child: LoopGraph, blk: int):
@@ -403,11 +469,19 @@ class GraphedSolve:
         self.X0 = (torch.zeros((x0.shape[0], prob.N, prob.n),
                                dtype=x0.dtype, device=dev)
                    if states else None)
+        self.compact = compact
+        with profiling.span("build", lanes=int(x0.shape[0])):
+            self._build(prob, opts, check_every, pool)
+        self.replays = 0
+
+    def _build(self, prob: Problem, opts: SolverOptions, check_every: int,
+               pool) -> None:
+        x0, dev, compact = prob.x0, prob.x0.device, self.compact
         with torch.no_grad(), uncounted():
             s0 = _warmstart_state(prob, opts, self.U0, None, self.X0)
         self.loop = LoopGraph(prob, opts, s0, check_every=check_every,
                               pool=pool, capture=False)
-        self.compact = compact
+        self.loop.name = "loop.L0"
         if compact is not None:
             blk = min(compact[1], x0.shape[0])
             head = torch.arange(blk, device=dev)
@@ -415,22 +489,24 @@ class GraphedSolve:
                 take_lanes(self.loop.prob, head), opts,
                 map_state(lambda a: a[:blk], s0), check_every=check_every,
                 pool=pool, capture=False)
+            self.block.name, self.block.level = "loop.L1", 1
         with capturing():
-            self._start = Replayable(self._start_fn, dev, pool)
+            self._start = Replayable(self._start_fn, dev, pool,
+                                     "graph.start")
             self.loop.capture()
             if compact is not None:
                 # in the order of their first replay (see the module's
                 # docstring)
                 self._gather = Replayable(
-                    gather_fn(self.loop, self.block, blk), dev, pool)
+                    gather_fn(self.loop, self.block, blk), dev, pool,
+                    "graph.gather.L0")
                 self.block.capture()
                 self._scatter = Replayable(
                     scatter_fn(self.loop, self.block, self._gather), dev,
-                    pool)
+                    pool, "graph.scatter.L0")
             self._finish = Replayable(
                 lambda: _finalize(self.loop.prob, self.loop.state), dev,
-                pool)
-        self.replays = 0
+                pool, "graph.finish")
 
     def _start_fn(self) -> None:
         self.loop.load(state=_warmstart_state(self.loop.prob, self.opts,
@@ -449,6 +525,13 @@ class GraphedSolve:
         if (X0 is None) != (self.X0 is None):
             raise ValueError("X0 is given exactly when the solve was built "
                              "with states=True")
+        tr = profiling.tracer
+        if tr is None:
+            return self._solve(x0, U0, X0)
+        with tr.request("solve"):
+            return self._solve(x0, U0, X0)
+
+    def _solve(self, x0, U0, X0) -> Solution:
         with torch.no_grad():
             if x0 is not None:
                 copy_into(self.loop.prob.x0, x0, "x0")
@@ -468,7 +551,7 @@ class GraphedSolve:
                 self.replays += self.block.run()
                 self._scatter.replay()
                 self.loop.set_cap(None)
-                self.replays += self.loop.run()    # the catch-all
+                self.replays += self.loop.run(rest=True)    # the catch-all
             self._finish.replay()
             return clone_tree(self._finish.out)
 
