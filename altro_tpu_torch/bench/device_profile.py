@@ -86,6 +86,7 @@ import torch
 
 from altro_tpu_torch.bench.kernels import (FLAG_B, FLEX_B, GRASP_B, QUAD_B,
                                            ROCKET_B)
+from altro_tpu_torch.ops.pass_tail import _ladder_choice
 from altro_tpu_torch.solver import altro, graph
 
 FLAG_STEPS, ROCKET_STEPS, GRASP_STEPS, FLEX_STEPS, QUAD_SOLVES = (10, 3, 5,
@@ -358,8 +359,8 @@ def pass_pieces(prob, opts, U0, X0=None, it: int = SECTION_IT) -> dict:
     def merit():
         Jts, _ = altro.total_al_cost_res(prob, duals_l, *out["ladder"])
         _, _, dV1, dV2 = out["gains"]
-        out["choice"] = altro._ladder_choice(Jts, alphas, dV1, dV2,
-                                             opts.ls_min_ratio)
+        out["choice"] = _ladder_choice(Jts, alphas, dV1, dV2,
+                                       opts.ls_min_ratio)
 
     return dict(zip(PASS_SECTIONS, (linearize, expansion, riccati, ladder,
                                     merit)))

@@ -171,6 +171,245 @@ def rollout_al_work(Bt, N, n, m, P, L, itemsize, groups: int = 1) -> tuple:
     return nbytes, flops
 
 
+def pass_tail_work(N, n, m, P, nblocks, L, itemsize, lanes) -> tuple:
+    """(bytes, FLOPs) of one pass-tail launch as it runs: ``lanes`` is
+    (Bt, live, accepted, lam, rho, round_end), the counts of the batch's
+    lanes, of those live (a frozen lane reads its counters and writes
+    nothing), whose rung is accepted (they write X and U), whose
+    multipliers are written, whose penalties are scaled and which end a
+    round (they write the violation): :func:`pass_tail_decisions`. Read:
+    the packed constraint stacks once; per live lane d and the old U (the
+    gradient metric), the rungs' merits, dV1, dV2, reg, the adopted X and
+    U, K from kernel B, the multipliers and the penalties. Written per live
+    lane: K, reg, the gradient metric. Every lane reads its four counters
+    and a live lane writes them (4 bytes each). FLOPs per live lane and
+    knot: each row's residual (2 (n + m)) and its projection (~8)."""
+    Bt, live, acc, lam, rho, rend = lanes
+    N1 = N - 1
+    shared = N * P * (n + m + 2)
+    per_live = (3 * N1 * m + L + 3 + N * n + 2 * N1 * m * n + N * P
+                + nblocks * N + 2)
+    floats = (shared + live * per_live + acc * (N * n + N1 * m)
+              + lam * N * P + rho * nblocks * N + rend)
+    return (floats * itemsize + 16 * (Bt + live),
+            live * N * P * (2 * (n + m) + 8))
+
+
+def pass_tail_records(prob, opts, U0, X0, it_cap: int) -> list:
+    """Every pass's pass-tail call of an eager solve of ``prob`` from
+    (``U0``, ``X0``) for at most ``it_cap`` iterations, as (state, inputs,
+    keywords) of ``ops.pass_tail.al_pass_tail``: the state before the tail
+    and the inputs (kernel B's K, d, dV1, dV2, kernel C's Xs, Us, J, the
+    ladder) cloned before the tail writes. The loop runs the head and the
+    tail of ``solver.altro.pass_fns``, the tail on the loop's own route."""
+    from ..solver import altro
+    from ..solver.graph import clone_tree
+    s = altro._warmstart_state(prob, opts, U0, None, X0)
+    ctx, cond, head, tail = altro.pass_fns(prob, opts, s, it_cap)
+    s = clone_tree(s)
+    recs = []
+    while bool(cond(s).any()):
+        ins = head(s)
+        recs.append((clone_tree(s), clone_tree(ins[:7]) + (ctx.alphas_t,),
+                     dict(packed=ctx.packed, it_cap=it_cap, live=None,
+                          counts=None)))
+        s = tail(s, ins)
+    return recs
+
+
+def pass_tail_solve(prob, opts, U0, X0, kernel: bool):
+    """The final loop state of an eager solve of ``prob`` from (``U0``,
+    ``X0``) whose passes end in the pass-tail kernel (``kernel``) or in its
+    plain version: the loop's context (``solver.altro.LoopContext``) with
+    ``pass_tail`` set."""
+    import dataclasses
+
+    from ..solver import altro
+    from ..solver.graph import clone_tree
+    s = clone_tree(altro._warmstart_state(prob, opts, U0, None, X0))
+    ctx = dataclasses.replace(altro.loop_context(prob, opts, s[0]),
+                              pass_tail=kernel)
+    _, cond, body = altro.loop_fns(prob, opts, s, ctx=ctx)
+    while bool(cond(s).any()):
+        s = body(s)
+    return s
+
+
+def pass_tail_decisions(opts, live, ins, want) -> dict:
+    """The plain version's per-lane decisions [B] in a pass, from its
+    output ``want`` on the inputs ``ins`` (``pass_tail_records``' form) for
+    the lanes ``live``: live, accepted (its rung), round_end (its new it_rd
+    is 0), lam (the multipliers written: a round end whose rung was
+    accepted or whose inner phase converged), rho (the penalties scaled: a
+    round end not converged)."""
+    import torch
+    from ..ops.pass_tail import _ladder_choice
+    Knew, dff, dV1, dV2, Xts, Uts, Jts, alphas_t = ins
+    alphas = torch.tensor(alphas_t, dtype=Jts.dtype, device=Jts.device)
+    accepted = _ladder_choice(Jts, alphas, dV1, dV2, opts.ls_min_ratio)[1]
+    pre_done = want[5] < opts.gradient_tolerance
+    round_end = live & (want[7] == 0)
+    return dict(live=live, accepted=live & accepted, round_end=round_end,
+                lam=round_end & (accepted | pre_done),
+                rho=round_end & ~want[10])
+
+
+def pass_tail_witness(blocks, opts, s, live, ins, want) -> tuple:
+    """The float64 witness of a pass tail's multipliers and violation, and
+    the bound on the distance of a kernel's from it, from state ``s``, the
+    pass's inputs ``ins`` and the plain version's output ``want`` for the
+    lanes ``live``: ([multipliers [B, N, p] per block], violation [B],
+    [bound per block], bound [B]).
+
+    The witness keeps the plain version's decisions
+    (:func:`pass_tail_decisions`; a kernel's own are held equal to them
+    elsewhere) and recomputes in float64, on the adopted trajectory
+    (``want``'s X and U, which a kernel matches bit for bit), each row's
+    residual c = Cx x + Cu u + b (u = 0 at the terminal knot), z = lam +
+    rho c with the old multipliers and penalties, mask proj_polar(z) where
+    the multipliers are written (else the old ones), and at a round end
+    the inf-norm of the masked violation c - proj_K(c) (else the old one).
+
+    The bound is the rounding of the kernel's arithmetic, u its unit
+    roundoff and g(k) = k u / (1 - k u). A row is two FMA chains (n and m
+    terms) and two adds: |c_kernel - c| <= g(n + m + 2) T, T = sum|Cx x| +
+    sum|Cu u| + |b|, and (n + m + 4) t where products underflow (t the
+    type's smallest subnormal). z adds rho times that and two roundings:
+    |dz| <= rho |dc| + 2 u |z| + 2 t. ZERO and NONPOS project entry by entry
+    and 1-Lipschitz, so that is a multiplier's bound. An SOC block's polar
+    projection is 1-Lipschitz in the 2-norm (Moreau), so the p rows' bounds
+    give sqrt(p) times their largest, and its own arithmetic (the norm's p
+    roundings and square root, the boundary scale (|v| + s) / (2 |v|), its
+    product, the subtraction, and the branch it takes where |v| is within
+    that rounding of |s|) adds at most (2 p + 8) u |z|_2, and 4 sqrt(p t)
+    where the squares of |v| underflow. The violation
+    takes the same with c for z and without rho and lam, and its bound is
+    the largest over the lane's active rows. The witness's own rounding,
+    the same with float64's u, is added. Where the witness lies inside the
+    cone by more than the bound (NONPOS: z below minus the bound; SOC: s -
+    |v| above twice it) the kernel's point is inside too, its projection
+    exactly 0, and the bound 0; so is a masked knot's. Where a bound is not
+    finite (inf or NaN terms) it is NaN: there kernel and plain must be
+    equal."""
+    import math
+
+    import torch
+    from ..cones import Cone, project_polar, violation
+    X, U = want[0].double(), want[1].double()
+    n, m = X.shape[-1], U.shape[-1]
+    dec = pass_tail_decisions(opts, live, ins, want)
+    units = [(f.eps / 2, f.smallest_normal * f.eps) for f in (
+        torch.finfo(want[0].dtype), torch.finfo(torch.float64))]
+
+    def g(k, u):
+        return k * u / (1 - k * u)
+
+    Up = torch.cat([U, torch.zeros_like(U[:, :1])], dim=1)
+    lams, lam_bounds = [], []
+    vmax = torch.zeros_like(X[:, 0, 0])
+    vbound = torch.zeros_like(vmax)
+    for con, dual in zip(blocks, s[3]):
+        Cx, Cu, b = con.Cx.double(), con.Cu.double(), con.b.double()
+        c = (torch.einsum("kpn,bkn->bkp", Cx, X)
+             + torch.einsum("kpm,bkm->bkp", Cu, Up) + b)
+        T = (torch.einsum("kpn,bkn->bkp", Cx.abs(), X.abs())
+             + torch.einsum("kpm,bkm->bkp", Cu.abs(), Up.abs()) + b.abs())
+        lam, rho = dual.lam.double(), dual.rho.double()[..., None]
+        z = lam + rho * c
+        mask = con.mask.double()[:, None]
+        ct = project_polar(con.cone, z) * mask
+        v = torch.where(mask > 0, violation(con.cone, c), 0.0).abs()
+        p = con.p
+        lb = vb = 0.0
+        for u, tiny in units:
+            dc = g(n + m + 2, u) * T + (n + m + 4) * tiny
+            dz = rho * dc + 2 * u * z.abs() + 2 * tiny
+            if con.cone == Cone.SOC:
+                dz = (math.sqrt(p) * dz.amax(-1, keepdim=True)
+                      + (2 * p + 8) * u
+                      * torch.linalg.vector_norm(z, dim=-1, keepdim=True)
+                      + 4 * math.sqrt(p * tiny))
+                dc = (math.sqrt(p) * dc.amax(-1, keepdim=True)
+                      + (2 * p + 8) * u
+                      * torch.linalg.vector_norm(c, dim=-1, keepdim=True)
+                      + 4 * math.sqrt(p * tiny))
+            lb = lb + dz
+            vb = vb + dc
+        # where the witness lies deeper inside the cone (NONPOS: below 0;
+        # SOC: s - |v| above twice the bound) than the bound reaches, the
+        # kernel's point is inside too and projects to exactly 0
+        if con.cone == Cone.SOC:
+            lb = torch.where(_soc_depth(z) > 2 * lb, 0.0, lb)
+            vb = torch.where(_soc_depth(c) > 2 * vb, 0.0, vb)
+        elif con.cone == Cone.NONPOS:
+            lb = torch.where(z < -lb, 0.0, lb)
+            vb = torch.where(c < -vb, 0.0, vb)
+        lb, vb = lb.expand_as(z), vb.expand_as(c)
+        # a masked knot's multipliers are 0 (NaN from a non-finite one)
+        lb = torch.where(mask > 0, lb, torch.where(torch.isfinite(lb), 0.0,
+                                                   math.nan))
+        vb = torch.where(mask > 0, vb, 0.0)
+        written = dec["lam"][:, None, None]
+        lams.append(torch.where(written, ct, lam))
+        lam_bounds.append(torch.where(
+            written, torch.where(torch.isfinite(lb), lb, math.nan), 0.0))
+        vmax = torch.maximum(vmax, v.amax(dim=(1, 2)))
+        vbound = torch.maximum(vbound, vb.amax(dim=(1, 2)))
+    rend = dec["round_end"]
+    viol = torch.where(rend, vmax, want[6].double())
+    vbound = torch.where(rend, torch.where(torch.isfinite(vbound), vbound,
+                                           math.nan), 0.0)
+    return lams, viol, lam_bounds, vbound
+
+
+def _soc_depth(z):
+    """s - |v| of each cone point z = (v, s) [..., p], kept as [..., 1]."""
+    import torch
+    return (z[..., -1:]
+            - torch.linalg.vector_norm(z[..., :-1], dim=-1, keepdim=True))
+
+
+def pass_tail_distance(got, want, witness) -> dict:
+    """How far a kernel's multipliers and violation (``got``, a state) lie
+    from the witness (:func:`pass_tail_witness`), as the largest |got -
+    witness| / bound over the entries: {"lam", "viol"} (an entry equal to
+    the plain version's ``want``, NaN for NaN, reads 0; one outside its
+    bound, or with a NaN bound, reads inf: a gate passes at <= 1), the
+    plain version's own largest ratio ({"lam_plain", "viol_plain"}, NaN
+    bounds skipped) and the largest |got - witness| and |want - witness|
+    over the multipliers ({"lam_abs", "lam_abs_plain"}), for the report."""
+    import math
+
+    import torch
+    lams, viol, lam_bounds, vbound = witness
+
+    def worst(a, w, bound, ref=None):
+        a = a.double()
+        d = (a - w).abs()
+        r = torch.where(d == 0, 0.0, d / bound)
+        if ref is None:
+            return float(torch.nan_to_num(r, nan=0.0).max())
+        same = (a == ref) | (torch.isnan(a) & torch.isnan(ref))
+        r = torch.where(same, 0.0, torch.nan_to_num(r, nan=math.inf))
+        return float(r.max())
+
+    ref_lams = [d.lam.double() for d in want[3]]
+    out = {"lam": 0.0, "viol": 0.0, "lam_plain": 0.0, "viol_plain": 0.0,
+           "lam_abs": 0.0, "lam_abs_plain": 0.0}
+    for d, w, b, ref in zip(got[3], lams, lam_bounds, ref_lams):
+        out["lam"] = max(out["lam"], worst(d.lam, w, b, ref))
+        out["lam_plain"] = max(out["lam_plain"], worst(ref, w, b))
+        fin = torch.isfinite(w)
+        if bool(fin.any()):
+            out["lam_abs"] = max(out["lam_abs"], float(
+                (d.lam.double() - w).abs()[fin].nan_to_num(math.inf).max()))
+            out["lam_abs_plain"] = max(out["lam_abs_plain"], float(
+                (ref - w).abs()[fin].nan_to_num(math.inf).max()))
+    out["viol"] = worst(got[6], viol, vbound, want[6].double())
+    out["viol_plain"] = worst(want[6].double(), viol, vbound)
+    return out
+
+
 def riccati_work(Bt, N, n, m, per_lane, itemsize) -> tuple:
     """(bytes, FLOPs) of kernel D: per-lane (or shared) A/B and the per-lane
     expansion read, K, d, dV1, dV2 written; per knot V A, V B, the Q blocks

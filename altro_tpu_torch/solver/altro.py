@@ -56,10 +56,11 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..cones import project_polar, violation
+from ..cones import project_polar
 from ..constraints import DualState, al_terms_structured
 from ..dynamics import LTVDynamics
 from ..ops.blocks import PackedBlocks, pack_blocks
+from ..ops.pass_tail import al_pass_tail, live_mask, pass_tail_reference
 from ..ops.riccati import batched_riccati
 from ..ops.riccati_fused import fused_expand_backward
 from ..ops.rollout import batched_ls_rollout
@@ -333,18 +334,6 @@ def rollout_closed_loop(dynamics, Xbar, Ubar, K, d, alphas,
 # Solve
 # ----------------------------------------------------------------------------
 
-def _where_tree(pred, a, b):
-    """torch.where over matching trees of tensors, tuples and DualStates;
-    ``pred`` [B] broadcasts over each leaf's trailing axes."""
-    if isinstance(a, torch.Tensor):
-        p = pred.reshape(pred.shape + (1,) * (a.dim() - pred.dim()))
-        return torch.where(p, a, b)
-    if isinstance(a, DualState):
-        return DualState(lam=_where_tree(pred, a.lam, b.lam),
-                         rho=_where_tree(pred, a.rho, b.rho))
-    return tuple(_where_tree(pred, x, y) for x, y in zip(a, b))
-
-
 @torch.no_grad()
 def solve(prob: Problem, opts: SolverOptions,
           U0: Optional[torch.Tensor] = None,
@@ -505,7 +494,11 @@ def _flat_while(prob: Problem, opts: SolverOptions, s,
     if check_every < 1:
         raise ValueError(f"check_every must be >= 1, got {check_every}")
     eager_loop_count += 1
-    _, cond, body = loop_fns(prob, opts, s, it_cap)
+    ctx, cond, body = loop_fns(prob, opts, s, it_cap)
+    if ctx.pass_tail:
+        # the pass-tail kernel writes the state in place: not the caller's
+        s = map_state(lambda a: a.clone(memory_format=torch.contiguous_format),
+                      s)
     while bool(cond(s).any()):
         for _ in range(check_every):
             s = body(s)
@@ -521,43 +514,50 @@ def ltv_affine(prob: Problem) -> bool:
 
 
 def _uses_fused_ladder(opts: SolverOptions, prob: Problem, X) -> bool:
-    """Whether the line search takes the fused ladder + merit pass: never
-    unless :func:`ltv_affine`; then ``ls_fused`` "on" always, "off" never,
-    "auto" on a CUDA device for multi-block constraint sets (the classical
-    ladder stays the CPU default, as in the JAX package)."""
+    """Whether the line search takes the fused ladder + merit pass on the
+    device of ``X``: never unless :func:`ltv_affine`; then ``ls_fused`` "on"
+    always, "off" never, "auto" on a CUDA device for multi-block constraint
+    sets (the classical ladder stays the CPU default, as in the JAX
+    package)."""
+    return _fused_ladder_on(opts, prob, X.device.type)
+
+
+def _fused_ladder_on(opts: SolverOptions, prob: Problem,
+                     device_type: str) -> bool:
     if opts.ls_fused == "off" or not ltv_affine(prob):
         return False
-    return opts.ls_fused == "on" or (X.device.type == "cuda"
+    return opts.ls_fused == "on" or (device_type == "cuda"
                                      and len(prob.constraints) > 1)
 
 
-def _ladder_choice(Jts, alphas, dV1, dV2, ls_min_ratio):
-    """Rung selection of the parallel line search from the ladder's merits
-    Jts [B, L] (the last rung is alpha = 0, the current trajectory) and the
-    backward pass's expected decrease terms dV1, dV2 [B]. Returns the first
-    (largest-alpha) admissible rung idx [B], accepted [B], the expected
-    decreases [B, L] and the achieved/expected ratios [B, L]."""
-    J = Jts[:, -1]
-    expected = -(alphas * dV1[:, None] + alphas * alphas * dV2[:, None])
-    ratio = (J[:, None] - Jts) / torch.clamp(expected, min=1e-12)
-    oks = torch.where(expected > 1e-12, ratio > ls_min_ratio,
-                      Jts < J[:, None]) & torch.isfinite(Jts)
-    idx = oks.to(torch.int8).argmax(dim=-1)   # first True = largest alpha
-    return idx, oks.any(dim=-1), expected, ratio
+def uses_pass_tail(opts: SolverOptions, prob: Problem,
+                   device_type: str) -> bool:
+    """Whether a pass ends in the pass-tail kernel (ops/pass_tail.py) on a
+    device of ``device_type``: on a CUDA device, where kernels B and C both
+    run on shared data (the fused expansion and the fused ladder, shared
+    affine blocks; grouped dynamics too: the tail reads no dynamics). The
+    classical ladder, per-lane data, the split route, nonlinear dynamics and
+    the CPU keep the plain tail."""
+    return (device_type == "cuda" and not prob.per_lane
+            and opts.fused_expansion
+            and _fused_ladder_on(opts, prob, device_type))
 
 
 @dataclass
 class LoopContext:
     """What the loop body reads besides the problem and the state, built
     once per loop entry: the lane index [B], the line-search ladder (as
-    floats, which the kernels take by value, and as a tensor) and, where a
+    floats, which the kernels take by value, and as a tensor), where a
     kernel that reads them runs (the fused expansion, the fused ladder on
-    shared data), the constraint stacks packed for it."""
+    shared data), the constraint stacks packed for it, and whether a pass
+    ends in the pass-tail kernel (:func:`uses_pass_tail`), which writes the
+    state in place."""
 
     lanes: torch.Tensor
     alphas_t: Tuple[float, ...]
     alphas: torch.Tensor
     packed: Optional[PackedBlocks]
+    pass_tail: bool
 
 
 def loop_context(prob: Problem, opts: SolverOptions,
@@ -579,7 +579,8 @@ def loop_context(prob: Problem, opts: SolverOptions,
         lanes=torch.arange(X_0.shape[0], device=X_0.device),
         alphas_t=alphas_t,
         alphas=torch.tensor(alphas_t, dtype=X_0.dtype, device=X_0.device),
-        packed=packed)
+        packed=packed,
+        pass_tail=uses_pass_tail(opts, prob, X_0.device.type))
 
 
 def loop_fns(prob: Problem, opts: SolverOptions, s0, it_cap=None,
@@ -589,12 +590,35 @@ def loop_fns(prob: Problem, opts: SolverOptions, s0, it_cap=None,
     unless given), ``cond(s)`` the per-lane live mask [B] and ``body(s)``
     one pass, which freezes every lane whose own ``cond`` is false, so
     passes beyond a lane's end change nothing (``body(s, live)`` takes
-    ``cond(s)`` computed by the caller). ``it_cap``: lanes stop being
-    live at that absolute iteration count (an int, or a 0-d int32 tensor on
-    the batch's device, read at every pass). ``body`` reads nothing but the
-    tensors of ``prob``, ``ctx``, ``it_cap`` and its state and makes no host
-    sync, so it can be captured in a CUDA graph (solver/graph.py); a
-    gathered block of lanes runs the kernels at its own batch size."""
+    ``cond(s)`` computed by the caller). Where ``ctx.pass_tail``, the body
+    writes the new state into the tensors of ``s`` in place and returns
+    ``s``, and ``body(s, counts=(c, first, last))`` adds the lanes live on
+    entry (``first``) and after the pass (``last``) to the int32 pair c
+    (:func:`ops.pass_tail.al_pass_tail`); otherwise it returns a new
+    state. ``it_cap``: lanes stop being live at that absolute iteration
+    count (an int, or a 0-d int32 tensor on the batch's device, read at
+    every pass). ``body`` reads nothing but the tensors of ``prob``,
+    ``ctx``, ``it_cap`` and its state and makes no host sync, so it can be
+    captured in a CUDA graph (solver/graph.py); a gathered block of lanes
+    runs the kernels at its own batch size. The body is
+    ``tail(s, head(s), live, counts)`` of :func:`pass_fns`."""
+    ctx, cond, head, tail = pass_fns(prob, opts, s0, it_cap, ctx)
+
+    def body(s, live=None, counts=None):
+        return tail(s, head(s), live, counts)
+
+    return ctx, cond, body
+
+
+def pass_fns(prob: Problem, opts: SolverOptions, s0, it_cap=None,
+             ctx: Optional[LoopContext] = None):
+    """(ctx, cond, head, tail) of :func:`loop_fns`'s pass, split where the
+    pass tail begins: ``head(s)`` runs kernel B's and the line search's
+    part of a pass and returns the tail's inputs (K, d, dV1, dV2, the
+    ladder's Xs, Us and merits J, and every rung's residuals and projected
+    duals on the classical ladder, else None); ``tail(s, ins, live=None,
+    counts=None)`` ends the pass (:func:`ops.pass_tail.al_pass_tail` where
+    ``ctx.pass_tail``, else :func:`ops.pass_tail.pass_tail_reference`)."""
     X_0 = s0[0]
     if ctx is None:
         ctx = loop_context(prob, opts, X_0)
@@ -614,42 +638,13 @@ def loop_fns(prob: Problem, opts: SolverOptions, s0, it_cap=None,
     split = per_lane or not opts.fused_expansion or not ltv_affine(prob)
     grouped = isinstance(dyn, LTVDynamics) and dyn.grouped
 
-    def round_end_update(cs, cts, duals, lam_ok):
-        """AL round bookkeeping from the adopted trajectory's residuals (cs)
-        and projected duals (cts). The multipliers are updated only when
-        ``lam_ok`` (an ACCEPTED rung or an inner optimum): on a stuck round
-        the rounding error of the kept trajectory's residuals times rho
-        would snowball the carried multipliers. Penalty scaling always
-        applies."""
-        viol_r = torch.zeros_like(X_0[:, 0, 0])
-        lams = []
-        for con, c, ct in zip(prob.constraints, cs, cts):
-            v = violation(con.cone, c)
-            # mask via where (not multiply): masked knots can carry inf/NaN
-            # residuals on diverged lanes and 0 * inf = NaN
-            v = torch.where(con.mask[:, None] > 0, v, 0.0)
-            viol_r = torch.maximum(viol_r, torch.amax(torch.abs(v), (-2, -1)))
-            lams.append(ct * con.mask[:, None])
-        converged = viol_r < opts.constraint_tolerance
-        new_duals = tuple(
-            DualState(lam=torch.where(lam_ok[:, None, None], lam, dual.lam),
-                      rho=torch.where(converged[:, None], dual.rho,
-                                      torch.clamp(dual.rho * opts.penalty_scaling,
-                                                  max=opts.penalty_max)))
-            for lam, dual in zip(lams, duals))
-        return viol_r, converged, new_duals
-
     def cond(s):
-        it, rounds, done = s[8], s[9], s[10]
-        live = (~done) & (rounds < opts.iterations_outer)
-        if it_cap is not None:
-            live = live & (it < it_cap)
-        return live
+        return live_mask(s, opts, it_cap)
 
-    def body(s, live=None):
+    def head(s):
         global pass_count
         pass_count += 1
-        X, U, K, duals, reg, grad, viol, it_rd, it, rounds, done = s
+        X, U, duals, reg = s[0], s[1], s[3], s[4]
         lams = tuple(d.lam for d in duals)
         rhos = tuple(d.rho for d in duals)
         if split:
@@ -673,14 +668,9 @@ def loop_fns(prob: Problem, opts: SolverOptions, s0, it_cap=None,
                           for r in rhos[1:])
             dff = torch.where((rho_dev > 0)[:, None, None], math.nan, dff)
 
-        # gradient metric (Altro's d-based gradient check)
-        grad_new = torch.amax(torch.amax(torch.abs(dff), dim=-1)
-                              / (torch.amax(torch.abs(U), dim=-1) + 1.0),
-                              dim=-1)
-        pre_done = grad_new < opts.gradient_tolerance
-
         # parallel line search over the whole ladder
         rho0 = rhos[0] if rhos else torch.zeros_like(X[..., 0])
+        rungs = None
         if fused_ladder and per_lane:
             # the fused branch's arithmetic with per-lane dynamics: the
             # ladder rollout, then each rung's cost and AL merit tail
@@ -698,66 +688,22 @@ def loop_fns(prob: Problem, opts: SolverOptions, s0, it_cap=None,
                                            alphas)
             duals_l = tuple(DualState(lam=d.lam[:, None], rho=d.rho[:, None])
                             for d in duals)
-            Jts, (Cts, CTts) = total_al_cost_res(prob, duals_l, Xts, Uts)
-        idx, accepted, expected, ratio = _ladder_choice(
-            Jts, alphas, dV1, dV2, opts.ls_min_ratio)
-        J = Jts[:, -1]
-        Xn = _where_tree(accepted, Xts[lanes, idx], X)
-        Un = _where_tree(accepted, Uts[lanes, idx], U)
-        Jn = torch.where(accepted, Jts[lanes, idx], J)
-        if fused_ladder:
-            # one constraint pass on the ADOPTED trajectory (a rejected
-            # lane evaluates the kept X, U directly)
-            cs_acc, cts_acc = [], []
-            for con, dual in zip(prob.constraints, duals):
-                c = con.evaluate(Xn, Un)
-                cs_acc.append(c)
-                cts_acc.append(project_polar(
-                    con.cone, dual.lam + dual.rho[..., None] * c))
-        else:
-            # accepted rung's residuals / projected duals (the alpha=0 rung
-            # IS the current trajectory, so the rejected case selects rung
-            # -1)
-            cs_acc = tuple(_where_tree(accepted, Ct[lanes, idx], Ct[:, -1])
-                           for Ct in Cts)
-            cts_acc = tuple(_where_tree(accepted, Ct[lanes, idx], Ct[:, -1])
-                            for Ct in CTts)
+            Jts, rungs = total_al_cost_res(prob, duals_l, Xts, Uts)
+        return Knew, dff, dV1, dV2, Xts, Uts, Jts, rungs
 
-        # regularization schedule
-        reg_fail = torch.clamp(torch.clamp(reg, min=opts.reg_min)
-                               * opts.reg_increase, opts.reg_min, opts.reg_max)
-        reg_ok = torch.where(reg * opts.reg_decrease < opts.reg_min, 0.0,
-                             reg * opts.reg_decrease)
-        reg_new = torch.where(accepted, reg_ok, reg_fail)
+    def tail(s, ins, live=None, counts=None):
+        """The rung choice, the adopted trajectory's residuals, the AL
+        round update, the stop tests and the freeze."""
+        Knew, dff, dV1, dV2, Xts, Uts, Jts, rungs = ins
+        if ctx.pass_tail:
+            return al_pass_tail(prob.constraints, opts, s, Knew, dff, dV1,
+                                dV2, Xts, Uts, Jts, alphas_t, packed=packed,
+                                it_cap=it_cap, live=live, counts=counts)
+        return pass_tail_reference(
+            prob.constraints, opts, s, cond(s) if live is None else live,
+            Knew, dff, dV1, dV2, Xts, Uts, Jts, alphas, lanes, rungs=rungs)
 
-        dJ = J - Jn
-        stuck = (~accepted) & (reg >= opts.reg_max)
-        # exact-model early stop (options.early_exact_tol): an accepted FULL
-        # Newton step whose achieved/predicted ratio is ~1
-        eet = opts.early_exact_tol
-        exact_full = (accepted & (idx == 0) & (eet > 0)
-                      & (expected[:, 0] > 1e-12)
-                      & (torch.abs(ratio[:, 0] - 1.0) <= eet))
-        inner_done = (pre_done | (accepted & (dJ < opts.cost_tolerance))
-                      | stuck | exact_full)
-        round_end = inner_done | (it_rd + 1 >= opts.iterations_inner)
-
-        # masked AL round bookkeeping
-        viol_r, converged_r, duals_r = round_end_update(
-            cs_acc, cts_acc, duals, accepted | pre_done)
-        duals_new = _where_tree(round_end, duals_r, duals)
-        viol_new = torch.where(round_end, viol_r, viol)
-        it_rd_new = torch.where(round_end, 0, it_rd + 1)
-        rounds_new = rounds + round_end.to(torch.int32)
-        done_new = round_end & converged_r
-
-        out = (Xn, Un, Knew, duals_new, reg_new, grad_new, viol_new,
-               it_rd_new, it + 1, rounds_new, done_new)
-        # freeze a lane as soon as ITS OWN cond is false (done, the
-        # outer-round cap without convergence, or the iteration cap)
-        return _where_tree(cond(s) if live is None else live, out, s)
-
-    return ctx, cond, body
+    return ctx, cond, head, tail
 
 
 def _finalize(prob: Problem, s) -> Solution:

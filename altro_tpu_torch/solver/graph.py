@@ -7,10 +7,12 @@ A :class:`LoopGraph` holds fixed buffers for everything the loop body reads:
 the problem's tensors, the packed constraint stacks, the loop state and the
 iteration cap (a 0-d device tensor, so one graph serves every absolute cap
 of a compaction schedule). Its graph runs k body passes (``check_every``),
-copies the final state back into the state buffers and two counts into
-pinned host memory: the lanes live when the replay began and when it
-ended. :meth:`LoopGraph.run` replays it until no lane is live at the end:
-one host sync per k passes. Every lane freezes on its own condition, so
+copies the final state back into the state buffers (where a pass ends in
+the pass-tail kernel, ``ops/pass_tail.py``, the kernel writes them in
+place and counts the live lanes itself) and two counts into pinned host
+memory: the lanes live when the replay began and when it ended.
+:meth:`LoopGraph.run` replays it until no lane is live at the end: one host
+sync per k passes. Every lane freezes on its own condition, so
 passes past the last lane's end, or past the cap, change no bit of the
 state.
 
@@ -51,7 +53,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from ..ops import riccati, riccati_fused, rollout, rollout_al
+from ..ops import pass_tail, riccati, riccati_fused, rollout, rollout_al
 from ..ops.blocks import pack_blocks
 from ..problem import Problem
 from ..utils import profiling
@@ -64,7 +66,7 @@ from .options import SolverOptions
 NO_CAP = 2 ** 31 - 1
 _COUNTERS = ((altro, "pass_count"), (rollout, "launch_count"),
              (riccati_fused, "launch_count"), (rollout_al, "launch_count"),
-             (riccati, "launch_count"))
+             (riccati, "launch_count"), (pass_tail, "launch_count"))
 
 
 def use_graphs(graphed: Optional[bool], device) -> bool:
@@ -293,6 +295,8 @@ class LoopGraph:
         self.cuda = dev.type == "cuda"
         self.live = torch.ones(2, dtype=torch.int32, pin_memory=self.cuda)
         self._live = self.live.numpy()
+        # the live counts on the device, where the pass-tail kernel adds them
+        self.counts = torch.zeros(2, dtype=torch.int32, device=dev)
         self.event = torch.cuda.Event() if self.cuda else None
         _, self._cond, self._body = loop_fns(self.prob, opts, self.state,
                                              self.cap, ctx)
@@ -318,9 +322,18 @@ class LoopGraph:
 
     def _passes(self) -> None:
         s = self.state
+        k = self.check_every
+        if self.ctx.pass_tail:
+            # each pass writes the state buffers in place and counts the
+            # lanes live entering the first pass and leaving the last
+            self.counts.zero_()
+            for i in range(k):
+                self._body(s, counts=(self.counts, i == 0, i == k - 1))
+            self.live.copy_(self.counts, non_blocking=True)
+            return
         live = self._cond(s)           # the first pass freezes by it
         entering = live
-        for _ in range(self.check_every):
+        for _ in range(k):
             s = self._body(s, live)
             live = None
         copy_into(self.state, s, "loop state")

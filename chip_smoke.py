@@ -109,6 +109,23 @@ Phases, each printing its findings; any failure raises (non-zero exit):
       copy; gate: at least one launch of D); and the bare launch on the
       layout probe's prepared inputs against the plain version under 3a's
       gates, timed beside it;
+   p. the pass-tail kernel (``ops/pass_tail.py``, ``csrc/pass_tail.cu``;
+      run after 4e, on the setups of 4b and 4e) against its plain version
+      on every pass of an eager solve (``bench/kernels.py:
+      pass_tail_records``, at most 24 iterations) of each problem on its
+      route: the rocket and grasp windows, flexsat's regulator and the
+      grouped quadruped at B=1024, the closed loop's one robot and the
+      state_dim sweep's n = 45, in float32 and float64 (gates: every int
+      and bool field, X, U, K, reg, the gradient metric and rho equal, the
+      multipliers and the violation within the rounding bound of the
+      kernel's arithmetic around a float64 witness, and equal to the plain
+      version's where that bound is not finite: ``bench/kernels.py:
+      pass_tail_witness``), the float32 kernel timed at the first pass
+      (every lane live) and the middle one beside its bound for what that
+      pass moves and the plain version's time (a table row per problem);
+      then the rocket's eager B=1024 solve with the kernel against the same
+      solve with the plain tail (lanes with equal status and iterations,
+      the largest gap in X; a report);
 4. main paths, each on CUDA graphs (``altro_tpu_torch/solver/graph.py``:
    every MPC step, batch solve and cold solve as start, loop and finish
    graphs, the loop replayed with one host sync per k passes), with the
@@ -431,6 +448,10 @@ LANE_GRASP_AGREE_B, LANE_GRASP_AGREE_T, LANE_GRASP_DU = 16, 3, 1e-6
 # 4r: the state_dim sweep's wide point (n, m, N) as an MPC batch, its
 # batch and warm steps, and the float64 card-vs-CPU lanes and gate
 WIDE_MPC, WIDE_MPC_B, WIDE_MPC_T = (45, 2, 21), 1024, 3
+# 4r's options (3p's too, on the same problem), ls_fused set per route
+WIDE_MPC_OPTS = dict(cost_tolerance=1e-4, constraint_tolerance=1e-4,
+                     gradient_tolerance=1e-4, penalty_initial=1e3,
+                     penalty_scaling=100.0, reset_duals=False)
 WIDE_MPC_AGREE_B, WIDE_MPC_DU = 64, 1e-6
 # 3o: the calibration kernel's parity grids (grid steps, rounds) and its
 # relative gates at the small grid (the reference's defaults are gated at
@@ -549,7 +570,7 @@ def conic_parity(family, dtype, tol, cold=False):
                                                flexsat_inputs, grasp_inputs,
                                                quadloop_inputs, rocket_inputs)
     from altro_tpu_torch.ops import riccati_fused, rollout, rollout_al
-    from altro_tpu_torch.solver.altro import _ladder_choice
+    from altro_tpu_torch.ops.pass_tail import _ladder_choice
 
     dev = torch.device("cuda")
     loop = family.startswith("closed loop")
@@ -686,7 +707,7 @@ def grouped_parity(dtype, tol, B):
                                                per_group_launches)
     from altro_tpu_torch.convert import tree_to
     from altro_tpu_torch.ops import riccati_fused, rollout, rollout_al
-    from altro_tpu_torch.solver.altro import _ladder_choice
+    from altro_tpu_torch.ops.pass_tail import _ladder_choice
 
     dev = torch.device("cuda")
     gi = grouped_inputs(dtype, dev, B)
@@ -794,7 +815,7 @@ def phase6_parity(dtype, tol):
                                                flexsat_inputs, grasp_inputs,
                                                rocket_inputs)
     from altro_tpu_torch.ops import riccati_fused, rollout, rollout_al
-    from altro_tpu_torch.solver.altro import _ladder_choice
+    from altro_tpu_torch.ops.pass_tail import _ladder_choice
 
     dev = torch.device("cuda")
     fb = riccati_fused.fused_expand_backward
@@ -861,7 +882,7 @@ def wide_parity(dtype, tol, B):
     from altro_tpu_torch.bench.kernels import (QUAD_LADDER, WIDE_SHAPES,
                                                wide_inputs)
     from altro_tpu_torch.ops import riccati, riccati_fused, rollout, rollout_al
-    from altro_tpu_torch.solver.altro import _ladder_choice
+    from altro_tpu_torch.ops.pass_tail import _ladder_choice
 
     dev = torch.device("cuda")
     fb = riccati_fused.fused_expand_backward
@@ -1010,6 +1031,7 @@ def grouped_main(card, reset_counts, read_counts, flat_rows):
         if not (passes > 0 and passes == res["loop_iterations"]
                 and gl["fused_expand_backward"] == passes
                 and gl["batched_ls_rollout_al"] == passes
+                and gl["al_pass_tail"] == passes
                 and gl["batched_ls_rollout"] == res["solves"]
                 and gl["batched_riccati"] == 0 and eager == 0):
             raise AssertionError(f"grouped quadruped launch counts {gl} do "
@@ -1083,7 +1105,8 @@ def compacted_quadruped(card, reset_counts, read_counts, flat_rows):
         if not (opasses > 0 and ol["batched_riccati"] == opasses
                 and ol["batched_ls_rollout"] == opasses + res["solves"]
                 and ol["fused_expand_backward"] == 0
-                and ol["batched_ls_rollout_al"] == 0 and eager == 0):
+                and ol["batched_ls_rollout_al"] == 0
+                and ol["al_pass_tail"] == 0 and eager == 0):
             raise AssertionError(f"compacted quadruped launch counts {ol} "
                                  f"do not match {opasses} solver-loop "
                                  f"passes of {res['solves']} solves "
@@ -1329,6 +1352,7 @@ def closed_loop_main(card, lin, counts):
                              f"[{float(fz.min())}, {float(fz.max())}]")
     if not (passes > 0 and launches["fused_expand_backward"] == passes
             and launches["batched_ls_rollout_al"] == passes
+            and launches["al_pass_tail"] == passes
             and launches["batched_ls_rollout"] == solves
             and launches["batched_riccati"] == 0 and eager == 0):
         raise AssertionError(f"closed loop [{mode}] launch counts {launches}"
@@ -1369,6 +1393,7 @@ def closed_loop_mismatch(card, counts):
                              f"attitude {att}, lateral velocity {vy}")
     if not (passes > 0 and launches["fused_expand_backward"] == passes
             and launches["batched_ls_rollout_al"] == passes
+            and launches["al_pass_tail"] == passes
             and launches["batched_ls_rollout"] == status.numel()
             and launches["batched_riccati"] == 0 and eager == 0):
         raise AssertionError(f"closed loop mismatch launch counts {launches}"
@@ -1727,7 +1752,8 @@ def lane_flagship(card, reset_counts, read_counts):
     if not (passes > 0 and launches["batched_riccati"] == passes
             and launches["batched_ls_rollout"] == passes
             and launches["fused_expand_backward"] == 0
-            and launches["batched_ls_rollout_al"] == 0 and eager == 0):
+            and launches["batched_ls_rollout_al"] == 0
+            and launches["al_pass_tail"] == 0 and eager == 0):
         raise AssertionError(f"lane-k flagship launch counts {launches} do "
                              f"not match {passes} passes, or the host-driven "
                              f"loop ran ({eager})")
@@ -1817,6 +1843,7 @@ def sharded_flagship(card, reset_counts, read_counts):
     if not (passes > 0 and launches["fused_expand_backward"] == passes
             and launches["batched_ls_rollout"] == passes
             and launches["batched_ls_rollout_al"] == 0
+            and launches["al_pass_tail"] == 0
             and launches["batched_riccati"] == 0 and eager == 0):
         raise AssertionError(f"4p launch counts {launches} do not match "
                              f"{passes} passes, or the host-driven loop ran "
@@ -1900,7 +1927,8 @@ def lane_grasp(card, reset_counts, read_counts):
     if not (passes > 0 and launches["batched_riccati"] == passes
             and launches["batched_ls_rollout"] == passes
             and launches["fused_expand_backward"] == 0
-            and launches["batched_ls_rollout_al"] == 0 and eager == 0):
+            and launches["batched_ls_rollout_al"] == 0
+            and launches["al_pass_tail"] == 0 and eager == 0):
         raise AssertionError(f"4q launch counts {launches} do not match "
                              f"{passes} passes, or the host-driven loop ran "
                              f"({eager})")
@@ -1970,10 +1998,7 @@ def state_dim_wide(card, reset_counts, read_counts):
     total = {}
     for route, shared, fused in (("split", False, "auto"),
                                  ("fused", True, "on")):
-        opts = SolverOptions(cost_tolerance=1e-4, constraint_tolerance=1e-4,
-                             gradient_tolerance=1e-4, penalty_initial=1e3,
-                             penalty_scaling=100.0, reset_duals=False,
-                             ls_fused=fused)
+        opts = SolverOptions(**WIDE_MPC_OPTS, ls_fused=fused)
         args64 = (prob64, opts, X_track, U_track)
         args32 = tree_to(args64, "cuda", torch.float32)
         noise = noise64.to("cuda", torch.float32)
@@ -2026,7 +2051,8 @@ def state_dim_wide(card, reset_counts, read_counts):
                                  f"status {float(status.mean())}, viol "
                                  f"{float(viol.max())}")
         mine = (("batched_riccati", "batched_ls_rollout") if not shared
-                else ("fused_expand_backward", "batched_ls_rollout_al"))
+                else ("fused_expand_backward", "batched_ls_rollout_al",
+                      "al_pass_tail"))
         if not (passes > 0 and eager == 0
                 and all(launches[k] == (passes if k in mine else 0)
                         for k in launches)):
@@ -2120,7 +2146,8 @@ def naive_rocket_parity(dtype, tol, B):
     from altro_tpu_torch.bench.kernels import QUAD_LADDER, naive_rocket_inputs
     from altro_tpu_torch.constraints import DualState
     from altro_tpu_torch.ops import riccati, rollout
-    from altro_tpu_torch.solver.altro import _ladder_choice, total_al_cost_res
+    from altro_tpu_torch.ops.pass_tail import _ladder_choice
+    from altro_tpu_torch.solver.altro import total_al_cost_res
 
     dev = torch.device("cuda")
     inp = naive_rocket_inputs(dtype, dev, B)
@@ -2170,7 +2197,8 @@ def _naive_gates(label, launches, passes, solves, eager):
     if not (passes > 0 and launches["batched_riccati"] == passes
             and launches["batched_ls_rollout"] == passes + solves
             and launches["fused_expand_backward"] == 0
-            and launches["batched_ls_rollout_al"] == 0 and eager == 0):
+            and launches["batched_ls_rollout_al"] == 0
+            and launches["al_pass_tail"] == 0 and eager == 0):
         raise AssertionError(f"{label} launch counts {launches} do not match"
                              f" {passes} passes of {solves} solves, or the "
                              f"host-driven loop ran ({eager})")
@@ -2330,7 +2358,7 @@ def srb_nonlinear(card, reset_counts, read_counts):
                     and launches["batched_ls_rollout"] == 0
                     and launches["fused_expand_backward"] == 0
                     and launches["batched_ls_rollout_al"] == 0
-                    and eager == 0):
+                    and launches["al_pass_tail"] == 0 and eager == 0):
                 raise AssertionError(f"nonlinear SRB [{mode}] launch counts "
                                      f"{launches} do not match {passes} "
                                      f"passes, or the host-driven loop ran "
@@ -2405,6 +2433,202 @@ def quickstart_on_card():
            if v.get("status", 1) != 1 or v.get("all_ok") is False}
     if bad:
         raise AssertionError(f"quickstart: {bad}")
+
+
+# 3p: the lanes of each recorded solve (the closed loop's one robot aside)
+# and its iteration cap
+PASS_TAIL_B, PASS_TAIL_IT = 1024, 24
+
+
+def pass_tail_cases(setups, dtype) -> dict:
+    """Phase 3p's problems in ``dtype`` on the card, each on the pass-tail
+    route: {family: (problem with a batch of x0, options, U0, X0)}. The
+    rocket and grasp windows (``setups``' float32 ones, cast; x0 the track's
+    first state under the family's noise), flexsat's N=80 regulator (x0
+    0.02 N(0, 1) off its own), the grouped quadruped with the friction cones
+    (its seeded x0 sampler and stance forces), the closed loop's one robot
+    with the cones (``bench/kernels.py: quadloop_inputs``: its problem and
+    forces) and the state_dim sweep's n = 45 as 4r builds it (seed 10,
+    ``ls_fused`` "on", x0 10 N(0, 1) off the track's, so that the control
+    bounds bind and the solve takes more than one pass); B=PASS_TAIL_B lanes
+    but the closed loop's one. The draws are float32's in both types."""
+    import dataclasses as dc
+    from altro_tpu_torch.bench.families import flexsat_setup, quadruped_setup
+    from altro_tpu_torch.bench.kernels import quadloop_inputs
+    from altro_tpu_torch.convert import tree_to
+    from altro_tpu_torch.models import random_linear as rl
+    from altro_tpu_torch.solver.options import SolverOptions
+
+    dev, B = torch.device("cuda"), PASS_TAIL_B
+    g = torch.Generator().manual_seed(7)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=g).to(dev)
+
+    out = {}
+    for family, su in setups.items():
+        N, n = su.prob_mpc.N, su.prob_mpc.n
+        x0 = su.noise_model(su.X_track[0].expand(B, -1), draw(B, n))
+        pm, Xt, Ut, x0 = tree_to((su.prob_mpc, su.X_track, su.U_track, x0),
+                                 dev, dtype)
+        out[family] = (dc.replace(pm, x0=x0), su.opts,
+                       Ut[:N - 1].expand(B, -1, -1).contiguous(),
+                       Xt[:N].expand(B, -1, -1).contiguous())
+    fsu = flexsat_setup(1, 1, dtype, dev)
+    out["flexsat"] = (dc.replace(fsu.prob, x0=fsu.prob.x0 + 0.02 * draw(
+        B, fsu.prob.n).to(dtype)), fsu.opts, None, None)
+    qsu = quadruped_setup(B, False, dtype, dev, grouped=True)
+    out["grouped quadruped"] = (
+        dc.replace(qsu.prob, x0=qsu.draw_x0().to(dev, dtype)), qsu.opts,
+        qsu.U0, None)
+    ql = quadloop_inputs(dtype, dev, False)
+    out["closed loop"] = (ql["prob"], _loop_setup(False)[1], ql["fused"][5],
+                          None)
+    n, m, N = WIDE_MPC
+    rng = np.random.default_rng(10)
+    full = rl.gen_random_linear(rng, n, m, N + 3, dtype=torch.float64,
+                                device="cpu")
+    Xt, Ut = rl.gen_trajectory(rng, full, N + 3)
+    pm, Xt, Ut = tree_to((rl.gen_tracking_mpc(full, Xt, Ut, N), Xt, Ut), dev,
+                         dtype)
+    out[f"n={n} m={m}"] = (
+        dc.replace(pm, x0=Xt[0] + 10.0 * draw(B, n).to(dtype)),
+        SolverOptions(**WIDE_MPC_OPTS, ls_fused="on"),
+        Ut[:N - 1].expand(B, -1, -1).contiguous(),
+        Xt[:N].expand(B, -1, -1).contiguous())
+    return out
+
+
+def pass_tail_parity(card, setups) -> dict:
+    """Phase 3p: the pass-tail kernel against its plain version on every
+    pass of an eager solve of each of ``pass_tail_cases``' problems (at
+    most PASS_TAIL_IT iterations), in float32 and in float64. Gates: the
+    problem is on the pass-tail route; every int and bool field, X, U, K,
+    reg, the gradient metric and rho equal; the multipliers and the
+    violation within the rounding bound of the kernel's arithmetic around
+    a float64 witness, and equal to the plain version's where that bound is
+    not finite (``bench/kernels.py: pass_tail_witness``). The float32
+    kernel is timed at the first pass (every lane live) and at the middle
+    one, beside its bound for the lanes that pass moves and the plain
+    version's time. Then the rocket's eager B=1024 solve with the kernel
+    against the same solve with the plain tail (the loop context's
+    ``pass_tail``; a report). Returns {family: (max|kernel - plain| over
+    the float32 multipliers and violations, kernel ms, plain ms, (bytes,
+    FLOPs) at the first pass, B)}."""
+    from altro_tpu_torch.bench.kernels import (pass_tail_decisions,
+                                               pass_tail_distance,
+                                               pass_tail_records,
+                                               pass_tail_solve,
+                                               pass_tail_witness,
+                                               pass_tail_work)
+    from altro_tpu_torch.ops import pass_tail
+    from altro_tpu_torch.solver import altro
+    from altro_tpu_torch.solver.graph import clone_tree
+
+    t0, out = time.perf_counter(), {}
+    exact = ("X", "U", "K", "reg", "grad", "it_rd", "it", "rounds", "done")
+    at = (0, 1, 2, 4, 5, 7, 8, 9, 10)
+    for label, dtype in (("f32", torch.float32), ("f64", torch.float64)):
+        for family, (prob, opts, U0, X0) in pass_tail_cases(
+                setups, dtype).items():
+            if not altro.uses_pass_tail(opts, prob, "cuda"):
+                raise AssertionError(f"3p {family}: not on the pass-tail "
+                                     f"route")
+            B, N, n, m = prob.x0.shape[0], prob.N, prob.n, prob.m
+            lanes = torch.arange(B, device="cuda")
+            recs = pass_tail_records(prob, opts, U0, X0, PASS_TAIL_IT)
+
+            def plain(s, ins, kw, prob=prob, opts=opts, lanes=lanes):
+                live = pass_tail.live_mask(s, opts, kw["it_cap"])
+                alphas = torch.tensor(ins[7], dtype=s[0].dtype,
+                                      device="cuda")
+                return live, pass_tail.pass_tail_reference(
+                    prob.constraints, opts, s, live, *ins[:7], alphas, lanes)
+
+            dist, err, writes = {}, 0.0, 0
+            for s, ins, kw in recs:
+                live, want = plain(s, ins, kw)
+                got = pass_tail.al_pass_tail(prob.constraints, opts,
+                                             clone_tree(s), *ins, **kw)
+                pairs = {k: (got[i], want[i]) for k, i in zip(exact, at)}
+                for i, (d, w) in enumerate(zip(got[3], want[3])):
+                    pairs[f"rho{i}"] = (d.rho, w.rho)
+                for name, (a, b) in pairs.items():
+                    same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+                    if not bool(same.all()):
+                        raise AssertionError(
+                            f"3p {family} {label}: {name} differs on "
+                            f"{int((~same).sum())} entries")
+                d = pass_tail_distance(got, want, pass_tail_witness(
+                    prob.constraints, opts, s, live, ins, want))
+                if not (d["lam"] <= 1.0 and d["viol"] <= 1.0):
+                    raise AssertionError(
+                        f"3p {family} {label}: the multipliers or the "
+                        f"violation outside the witness's bound: {d}")
+                dist = {k: max(dist.get(k, 0.0), v) for k, v in d.items()}
+                writes += int(pass_tail_decisions(opts, live, ins,
+                                                  want)["lam"].sum())
+                for a, b in [(got[6], want[6])] + [
+                        (x.lam, y.lam) for x, y in zip(got[3], want[3])]:
+                    gap = (a - b).abs()
+                    gap = gap[torch.isfinite(gap)]
+                    if gap.numel():
+                        err = max(err, float(gap.max()))
+            line = (f"parity al_pass_tail {family} B={B} {label} "
+                    f"({len(recs)} passes, {writes} lanes' multipliers "
+                    f"written): the ints, bools, X, U, K, reg, gradient and "
+                    f"rho equal; |x - f64 witness| / bound at most: kernel "
+                    f"lam={dist['lam']:.3g} viol={dist['viol']:.3g}, plain "
+                    f"lam={dist['lam_plain']:.3g} viol="
+                    f"{dist['viol_plain']:.3g}; max|lam - f64| kernel "
+                    f"{dist['lam_abs']:.3e}, plain {dist['lam_abs_plain']:.3e}"
+                    f"; max|kernel - plain| {err:.3e}")
+            if label == "f64":
+                print(line, flush=True)
+                continue
+            times = []
+            for s, ins, kw in (recs[0], recs[len(recs) // 2]):
+                states = [clone_tree(s) for _ in range(22)]
+                it = iter(states)
+                live, want = plain(s, ins, kw)
+                dec = pass_tail_decisions(opts, live, ins, want)
+                nb = len(prob.constraints)
+                P = sum(c.p for c in prob.constraints)
+                work = pass_tail_work(N, n, m, P, nb, len(ins[7]), 4, (B,) + (
+                    tuple(int(dec[k].sum()) for k in (
+                        "live", "accepted", "lam", "rho", "round_end"))))
+                times.append((float(live.float().mean()), time_ms(
+                    lambda: pass_tail.al_pass_tail(
+                        prob.constraints, opts, next(it), *ins, **kw),
+                    kernel=True), time_ms(lambda: plain(s, ins, kw)), work))
+            (_, ms, plain_ms, work), (live_mid, ms_mid, plain_mid, work_mid) \
+                = times
+            out[family] = (err, ms, plain_ms, work, B)
+            bnd, by = bound_ms(*work, 4)
+            bnd_mid = bound_ms(*work_mid, 4)[0]
+            print(f"{line}; kernel {ms:.4f} ms at the first pass (every lane"
+                  f" live), {ms_mid:.4f} ms at the middle one ({live_mid:.3f}"
+                  f" live); plain {plain_ms:.4f} / {plain_mid:.4f} ms; bound "
+                  f"{bnd:.4f} / {bnd_mid:.4f} ms ({by}: {work[0] / 1e6:.2f} "
+                  f"/ {work_mid[0] / 1e6:.2f} MB, {work[1] / 1e9:.4f} GFLOP)"
+                  f", share {bnd / ms:.2%} / {bnd_mid / ms_mid:.2%} [{card}]",
+                  flush=True)
+
+    # the rocket's whole eager solve, kernel against plain tail
+    prob, opts, U0, X0 = pass_tail_cases(
+        {"rocket": setups["rocket"]}, torch.float32)["rocket"]
+    a, b = (pass_tail_solve(prob, opts, U0, X0, kernel)
+            for kernel in (True, False))
+    same = (a[10] == b[10]) & (a[8] == b[8])
+    print(f"3p rocket eager solve B={PASS_TAIL_B}, kernel tail against plain "
+          f"tail: status and iterations equal on {int(same.sum())} of "
+          f"{PASS_TAIL_B} lanes; iterations {int(a[8].sum())} against "
+          f"{int(b[8].sum())}, lane-max {int(a[8].max())} against "
+          f"{int(b[8].max())}; solved {int(a[10].sum())} against "
+          f"{int(b[10].sum())}; max|X - X_plain| "
+          f"{float((a[0] - b[0]).abs().max()):.3e}; phase 3p "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return out
 
 
 def probes(card) -> dict:
@@ -2504,8 +2728,8 @@ def main() -> None:
                                                 flexsat_setup, flexsat_step,
                                                 quadruped_batched)
     from altro_tpu_torch.convert import tree_to
-    from altro_tpu_torch.ops import (_build, riccati, riccati_fused, rollout,
-                                     rollout_al)
+    from altro_tpu_torch.ops import (_build, pass_tail, riccati,
+                                     riccati_fused, rollout, rollout_al)
     from altro_tpu_torch.solver import altro
 
     kind = torch.cuda.get_device_name(0)
@@ -2633,6 +2857,7 @@ def main() -> None:
         riccati_fused.launch_count = 0
         rollout_al.launch_count = 0
         riccati.launch_count = 0
+        pass_tail.launch_count = 0
         altro.pass_count = 0
         altro.eager_loop_count = 0
 
@@ -2640,7 +2865,8 @@ def main() -> None:
         return {"batched_ls_rollout": rollout.launch_count,
                 "fused_expand_backward": riccati_fused.launch_count,
                 "batched_ls_rollout_al": rollout_al.launch_count,
-                "batched_riccati": riccati.launch_count}
+                "batched_riccati": riccati.launch_count,
+                "al_pass_tail": pass_tail.launch_count}
 
     # Each main path's launches are gated against the solver-loop body
     # passes counted in the same window (solver.altro.pass_count): B and D
@@ -2669,14 +2895,15 @@ def main() -> None:
     if not (passes > 0 and launches["fused_expand_backward"] == passes
             and launches["batched_ls_rollout"] == passes + res["cold_solves"]
             and launches["batched_ls_rollout_al"] == 0
+            and launches["al_pass_tail"] == 0
             and launches["batched_riccati"] == 0):
         raise AssertionError(f"launch counts {launches} do not match "
                              f"{passes} solver-loop passes")
 
     def conic_main_path(res, launches, passes, fresh_solves):
         """Print a conic main path's result and gate its quality and its
-        launches: B and C once per pass, A once per solve that starts
-        without states (``fresh_solves``), D never."""
+        launches: B, C and the pass tail once per pass, A once per solve
+        that starts without states (``fresh_solves``), D never."""
         family = res["family"]
         print(f"{family} main path [{card}]: compaction "
               f"{res['compaction']}; cold N={res['cold_N']} solve "
@@ -2701,6 +2928,7 @@ def main() -> None:
         if not (passes > 0 and passes == res["loop_iterations"]
                 and launches["fused_expand_backward"] == passes
                 and launches["batched_ls_rollout_al"] == passes
+                and launches["al_pass_tail"] == passes
                 and launches["batched_ls_rollout"] == fresh_solves
                 and launches["batched_riccati"] == 0):
             raise AssertionError(f"{family} launch counts {launches} do not "
@@ -2736,7 +2964,8 @@ def main() -> None:
         if not (qpasses > 0 and ql["batched_riccati"] == qpasses
                 and ql["batched_ls_rollout"] == qpasses + qres["solves"]
                 and ql["fused_expand_backward"] == 0
-                and ql["batched_ls_rollout_al"] == 0):
+                and ql["batched_ls_rollout_al"] == 0
+                and ql["al_pass_tail"] == 0):
             raise AssertionError(f"quadruped launch counts {ql} do not match "
                                  f"{qpasses} solver-loop passes of "
                                  f"{qres['solves']} solves")
@@ -2766,6 +2995,10 @@ def main() -> None:
     eager_entries += altro.eager_loop_count
     conic_main_path(gres, glaunches, altro.pass_count, gres["cold_solves"])
 
+    # ---- 3p. the pass-tail kernel against its plain version (eager solves:
+    # before 4g resets the counters)
+    ptail = pass_tail_parity(card, {"rocket": su32, "grasp": gsu32})
+
     # ---- 4g. main path: flexsat (one cold N=80 solve copied to B=1024
     # lanes, then T=45 regulator steps) in the shipped compaction schedule;
     # the warm solves start from the re-based states, so A runs once
@@ -2792,6 +3025,7 @@ def main() -> None:
     if not (fpasses > 0 and fpasses == fres["loop_iterations"]
             and flaunches["fused_expand_backward"] == fpasses
             and flaunches["batched_ls_rollout_al"] == fpasses
+            and flaunches["al_pass_tail"] == fpasses
             and flaunches["batched_ls_rollout"] == 1
             and flaunches["batched_riccati"] == 0):
         raise AssertionError(f"flexsat launch counts {flaunches} do not "
@@ -2995,20 +3229,16 @@ def main() -> None:
                             "altro_tpu/ops/riccati.py:204", "quadruped"),
     }
     table = []
+    paths = (launches, rlaunches, qlaunches, nlaunches, olaunches, glaunches,
+             flaunches, jlaunches, rlaunches_wide, plaunches, qwlaunches,
+             klaunches, mlaunches, llaunches, hlaunches, glaunches5,
+             p6launches, qslaunches)
     for name, (src, rep, timed) in sources.items():
         _, ms, plain_ms, work = par[timed][0][name]
         bnd, by = bound_ms(*work, 4)
         table.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": (launches[name] + rlaunches[name] + qlaunches[name]
-                         + nlaunches[name] + olaunches[name]
-                         + glaunches[name] + flaunches[name]
-                         + jlaunches[name] + rlaunches_wide[name]
-                         + plaunches[name]
-                         + qwlaunches[name] + klaunches[name]
-                         + mlaunches[name] + llaunches[name]
-                         + hlaunches[name] + glaunches5[name]
-                         + p6launches[name] + qslaunches[name]),
+            "launches": sum(p[name] for p in paths),
             "max_abs_err": max(
                 [v for shape in par if name in par[shape][0]
                  for v in par[shape][0][name][0].values()]
@@ -3091,6 +3321,26 @@ def main() -> None:
             "replaces": rep_, "launches": path[name],
             "max_abs_err": max(errs.values()), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+            "library_ms": None})
+    # the pass-tail kernel's rows (3p, float32): the rocket window's with
+    # the launches over every main path, then each family's with its own
+    # path's (the closed loop's over 4h-4i); it replaces no TPU kernel
+    tail_paths = {"rocket": None, "grasp": glaunches, "flexsat": flaunches,
+                  "grouped quadruped": nlaunches, "closed loop": llaunches,
+                  f"n={WIDE_MPC[0]} m={WIDE_MPC[1]}": rlaunches_wide}
+    for family, path in tail_paths.items():
+        err, ms, plain_ms, work, B = ptail[family]
+        bnd, by = bound_ms(*work, 4)
+        table.append({
+            "name": ("al_pass_tail" if path is None
+                     else f"al_pass_tail ({family}, B={B})"),
+            "route": "cuda", "source": "altro_tpu_torch/csrc/pass_tail.cu",
+            "replaces": None,
+            "launches": (sum(p["al_pass_tail"] for p in paths)
+                         if path is None else path["al_pass_tail"]),
+            "max_abs_err": (max(r[0] for r in ptail.values())
+                            if path is None else err),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
             "library_ms": None})
     # the probes' rows (3o): the calibration kernel at the reference's
     # defaults in float32, and D's bare launch on the layout probe's inputs

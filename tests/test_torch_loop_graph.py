@@ -37,6 +37,7 @@ from altro_tpu_torch.models import rocket as trocket  # noqa: E402
 from altro_tpu_torch.mpc import (gen_tracking_mpc, make_mpc_step,  # noqa: E402
                                  make_mpc_step_compacted,
                                  make_mpc_step_device_compacted)
+from altro_tpu_torch.ops import pass_tail  # noqa: E402
 from altro_tpu_torch.solver import altro, graph  # noqa: E402
 
 torch.set_num_threads(1)
@@ -471,13 +472,13 @@ def test_host_sync_in_captured_body_raises(cuda, monkeypatch):
     pm = su.prob_mpc
     prob = dataclasses.replace(pm, x0=pm.x0.expand(64, -1).contiguous())
     s0 = altro._warmstart_state(prob, su.opts, None, None)
-    where = altro._where_tree
+    where = pass_tail._where_tree
 
     def syncing_where(pred, a, b):
         bool(pred.any())
         return where(pred, a, b)
 
-    monkeypatch.setattr(altro, "_where_tree", syncing_where)
+    monkeypatch.setattr(pass_tail, "_where_tree", syncing_where)
     entries = altro.eager_loop_count
     with pytest.raises(RuntimeError):
         graph.LoopGraph(prob, su.opts, s0)
