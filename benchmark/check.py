@@ -4,7 +4,12 @@ lane-steps the window recorded, judged against the plain reference.
 For every recorded lane-step the reference works out again, in float64 from
 the configuration's data and the recorded inputs (the lane's previous state
 and first control, the noise row, the window index), the propagated state
-and the window's optimal controls. The numbers compared:
+and the window's optimal controls. The window index is the cell's
+``window_k(t, lanes)``, which sees the lanes: a configuration may encode a
+lane's group together with its window in it, and its reference receives
+that same value in ``propagate``, ``solve``, ``cost`` and ``violation``. The
+start sample (the set-up's initial carry, lane 0) is judged in the window
+``window_k(-1, [0])``. The numbers compared:
 
 - ``x0_err``: the largest gap between the program's propagated state and
   the reference's, inf-norm, relative to max(1, |x0|);
@@ -37,23 +42,29 @@ from benchmark.reference.ipm import F64, TF32, Arith
 GAP_TOL = {torch.float64: 1e-11, torch.float32: 1e-7}
 
 
+def start_window(cell) -> torch.Tensor:
+    """The start sample's window index [1]: the cell's window before its
+    first step, for lane 0."""
+    return cell.window_k(-1, torch.zeros(1, dtype=torch.int64)).cpu()
+
+
 def _inputs(cell, samples: dict, device):
     """(x0_prev, u0_prev, noise, k) of the recorded lane-steps and, last,
-    the start sample (zeros and window 0), on ``device``."""
+    the start sample (zeros and the start window), on ``device``."""
     d = dict(device=device)
     n = cell.n
     x0p = torch.cat([samples["x0_prev"], torch.zeros(1, n)]).to(**d)
     u0p = torch.cat([samples["u0_prev"],
                      torch.zeros(1, cell.m)]).to(**d)
     noise = torch.cat([samples["noise"], torch.zeros(1, n)]).to(**d)
-    k = torch.cat([samples["k"], torch.zeros(1, dtype=torch.int64)]).to(**d)
+    k = torch.cat([samples["k"], start_window(cell)]).to(**d)
     return x0p, u0p, noise, k
 
 
-def reference_state(ref, cell, x0p, u0p, noise, ar: Arith = F64):
-    """Every lane-step's propagated state; the last row is the start
-    sample's, the configuration's x0."""
-    x0 = ref.propagate(x0p[:-1], u0p[:-1], noise[:-1], ar)
+def reference_state(ref, cell, x0p, u0p, noise, k, ar: Arith = F64):
+    """Every lane-step's propagated state, each in its recorded window
+    ``k``; the last row is the start sample's, the configuration's x0."""
+    x0 = ref.propagate(x0p[:-1], u0p[:-1], noise[:-1], k[:-1], ar)
     return torch.cat([x0, cell.x0_start.to(x0)[None]])
 
 
@@ -63,7 +74,7 @@ def control_answers(cell, samples: dict, start: dict, device):
     in float32)."""
     ref = cell.reference.to(device)
     x0p, u0p, noise, k = _inputs(cell, samples, device)
-    x0 = reference_state(ref, cell, x0p, u0p, noise, TF32)
+    x0 = reference_state(ref, cell, x0p, u0p, noise, k, TF32)
     z0 = cell.ref_start(x0.shape[0]).to(device)
     U = ref.solve(x0, k, z0, TF32, gap_tol=GAP_TOL[torch.float32])
     return x0, U
@@ -75,7 +86,7 @@ def judge(cell, samples: dict, start: dict, device, answers=None):
     in the same order, the start sample last)."""
     ref = cell.reference.to(device)
     x0p, u0p, noise, k = _inputs(cell, samples, device)
-    x0_true = reference_state(ref, cell, x0p, u0p, noise)
+    x0_true = reference_state(ref, cell, x0p, u0p, noise, k)
     z0 = cell.ref_start(x0_true.shape[0]).to(device)
     U_star = ref.solve(x0_true, k, z0, F64, gap_tol=GAP_TOL[torch.float64])
     if answers is None:
@@ -93,8 +104,8 @@ def judge(cell, samples: dict, start: dict, device, answers=None):
     gap = torch.where(infeasible, torch.full_like(gap, float("inf")), gap)
     scale = torch.clamp(x0_true.abs().amax(dim=1), min=1.0)
     x0_err = (x0_ans - x0_true).abs().amax(dim=1) / scale
-    viol = ref.violation(x0_true, U_ans)
-    viol_star = ref.violation(x0_true, torch.nan_to_num(U_star))
+    viol = ref.violation(x0_true, U_ans, k)
+    viol_star = ref.violation(x0_true, torch.nan_to_num(U_star), k)
     judged = solved
     per_sample = {"J": J.cpu(), "J_star": J_star.cpu(), "gap": gap.cpu(),
                   "U_star": U_star.cpu(), "x0_true": x0_true.cpu(),

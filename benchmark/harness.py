@@ -13,6 +13,13 @@ the host's clock, call to synchronise.
 
 How the check samples the window and where the trace lies are the
 harness's own constants below, not traffic.
+
+A ``--trace 1`` run also turns the program's tracer on
+(``altro_tpu_torch.utils.profiling.tracing()``) from before the cell is
+built to the window's end, except over the steps the profiler runs over
+(its host work would move the profiler's readings), and hands its spans to
+the per-layer readers (``Result.spans``): every span kept, on the
+profiler's clock, with the window's steps marked.
 """
 from __future__ import annotations
 
@@ -199,7 +206,8 @@ class Stretch:
     its schedule discards the first WARM steps (the profiler's own set-up on
     the device), then it records every step until the recorded steps have
     lasted ``length`` seconds. ``traced`` marks the window's steps it
-    recorded."""
+    recorded, ``profiled`` every step it ran over, the discarded ones
+    too."""
 
     WARM = 3
 
@@ -208,7 +216,7 @@ class Stretch:
         self.prof = self.done = None
         self.seen = self.steps = self.passes = 0
         self.t0 = self.passes0 = None
-        self.traced = []
+        self.traced, self.profiled = [], []
 
     def recording(self) -> bool:
         return self.prof is not None and self.seen >= self.WARM
@@ -227,6 +235,7 @@ class Stretch:
     def after(self, step: int, ts: float, te: float) -> None:
         if self.prof is None:
             return
+        self.profiled.append(step)
         if self.recording():
             self.steps += 1
             self.traced.append(step)
@@ -286,6 +295,7 @@ class Result:
     trace: Optional[object] = None
     kernels: dict = field(default_factory=dict)
     itemsize: int = 4
+    spans: Optional[dict] = None      # window_spans(), --trace 1 only
 
 
 def _sync(device) -> None:
@@ -293,13 +303,47 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+def window_spans(records: list, steps: int, profiled) -> dict:
+    """The tracer's ``records`` with the window's steps marked: ``window``
+    maps the request id of each window step whose ``step`` span was kept
+    to the step's index. The tracer is off over the ``profiled`` steps, so
+    the window's other steps are the last step requests, in order; it keeps
+    the newest spans, so the first ones may be gone."""
+    roots = [r["request"] for r in records
+             if r["name"] == "step" and r["parent"] is None
+             and r["request"] is not None]
+    profiled = set(profiled)
+    spanned = [i for i in range(steps) if i not in profiled]
+    n = min(len(roots), len(spanned))
+    return {"records": records,
+            "window": dict(zip(roots[len(roots) - n:],
+                               spanned[len(spanned) - n:]))}
+
+
+def _tracer_on(tracer, on: bool) -> None:
+    """The program's tracer on or off between two steps."""
+    from altro_tpu_torch.utils import profiling
+    profiling.tracer = tracer if on else None
+
+
 def run_cell(wl: Workload, seed: int, seconds: float, trace: bool, *,
              device, t_start: float, out_dir: str):
     """Set up the cell on ``device``, step it for ``seconds`` and record what
     the check and the metrics read: (Result, the cell with its program
-    freed)."""
+    freed). ``trace``: the profiler's stretch and the program's tracer."""
+    kw = dict(device=device, t_start=t_start, out_dir=out_dir)
+    if not trace:
+        return _run_cell(wl, seed, seconds, None, **kw)
+    from altro_tpu_torch.utils import profiling
+    with profiling.tracing() as tracer:
+        return _run_cell(wl, seed, seconds, tracer, **kw)
+
+
+def _run_cell(wl: Workload, seed: int, seconds: float, tracer, *, device,
+              t_start: float, out_dir: str):
     from altro_tpu_torch.solver import altro
 
+    trace = tracer is not None
     cell = build_cell(wl, device)
     T, B = cell.T, cell.B
     gen = torch.Generator(device=device)
@@ -341,6 +385,7 @@ def run_cell(wl: Workload, seed: int, seconds: float, trace: bool, *,
         for t in range(T):
             if stretch is not None:
                 stretch.before(time.perf_counter() - t_win)
+                _tracer_on(tracer, stretch.prof is None)
             p_before = altro.pass_count
             prev = carry
             ts = time.perf_counter()
@@ -367,6 +412,8 @@ def run_cell(wl: Workload, seed: int, seconds: float, trace: bool, *,
             "loadavg_1m": os.getloadavg()[0]}
     if stretch is not None:                    # the window may end first
         stretch.stop()
+    if tracer is not None:                     # every device time, now
+        tracer.resolve(wait=True)
     passes_window = altro.pass_count - passes0
     memory_peak = (torch.cuda.max_memory_allocated(device)
                    if torch.device(device).type == "cuda" else 0)
@@ -394,4 +441,9 @@ def run_cell(wl: Workload, seed: int, seconds: float, trace: bool, *,
         stretch.done.export_chrome_trace(path)
         result.trace = trace_mod.load(path, stretch.passes, stretch.steps)
         os.remove(path)
+    if tracer is not None:
+        base_ns = (result.trace.extra.get("baseTimeNanoseconds", 0)
+                   if result.trace is not None else 0)
+        result.spans = window_spans(tracer.records(base_ns), steps,
+                                    stretch.profiled)
     return result, cell

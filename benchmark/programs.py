@@ -6,7 +6,9 @@ A configuration module builds its problem with the port's own constructors
 from data the benchmark made, and hands it to :func:`tracking_cell`, which
 steps every lane in the same window by
 ``mpc.make_mpc_step_device_compacted`` with the configuration's compaction
-schedule.
+schedule, on its graphed route on every device (on the CPU the graphs'
+functions over the same fixed buffers, so that a rehearsal there takes the
+card's route and its spans).
 """
 from __future__ import annotations
 
@@ -28,12 +30,16 @@ class Cell:
     T: int                    # steps per episode
     carry0: tuple
     step: Callable            # (carry, noise [B, n], t) -> (carry, out)
-    window_k: Callable        # (t, lanes [S] int64) -> window index [S]
+    # (t, lanes [S] int64) -> window index [S]: the index the reference
+    # receives (a grouped cell may encode the lane's group in it); t = -1
+    # is the set-up's initial carry
+    window_k: Callable
     x0_start: torch.Tensor    # [n] the configuration's initial state
     reference: object         # the plain reference (reference.tracking)
     ref_start: Callable       # L -> [L, N-1, m] the reference solver's start
     success_rate_min: float
-    kernels: dict = field(default_factory=dict)   # kernel -> work arguments
+    # kernel -> work arguments (a dict last: keyword ones, metrics/_roofline)
+    kernels: dict = field(default_factory=dict)
     itemsize: int = 4
 
 
@@ -50,7 +56,7 @@ def tracking_cell(pm, opts, X_track, U_track, *, traffic: dict, spec: dict,
         pm, opts, X_track, U_track, it_cap=int(compaction["it_cap"]),
         block=int(compaction["block"]),
         levels=tuple(tuple(lv) for lv in compaction["levels"]),
-        noise_model=noise_model, warm_start=warm_start)
+        noise_model=noise_model, warm_start=warm_start, graphed=True)
 
     def window_k(t, lanes):
         return torch.full_like(lanes, t + 1)

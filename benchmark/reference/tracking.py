@@ -76,9 +76,11 @@ class TrackingMPC:
 
     # -- the step's own work --------------------------------------------------
 
-    def propagate(self, x0, u0, noise, ar: Arith = F64):
+    def propagate(self, x0, u0, noise, k, ar: Arith = F64):
         """The next state of every lane: the noise model applied to
-        A x0 + B u0 + d (x0 [L, n], u0 [L, m], noise [L, n])."""
+        A x0 + B u0 + d (x0 [L, n], u0 [L, m], noise [L, n]). The lanes'
+        window indices ``k`` [L] are not read: the plant is
+        time-invariant."""
         x = (ar.einsum("ij,lj->li", self.A, x0)
              + ar.einsum("ij,lj->li", self.B, u0) + ar.t(self.d))
         return self.noise_model(x, ar.t(noise), ar)
@@ -115,9 +117,11 @@ class TrackingMPC:
         return stage + 0.5 * torch.einsum("li,ij,lj->l", ex[:, -1], Qf,
                                           ex[:, -1])
 
-    def violation(self, x0, U):
+    def violation(self, x0, U, k=None):
         """The largest constraint violation [L] of the controls U from x0:
-        the inf-norm of c - proj_K(c) over the active rows, float64."""
+        the inf-norm of c - proj_K(c) over the active rows, float64. The
+        windows ``k`` are not read: the rows and the plant are the same in
+        every window."""
         X = self.rollout(x0, U)
         Up = torch.cat([U.double(), torch.zeros_like(U[:, :1]).double()], 1)
         worst = torch.zeros(X.shape[0], dtype=torch.float64, device=X.device)

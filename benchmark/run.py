@@ -130,6 +130,14 @@ def assemble(wl, args, res, cell, device, device_type):
             dev["window_s"] = float(res.trace.window_s)
             out["breakdown"] = trace_mod.breakdown(res.trace)
         diag.update(profiler_cost(res.step_s, res.traced_steps))
+        if res.spans is not None:
+            from benchmark.metrics import _spans
+            diag["spans_kept"] = len(res.spans["records"])
+            diag["steps_with_spans"] = len(res.spans["window"])
+            passes = _spans.passes_check(res)
+            if passes is not None:
+                # the same window steps' passes by the spans and the counter
+                diag["loop_span_passes"], diag["pass_counter_passes"] = passes
     else:
         e2e = {"solves_per_s": res.successes / res.window_s,
                "step_ms_p95": np.percentile(res.step_s * 1e3, 95),

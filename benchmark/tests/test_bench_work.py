@@ -99,3 +99,72 @@ def test_roofline_share_is_the_bound_over_the_time():
 def test_roofline_reads_nothing_without_launches_or_grids():
     assert _roofline.share(_Run([]), "kernel_b") is None
     assert _roofline.share(_Run([_op(None, 5.0)]), "kernel_b") is None
+
+
+# the grouped quadruped trot: G=8 gait groups, n = m = 12, N=15, four SOC
+# blocks of 3 rows and 8 NONPOS rows, the L=11 ladder, the L=1 init
+GROUPED = {"kernel_a": (15, 12, 12, 1, False),
+           "kernel_b": (15, 12, 12, 20, (3, 3, 3, 3)),
+           "kernel_c": (15, 12, 12, 20, 11)}
+
+
+@pytest.mark.parametrize("kind,stack", [
+    ("kernel_a", 14 * (144 + 144 + 12)),       # A, B and dd of 14 knots
+    ("kernel_b", 14 * (144 + 144)),            # A and B
+    ("kernel_c", 14 * (144 + 144 + 12)),
+])
+def test_groups_count_each_groups_stack(kind, stack):
+    """With groups=8 a launch reads the dynamics stack of each of the 8
+    groups: 7 stacks more than a shared one, and no more FLOPs."""
+    work = _work.WORK[kind]
+    one = work(1024, *GROUPED[kind], 4)
+    eight = work(1024, *GROUPED[kind], 4, groups=8)
+    assert eight[0] - one[0] == 7 * stack * 4
+    assert eight[1] == one[1]
+
+
+def test_keyword_work_arguments_reach_the_work_function():
+    args, kwargs = _roofline.work_arguments(GROUPED["kernel_b"] + (
+        {"groups": 8},))
+    assert (args, kwargs) == (GROUPED["kernel_b"], {"groups": 8})
+    assert _roofline.work_arguments((21, 6, 3, 1, False)) == (
+        (21, 6, 3, 1, False), {})
+    # kernel C at the trot's shapes is bound by its bytes, so the groups'
+    # stacks move its bound
+    bound, by = _work.bound_ms(*_work.rollout_al_work(
+        1024, *GROUPED["kernel_c"], 4, groups=8), 4)
+    assert by == "bytes"
+    run = _Run([DeviceOp("ls_rollout_al_kernel<float, 11>", "kernel", 0.0,
+                         bound * 1e3, (128, 11, 8))])
+    run.kernels = {"kernel_c": GROUPED["kernel_c"] + ({"groups": 8},)}
+    assert _roofline.share(run, "kernel_c") == pytest.approx(100.0)
+    run.kernels = {"kernel_c": GROUPED["kernel_c"]}
+    assert _roofline.share(run, "kernel_c") < 99.9
+
+
+def test_rocket_shares_read_as_before():
+    """The rocket's entries (positional arguments only) read what the call
+    ``work(lanes, *entry, itemsize)`` gave, on a trace with every level's
+    launches of kernels A, B and C."""
+    kernels = {"kernel_b": (21, 6, 3, 15, (4, 4, 7)),
+               "kernel_c": (21, 6, 3, 15, 6),
+               "kernel_a": (21, 6, 3, 1, False)}
+    names = {"kernel_a": "ls_rollout_kernel<float, 1>",
+             "kernel_b": "fused_expand_backward_kernel<float>",
+             "kernel_c": "ls_rollout_al_kernel<float, 6>"}
+    ops = [DeviceOp(names[kind], "kernel", 0.0, dur, grid)
+           for kind, grid, dur in (
+               ("kernel_b", (512, 1, 1), 152.0), ("kernel_b", (128, 1, 1),
+                                                  61.0),
+               ("kernel_b", (64, 1, 1), 47.0), ("kernel_c", (64, 6, 1), 66.0),
+               ("kernel_c", (16, 6, 1), 21.0), ("kernel_a", (8, 1, 1), 9.0))]
+    run = _Run(ops)
+    run.kernels = kernels
+    for kind, entry in kernels.items():
+        launches = [o for o in ops if _kinds.kind_of(o.name) == kind]
+        full = max(o.grid[0] * o.grid[1] for o in launches)
+        bound = sum(_work.bound_ms(*_work.WORK[kind](
+            max(1, round(1024 * o.grid[0] * o.grid[1] / full)), *entry, 4),
+            4)[0] for o in launches)
+        want = 100.0 * bound / sum(o.dur * 1e-3 for o in launches)
+        assert _roofline.share(run, kind) == want

@@ -77,10 +77,15 @@ class Trace:
 
 def load(path: str, passes: int, steps: int) -> Optional[Trace]:
     """The stretch of the Chrome trace at ``path``; None where it holds no
-    call into CUDA (a run on the CPU)."""
+    call into CUDA (a run on the CPU). The trace's
+    ``baseTimeNanoseconds``, where it has one, is kept in ``extra``: its
+    times are microseconds of the realtime clock less that base."""
     with open(path) as fh:
         events = json.load(fh)
+    extra = {}
     if isinstance(events, dict):
+        if "baseTimeNanoseconds" in events:
+            extra["baseTimeNanoseconds"] = int(events["baseTimeNanoseconds"])
         events = events.get("traceEvents", [])
     ops, host = [], []
     for e in events:
@@ -100,7 +105,7 @@ def load(path: str, passes: int, steps: int) -> Optional[Trace]:
     t1 = max([b for _, b, _ in host] + [o.ts + o.dur for o in ops])
     ops = [o for o in ops if o.ts >= t0]
     return Trace(t0=t0, t1=t1, ops=ops, host=host, passes=passes,
-                 steps=steps)
+                 steps=steps, extra=extra)
 
 
 def breakdown(tr: Trace, top: int = 10) -> dict:
