@@ -112,10 +112,13 @@ def _linearized_problem(prob: Problem, x_curr, x_ref, contacts, foot_locs,
                         dt_mpc) -> Problem:
     """The problem instance of one contact schedule: dynamics linearized
     about x_ref and the gravity-distributing stance forces (m g / stance
-    feet, vertical, per stance foot), x0 = x_curr."""
+    feet, vertical, per stance foot), x0 = x_curr. Each knot is linearized
+    on its own, so several schedules laid end to end (x_ref, contacts,
+    foot_locs of K knots) give each schedule's stacks at its knots but its
+    last."""
     nst = torch.clamp(torch.sum(contacts, dim=1, keepdim=True), min=1.0)
     fz_ref = SPRUNG_MASS * 9.81 / nst * contacts                 # [N, 4]
-    u_ref = torch.zeros((prob.N, 12), dtype=x_curr.dtype,
+    u_ref = torch.zeros((contacts.shape[0], 12), dtype=x_curr.dtype,
                         device=x_curr.device)
     u_ref[:, 2::3] = fz_ref
     dyn = linearize_horizon(x_ref, u_ref, foot_locs, contacts, dt_mpc)

@@ -8,6 +8,7 @@ Each step of a batch of scenarios:
                                                per lane with ``shared_k``
                                                off)
     refresh the constraint window             (``constraints_fn``, if given)
+    refresh the dynamics window               (``dynamics_fn``, if given)
     seed the controls: the shifted previous solution (states
         seam-corrected) or the tracking window's controls
     shift duals, reset penalties
@@ -172,10 +173,23 @@ def _xws_corrector(dyn):
     return correct
 
 
+def knot0(dyn: LTVDynamics) -> LTVDynamics:
+    """The first knot of LTV stacks (a one-knot view, grouped or not): the
+    dynamics a window's first control is applied with."""
+    return LTVDynamics(A=dyn.A[..., :1, :, :], B=dyn.B[..., :1, :, :],
+                       d=dyn.d[..., :1, :], grouped=dyn.grouped)
+
+
 class _Pieces:
     """What the step pieces share: ``start(carry, noise_i, k)`` runs the
     host part for step ``k`` and then the tensor part; ``finish(prob_k,
-    state, x0_new)`` returns (the next carry, MPCResults)."""
+    state, x0_new)`` returns (the next carry, MPCResults). ``dyn_inputs``
+    trailing entries of the host part are the dynamics window (copied
+    under their own span), and ``groups`` > 0 (a grouped dynamics window)
+    adds each group's lane-max iterations to the finish graph's results."""
+
+    dyn_inputs = 0
+    groups = 0
 
     def start(self, carry, noise_i, k: int):
         return self.start_from(carry, noise_i, *self.window(k + 1))
@@ -192,15 +206,18 @@ class _StepPieces(_Pieces):
     """The parts of a batched MPC step that every form of it shares.
 
     ``window(k_new)`` is the host's part, which depends on the Python step
-    index: the tracking window (Xw, Uw) and the constraint window (None:
-    ``prob_mpc``'s blocks). The rest is a function of tensors alone:
-    ``start_from(carry, noise_i, Xw, Uw, cons)`` propagates the carry and
-    returns (the window's problem, the solver's initial state, x0_new);
-    ``finish(prob_k, state, x0_new)`` returns (the next carry,
-    MPCResults)."""
+    index: the tracking window (Xw, Uw), the constraint window (None:
+    ``prob_mpc``'s blocks) and, with ``dynamics_fn``, the dynamics window
+    ``dynamics_fn(k_new)`` and the first knot of ``dynamics_fn(k_new - 1)``
+    (the plant). The rest is a function of tensors alone:
+    ``start_from(carry, noise_i, Xw, Uw, cons[, dyn, plant])`` propagates
+    the carry and returns (the window's problem, the solver's initial
+    state, x0_new); ``finish(prob_k, state, x0_new)`` returns (the next
+    carry, MPCResults)."""
 
     def __init__(self, prob_mpc: Problem, opts: SolverOptions, X_track,
-                 U_track, noise_model, constraints_fn, warm_start: str):
+                 U_track, noise_model, constraints_fn, warm_start: str,
+                 dynamics_fn=None):
         if warm_start not in ("shift", "track"):
             raise ValueError(f"warm_start must be 'shift' or 'track', got "
                              f"{warm_start!r}")
@@ -208,7 +225,14 @@ class _StepPieces(_Pieces):
         self.X_track, self.U_track = X_track, U_track
         self.noise_model, self.constraints_fn = noise_model, constraints_fn
         self.warm_start = warm_start
-        self.xws = _xws_corrector(prob_mpc.dynamics)
+        self.dynamics_fn = dynamics_fn
+        if dynamics_fn is None:
+            self.xws = _xws_corrector(prob_mpc.dynamics)
+        else:
+            # the windows move: no exact seam, the solve's init rollout
+            self.xws = None
+            self.dyn_inputs = 2
+            self.groups = dynamics_fn(0).groups
 
     def window(self, k_new: int):
         Xw, Uw = track_window(self.X_track, self.U_track, k_new,
@@ -216,23 +240,28 @@ class _StepPieces(_Pieces):
         # time-varying constraint window, cut from full-horizon stacks
         cons = (None if self.constraints_fn is None
                 else tuple(self.constraints_fn(k_new)))
-        return Xw, Uw, cons
+        if self.dynamics_fn is None:
+            return Xw, Uw, cons
+        return (Xw, Uw, cons, self.dynamics_fn(k_new),
+                knot0(self.dynamics_fn(k_new - 1)))
 
-    def prob_from(self, Xw, Uw, cons, x0) -> Problem:
+    def prob_from(self, Xw, Uw, cons, x0, dyn=None) -> Problem:
         pm = self.prob_mpc
+        more = {} if dyn is None else {"dynamics": dyn}
         return dataclasses.replace(
             pm, cost=retarget_tracking(pm.cost, Xw, Uw), x0=x0,
-            constraints=pm.constraints if cons is None else cons)
+            constraints=pm.constraints if cons is None else cons, **more)
 
     def prob_at(self, k_new: int, x0):
-        Xw, Uw, cons = self.window(k_new)
-        return self.prob_from(Xw, Uw, cons, x0), Uw
+        Xw, Uw, cons, *dyn = self.window(k_new)
+        return self.prob_from(Xw, Uw, cons, x0, *dyn[:1]), Uw
 
-    def start_from(self, carry, noise_i, Xw, Uw, cons):
+    def start_from(self, carry, noise_i, Xw, Uw, cons, dyn=None,
+                   plant=None):
         x0, X, U, duals = carry
-        x0_new = self.noise_model(
-            self.prob_mpc.dynamics.step(x0, U[:, 0], 0), noise_i)
-        prob_k = self.prob_from(Xw, Uw, cons, x0_new)
+        plant = self.prob_mpc.dynamics if plant is None else plant
+        x0_new = self.noise_model(plant.step(x0, U[:, 0], 0), noise_i)
+        prob_k = self.prob_from(Xw, Uw, cons, x0_new, dyn)
         if self.warm_start == "shift":
             U_ws = shift_fill(U)
             X_ws = None if self.xws is None else self.xws(X, U_ws, x0_new)
@@ -245,8 +274,11 @@ class _StepPieces(_Pieces):
                 x0_new)
 
     def init_carry(self, batch: int, graphed: bool, check_every: int):
-        """Cold batched solve of the first window from X_track[0]."""
+        """Cold batched solve of the first window from X_track[0] (with
+        ``dynamics_fn``, on the dynamics ``dynamics_fn(0)``)."""
         pm = self.prob_mpc
+        if self.dynamics_fn is not None:
+            pm = dataclasses.replace(pm, dynamics=self.dynamics_fn(0))
         x0 = pm.x0.expand(batch, pm.n).contiguous()
         sol0 = graph.solve(dataclasses.replace(pm, x0=x0), self.opts,
                            graphed=graphed, check_every=check_every)
@@ -393,11 +425,14 @@ class _GraphedStep:
     sub_block), ...)``; empty for the plain step) with a gather and a
     scatter graph between two levels, and the finish graph. The host copies
     each step's carry, step input (a noise row; the relinearized step's
-    dynamics), tracking window and (with ``constraints_fn``) constraint
-    window into the start graph's input buffers, replays start, each loop
-    graph until no lane is live (one host sync per k passes, every
-    catch-all one replay and one sync), and finish, and returns clones of
-    the finish graph's results.
+    dynamics), tracking window, (with ``constraints_fn``) constraint window
+    and (with ``dynamics_fn``) dynamics window into the start graph's input
+    buffers, replays start, each loop graph until no lane is live (one host
+    sync per k passes, every catch-all one replay and one sync), and
+    finish, and returns clones of the finish graph's results. On a grouped
+    dynamics window the finish graph also takes each group's lane-max
+    iterations (one [G] amax), cloned with the results while tracing is on
+    (the ``step.out`` span's ``group_iters``).
 
     Called as ``step(carry, noise_i, k)``. ``loop_replays`` counts the loop
     graphs' replays and ``capture_s`` the host seconds spent capturing.
@@ -473,13 +508,21 @@ class _GraphedStep:
             scatters[lvl] = Replayable(graph.scatter_fn(
                 loops[lvl], loops[lvl + 1], gathers[lvl]), dev, pool,
                 f"graph.scatter.L{lvl}")
-        finish = Replayable(lambda: self.pieces.finish(
-            loops[0].prob, loops[0].state, start.out), dev, pool,
-            "graph.finish")
+        G = self.pieces.groups
+
+        def finish_fn():
+            res = self.pieces.finish(loops[0].prob, loops[0].state, start.out)
+            if G:
+                res += (res[1].iters.reshape(G, -1).amax(dim=1),)
+            return res
+
+        finish = Replayable(finish_fn, dev, pool, "graph.finish")
+        dyn_bytes = sum(t.numel() * t.element_size() for t in graph.tensors(
+            ins[len(ins) - self.pieces.dyn_inputs:]))
         self.capture_s += time.perf_counter() - t0
         return SimpleNamespace(inputs=ins, start=start, loops=loops,
                                gathers=gathers, scatters=scatters,
-                               finish=finish)
+                               finish=finish, dyn_bytes=dyn_bytes)
 
     def _run(self, loop: LoopGraph, it_cap, rest: bool = False) -> None:
         loop.set_cap(it_cap)
@@ -503,7 +546,14 @@ class _GraphedStep:
         sp = None if tr is None else tr.open("step.inputs")
         inputs = (carry, noise_i) + self.pieces.window(k + 1)
         g = self._graphs(inputs)
-        copy_into(g.inputs, inputs, "step inputs")
+        rest = len(inputs) - self.pieces.dyn_inputs
+        copy_into(g.inputs[:rest], inputs[:rest], "step inputs")
+        if self.pieces.dyn_inputs:
+            sd = (None if tr is None
+                  else tr.open("step.dynamics", bytes=g.dyn_bytes))
+            copy_into(g.inputs[rest:], inputs[rest:], "step dynamics")
+            if sd is not None:
+                tr.close(sd)
         if sp is not None:
             tr.close(sp)
         g.start.replay()
@@ -526,9 +576,13 @@ class _GraphedStep:
             self._run(g.loops[0], None)
         g.finish.replay()
         if tr is None:
-            return clone_tree(g.finish.out)
-        with tr.span("step.out"):
-            return clone_tree(g.finish.out)
+            return clone_tree(g.finish.out[:2])
+        with tr.span("step.out") as sp:
+            res = clone_tree(g.finish.out)
+            if self.pieces.groups:
+                sp.args.update(groups=self.pieces.groups,
+                               group_iters=res[2])
+            return res[:2]
 
     @torch.no_grad()
     def partial(self, carry, noise_i, k: int, it_cap: int):
@@ -565,7 +619,8 @@ class _LaneStep(_GraphedStep):
 def make_mpc_step(prob_mpc: Problem, opts: SolverOptions, X_track, U_track,
                   noise_model=default_noise_model, constraints_fn=None,
                   shared_k: bool = True, warm_start: str = "shift",
-                  graphed: Optional[bool] = None, check_every: int = 1):
+                  graphed: Optional[bool] = None, check_every: int = 1,
+                  dynamics_fn=None):
     """Build the batched warm-started MPC step
     ``step(carry, noise [B, n], k) -> (carry, MPCResults)`` and
     ``init_carry(batch) -> carry`` with carry = (x0, X, U, duals), all
@@ -594,6 +649,19 @@ def make_mpc_step(prob_mpc: Problem, opts: SolverOptions, X_track, U_track,
     as ``models.grasp.grasp_constraints`` builds them), built on the
     device with no host sync (the graphed step captures the call).
 
+    ``dynamics_fn(k)``: the dynamics of the window starting at step ``k``
+    (an ``LTVDynamics`` of ``prob_mpc``'s shapes, shared, per lane or
+    grouped [G, N-1, ...]; a controller that relinearizes about a moving
+    contact schedule), refreshed every step, the counterpart of
+    ``constraints_fn``; ``init_carry`` solves on ``dynamics_fn(0)``. Step
+    ``k`` solves on ``dynamics_fn(k + 1)`` and propagates each lane from
+    step ``k - 1`` with the first knot of ``dynamics_fn(k)`` (each lane's
+    group's, on grouped stacks): the dynamics its applied control was
+    planned with. The windows move, so the shift warm start has no exact
+    seam corrector: every solve starts with its init rollout. ``None``
+    keeps ``prob_mpc.dynamics`` (time-invariant across steps); only the
+    shared-k step takes it.
+
     ``warm_start``: "shift" carries the previous solution (controls shifted
     one knot, duals shifted, states seam-corrected by
     :func:`_xws_corrector`); "track" seeds every solve from the tracking
@@ -609,8 +677,12 @@ def make_mpc_step(prob_mpc: Problem, opts: SolverOptions, X_track, U_track,
     graphed = graph.use_graphs(graphed, prob_mpc.x0.device)
     if shared_k:
         pieces = _StepPieces(prob_mpc, opts, X_track, U_track, noise_model,
-                             constraints_fn, warm_start)
+                             constraints_fn, warm_start, dynamics_fn)
         return _make_step(pieces, opts, (), graphed, check_every)
+    if dynamics_fn is not None:
+        raise NotImplementedError("dynamics_fn takes the shared-k step: "
+                                  "per-lane window indices would gather "
+                                  "every lane's dynamics window")
     lanes = _LanePieces(prob_mpc, opts, X_track, U_track, noise_model,
                         constraints_fn, warm_start)
 

@@ -23,10 +23,15 @@ numbered in the order the tracer saw them. The spans of a step::
         sync              the host's wait for it and the read of the counts
       graph.gather.L0, loop.L1, ..., graph.scatter.L0, loop.L0.rest
       graph.finish
-      step.out            the clone of the results
+      step.out            the clone of the results; on a grouped dynamics
+                          window ``groups`` and ``group_iters`` (each
+                          group's lane-max iterations)
 
-and in set-up ``build`` (a step's graphs for one batch, a cold solve's, a
-resume loop's) around ``capture`` (one graph's warm-up and capture).
+with a dynamics window (``mpc.make_mpc_step(dynamics_fn=...)``),
+``step.dynamics`` inside ``step.inputs``: the copy of the window's
+dynamics stacks (``bytes``); and in set-up ``build`` (a step's graphs for
+one batch, a cold solve's, a resume loop's) around ``capture`` (one
+graph's warm-up and capture).
 
 Spans stay in memory, the newest :data:`MAX_SPANS` of them; nothing is
 written unless asked. Device times are read only once their events have
@@ -213,14 +218,16 @@ class Tracer:
         ``torch.profiler`` Chrome trace's ``baseTimeNanoseconds``; ``dur``
         None while open), ``device`` ([start, end] ms from the request's
         first device event, or None) and ``args`` (attributes and
-        counters)."""
+        counters; a counter the step left on the device, as
+        ``group_iters``, read here as a list)."""
         self.resolve(wait=True)
         off = self.wall0 - self.pc0 - base_ns
         return [{"id": sp.id, "name": sp.name, "parent": sp.parent,
                  "request": sp.request, "ts": (sp.t0 + off) * 1e-3,
                  "dur": None if sp.t1 is None else (sp.t1 - sp.t0) * 1e-3,
                  "device": None if sp.device is None else list(sp.device),
-                 "args": dict(sp.args)}
+                 "args": {k: v.tolist() if isinstance(v, torch.Tensor)
+                          else v for k, v in sp.args.items()}}
                 for sp in self.spans]
 
     def export(self, path: str, base_ns: int = 0) -> None:

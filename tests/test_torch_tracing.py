@@ -11,6 +11,13 @@ their buffers, no capture), on the rocket's compacted tracking step:
 - a catch-all that finds no live lane records exactly one empty replay;
 - the exported spans share ``torch.profiler``'s clock: a step's span holds
   its ``aten::`` operators once both are on the trace's base time;
+- on a step whose dynamics window moves and is grouped (the quadruped
+  trot's, ``mpc.make_mpc_step(dynamics_fn=...)``), a ``step.dynamics`` span
+  inside ``step.inputs`` with the window's bytes, and on ``step.out`` the
+  group count and each group's lane-max iterations, the results' own;
+  neither on the rocket's fixed, ungrouped step; the benchmark's two
+  readers of them (``group_wait_pct``, ``dynamics_us_per_step``) on a
+  hand-built span list;
 
 and, on a CUDA device, the same step's graphs with device times: every
 replay's events in order, the loop replays' gaps, and the results of the
@@ -27,7 +34,10 @@ torch = pytest.importorskip("torch")
 import altro_tpu_torch as tt  # noqa: E402
 from altro_tpu_torch.bench.conic import WARM_OPTS  # noqa: E402
 from altro_tpu_torch.models import rocket  # noqa: E402
+from altro_tpu_torch.models.quadruped import (config, controller,  # noqa
+                                              episode)
 from altro_tpu_torch.mpc import (gen_tracking_mpc,  # noqa: E402
+                                 make_mpc_step,
                                  make_mpc_step_device_compacted)
 from altro_tpu_torch.solver import altro  # noqa: E402
 from altro_tpu_torch.solver.graph import tensors  # noqa: E402
@@ -165,6 +175,89 @@ def test_spans_share_the_profilers_clock(track, tmp_path):
     slack = 100.0                                 # microseconds
     assert st["ts"] - slack <= min(ops)
     assert max(ops) <= st["ts"] + st["dur"] + slack
+
+
+def _trot_step(groups=2, lanes=2):
+    """The trot's grouped step (offset 350 ms) in float64 on the
+    fixed-buffer route, its initial carry and two steps' noise."""
+    cfg = config.MPCConfig(linearized_friction=False)
+    prob, x_des = controller.build_mpc_problem(cfg, torch.float64)
+    windows = episode.trot_windows(cfg, prob, T + 1, groups, 350)
+    N = cfg.N
+    step, init = make_mpc_step(
+        prob, tt.SolverOptions(cost_tolerance=1e-4, penalty_initial=10.0,
+                               penalty_scaling=100.0),
+        x_des.expand(N, 12), torch.zeros((N - 1, 12), dtype=torch.float64),
+        noise_model=lambda x, e: x + 0.005 * e, graphed=True,
+        dynamics_fn=windows)
+    noise = torch.as_tensor(np.random.default_rng(2).standard_normal(
+        (T, groups * lanes, 12)))
+    return step, init(groups * lanes), noise
+
+
+def test_grouped_dynamics_spans():
+    G, lanes = 2, 2
+    step, carry0, noise = _trot_step(G, lanes)
+    with profiling.tracing() as tr:
+        _, outs, _ = _run(step, carry0, noise)
+    recs = tr.records()
+    by_id = {r["id"]: r for r in recs}
+    # the window (15 knots' stacks less one) and the plant's first knot
+    nbytes = 8 * G * 15 * (12 * 12 + 12 * 12 + 12)
+    for t, out in enumerate(outs):
+        mine = [r for r in recs if r["request"] == t]
+        (dyn,) = [r for r in mine if r["name"] == "step.dynamics"]
+        assert by_id[dyn["parent"]]["name"] == "step.inputs"
+        assert dyn["args"] == {"bytes": nbytes} and dyn["dur"] > 0
+        (so,) = [r for r in mine if r["name"] == "step.out"]
+        assert so["args"]["groups"] == G
+        assert so["args"]["group_iters"] == out.iters.reshape(
+            G, lanes).amax(dim=1).tolist()
+        assert min(so["args"]["group_iters"]) > 0
+
+
+def test_fixed_ungrouped_step_has_neither(track):
+    step, carry0, noise = _step(track)
+    with profiling.tracing() as tr:
+        _run(step, carry0, noise)
+    recs = tr.records()
+    assert not [r for r in recs if r["name"] == "step.dynamics"]
+    outs = [r for r in recs if r["name"] == "step.out"]
+    assert len(outs) == T and all(r["args"] == {} for r in outs)
+
+
+def _span(id_, name, parent, request, dur, **args):
+    return {"id": id_, "name": name, "parent": parent, "request": request,
+            "ts": 0.0, "dur": dur, "device": None, "args": args}
+
+
+def test_group_readers_on_hand_built_spans():
+    from types import SimpleNamespace
+
+    from benchmark.metrics import reader
+
+    recs = [_span(0, "step", None, 0, 1000.0),
+            _span(1, "step.inputs", 0, 0, 80.0),
+            _span(2, "step.dynamics", 1, 0, 40.0, bytes=100),
+            _span(3, "step.out", 0, 0, 20.0, groups=2, group_iters=[3, 5]),
+            _span(4, "step", None, 1, 900.0),
+            _span(5, "step.dynamics", 4, 1, 60.0, bytes=100),
+            _span(6, "step.out", 4, 1, 20.0, groups=2, group_iters=[4, 4]),
+            # a request outside the window (the profiler's stretch)
+            _span(7, "step", None, 2, 900.0),
+            _span(8, "step.dynamics", 7, 2, 500.0, bytes=100),
+            _span(9, "step.out", 7, 2, 20.0, groups=2, group_iters=[1, 9])]
+    res = SimpleNamespace(spans={"records": recs, "window": {0: 0, 1: 1}})
+    # (3 + 5 + 4 + 4) group-iterations of 2 x 5 + 2 x 4 at the slowest
+    assert reader("group_wait_pct").read(res) == pytest.approx(
+        100.0 * (1.0 - 16.0 / 18.0))
+    assert reader("dynamics_us_per_step").read(res) == pytest.approx(50.0)
+    plain = SimpleNamespace(spans={"records": [
+        r for r in recs if r["name"] != "step.dynamics" and r["id"] not in
+        (3, 6, 9)] + [_span(3, "step.out", 0, 0, 20.0)], "window": {0: 0}})
+    for name in ("group_wait_pct", "dynamics_us_per_step"):
+        assert reader(name).read(plain) is None
+        assert reader(name).read(SimpleNamespace(spans=None)) is None
 
 
 @pytest.mark.cuda
