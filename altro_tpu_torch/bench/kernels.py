@@ -18,7 +18,9 @@ at the flagship's L=3 and L=1 and the quadruped's per-lane L=11, B on the
 flagship and the rocket window, C on the rocket
 window at L=6, D on the quadruped's per-lane expansion; B also on grasp's
 window (13 rows in 4 blocks) and cold problem (19 rows in 5) and on the
-flexsat regulator (N=80, one NONPOS block of 6 rows), C on grasp's window
+flexsat regulator (N=80, one NONPOS block of 6 rows) and on the grouped
+quadruped (n = m = 12, G = 8 groups of 128 lanes and of 3: four cones of
+3 rows and 8 NONPOS rows), C on grasp's window
 at L=3 and on flexsat at L=6; B, C at L=11 and A's init form at the
 quadruped closed loop's one robot (B=1, N=15, 24 NONPOS rows or 4 cones
 and 8 NONPOS rows in 5 blocks). Kernels B and D are also timed on the flagship's
@@ -1031,6 +1033,8 @@ def _all_cases(dtype, dev) -> list:
     gw = grasp_inputs(dtype, dev)
     gc = grasp_inputs(dtype, dev, cold=True)
     fx = flexsat_inputs(dtype, dev)
+    gq = grouped_inputs(dtype, dev)
+    gq3 = grouped_inputs(dtype, dev, 3 * 8)
     qd = quadruped_inputs(dtype, dev)
     sn = quadruped_inputs(dtype, dev, nonlinear=True)
     lq = quadloop_inputs(dtype, dev, True)
@@ -1038,8 +1042,9 @@ def _all_cases(dtype, dev) -> list:
     other = [(w, flagship_inputs(dtype, dev, widths=w))
              for w in OTHER_WIDTHS]
 
-    def fused(inp):
-        return lambda: fb(*inp["fused"], packed=inp["packed"])
+    def fused(inp, grouped=False):
+        return lambda: fb(*inp["fused"], packed=inp["packed"],
+                          grouped=grouped)
 
     def pass_d(inp):
         return lambda: bp(*inp["riccati"])
@@ -1049,6 +1054,9 @@ def _all_cases(dtype, dev) -> list:
         ("B", "grasp window", fused(gw), gw["fused_work"]),
         ("B", "grasp cold", fused(gc), gc["fused_work"]),
         ("B", "flexsat", fused(fx), fx["fused_work"]),
+        ("B", "grouped quadruped G=8", fused(gq, True), gq["fused_work"]),
+        ("B", "grouped quadruped 3 lanes a group", fused(gq3, True),
+         gq3["fused_work"]),
         ("B", "closed loop qp B=1", fused(lq), lq["fused_work"]),
         ("B", "closed loop socp B=1", fused(ls_), ls_["fused_work"]),
         *(("B", f"random-linear n={n} m={m}", fused(inp),

@@ -37,8 +37,11 @@
 // scenarios all lie in one group, so the block still stages each knot's
 // rows once for all its scenarios; G = 1 is the shared case.
 //
-// Thread mapping: a group of TG threads (64, or 128 above 256 expansion
-// entries) works one scenario; a block of 256 threads holds 256 / TG
+// Thread mapping: a group of TG threads works one scenario: 64, or 128
+// above 256 expansion entries, except above m = 8 (up to 16), where the
+// groups stay at 64 while a thread's owned entries fit its 4 register
+// slots (n <= 21: the trot's 324 entries, 90 of them owned; fused_body
+// holds the rule); a block of 256 threads holds 256 / TG
 // groups, and each group syncs on its own named barrier (bar.sync 1 + group,
 // TG), so groups never wait for each other inside a knot. The TPU grid's
 // sequential knot axis is a loop inside the block. Per knot:
@@ -59,23 +62,25 @@
 //            memory. The matrix entries share one loop body and Qx, Qu
 //            another;
 //   pass 3   the group's first warp factors Quu + reg I with row i in lane
-//            i's registers (m <= 8: shuffles, no barrier, no pivot
-//            synchronisation), then n + 1 threads each solve one column of
-//            (K | d) in registers and form its column of Quu K (the d
-//            thread: Quu d and both dV sums, in registers across knots).
-//            Above m = 8 the first warp factors column by column in shared
-//            memory instead;
+//            i's registers (m <= 8, and m <= 16 in the narrow body above
+//            it: shuffles, no barrier, no pivot synchronisation), then
+//            n + 1 threads each solve one column of (K | d) in registers
+//            and form its column of Quu K (the d thread: Quu d and both dV
+//            sums, in registers across knots). Wider m (m > 16, or m > 8
+//            in groups of 128) is factored by the first warp column by
+//            column in shared memory and solved there instead;
 //   pass 4   the owners form Vxx (upper triangle, mirrored) and Vx; K and d
 //            are stored coalesced.
 //
 // Four group barriers per knot (six with SOC blocks) and one block barrier.
-// Every m up to 8 (the register Cholesky's range) compiles as a constant in
-// the groups of 64, so the factor, the solves and the loops over m unroll
-// without guards; n stays a runtime width (a constant n as well gains far
-// less than a constant m: PERF.md, kernel B's constant widths). The knot
-// loop must stay small: unrolling each owned entry and each entry kind
-// separately takes ~20k instructions per instantiation, and the warps then
-// stall on instruction fetch.
+// Every m up to 16 (the register Cholesky's range) compiles as a constant
+// in the groups of 64, with a register row of 8 (kRegM) up to m = 8 and of
+// 16 (kRegWide) above, so the factor, the solves and the loops over m
+// unroll without guards; n stays a runtime width (a constant n as well
+// gains far less than a constant m: PERF.md, kernel B's constant widths).
+// The knot loop must stay small: unrolling each owned entry and each entry
+// kind separately takes ~20k instructions per instantiation, and the warps
+// then stall on instruction fetch.
 //
 // What bounds it on the H100: at B=1024, N=30, n=12, m=6, p=12 it moves
 // ~13 MB (K 9 MB of it), 4 us at 3.35 TB/s, and does ~22 kFLOP per
@@ -376,28 +381,30 @@ __device__ __forceinline__ T expansion_entry(const Knot<T>& kn,
 }
 
 // Widest m factored in registers: lane i of the group's first warp holds
-// row i of Quu + reg I.
+// row i of Quu + reg I. kRegM for the m <= 8 bodies, kRegWide for the
+// narrow body above them (8 < m <= 16), each with its register width.
 constexpr int kRegM = 8;
+constexpr int kRegWide = 16;
 constexpr unsigned kFull = 0xffffffffu;
 
 // Quu + reg I = L L', factored by the group's first warp with row i in the
-// registers of lane i (m <= kRegM): per column, one shuffle broadcasts the
+// registers of lane i (m <= RM): per column, one shuffle broadcasts the
 // pivot and each later row's update takes that column's entries of the
 // rows above by shuffles; no barrier. Summation order as column by column:
 // entry (i, j) subtracts L(i, p) L(j, p) for p = 0, 1, ... L and the
 // pivots' reciprocals go to Lc and Linv for the solves. Lanes past m
 // factor a copy of row 0 and store nothing.
-template <typename T>
+template <int RM, typename T>
 __device__ __forceinline__ void factor_shfl(const Work<T>& wk, T* Lc, T* Linv,
                                             T regb, int m, int lane) {
   const int i = lane < m ? lane : 0;
-  T a[kRegM];
+  T a[RM];
 #pragma unroll
-  for (int j = 0; j < kRegM; ++j)
+  for (int j = 0; j < RM; ++j)
     a[j] = j < m ? wk.Quu[i * m + j] + (j == i ? regb : T(0)) : T(0);
   T inv = T(0);
 #pragma unroll
-  for (int j = 0; j < kRegM; ++j) {
+  for (int j = 0; j < RM; ++j) {
     if (j < m) {
       const T d = sqrt(fmax(__shfl_sync(kFull, a[j], j), T(1e-12)));
       const T id = T(1) / d;
@@ -408,7 +415,7 @@ __device__ __forceinline__ void factor_shfl(const Work<T>& wk, T* Lc, T* Linv,
         a[j] *= id;
       }
 #pragma unroll
-      for (int k = j + 1; k < kRegM; ++k) {
+      for (int k = j + 1; k < RM; ++k) {
         if (k < m) {
           const T lkj = __shfl_sync(kFull, a[j], k);
           if (lane >= k) a[k] -= a[j] * lkj;
@@ -418,24 +425,24 @@ __device__ __forceinline__ void factor_shfl(const Work<T>& wk, T* Lc, T* Linv,
   }
   if (lane < m) {
 #pragma unroll
-    for (int j = 0; j < kRegM; ++j)
+    for (int j = 0; j < RM; ++j)
       if (j <= lane) Lc[lane * m + j] = a[j];
     Linv[lane] = inv;
   }
 }
 
-// Column c of (K | d) = -(L L')^-1 (Qux | Qu) in registers (m <= kRegM),
+// Column c of (K | d) = -(L L')^-1 (Qux | Qu) in registers (m <= RM),
 // with L and its pivots' reciprocals read from shared memory (one address
 // for all the solving threads); then its column of Quu K, or, for the d
 // column (c = n), Quu d and the dV sums.
-template <typename T>
+template <int RM, typename T>
 __device__ __forceinline__ void solve_column_regs(const Work<T>& wk,
                                                   const T* Lc, const T* Linv,
                                                   int n, int m, int c, T* dv1,
                                                   T* dv2) {
-  T col[kRegM];
+  T col[RM];
 #pragma unroll
-  for (int i = 0; i < kRegM; ++i) {
+  for (int i = 0; i < RM; ++i) {
     if (i < m) {
       T s = c < n ? -wk.Qux[i * n + c] : -wk.Qu[i];
 #pragma unroll
@@ -444,23 +451,23 @@ __device__ __forceinline__ void solve_column_regs(const Work<T>& wk,
     }
   }
 #pragma unroll
-  for (int i = kRegM - 1; i >= 0; --i) {
+  for (int i = RM - 1; i >= 0; --i) {
     if (i < m) {
       T s = col[i];
 #pragma unroll
-      for (int p = i + 1; p < kRegM; ++p)
+      for (int p = i + 1; p < RM; ++p)
         if (p < m) s -= Lc[p * m + i] * col[p];
       col[i] = s * Linv[i];
     }
   }
   T s1 = T(0), s2 = T(0);
 #pragma unroll
-  for (int i = 0; i < kRegM; ++i) {
+  for (int i = 0; i < RM; ++i) {
     if (i < m) {
       wk.KD[c * m + i] = col[i];
       T acc = T(0);
 #pragma unroll
-      for (int p = 0; p < kRegM; ++p)
+      for (int p = 0; p < RM; ++p)
         if (p < m) acc += wk.Quu[i * m + p] * col[p];
       if (c < n) {
         wk.VB[i * n + c] = acc;  // Quu K, in V B's place
@@ -737,20 +744,30 @@ fused_expand_backward_kernel(
     if (!term) {
       altro::group_sync(bar, TG);
       // pass 3: (K | d), Quu K, Quu d, dV
-      if (m <= kRegM) {
+      if constexpr (MM > kRegM) {
+        // the narrow body above m = 8: the dispatch keeps n <= 21, so the
+        // factor and the n + 1 solves all sit in the first warp
+        if (t < 32) {
+          factor_shfl<kRegWide>(wk, Lc, wk.Linv, regb, m, t);
+          __syncwarp();
+          if (t <= n)
+            solve_column_regs<kRegWide>(wk, Lc, wk.Linv, n, m, t, &dv1,
+                                        &dv2);
+        }
+      } else if (m <= kRegM) {
         if (n < 32) {
           // the factor and the n + 1 solves all sit in the first warp
           if (t < 32) {
-            factor_shfl(wk, Lc, wk.Linv, regb, m, t);
+            factor_shfl<kRegM>(wk, Lc, wk.Linv, regb, m, t);
             __syncwarp();
             if (t <= n)
-              solve_column_regs(wk, Lc, wk.Linv, n, m, t, &dv1, &dv2);
+              solve_column_regs<kRegM>(wk, Lc, wk.Linv, n, m, t, &dv1, &dv2);
           }
         } else {
-          if (t < 32) factor_shfl(wk, Lc, wk.Linv, regb, m, t);
+          if (t < 32) factor_shfl<kRegM>(wk, Lc, wk.Linv, regb, m, t);
           altro::group_sync(bar, TG);
           if (t <= n)
-            solve_column_regs(wk, Lc, wk.Linv, n, m, t, &dv1, &dv2);
+            solve_column_regs<kRegM>(wk, Lc, wk.Linv, n, m, t, &dv1, &dv2);
         }
       } else {
         factor_warp(wk, Lc, regb, m, t);
@@ -1645,23 +1662,43 @@ int launch_wide_entry(const void* Q, const void* q, const void* R,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_wide(const void* Q, const void* q, const void* R, const void* r,
-                const void* H, const void* A, const void* Bm, const void* Cx,
-                const void* Cu, const void* cb, const void* cmask,
-                const altro::BlockTable<T>& table, const void* X,
-                const void* U, const void* rho, const void* reg, void* K,
-                void* d, void* dV1, void* dV2, int Bt, int NG, int N, int n,
-                int m, int P, cudaStream_t stream) {
-  const int W4 = altro::wide::pad4(n + m) / 4;
-  const bool small = (n + 3) / 4 * W4 <= 2 * kSmallThreads &&
-                     W4 * (W4 + 1) / 2 <= kSmallThreads &&
-                     n + m + P + 1 <= kSmallThreads;
-  auto launch = n + m <= kEntryWidth ? launch_wide_entry<T>
-                : small              ? launch_wide_nt<T, kSmallThreads>
-                                     : launch_wide_nt<T, kLargeThreads>;
-  return launch(Q, q, R, r, H, A, Bm, Cx, Cu, cb, cmask, table, X, U, rho,
-                reg, K, d, dV1, dV2, Bt, NG, N, n, m, P, stream);
+// The body kernel B takes at a shape (n, m, P), or -1 where it takes none;
+// launch_fused dispatches on it and the wrapper names it by its place in
+// ops/riccati_fused.py: BODIES (the loop graphs' capture spans carry it).
+enum Body : int {
+  kNarrowM8,   // m <= kRegM, groups of 64, m a constant: the register factor
+  kNarrowM16,  // kRegM < m <= kRegWide, groups of 64, m a constant, the
+               // factor and the solves in registers, n <= 21
+  kGroup64,    // any other m within kSmallEntries entries: groups of 64
+  kGroup128,   // above kSmallEntries entries: groups of 128
+  kWideEntry,  // n or m above kNarrowDim, n + m <= kEntryWidth
+  kWideSmall,  // the tiled body in blocks of kSmallThreads
+  kWideLarge,  // the tiled body in blocks of kLargeThreads
+};
+
+int fused_body(int n, int m, int P) {
+  if (n < 1 || m < 1 || n > altro::kMaxDim || m > altro::kMaxDim || P < 0 ||
+      P > altro::kMaxRows)
+    return -1;
+  if (n > altro::kNarrowDim || m > altro::kNarrowDim) {
+    if (n + m <= kEntryWidth) return kWideEntry;
+    const int W4 = altro::wide::pad4(n + m) / 4;
+    const bool small = (n + 3) / 4 * W4 <= 2 * kSmallThreads &&
+                       W4 * (W4 + 1) / 2 <= kSmallThreads &&
+                       n + m + P + 1 <= kSmallThreads;
+    return small ? kWideSmall : kWideLarge;
+  }
+  // In groups of 64 a thread keeps kSmallEntries / 64 owned entries (Qxx's
+  // upper triangle and Qx) in registers, so n <= 21; at 128 registers 8
+  // such groups fit an SM and B=1024 runs in one wave. They take every
+  // shape of up to kSmallEntries expansion entries (the flagship's 189)
+  // and, for 8 < m <= 16, every n whose owned entries fit (the trot's 90
+  // of 324; the shared entries take more slots); groups of 128 the rest
+  if (m > kRegM && m <= kRegWide && owned_entries(n) <= kSmallEntries)
+    return kNarrowM16;
+  if (owned_entries(n) + shared_entries(m, n) > kSmallEntries)
+    return kGroup128;
+  return m <= kRegM ? kNarrowM8 : kGroup64;
 }
 
 template <typename T>
@@ -1673,40 +1710,51 @@ int launch_fused(const void* Q, const void* q, const void* R, const void* r,
                  const void* rho, const void* reg, void* K, void* d,
                  void* dV1, void* dV2, int Bt, int NG, int N, int n, int m,
                  int P, void* stream) {
-  if (n < 1 || m < 1 || n > altro::kMaxDim || m > altro::kMaxDim || P < 0 ||
-      P > altro::kMaxRows || N < 2 || Bt < 1 || NG < 1 || Bt % NG != 0 ||
-      NG > 65535)
+  const int body = fused_body(n, m, P);
+  if (body < 0 || N < 2 || Bt < 1 || NG < 1 || Bt % NG != 0 || NG > 65535)
     return (int)cudaErrorInvalidValue;
   altro::BlockTable<T> table;
   if (!altro::make_table(nblocks, meta, lams, P, &table))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (n > altro::kNarrowDim || m > altro::kNarrowDim)
-    return launch_wide<T>(Q, q, R, r, H, A, Bm, Cx, Cu, cb, cmask, table, X,
-                          U, rho, reg, K, d, dV1, dV2, Bt, NG, N, n, m, P, s);
-  // 64 threads per scenario up to kSmallEntries expansion entries (the
-  // flagship's 189: at 128 registers 8 groups of 2 warps fit an SM, so
-  // B=1024 runs in one wave), 128 above
-  const int entries = owned_entries(n) + shared_entries(m, n);
-  // in groups of 64, every m <= kRegM compiles as a constant; wider m and
-  // the groups of 128 take the generic instantiations
-#define ALTRO_FUSED_LAUNCH(TG, MM)                                          \
-  launch_group<T, TG, MM>(Q, q, R, r, H, A, Bm, Cx, Cu, cb, cmask, table,   \
-                          X, U, rho, reg, K, d, dV1, dV2, Bt, NG, N, n, m, P, \
-                          s)
-  if (entries > kSmallEntries) return ALTRO_FUSED_LAUNCH(128, 0);
-  static_assert(kRegM == 8, "one constant-m instantiation per m <= kRegM");
-  switch (m) {
-    case 1: return ALTRO_FUSED_LAUNCH(64, 1);
-    case 2: return ALTRO_FUSED_LAUNCH(64, 2);
-    case 3: return ALTRO_FUSED_LAUNCH(64, 3);
-    case 4: return ALTRO_FUSED_LAUNCH(64, 4);
-    case 5: return ALTRO_FUSED_LAUNCH(64, 5);
-    case 6: return ALTRO_FUSED_LAUNCH(64, 6);
-    case 7: return ALTRO_FUSED_LAUNCH(64, 7);
-    case 8: return ALTRO_FUSED_LAUNCH(64, 8);
-    default: return ALTRO_FUSED_LAUNCH(64, 0);
+#define ALTRO_FUSED_LAUNCH(L)                                               \
+  L(Q, q, R, r, H, A, Bm, Cx, Cu, cb, cmask, table, X, U, rho, reg, K, d,   \
+    dV1, dV2, Bt, NG, N, n, m, P, s)
+#define ALTRO_FUSED_GROUP(TG, MM) ALTRO_FUSED_LAUNCH((launch_group<T, TG, MM>))
+  // the narrow bodies compile every m up to kRegWide as a constant, so the
+  // factor, the solves and the loops over m unroll without guards
+  static_assert(kRegM == 8 && kRegWide == 16,
+                "one constant-m instantiation per m <= kRegWide");
+  switch (body) {
+    case kWideEntry: return ALTRO_FUSED_LAUNCH(launch_wide_entry<T>);
+    case kWideSmall:
+      return ALTRO_FUSED_LAUNCH((launch_wide_nt<T, kSmallThreads>));
+    case kWideLarge:
+      return ALTRO_FUSED_LAUNCH((launch_wide_nt<T, kLargeThreads>));
+    case kGroup128: return ALTRO_FUSED_GROUP(128, 0);
+    case kGroup64: return ALTRO_FUSED_GROUP(64, 0);
+    default: break;  // kNarrowM8, kNarrowM16: one instantiation per m
   }
+  switch (m) {
+    case 1: return ALTRO_FUSED_GROUP(64, 1);
+    case 2: return ALTRO_FUSED_GROUP(64, 2);
+    case 3: return ALTRO_FUSED_GROUP(64, 3);
+    case 4: return ALTRO_FUSED_GROUP(64, 4);
+    case 5: return ALTRO_FUSED_GROUP(64, 5);
+    case 6: return ALTRO_FUSED_GROUP(64, 6);
+    case 7: return ALTRO_FUSED_GROUP(64, 7);
+    case 8: return ALTRO_FUSED_GROUP(64, 8);
+    case 9: return ALTRO_FUSED_GROUP(64, 9);
+    case 10: return ALTRO_FUSED_GROUP(64, 10);
+    case 11: return ALTRO_FUSED_GROUP(64, 11);
+    case 12: return ALTRO_FUSED_GROUP(64, 12);
+    case 13: return ALTRO_FUSED_GROUP(64, 13);
+    case 14: return ALTRO_FUSED_GROUP(64, 14);
+    case 15: return ALTRO_FUSED_GROUP(64, 15);
+    case 16: return ALTRO_FUSED_GROUP(64, 16);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef ALTRO_FUSED_GROUP
 #undef ALTRO_FUSED_LAUNCH
 }
 
@@ -1728,3 +1776,9 @@ int launch_fused(const void* Q, const void* q, const void* R, const void* r,
 
 ALTRO_FUSED_ENTRY(altro_fused_expand_backward_f32, float)
 ALTRO_FUSED_ENTRY(altro_fused_expand_backward_f64, double)
+
+// The body launch_fused takes at (n, m, P): its place in ops/
+// riccati_fused.py: BODIES, or -1 where the kernel takes no such shape.
+extern "C" int altro_fused_expand_backward_body(int n, int m, int P) {
+  return fused_body(n, m, P);
+}

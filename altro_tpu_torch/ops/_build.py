@@ -39,6 +39,7 @@ _SIGNATURES = {
     "altro_riccati_f32": [_P] * 2 + [_I] + [_P] * 10 + [_I] * 4 + [_P],
     "altro_calibrate_fma_f32": [_P] * 3 + [_I] * 4 + [_P],
     "altro_pass_tail_f32": [_P] * 3 + _TABLE + [_P] * 2,
+    "altro_fused_expand_backward_body": [_I] * 3,
 }
 for _name in list(_SIGNATURES):
     _SIGNATURES[_name.replace("_f32", "_f64")] = _SIGNATURES[_name]

@@ -11,6 +11,7 @@ block's curvature is its polar projection's diagonal plus two rank-1 terms.
 
 Dispatch: a CPU tensor goes to :func:`fused_expand_backward_reference`; a
 CUDA tensor goes to the kernel, or raises on what the kernel does not take.
+The kernel picks one of its bodies by shape (:func:`body` names it).
 """
 from __future__ import annotations
 
@@ -24,6 +25,24 @@ from .rollout import MAX_DIM, _check_args, check_groups, per_group
 
 # Kernel launches since the last reset (see ops/rollout.py).
 launch_count = 0
+
+# The kernel's bodies, in the order of csrc/riccati_fused.cu: Body.
+BODIES = ("narrow_m8", "narrow_m16", "group64", "group128", "wide_entry",
+          "wide_tiled128", "wide_tiled512")
+
+
+def body(n: int, m: int, P: int, device_type: str) -> str:
+    """The body that :func:`fused_expand_backward` takes at state and
+    control widths n, m and P constraint rows on a device of
+    ``device_type``: "plain" (the plain version) off CUDA, else the name
+    in BODIES of the body the kernel's own dispatch picks (``fused_body``
+    in ``csrc/riccati_fused.cu``). Raises on a shape the kernel refuses."""
+    if device_type != "cuda":
+        return "plain"
+    code = _build.library().altro_fused_expand_backward_body(n, m, P)
+    if code < 0:
+        raise ValueError(f"fused kernel takes no shape n={n}, m={m}, P={P}")
+    return BODIES[code]
 
 
 def fused_expand_backward_reference(cost, dynA, dynB, blocks, X, U, lams,

@@ -62,6 +62,7 @@ from ..dynamics import LTVDynamics
 from ..ops.blocks import PackedBlocks, pack_blocks
 from ..ops.pass_tail import al_pass_tail, live_mask, pass_tail_reference
 from ..ops.riccati import batched_riccati
+from ..ops import riccati_fused
 from ..ops.riccati_fused import fused_expand_backward
 from ..ops.rollout import batched_ls_rollout
 from ..ops.rollout_al import batched_ls_rollout_al
@@ -513,6 +514,26 @@ def ltv_affine(prob: Problem) -> bool:
             and all(c.is_affine for c in prob.constraints))
 
 
+def _runs_b(prob: Problem, opts: SolverOptions) -> bool:
+    """Whether a pass runs kernel B, the fused expansion: on shared LTV
+    data with affine blocks and ``fused_expansion`` on; the rest takes the
+    split route (the expansion in PyTorch, then kernel D)."""
+    return (not prob.per_lane and opts.fused_expansion
+            and ltv_affine(prob))
+
+
+def b_body(prob: Problem, opts: SolverOptions,
+           device_type: str) -> Optional[str]:
+    """The body kernel B takes in this problem's passes on a device of
+    ``device_type`` (:func:`ops.riccati_fused.body`), or None where the
+    passes take the split route."""
+    if not _runs_b(prob, opts):
+        return None
+    return riccati_fused.body(prob.n, prob.m,
+                              sum(c.p for c in prob.constraints),
+                              device_type)
+
+
 def _uses_fused_ladder(opts: SolverOptions, prob: Problem, X) -> bool:
     """Whether the line search takes the fused ladder + merit pass on the
     device of ``X``: never unless :func:`ltv_affine`; then ``ls_fused`` "on"
@@ -635,7 +656,7 @@ def pass_fns(prob: Problem, opts: SolverOptions, s0, it_cap=None,
     # data the line search's fused branch runs the ladder rollout and the
     # merit in PyTorch
     per_lane = prob.per_lane
-    split = per_lane or not opts.fused_expansion or not ltv_affine(prob)
+    split = not _runs_b(prob, opts)
     grouped = isinstance(dyn, LTVDynamics) and dyn.grouped
 
     def cond(s):

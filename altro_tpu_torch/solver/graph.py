@@ -202,16 +202,19 @@ class Replayable:
 
     ``per_replay`` holds what one replay adds to the launch and pass
     counters; ``capture_s`` the host seconds of the warm-up and the
-    capture. ``name``: the span of a replay while tracing is on."""
+    capture. ``name``: the span of a replay while tracing is on;
+    ``span_args``: more arguments of the ``capture`` span."""
 
-    def __init__(self, fn: Callable, device, pool=None, name: str = "graph"):
+    def __init__(self, fn: Callable, device, pool=None, name: str = "graph",
+                 **span_args):
         self.fn = fn
         self.graph = None
         self.name = name
         saved = _read_counts()
         t0 = time.perf_counter()
         device = torch.device(device)
-        with torch.no_grad(), profiling.span("capture", graph=name):
+        with torch.no_grad(), profiling.span("capture", graph=name,
+                                             **span_args):
             if device.type == "cuda":
                 side = torch.cuda.Stream(device)
                 side.wait_stream(torch.cuda.current_stream(device))
@@ -268,9 +271,11 @@ class LoopGraph:
     between replays; a later replay or load overwrites it. ``live``: the
     pinned int32 pair the last replay wrote, the lanes live when it began
     and when it ended. ``name`` and ``level`` label its runs' spans while
-    tracing is on (set where a step's graphs are built). ``capture``:
-    capture the graph now, or leave it to :meth:`capture` (a step captures
-    its graphs in the order it replays them)."""
+    tracing is on (set where a step's graphs are built); ``b_body``, the
+    body kernel B takes in its passes (``solver.altro.b_body``; None on
+    the split route), labels its ``capture`` span. ``capture``: capture
+    the graph now, or leave it to :meth:`capture` (a step captures its
+    graphs in the order it replays them)."""
 
     def __init__(self, prob: Optional[Problem], opts: SolverOptions, state,
                  *, check_every: int = 1, pool=None,
@@ -298,6 +303,7 @@ class LoopGraph:
         # the live counts on the device, where the pass-tail kernel adds them
         self.counts = torch.zeros(2, dtype=torch.int32, device=dev)
         self.event = torch.cuda.Event() if self.cuda else None
+        self.b_body = altro.b_body(self.prob, opts, dev.type)
         _, self._cond, self._body = loop_fns(self.prob, opts, self.state,
                                              self.cap, ctx)
         self.pool = pool
@@ -309,8 +315,9 @@ class LoopGraph:
             self.load(state=state)
 
     def capture(self) -> None:
+        # the capture span names the body kernel B takes in the passes
         self.graph = Replayable(self._passes, self.state[0].device,
-                                self.pool, "loop")
+                                self.pool, "loop", b_body=self.b_body)
 
     @property
     def per_replay(self):

@@ -31,7 +31,8 @@ with a dynamics window (``mpc.make_mpc_step(dynamics_fn=...)``),
 ``step.dynamics`` inside ``step.inputs``: the copy of the window's
 dynamics stacks (``bytes``); and in set-up ``build`` (a step's graphs for
 one batch, a cold solve's, a resume loop's) around ``capture`` (one
-graph's warm-up and capture).
+graph's warm-up and capture; a loop graph's names the body kernel B takes
+in its passes, ``b_body``).
 
 Spans stay in memory, the newest :data:`MAX_SPANS` of them; nothing is
 written unless asked. Device times are read only once their events have

@@ -29,7 +29,8 @@ in the port, in float64 on the CPU unless marked ``cuda``:
 
 and, on a CUDA device, the group-indexed kernels B, C and A against their
 plain versions and, bit for bit, against the shared kernel launched once
-per group, at 128 lanes a group and at a ragged 3 (``python -m pytest
+per group, at 128 lanes a group and at a ragged 3, and kernel B's body at
+the grouped quadruped's shape and the rocket's (``python -m pytest
 --noconftest -m cuda tests/test_torch_grouped.py``; JAX is imported only by
 the tests that compare with it).
 """
@@ -495,6 +496,23 @@ def test_grouped_kernels_match_plain_and_per_group_launches(cuda, Bt, dtype,
                 *largs, grouped=True)):
             assert float((a - r).abs().max()) <= tol * max(
                 1.0, float(r.abs().max()))
+
+
+@pytest.mark.cuda
+def test_grouped_quadruped_takes_the_narrow_body_above_m8(cuda):
+    """Kernel B's dispatch at the grouped quadruped's shape (n = m = 12,
+    4 cones of 3 rows and 8 NONPOS rows: 324 expansion entries, 90 owned)
+    takes the narrow body above m = 8, and at the rocket window's (m = 3)
+    the m <= 8 body."""
+    from altro_tpu_torch.bench.kernels import grouped_inputs, rocket_inputs
+
+    for inputs, name in ((grouped_inputs(torch.float32, cuda, 24),
+                          "narrow_m16"),
+                         (rocket_inputs(torch.float32, cuda, 4),
+                          "narrow_m8")):
+        X, U = inputs["fused"][4:6]
+        assert riccati_fused.body(X.shape[-1], U.shape[-1],
+                                  inputs["packed"].P, "cuda") == name
 
 
 @pytest.mark.cuda

@@ -12,7 +12,10 @@
 
 the wrapper's CPU dispatch; and, on a CUDA device, the kernel against the
 plain version, on ZERO/NONPOS blocks, on the rocket's SOC blocks, on
-grasp's mix and on the flexsat regulator's single NONPOS block at N=80.
+grasp's mix and on the flexsat regulator's single NONPOS block at N=80;
+the narrow body above m = 8 at m in {9, 12, 16} and n in {6, 12, 21} on
+the trot's rows and on a NONPOS block, shared and per group, with a NaN
+lane; and the body the dispatch names at each shape (``body``).
 
 JAX is imported only by the tests that compare with it, so the kernel tests
 also run where JAX is not installed:
@@ -346,16 +349,25 @@ def test_kernel_matches_plain_version_soc(cuda, dtype, tol):
                 1.0, float(r.abs().max()))
 
 
-def _limits_case(n, m, N, Bt, seed, p=4, nblocks=16):
+def _limits_case(n, m, N, Bt, seed, p=4, nblocks=16, layout=None,
+                 groups=0):
     """A random problem at the kernel's limits: n x m widths, nblocks blocks
-    of p rows (ZERO, NONPOS and SOC in turn; 64 rows at the defaults), each
-    active on a random 80% of the knots, with multipliers that put the SOC
-    residuals in all three cases. SPD cost Hessians with R >= 10 I keep
-    Quu + reg I positive definite for the plain version's Cholesky."""
+    of p rows (ZERO, NONPOS and SOC in turn; 64 rows at the defaults), or
+    the blocks of ``layout`` ((rows, cone name) each), each active on a
+    random 80% of the knots, with multipliers that put the SOC residuals
+    in all three cases. SPD cost Hessians with R >= 10 I keep Quu + reg I
+    positive definite for the plain version's Cholesky. ``groups`` > 0:
+    dynamics stacks per group of scenarios [groups, N-1, ...]."""
     from altro_tpu_torch.cones import Cone
     from altro_tpu_torch.constraints import ConicConstraint
     from altro_tpu_torch.costs import QuadCost
 
+    cones = (Cone.ZERO, Cone.NONPOS, Cone.SOC)
+    if layout is None:
+        layout = tuple((p, cones[i % 3]) for i in range(nblocks))
+    else:
+        layout = tuple((rows, Cone[cone]) for rows, cone in layout)
+    lead = (groups, N - 1) if groups else (N - 1,)
     rng = np.random.default_rng(seed)
     t = torch.as_tensor
     Gq = rng.standard_normal((N, n, n)) / np.sqrt(n)
@@ -366,20 +378,19 @@ def _limits_case(n, m, N, Bt, seed, p=4, nblocks=16):
                     r=t(rng.standard_normal((N, m))),
                     H=t(0.1 * rng.standard_normal((N, m, n))),
                     c=t(np.zeros(N)))
-    A = t(0.9 * np.eye(n) + 0.1 * rng.standard_normal((N - 1, n, n))
+    A = t(0.9 * np.eye(n) + 0.1 * rng.standard_normal(lead + (n, n))
           / np.sqrt(n))
-    B = t(rng.standard_normal((N - 1, n, m)) / np.sqrt(n))
-    cones = (Cone.ZERO, Cone.NONPOS, Cone.SOC)
+    B = t(rng.standard_normal(lead + (n, m)) / np.sqrt(n))
     blocks = tuple(ConicConstraint(
-        Cx=t(rng.standard_normal((N, p, n)) / np.sqrt(n)),
-        Cu=t(rng.standard_normal((N, p, m)) / np.sqrt(m)),
-        b=t(rng.standard_normal((N, p))),
-        mask=t((rng.random(N) < 0.8).astype(float)), cone=cones[i % 3])
-        for i in range(nblocks))
+        Cx=t(rng.standard_normal((N, rows, n)) / np.sqrt(n)),
+        Cu=t(rng.standard_normal((N, rows, m)) / np.sqrt(m)),
+        b=t(rng.standard_normal((N, rows))),
+        mask=t((rng.random(N) < 0.8).astype(float)), cone=cone)
+        for rows, cone in layout)
     X = t(rng.standard_normal((Bt, N, n)))
     U = t(rng.standard_normal((Bt, N - 1, m)))
-    lams = tuple(t(3.0 * rng.standard_normal((Bt, N, p)))
-                 for _ in blocks)
+    lams = tuple(t(3.0 * rng.standard_normal((Bt, N, c.p)))
+                 for c in blocks)
     rhos = tuple(t(np.full((Bt, N), 10.0)) for _ in blocks)
     reg = t(1e-2 * rng.random(Bt))
     return cost, A, B, blocks, X, U, lams, rhos, reg
@@ -428,3 +439,94 @@ def test_kernel_nan_lane_stays_in_its_lane(cuda, dtype, tol):
         assert torch.isfinite(g[keep]).all()
         assert float((g[keep] - r[keep]).abs().max()) <= tol * max(
             1.0, float(r[keep].abs().max()))
+
+
+# the quadruped trot's rows: a friction cone of 3 rows a foot, then the 8
+# NONPOS force bounds; and one NONPOS block alone
+TROT_LAYOUT = ((3, "SOC"),) * 4 + ((8, "NONPOS"),)
+NONPOS_LAYOUT = ((8, "NONPOS"),)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3),
+                                       (torch.float64, 1e-9)],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("layout", [TROT_LAYOUT, NONPOS_LAYOUT],
+                         ids=["trot-blocks", "nonpos"])
+@pytest.mark.parametrize("n", [6, 12, 21])
+@pytest.mark.parametrize("m", [9, 12, 16])
+def test_narrow_body_above_m8_matches_plain_version(cuda, m, n, layout,
+                                                     dtype, tol):
+    """The narrow body above m = 8 (the factor and the n + 1 solves in
+    registers, groups of 64) against the plain version: shared dynamics at
+    one lane and at 1024, per-group dynamics (G = 8) at 3 lanes a group
+    (a spare group in every block) and at 1024 lanes."""
+    P = sum(rows for rows, _ in layout)
+    assert riccati_fused.body(n, m, P, "cuda") == "narrow_m16"
+    for Bt, G in ((1, 0), (1024, 0), (24, 8), (1024, 8)):
+        targs = convert.tree_to(
+            _limits_case(n, m, 6, Bt, seed=20 + m + n, layout=layout,
+                         groups=G), cuda, dtype)
+        if Bt == 1024 and layout == TROT_LAYOUT:
+            blocks, X, U, lams, rhos = targs[3:8]
+            cones = [i for i, c in enumerate(blocks) if c.cone.name == "SOC"]
+            assert min(soc_case_counts(
+                [blocks[i] for i in cones], X, U, [lams[i] for i in cones],
+                [rhos[i] for i in cones])) > 0
+        before = riccati_fused.launch_count
+        got = riccati_fused.fused_expand_backward(*targs, grouped=G > 0)
+        ref = riccati_fused.fused_expand_backward_reference(*targs,
+                                                            grouped=G > 0)
+        torch.cuda.synchronize()
+        assert riccati_fused.launch_count == before + 1
+        for g, r in zip(got, ref):
+            assert torch.isfinite(r).all()
+            assert float((g - r).abs().max()) <= tol * max(
+                1.0, float(r.abs().max())), (Bt, G)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3),
+                                       (torch.float64, 1e-9)],
+                         ids=["f32", "f64"])
+def test_narrow_body_above_m8_nan_lane_stays_in_its_lane(cuda, dtype, tol):
+    """At the trot's widths and rows, a NaN state of one lane makes that
+    lane's outputs NaN; every other lane, the lanes of its block too,
+    matches the plain version."""
+    case = _limits_case(12, 12, 7, 9, seed=13, layout=TROT_LAYOUT)
+    case[4][4, 3, 0] = float("nan")
+    targs = convert.tree_to(case, cuda, dtype)
+    got = riccati_fused.fused_expand_backward(*targs)
+    ref = riccati_fused.fused_expand_backward_reference(*targs)
+    torch.cuda.synchronize()
+    keep = torch.arange(9, device=cuda) != 4
+    assert bool(torch.isnan(got[2][4]) | torch.isnan(got[3][4]))
+    for g, r in zip(got, ref):
+        assert torch.isfinite(g[keep]).all()
+        assert float((g[keep] - r[keep]).abs().max()) <= tol * max(
+            1.0, float(r[keep].abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,name", [
+    ((6, 3, 15), "narrow_m8"), ((12, 6, 12), "narrow_m8"),
+    ((20, 6, 4), "group128"), ((12, 12, 20), "narrow_m16"),
+    ((21, 9, 64), "narrow_m16"), ((21, 16, 20), "narrow_m16"),
+    ((22, 12, 20), "group128"), ((1, 17, 4), "group64"),
+    ((12, 17, 20), "group128"), ((32, 32, 64), "group128"),
+    ((35, 2, 8), "wide_entry"), ((45, 2, 8), "wide_tiled128"),
+    ((64, 64, 12), "wide_tiled512")])
+def test_body_names_the_kernels_choice(cuda, shape, name):
+    """The body the kernel's dispatch takes at (n, m, P), by name: the
+    m <= 8 bodies, the narrow body above m = 8 while n <= 21, the generic
+    groups of 64 and 128 and the wide bodies; a shape beyond the kernel's
+    limits raises."""
+    assert riccati_fused.body(*shape, "cuda") == name
+    with pytest.raises(ValueError):
+        riccati_fused.body(65, 3, 4, "cuda")
+
+
+def test_body_is_the_plain_version_off_the_card():
+    """Off CUDA the wrapper takes the plain version, and says so without
+    the kernels' library."""
+    assert riccati_fused.body(12, 12, 20, "cpu") == "plain"

@@ -11,6 +11,9 @@ their buffers, no capture), on the rocket's compacted tracking step:
 - a catch-all that finds no live lane records exactly one empty replay;
 - the exported spans share ``torch.profiler``'s clock: a step's span holds
   its ``aten::`` operators once both are on the trace's base time;
+- each loop graph's ``capture`` span names the body kernel B takes in its
+  passes (the plain version on the CPU; on the card, the rocket's m <= 8
+  body and the trot's narrow body above m = 8);
 - on a step whose dynamics window moves and is grouped (the quadruped
   trot's, ``mpc.make_mpc_step(dynamics_fn=...)``), a ``step.dynamics`` span
   inside ``step.inputs`` with the window's bytes, and on ``step.out`` the
@@ -177,22 +180,53 @@ def test_spans_share_the_profilers_clock(track, tmp_path):
     assert max(ops) <= st["ts"] + st["dur"] + slack
 
 
-def _trot_step(groups=2, lanes=2):
+def _trot_step(groups=2, lanes=2, device="cpu"):
     """The trot's grouped step (offset 350 ms) in float64 on the
-    fixed-buffer route, its initial carry and two steps' noise."""
+    fixed-buffer route (on a CUDA ``device``, its graphs), its initial
+    carry and two steps' noise."""
+    from altro_tpu_torch.convert import tree_to
+
     cfg = config.MPCConfig(linearized_friction=False)
     prob, x_des = controller.build_mpc_problem(cfg, torch.float64)
     windows = episode.trot_windows(cfg, prob, T + 1, groups, 350)
     N = cfg.N
+    if device != "cpu":
+        prob, x_des = tree_to((prob, x_des), device)
+        windows = windows.to(device, torch.float64)
     step, init = make_mpc_step(
         prob, tt.SolverOptions(cost_tolerance=1e-4, penalty_initial=10.0,
                                penalty_scaling=100.0),
-        x_des.expand(N, 12), torch.zeros((N - 1, 12), dtype=torch.float64),
+        x_des.expand(N, 12),
+        torch.zeros((N - 1, 12), dtype=torch.float64, device=device),
         noise_model=lambda x, e: x + 0.005 * e, graphed=True,
         dynamics_fn=windows)
     noise = torch.as_tensor(np.random.default_rng(2).standard_normal(
-        (T, groups * lanes, 12)))
+        (T, groups * lanes, 12)), device=device)
     return step, init(groups * lanes), noise
+
+
+def _loop_captures(step, carry0, noise) -> list:
+    """The ``capture`` spans' arguments of the loop graphs that the first
+    call of ``step`` builds."""
+    with profiling.tracing() as tr:
+        step(carry0, noise[0], 0)
+    return [r["args"] for r in tr.records()
+            if r["name"] == "capture" and r["args"]["graph"] == "loop"]
+
+
+def test_loop_capture_spans_name_kernel_b_body(track):
+    """Each loop graph's ``capture`` span names the body kernel B takes in
+    its passes (``solver.altro.b_body``): on the CPU the plain version,
+    at the rocket's and the trot's shapes; the split route runs no B."""
+    caps = _loop_captures(*_step(track))
+    assert len(caps) >= 3 and all(a["b_body"] == "plain" for a in caps)
+    caps = _loop_captures(*_trot_step())
+    assert caps and all(a["b_body"] == "plain" for a in caps)
+    prob = rocket.rocket_problem(N=11, tf=5.0)
+    opts = tt.SolverOptions(**WARM_OPTS)
+    assert altro.b_body(prob, opts, "cpu") == "plain"
+    split = dataclasses.replace(opts, fused_expansion=False)
+    assert altro.b_body(prob, split, "cuda") is None
 
 
 def test_grouped_dynamics_spans():
@@ -287,3 +321,16 @@ def test_device_times_on_the_card(track):
         assert starts == sorted(starts)
         assert q["gaps_us"] and min(q["gaps_us"]) >= 0.0
         assert 0.0 < q["graphs_ms"]
+
+
+@pytest.mark.cuda
+def test_capture_spans_name_the_card_body(track):
+    """On the card the loop graphs' ``capture`` spans name the kernel's
+    own choice: the m <= 8 body at the rocket's m = 3, the narrow body
+    above m = 8 at the trot's m = 12."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    caps = _loop_captures(*_step(track, torch.float32, "cuda"))
+    assert caps and all(a["b_body"] == "narrow_m8" for a in caps)
+    caps = _loop_captures(*_trot_step(device="cuda"))
+    assert caps and all(a["b_body"] == "narrow_m16" for a in caps)
