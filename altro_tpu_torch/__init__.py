@@ -11,7 +11,7 @@ hand-written Hopper kernels for the fused AL expansion + Riccati backward
 pass, the Riccati backward pass from a per-scenario expansion, the
 line-search ladder rollout and the ladder rollout fused with the AL merit
 (``csrc/``). On a CUDA device a solve's start, loop and finish run as CUDA
-graphs, replayed with one host sync per k loop passes (``solver/graph.py``;
+graphs, replayed with one host sync per loop pass (``solver/graph.py``;
 ``graphed=False`` keeps the host-driven loop). Beside the solver: the
 in-framework baseline oracles (``transcribe.py``; the dense QP, dense
 conic and knot-structured ADMM solvers under ``solver/``, their chunks on

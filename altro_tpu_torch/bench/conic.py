@@ -36,14 +36,12 @@ init rollout.
 Run as a script on a CUDA machine:
 
     python -m altro_tpu_torch.bench.conic [rocket] [grasp] [--plain]
-                                          [--eager] [--check-every K]
+                                          [--eager]
 
 It prints ONE JSON line {"metric", "value", "unit", "vs_baseline"} per
 family on stdout and a diagnostics line per family on stderr (the power
 limit, then the whole result as JSON). ``--plain`` runs the plain step.
-The steps and the cold solves run as CUDA graphs (``solver/graph.py``)
-with K body passes per replay (1 by default, the fastest of 1, 2, 4 and 8
-on the card);
+The steps and the cold solves run as CUDA graphs (``solver/graph.py``);
 ``--eager`` runs the host-driven loop instead. Knobs: BENCH_BATCH (1024),
 BENCH_STEPS (30 rocket, 15 grasp).
 """
@@ -234,16 +232,14 @@ SETUPS = {"rocket": rocket_setup, "grasp": grasp_setup}
 def make_step(setup: ConicSetup, compact_cap: int = 0,
               compact_block: int = 256, compact_levels: tuple = (),
               opts: Optional[SolverOptions] = None,
-              graphed: Optional[bool] = None, check_every: int = 1):
+              graphed: Optional[bool] = None):
     """(step, init_carry) of the family's MPC step: compacted with the
     schedule (``compact_cap``, ``compact_block``, ``compact_levels``), or
     the plain step when ``compact_cap`` is 0. ``opts`` replaces the setup's
-    warm options; ``graphed`` and ``check_every`` as in
-    ``mpc.make_mpc_step``."""
+    warm options; ``graphed`` as in ``mpc.make_mpc_step``."""
     kw = dict(noise_model=setup.noise_model,
               constraints_fn=setup.constraints_fn,
-              warm_start=setup.warm_start, graphed=graphed,
-              check_every=check_every)
+              warm_start=setup.warm_start, graphed=graphed)
     args = (setup.prob_mpc, setup.opts if opts is None else opts,
             setup.X_track, setup.U_track)
     if compact_cap:
@@ -284,15 +280,13 @@ def grasp_baseline_solves_per_s(path: str = None) -> float:
 def conic_batched(setup: ConicSetup, B: int = 1024, T: int = 30,
                   device="cuda", compact_cap: int = 0,
                   compact_block: int = 256, compact_levels: tuple = (),
-                  graphed: Optional[bool] = None,
-                  check_every: int = 1) -> dict:
+                  graphed: Optional[bool] = None) -> dict:
     """Throughput and latency of a family's MPC loop on ``device``, measured
     as the JAX package's conic benchmark does: one cold batched solve builds
     the initial carry, one warm-up step runs (it captures the step's graphs:
     ``capture_s``, outside every timed window), a throughput pass of T
     steps is timed whole, and a latency pass times min(T, 10) single steps.
-    ``graphed`` (None: on a CUDA device) and ``check_every`` as in
-    ``mpc.make_mpc_step``.
+    ``graphed`` (None: on a CUDA device) as in ``mpc.make_mpc_step``.
 
     ``loop_iterations`` counts the solver-loop body passes of every solve
     that ran (``solver.altro.pass_count``, the frozen passes of a replay
@@ -309,8 +303,7 @@ def conic_batched(setup: ConicSetup, B: int = 1024, T: int = 30,
                             .standard_normal((T, B, 6)),
                             dtype=setup.prob_mpc.x0.dtype, device=dev)
     step, init_carry = make_step(setup, compact_cap, compact_block,
-                                 compact_levels, graphed=graphed,
-                                 check_every=check_every)
+                                 compact_levels, graphed=graphed)
     ran_cold = setup.cold_status is not None
     passes0 = altro.pass_count - setup.cold_iters
 
@@ -349,7 +342,7 @@ def conic_batched(setup: ConicSetup, B: int = 1024, T: int = 30,
     p50, p99 = np.percentile(step_ms, [50, 99])
     return {
         "family": setup.family, "B": B, "T": T, "device": str(dev),
-        "graphed": graphed, "check_every": check_every,
+        "graphed": graphed,
         "compaction": ([compact_cap, compact_block,
                         [list(lv) for lv in compact_levels]]
                        if compact_cap else None),
@@ -378,29 +371,29 @@ def conic_batched(setup: ConicSetup, B: int = 1024, T: int = 30,
 def rocket_batched(B: int = 1024, T: int = 30, N_mpc: int = 21,
                    device="cuda", setup: Optional[ConicSetup] = None,
                    compact_cap: int = 0, compact_block: int = 256,
-                   compact_levels: tuple = (), graphed: Optional[bool] = None,
-                   check_every: int = 1) -> dict:
+                   compact_levels: tuple = (),
+                   graphed: Optional[bool] = None) -> dict:
     """:func:`conic_batched` of the rocket in float32; ``setup`` (a float32
     :func:`rocket_setup` on ``device``) is built here when not given."""
     if setup is None:
         setup = rocket_setup(torch.float32, N_mpc, device=device,
                              graphed=graphed)
     return conic_batched(setup, B, T, device, compact_cap, compact_block,
-                         compact_levels, graphed, check_every)
+                         compact_levels, graphed)
 
 
 def grasp_batched(B: int = 1024, T: int = 15, N_mpc: int = 21,
                   device="cuda", setup: Optional[ConicSetup] = None,
                   compact_cap: int = 0, compact_block: int = 256,
-                  compact_levels: tuple = (), graphed: Optional[bool] = None,
-                  check_every: int = 1) -> dict:
+                  compact_levels: tuple = (),
+                  graphed: Optional[bool] = None) -> dict:
     """:func:`conic_batched` of grasp in float32; ``setup`` (a float32
     :func:`grasp_setup` on ``device``) is built here when not given."""
     if setup is None:
         setup = grasp_setup(torch.float32, N_mpc, device=device,
                             graphed=graphed)
     return conic_batched(setup, B, T, device, compact_cap, compact_block,
-                         compact_levels, graphed, check_every)
+                         compact_levels, graphed)
 
 
 FAMILIES = {"rocket": (rocket_batched, 30, "rocket_mpc_solves_per_s_chip_N21",
@@ -417,8 +410,6 @@ def main():
                     help="the plain step instead of the shipped compaction")
     ap.add_argument("--eager", action="store_true",
                     help="the host-driven loop instead of CUDA graphs")
-    ap.add_argument("--check-every", type=int, default=1,
-                    help="body passes per replay of the loop graphs")
     args = ap.parse_args()
     unknown = [f for f in args.families if f not in FAMILIES]
     if unknown:
@@ -434,7 +425,7 @@ def main():
         cap, block, levels = (0, 256, ()) if args.plain else SCHEDULES[family]
         res = run(B=B, T=T, device="cuda", compact_cap=cap,
                   compact_block=block, compact_levels=levels,
-                  graphed=not args.eager, check_every=args.check_every)
+                  graphed=not args.eager)
         print(json.dumps({
             "metric": metric, "value": round(res["solves_per_s"], 1),
             "unit": "solves/s",

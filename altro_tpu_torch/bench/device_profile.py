@@ -436,7 +436,7 @@ def pass_ms_by_batch(step, replays: int = 20) -> dict:
     lane is frozen by then, which changes no kernel's work)."""
     out = {}
     for g in step.sets.values():
-        for loop in g.loops:
+        for loop in g.levels.loops:
             torch.cuda.synchronize()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -447,8 +447,7 @@ def pass_ms_by_batch(step, replays: int = 20) -> dict:
             end.record()
             end.synchronize()
             out[int(loop.state[0].shape[0])] = (start.elapsed_time(end)
-                                                / (replays
-                                                   * loop.check_every))
+                                                / replays)
     return out
 
 
@@ -467,7 +466,7 @@ def compaction_ms_by_level(step, calls: int = 20) -> list:
 
     out = []
     for g in step.sets.values():
-        for gather, scatter in zip(g.gathers, g.scatters):
+        for gather, scatter in zip(g.levels.gathers, g.levels.scatters):
             with torch.no_grad():
                 out.append({"gather_graph_ms": per_call(gather.replay),
                             "gather_eager_ms": per_call(gather.fn),

@@ -44,7 +44,7 @@ Run as a script on a CUDA machine (B=1024, f32):
 
     python -m altro_tpu_torch.bench.families [qp] [socp] [qp_nl] [socp_nl]
         [flexsat] [--grouped | --compact-cap C [--compact-block K]]
-        [--flexsat-compact-cap C] [--eager] [--check-every K]
+        [--flexsat-compact-cap C] [--eager]
 
 It prints one JSON line per mode (default: qp and socp) with the JAX package's
 row keys: for the quadruped label, batch, rounds, solves_per_s, success_rate,
@@ -198,8 +198,7 @@ def quadruped_batched(B: int = 1024, rounds: int = 10,
                       linearized_friction: bool = True,
                       compact_cap: int = 0, compact_block: int = 128,
                       grouped: bool = False, device="cuda",
-                      graphed: Optional[bool] = None,
-                      check_every: int = 1, nonlinear: bool = False,
+                      graphed: Optional[bool] = None, nonlinear: bool = False,
                       dtype=torch.float32) -> dict:
     """Per-solve throughput of the batched quadruped MPC in float32 (the
     JAX benchmark's precision): one warm-up solve (which captures the solve's
@@ -213,8 +212,8 @@ def quadruped_batched(B: int = 1024, rounds: int = 10,
     unconverged-first lanes gathered with their dynamics and finished as a
     batch of their own, scattered back, a catch-all); the two exclude each
     other (ValueError). Any B that is a multiple of 8. ``graphed`` (None: on a
-    CUDA device): every solve replays one ``solver.graph.GraphedSolve`` with
-    ``check_every`` body passes per loop replay; else the host-driven loop.
+    CUDA device): every solve replays one ``solver.graph.GraphedSolve``; else
+    the host-driven loop.
     ``loop_iterations`` counts the solver-loop body passes of every solve that
     ran, the warm-up included (``solver.altro.pass_count``, the frozen passes
     of a replay included), ``lane_max_iters`` the sum of each solve's largest
@@ -231,10 +230,10 @@ def quadruped_batched(B: int = 1024, rounds: int = 10,
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     su = quadruped_setup(B, linearized_friction, dtype, dev, nonlinear,
                          grouped)
-    compact = (compact_cap, compact_block) if compact_cap else None
     before, passes0 = _launches(), altro.pass_count
-    gs = (graph.GraphedSolve(su.prob, su.opts, check_every=check_every,
-                             states=su.X0 is not None, compact=compact)
+    gs = (graph.GraphedSolve(su.prob, su.opts, states=su.X0 is not None,
+                             sched=(((compact_cap, compact_block),)
+                                    if compact_cap else ()))
           if graphed else None)
 
     def solve_batch():
@@ -242,10 +241,10 @@ def quadruped_batched(B: int = 1024, rounds: int = 10,
         if gs is not None:
             return gs(x0, su.U0, su.X0).stats
         prob = dataclasses.replace(su.prob, x0=x0)
-        if compact:
+        if compact_cap:
             return altro.solve_compacted(
                 prob, su.opts, U0=su.U0, X0=su.X0, it_cap=compact_cap,
-                block=compact_block, check_every=check_every).stats
+                block=compact_block).stats
         return altro.solve(prob, su.opts, U0=su.U0, X0=su.X0).stats
 
     st = solve_batch()                                     # warm-up
@@ -274,7 +273,7 @@ def quadruped_batched(B: int = 1024, rounds: int = 10,
                 mean_iters=float(iters.mean()), iters_max=int(iters.max()),
                 iters_p99=float(np.percentile(iters, 99)), wall_s=wall,
                 round_ms_p50=float(p50), round_ms_p99=float(p99),
-                device=str(dev), graphed=graphed, check_every=check_every,
+                device=str(dev), graphed=graphed,
                 capture_s=gs.capture_s if gs is not None else 0.0,
                 loop_iterations=altro.pass_count - passes0,
                 lane_max_iters=sum(lane_max),
@@ -324,22 +323,20 @@ def flexsat_setup(B: int, T: int, dtype=torch.float32,
 def flexsat_step(su: FlexsatSetup, compact_cap: int = FLEXSAT_SCHEDULE[0],
                  compact_block: int = FLEXSAT_SCHEDULE[1],
                  compact_levels: tuple = FLEXSAT_SCHEDULE[2],
-                 graphed: Optional[bool] = None, check_every: int = 1):
+                 graphed: Optional[bool] = None):
     """(step, init_carry) of the regulator step, in the schedule
     (``compact_cap``, ``compact_block``, ``compact_levels``; cap 0: the
     plain step)."""
     return make_regulator_step(su.prob, su.opts,
                                it_cap=compact_cap, block=compact_block,
-                               levels=compact_levels, graphed=graphed,
-                               check_every=check_every)
+                               levels=compact_levels, graphed=graphed)
 
 
 def flexsat_batched(B: int = 1024, T: int = 45, device="cuda",
                     compact_cap: int = FLEXSAT_SCHEDULE[0],
                     compact_block: int = FLEXSAT_SCHEDULE[1],
                     compact_levels: tuple = FLEXSAT_SCHEDULE[2],
-                    graphed: Optional[bool] = None,
-                    check_every: int = 1) -> dict:
+                    graphed: Optional[bool] = None) -> dict:
     """Throughput and latency of the flexsat regulator MPC in float32,
     measured as the JAX package's benchmark does: one cold solve of the
     problem (B=1, on CUDA graphs when ``graphed``, None: on a CUDA device)
@@ -360,12 +357,11 @@ def flexsat_batched(B: int = 1024, T: int = 45, device="cuda",
     su = flexsat_setup(B, T, torch.float32, dev)
     before, passes0 = _launches(), altro.pass_count
     step, init_carry = flexsat_step(su, compact_cap, compact_block,
-                                    compact_levels, graphed=graphed,
-                                    check_every=check_every)
+                                    compact_levels, graphed=graphed)
 
     t0 = time.perf_counter()
     sol0 = graph.solve(dataclasses.replace(su.prob, x0=su.prob.x0[None]),
-                       su.opts, graphed=graphed, check_every=check_every)
+                       su.opts, graphed=graphed)
     cold_passes = altro.pass_count - passes0
     carry0 = init_carry(B, sol0)
     sync()
@@ -411,7 +407,7 @@ def flexsat_batched(B: int = 1024, T: int = 45, device="cuda",
         compaction=([compact_cap, compact_block,
                      [list(lv) for lv in compact_levels]]
                     if compact_cap else None),
-        device=str(dev), graphed=graphed, check_every=check_every,
+        device=str(dev), graphed=graphed,
         init_s=init_s, capture_s=getattr(step, "capture_s", 0.0),
         cold_status=int(sol0.stats.status[0]),
         cold_iters=int(sol0.stats.iterations[0]), cold_passes=cold_passes,
@@ -441,8 +437,6 @@ def main():
                     help="quadruped: lanes gathered at the cap")
     ap.add_argument("--eager", action="store_true",
                     help="the host-driven loop instead of CUDA graphs")
-    ap.add_argument("--check-every", type=int, default=1,
-                    help="body passes per replay of the loop graph")
     args = ap.parse_args()
     if set(args.modes) - set(MODES):
         ap.error(f"unknown mode in {args.modes}; choose from {MODES}")
@@ -460,8 +454,7 @@ def main():
             res = flexsat_batched(
                 B=B, T=int(os.environ.get("BENCH_STEPS", 45)),
                 compact_cap=sched[0], compact_block=sched[1],
-                compact_levels=sched[2], graphed=not args.eager,
-                check_every=args.check_every)
+                compact_levels=sched[2], graphed=not args.eager)
         else:
             res = quadruped_batched(B=B, rounds=rounds,
                                     linearized_friction=mode.startswith(
@@ -470,7 +463,6 @@ def main():
                                     compact_block=args.compact_block,
                                     grouped=args.grouped,
                                     graphed=not args.eager,
-                                    check_every=args.check_every,
                                     nonlinear=mode.endswith("_nl"))
         res["device"] = f"{torch.cuda.get_device_name(0)} [{card}]"
         print(json.dumps(res), flush=True)

@@ -7,14 +7,13 @@ receding-horizon loop on one device, and reports throughput.
 
 Run as a script on a CUDA machine:
 
-    python -m altro_tpu_torch.bench.flagship [--eager] [--check-every K]
+    python -m altro_tpu_torch.bench.flagship [--eager]
 
 It prints ONE JSON line {"metric", "value", "unit", "vs_baseline"} on
 stdout and a diagnostics line (device, power limit, then the whole result
 as JSON) on stderr. The steps and the cold solve run as CUDA graphs
-(``solver/graph.py``) with K body passes per replay (1 by default, the
-fastest of 1, 2, 4 and 8 on the card); ``--eager`` runs the host-driven
-loop instead. Knobs:
+(``solver/graph.py``); ``--eager`` runs the host-driven loop instead.
+Knobs:
 BENCH_BATCH (1024), BENCH_STEPS (100), BENCH_LS (2, the ladder length
 before the alpha=0 rung).
 """
@@ -122,8 +121,7 @@ def power_limit() -> str:
 
 
 def run_flagship(B: int = 1024, T: int = 100, device="cuda", ls: int = 2,
-                 graphed: Optional[bool] = None,
-                 check_every: int = 1) -> dict:
+                 graphed: Optional[bool] = None) -> dict:
     """Throughput and latency of the flagship MPC loop, in float32 on
     ``device``, on CUDA graphs (``graphed``, None: on a CUDA device) or on
     the host-driven loop.
@@ -143,8 +141,7 @@ def run_flagship(B: int = 1024, T: int = 100, device="cuda", ls: int = 2,
     sync = (torch.cuda.synchronize if dev.type == "cuda" else (lambda: None))
     setup = flagship_setup(B, T, dtype=torch.float32, device=dev, ls=ls)
     step, _ = make_mpc_step(setup.prob_mpc, setup.opts, setup.X_track,
-                            setup.U_track, graphed=graphed,
-                            check_every=check_every)
+                            setup.U_track, graphed=graphed)
     iters_all = []
     passes0 = altro.pass_count
 
@@ -154,8 +151,7 @@ def run_flagship(B: int = 1024, T: int = 100, device="cuda", ls: int = 2,
     cold_prob = dataclasses.replace(setup.prob_mpc, x0=x0)
     cold_replays, capture_s = 0, 0.0
     if graphed:
-        cold = graph.GraphedSolve(cold_prob, setup.opts,
-                                  check_every=check_every)
+        cold = graph.GraphedSolve(cold_prob, setup.opts)
         sol0 = cold()
         cold_replays, capture_s = cold.replays, cold.capture_s
     else:
@@ -201,7 +197,6 @@ def run_flagship(B: int = 1024, T: int = 100, device="cuda", ls: int = 2,
     p50, p99 = np.percentile(step_ms, [50, 99])
     return {
         "B": B, "T": T, "device": str(dev), "graphed": graphed,
-        "check_every": check_every,
         "solves_per_s": B * T / wall,
         "wall_s": walls,
         "init_s": init_s,
@@ -223,8 +218,6 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--eager", action="store_true",
                     help="the host-driven loop instead of CUDA graphs")
-    ap.add_argument("--check-every", type=int, default=1,
-                    help="body passes per replay of the loop graph")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("the flagship benchmark measures a CUDA device; "
@@ -233,7 +226,7 @@ def main():
     T = int(os.environ.get("BENCH_STEPS", 100))
     ls = int(os.environ.get("BENCH_LS", 2))
     res = run_flagship(B=B, T=T, device="cuda", ls=ls,
-                       graphed=not args.eager, check_every=args.check_every)
+                       graphed=not args.eager)
     print(json.dumps({
         "metric": "mpc_solves_per_s_chip_N30",
         "value": round(res["solves_per_s"], 1),

@@ -34,9 +34,10 @@ dynamics and x0 come in with the carry, the controls and duals shift.
 
 Every step factory runs on CUDA graphs on a CUDA device (``graphed``;
 ``solver/graph.py``): per batch size a start graph (propagation, noise,
-retarget, constraint window, shift, seam corrector, warm-start state), a
-loop graph per level batch and a finish graph, replayed with one host sync
-per k loop passes; ``graphed=False`` keeps the host-driven loop.
+retarget, constraint window, shift, seam corrector, warm-start state), the
+loop graphs of the compaction schedule (``graph.LoopSchedule``) and a
+finish graph, replayed with one host sync per loop pass; ``graphed=False``
+keeps the host-driven loop.
 """
 from __future__ import annotations
 
@@ -56,7 +57,8 @@ from .problem import Problem
 from .solver import graph
 from .solver.altro import _finalize, _flat_while, _warmstart_state
 from .solver.altro import map_state as _state_map
-from .solver.graph import LoopGraph, Replayable, clone_tree, copy_into
+from .solver.graph import (LoopGraph, LoopSchedule, Replayable, clone_tree,
+                           copy_into)
 from .solver.options import SolverOptions
 from .utils import profiling
 
@@ -273,7 +275,7 @@ class _StepPieces(_Pieces):
                 _warmstart_state(prob_k, self.opts, U_ws, duals_ws, X_ws),
                 x0_new)
 
-    def init_carry(self, batch: int, graphed: bool, check_every: int):
+    def init_carry(self, batch: int, graphed: bool):
         """Cold batched solve of the first window from X_track[0] (with
         ``dynamics_fn``, on the dynamics ``dynamics_fn(0)``)."""
         pm = self.prob_mpc
@@ -281,7 +283,7 @@ class _StepPieces(_Pieces):
             pm = dataclasses.replace(pm, dynamics=self.dynamics_fn(0))
         x0 = pm.x0.expand(batch, pm.n).contiguous()
         sol0 = graph.solve(dataclasses.replace(pm, x0=x0), self.opts,
-                           graphed=graphed, check_every=check_every)
+                           graphed=graphed)
         return (x0, sol0.X, sol0.U, sol0.duals)
 
 
@@ -315,9 +317,8 @@ class _LanePieces(_StepPieces):
         carry, res = super().finish(prob_k, state, x0_new)
         return carry + (k_new,), res
 
-    def init_carry(self, batch: int, graphed: bool, check_every: int,
-                   start_k=0):
-        carry = super().init_carry(batch, graphed, check_every)
+    def init_carry(self, batch: int, graphed: bool, start_k=0):
+        carry = super().init_carry(batch, graphed)
         k = torch.as_tensor(start_k, dtype=torch.int64,
                             device=carry[0].device)
         return carry + (k.expand(batch).clone(),)
@@ -371,16 +372,14 @@ class _RegulatorPieces(_Pieces):
         return (prob_k, _warmstart_state(prob_k, self.opts, U, duals, X0),
                 x0_new)
 
-    def init_carry(self, batch: int, graphed: bool, check_every: int,
-                   sol0=None):
+    def init_carry(self, batch: int, graphed: bool, sol0=None):
         """``sol0`` (a solution of ``prob`` from its x0 as one scenario)
         copied to ``batch`` lanes; None: the cold solve of ``prob`` as one
         scenario."""
         pm = self.prob_mpc
         if sol0 is None:
             sol0 = graph.solve(dataclasses.replace(pm, x0=pm.x0[None]),
-                               self.opts, graphed=graphed,
-                               check_every=check_every)
+                               self.opts, graphed=graphed)
 
         def lanes(a):
             return a.repeat((batch,) + (1,) * (a.dim() - 1))
@@ -420,29 +419,28 @@ class _RelinearizedPieces(_Pieces):
 
 class _GraphedStep:
     """An MPC step factory's graphs, one set per batch size, sharing one
-    CUDA graph memory pool: the start graph, one loop graph per level batch
-    of the compaction schedule ``sched`` (``((it_cap, block), (extra_cap,
-    sub_block), ...)``; empty for the plain step) with a gather and a
-    scatter graph between two levels, and the finish graph. The host copies
-    each step's carry, step input (a noise row; the relinearized step's
+    CUDA graph memory pool: the start graph, the loop graphs of the
+    compaction schedule ``sched`` (``((it_cap, block), (extra_cap,
+    sub_block), ...)``; empty for the plain step), a
+    ``graph.LoopSchedule``, and the finish graph. The host copies each
+    step's carry, step input (a noise row; the relinearized step's
     dynamics), tracking window, (with ``constraints_fn``) constraint window
     and (with ``dynamics_fn``) dynamics window into the start graph's input
-    buffers, replays start, each loop graph until no lane is live (one host
-    sync per k passes, every catch-all one replay and one sync), and
-    finish, and returns clones of the finish graph's results. On a grouped
-    dynamics window the finish graph also takes each group's lane-max
-    iterations (one [G] amax), cloned with the results while tracing is on
-    (the ``step.out`` span's ``group_iters``).
+    buffers, replays start, runs the schedule (one host sync per loop pass,
+    every catch-all one replay and one sync when it finds no live lane) and
+    replays finish, and returns clones of the finish graph's results. On a
+    grouped dynamics window the finish graph also takes each group's
+    lane-max iterations (one [G] amax), cloned with the results while
+    tracing is on (the ``step.out`` span's ``group_iters``).
 
     Called as ``step(carry, noise_i, k)``. ``loop_replays`` counts the loop
     graphs' replays and ``capture_s`` the host seconds spent capturing.
     While tracing is on (``utils.profiling``) a call is a ``step`` request
     with the spans that module lists."""
 
-    def __init__(self, pieces: _StepPieces, opts: SolverOptions, sched,
-                 check_every: int):
+    def __init__(self, pieces: _StepPieces, opts: SolverOptions, sched):
         self.pieces, self.opts = pieces, opts
-        self.sched, self.check_every = tuple(sched), check_every
+        self.sched = tuple(sched)
         self.sets, self.resumes = {}, {}
         self.pool = None
         self.loop_replays = 0
@@ -473,45 +471,23 @@ class _GraphedStep:
         with graph.uncounted():
             prob_k, s0, _ = self.pieces.start_from(*ins)
         # the loop graphs' buffers first; then every graph captured in the
-        # order of its first replay (start, level 0's loop, gather, level
-        # 1's loop, ..., the scatters from the innermost out, finish), so
+        # order of its first replay (start, the schedule's, finish), so
         # that a result one graph hands to another (x0_new, the gathered
         # lane index) lives where no graph captured before it computes
-        loops = [LoopGraph(prob_k, self.opts, s0,
-                           check_every=self.check_every, pool=pool,
-                           capture=False)]
-        for _, block in self.sched:
-            blk = min(block, loops[-1].state[0].shape[0])
-            loops.append(LoopGraph(
-                None, self.opts,
-                _state_map(lambda a: a[:blk], loops[-1].state),
-                check_every=self.check_every, pool=pool, share=loops[-1],
-                capture=False))
-        for lvl, loop in enumerate(loops):
-            loop.name, loop.level = f"loop.L{lvl}", lvl
+        levels = LoopSchedule(prob_k, self.opts, s0, self.sched, pool)
+        loop = levels.loops[0]
 
         def start_fn():
             p, s, x0_new = self.pieces.start_from(*ins)
-            loops[0].load(p, s)
+            loop.load(p, s)
             return x0_new
 
         start = Replayable(start_fn, dev, pool, "graph.start")
-        loops[0].capture()
-        gathers = []
-        for lvl, (parent, child) in enumerate(zip(loops, loops[1:])):
-            gathers.append(Replayable(
-                graph.gather_fn(parent, child, child.state[0].shape[0]), dev,
-                pool, f"graph.gather.L{lvl}"))
-            child.capture()
-        scatters = [None] * len(gathers)
-        for lvl in reversed(range(len(gathers))):
-            scatters[lvl] = Replayable(graph.scatter_fn(
-                loops[lvl], loops[lvl + 1], gathers[lvl]), dev, pool,
-                f"graph.scatter.L{lvl}")
+        levels.capture()
         G = self.pieces.groups
 
         def finish_fn():
-            res = self.pieces.finish(loops[0].prob, loops[0].state, start.out)
+            res = self.pieces.finish(loop.prob, loop.state, start.out)
             if G:
                 res += (res[1].iters.reshape(G, -1).amax(dim=1),)
             return res
@@ -520,27 +496,12 @@ class _GraphedStep:
         dyn_bytes = sum(t.numel() * t.element_size() for t in graph.tensors(
             ins[len(ins) - self.pieces.dyn_inputs:]))
         self.capture_s += time.perf_counter() - t0
-        return SimpleNamespace(inputs=ins, start=start, loops=loops,
-                               gathers=gathers, scatters=scatters,
+        return SimpleNamespace(inputs=ins, start=start, levels=levels,
                                finish=finish, dyn_bytes=dyn_bytes)
 
-    def _run(self, loop: LoopGraph, it_cap, rest: bool = False) -> None:
+    def _run(self, loop: LoopGraph, it_cap) -> None:
         loop.set_cap(it_cap)
-        self.loop_replays += loop.run(rest)
-
-    def _compact(self, g, lvl: int, cum: int) -> None:
-        # the level's batch has run to the absolute cap `cum`: gather its
-        # block of stragglers, finish them (through the deeper levels),
-        # scatter them back, then catch-all to completion
-        g.gathers[lvl].replay()
-        if lvl + 1 < len(self.sched):
-            extra = self.sched[lvl + 1][0]
-            self._run(g.loops[lvl + 1], cum + extra)
-            self._compact(g, lvl + 1, cum + extra)
-        else:
-            self._run(g.loops[lvl + 1], None)
-        g.scatters[lvl].replay()
-        self._run(g.loops[lvl], None, rest=True)
+        self.loop_replays += loop.run()
 
     def _start(self, carry, noise_i, k: int, tr=None):
         sp = None if tr is None else tr.open("step.inputs")
@@ -569,11 +530,7 @@ class _GraphedStep:
 
     def _step(self, carry, noise_i, k: int, tr):
         g = self._start(carry, noise_i, k, tr)
-        if self.sched:
-            self._run(g.loops[0], self.sched[0][0])
-            self._compact(g, 0, self.sched[0][0])
-        else:
-            self._run(g.loops[0], None)
+        self.loop_replays += g.levels.run()
         g.finish.replay()
         if tr is None:
             return clone_tree(g.finish.out[:2])
@@ -587,8 +544,9 @@ class _GraphedStep:
     @torch.no_grad()
     def partial(self, carry, noise_i, k: int, it_cap: int):
         g = self._start(carry, noise_i, k)
-        self._run(g.loops[0], it_cap)
-        return clone_tree(g.loops[0].state), clone_tree(g.start.out)
+        loop = g.levels.loops[0]
+        self._run(loop, it_cap)
+        return clone_tree(loop.state), clone_tree(g.start.out)
 
     @torch.no_grad()
     def resume(self, state, k: int, it_cap=None):
@@ -598,7 +556,7 @@ class _GraphedStep:
             t0 = time.perf_counter()
             with profiling.span("build", lanes=batch):
                 self.resumes[batch] = LoopGraph(
-                    prob_k, self.opts, state, check_every=self.check_every,
+                    prob_k, self.opts, state,
                     pool=self._pool(state[0].device))
             self.resumes[batch].name = "loop.resume"
             self.capture_s += time.perf_counter() - t0
@@ -619,8 +577,7 @@ class _LaneStep(_GraphedStep):
 def make_mpc_step(prob_mpc: Problem, opts: SolverOptions, X_track, U_track,
                   noise_model=default_noise_model, constraints_fn=None,
                   shared_k: bool = True, warm_start: str = "shift",
-                  graphed: Optional[bool] = None, check_every: int = 1,
-                  dynamics_fn=None):
+                  graphed: Optional[bool] = None, dynamics_fn=None):
     """Build the batched warm-started MPC step
     ``step(carry, noise [B, n], k) -> (carry, MPCResults)`` and
     ``init_carry(batch) -> carry`` with carry = (x0, X, U, duals), all
@@ -672,13 +629,12 @@ def make_mpc_step(prob_mpc: Problem, opts: SolverOptions, X_track, U_track,
     captured at its first call for each batch size (start, loop, finish;
     ``solver/graph.py``; on the CPU the same route over fixed buffers,
     without capture), and ``init_carry``'s cold solve as a
-    ``graph.GraphedSolve``; else the host-driven loop. ``check_every``:
-    body passes between two tests of the live mask."""
+    ``graph.GraphedSolve``; else the host-driven loop."""
     graphed = graph.use_graphs(graphed, prob_mpc.x0.device)
     if shared_k:
         pieces = _StepPieces(prob_mpc, opts, X_track, U_track, noise_model,
                              constraints_fn, warm_start, dynamics_fn)
-        return _make_step(pieces, opts, (), graphed, check_every)
+        return _make_step(pieces, opts, (), graphed)
     if dynamics_fn is not None:
         raise NotImplementedError("dynamics_fn takes the shared-k step: "
                                   "per-lane window indices would gather "
@@ -687,11 +643,11 @@ def make_mpc_step(prob_mpc: Problem, opts: SolverOptions, X_track, U_track,
                         constraints_fn, warm_start)
 
     def init_carry(batch: int, start_k=0):
-        return lanes.init_carry(batch, graphed, check_every, start_k)
+        return lanes.init_carry(batch, graphed, start_k)
 
     if graphed:
-        return _LaneStep(lanes, opts, (), check_every), init_carry
-    eager, _ = _make_step(lanes, opts, (), False, check_every)
+        return _LaneStep(lanes, opts, ()), init_carry
+    eager, _ = _make_step(lanes, opts, (), False)
     return (lambda carry, noise_i: eager(carry, noise_i, 0)), init_carry
 
 
@@ -700,8 +656,7 @@ def make_mpc_step_compacted(prob_mpc: Problem, opts: SolverOptions,
                             noise_model=default_noise_model,
                             constraints_fn=None, it_cap: int = 24,
                             warm_start: str = "shift",
-                            graphed: Optional[bool] = None,
-                            check_every: int = 1):
+                            graphed: Optional[bool] = None):
     """The batched MPC step in three pieces, for straggler compaction:
 
     ``partial(carry, noise_i, k) -> (state, x0_new)``
@@ -715,37 +670,35 @@ def make_mpc_step_compacted(prob_mpc: Problem, opts: SolverOptions,
         the next carry and the step's records.
 
     With ``init_carry(batch)`` as :func:`make_mpc_step`'s. ``prob.x0`` is
-    not read on resume: the state carries the trajectory. ``graphed`` and
-    ``check_every`` as in :func:`make_mpc_step`: graphed, ``partial`` is
-    the start and loop graphs of the state's batch and ``resume`` a loop
-    graph per batch size, into which it copies the window's problem and
-    the state."""
+    not read on resume: the state carries the trajectory. ``graphed`` as
+    in :func:`make_mpc_step`: graphed, ``partial`` is the start and loop
+    graphs of the state's batch and ``resume`` a loop graph per batch
+    size, into which it copies the window's problem and the state."""
     pieces = _StepPieces(prob_mpc, opts, X_track, U_track, noise_model,
                          constraints_fn, warm_start)
     graphed = graph.use_graphs(graphed, prob_mpc.x0.device)
-    runner = _GraphedStep(pieces, opts, (), check_every) if graphed else None
+    runner = _GraphedStep(pieces, opts, ()) if graphed else None
 
     @torch.no_grad()
     def partial(carry, noise_i, k: int):
         if runner is not None:
             return runner.partial(carry, noise_i, k, it_cap)
         prob_k, state, x0_new = pieces.start(carry, noise_i, k)
-        return _flat_while(prob_k, opts, state, it_cap,
-                           check_every), x0_new
+        return _flat_while(prob_k, opts, state, it_cap), x0_new
 
     @torch.no_grad()
     def resume(state, k: int, it_cap=None):
         if runner is not None:
             return runner.resume(state, k, it_cap)
         prob_k, _ = pieces.prob_at(k + 1, prob_mpc.x0)
-        return _flat_while(prob_k, opts, state, it_cap, check_every)
+        return _flat_while(prob_k, opts, state, it_cap)
 
     def extract(state, x0_new, k: int):
         prob_k, _ = pieces.prob_at(k + 1, prob_mpc.x0)
         return pieces.finish(prob_k, state, x0_new)
 
     def init_carry(batch: int):
-        return pieces.init_carry(batch, graphed, check_every)
+        return pieces.init_carry(batch, graphed)
 
     return partial, resume, extract, init_carry
 
@@ -777,8 +730,7 @@ def make_mpc_step_device_compacted(prob_mpc: Problem, opts: SolverOptions,
                                    constraints_fn=None, it_cap: int = 24,
                                    block: int = 128, levels: tuple = (),
                                    warm_start: str = "shift",
-                                   graphed: Optional[bool] = None,
-                                   check_every: int = 1):
+                                   graphed: Optional[bool] = None):
     """The batched MPC step with straggler compaction on the device:
 
     run every lane to ``it_cap`` iterations, gather the ``block``
@@ -794,9 +746,9 @@ def make_mpc_step_device_compacted(prob_mpc: Problem, opts: SolverOptions,
 
     A lane's iterates are the plain step's whatever the schedule. Returns
     ``(step, init_carry)`` with the signatures of :func:`make_mpc_step`;
-    ``graphed`` and ``check_every`` as there (graphed, each level's batch
-    has a loop graph of its own, and the gathers and scatters between
-    levels are graphs too). The level batches share the window's problem,
+    ``graphed`` as there (graphed, each level's batch has a loop graph of
+    its own, and the gathers and scatters between levels are graphs too:
+    ``graph.LoopSchedule``). The level batches share the window's problem,
     so its data must be shared by the lanes: per-lane or grouped dynamics
     and per-lane constraint blocks raise."""
     if prob_mpc.per_lane or getattr(prob_mpc.dynamics, "grouped", False):
@@ -806,24 +758,22 @@ def make_mpc_step_device_compacted(prob_mpc: Problem, opts: SolverOptions,
     pieces = _StepPieces(prob_mpc, opts, X_track, U_track, noise_model,
                          constraints_fn, warm_start)
     return _make_step(pieces, opts, ((it_cap, block),) + tuple(levels),
-                      graph.use_graphs(graphed, prob_mpc.x0.device),
-                      check_every)
+                      graph.use_graphs(graphed, prob_mpc.x0.device))
 
 
-def _make_step(pieces: _Pieces, opts: SolverOptions, sched, graphed: bool,
-               check_every: int):
+def _make_step(pieces: _Pieces, opts: SolverOptions, sched, graphed: bool):
     """``(step, init_carry)`` of the step that ``pieces`` describe, in the
     compaction schedule ``sched`` (``((it_cap, block), (extra_cap,
     sub_block), ...)``; empty for the plain step): a :class:`_GraphedStep`
     when ``graphed``, else the host-driven loop."""
     def init_carry(batch: int):
-        return pieces.init_carry(batch, graphed, check_every)
+        return pieces.init_carry(batch, graphed)
 
     if graphed:
-        return _GraphedStep(pieces, opts, sched, check_every), init_carry
+        return _GraphedStep(pieces, opts, sched), init_carry
 
     def flat_while(prob_k, state, cap=None):
-        return _flat_while(prob_k, opts, state, cap, check_every)
+        return _flat_while(prob_k, opts, state, cap)
 
     def compact(prob_k, states, lvl: int, cum: int):
         # `states` has run to the absolute iteration cap `cum`: gather this
@@ -858,8 +808,7 @@ def _make_step(pieces: _Pieces, opts: SolverOptions, sched, graphed: bool,
 
 def make_regulator_step(prob: Problem, opts: SolverOptions,
                         it_cap: int = 0, block: int = 128,
-                        levels: tuple = (), graphed: Optional[bool] = None,
-                        check_every: int = 1):
+                        levels: tuple = (), graphed: Optional[bool] = None):
     """The batched regulator MPC step (the flexible satellite's benchmark
     step): ``step(carry, noise [B, n], k) -> (carry, MPCResults)`` with
     carry = (x0, X, U, duals), every step solving ``prob`` from x0_new =
@@ -872,15 +821,15 @@ def make_regulator_step(prob: Problem, opts: SolverOptions,
     resume: the level batches share the one problem); 0: the plain step.
     ``init_carry(batch, sol0=None)``: ``sol0``, a solution of ``prob``
     from its x0 as one scenario, or (None) a cold solve of ``prob`` as one
-    scenario, copied to ``batch`` lanes. ``graphed`` and
-    ``check_every`` as in :func:`make_mpc_step`."""
+    scenario, copied to ``batch`` lanes. ``graphed`` as in
+    :func:`make_mpc_step`."""
     pieces = _RegulatorPieces(prob, opts)
     sched = ((it_cap, block),) + tuple(levels) if it_cap else ()
     graphed = graph.use_graphs(graphed, prob.x0.device)
-    step, _ = _make_step(pieces, opts, sched, graphed, check_every)
+    step, _ = _make_step(pieces, opts, sched, graphed)
 
     def init_carry(batch: int, sol0=None):
-        return pieces.init_carry(batch, graphed, check_every, sol0)
+        return pieces.init_carry(batch, graphed, sol0)
 
     return step, init_carry
 
@@ -893,12 +842,11 @@ def make_relinearized_step(prob: Problem, opts: SolverOptions,
     the dynamics ``dyn`` (an LTVDynamics of ``prob``'s shapes) from x0,
     seeded with the shifted controls and duals (:class:`_RelinearizedPieces`;
     ``k`` is not read). The next carry holds the solution's controls and
-    duals, unshifted. ``graphed`` as in :func:`make_mpc_step` (one body
-    pass per replay): graphed, the start graph copies the dynamics, x0,
-    the shifted controls and duals into the loop's buffers and runs the
-    init rollout."""
+    duals, unshifted. ``graphed`` as in :func:`make_mpc_step`: graphed,
+    the start graph copies the dynamics, x0, the shifted controls and
+    duals into the loop's buffers and runs the init rollout."""
     step, _ = _make_step(_RelinearizedPieces(prob, opts), opts, (),
-                         graph.use_graphs(graphed, prob.x0.device), 1)
+                         graph.use_graphs(graphed, prob.x0.device))
     return step
 
 

@@ -194,10 +194,10 @@ def al_pass_tail(blocks, opts, s, Knew, dff, dV1, dV2, Xts, Uts, Jts,
     Xts [Bt,L,N,n], Uts [Bt,L,N-1,m], Jts [Bt,L] (kernel C). ``it_cap``: an
     int, a 0-d int32 tensor on the device, or None. ``live`` [Bt] bool: the
     lanes to update (None: each lane's own loop condition, :func:`live_mask`).
-    ``counts`` (an int32 [2] tensor, first, last): add the lanes live on
-    entry to counts[0] when ``first`` and those live after the pass to
-    counts[1] when ``last``. ``packed`` (:func:`ops.blocks.pack_blocks` of
-    ``blocks``) saves packing the constraint stacks on every call."""
+    ``counts`` (an int32 [2] tensor): add the lanes live on entry to
+    counts[0] and those live after the pass to counts[1]. ``packed``
+    (:func:`ops.blocks.pack_blocks` of ``blocks``) saves packing the
+    constraint stacks on every call."""
     global launch_count
     X, U, K, duals, reg, grad, viol, it_rd, it, rounds, done = s
     alphas = tuple(float(a) for a in alphas)
@@ -232,7 +232,7 @@ def al_pass_tail(blocks, opts, s, Knew, dff, dV1, dV2, Xts, Uts, Jts,
                              "()")
         flags["it_cap"] = (it_cap, torch.int32)
     if counts is not None:
-        flags["counts"] = (counts[0], torch.int32)
+        flags["counts"] = (counts, torch.int32)
     for name, (t, dtype) in flags.items():
         shape = {"it_cap": (), "counts": (2,)}.get(name, (Bt,))
         if (tuple(t.shape) != shape or t.dtype != dtype
@@ -247,11 +247,8 @@ def al_pass_tail(blocks, opts, s, Knew, dff, dV1, dV2, Xts, Uts, Jts,
             blocks, opts, s, lv, Knew, dff, dV1, dV2, Xts, Uts, Jts,
             torch.tensor(alphas, dtype=X.dtype), torch.arange(Bt))
         if counts is not None:
-            c, first, last = counts
-            if first:
-                c[0] += lv.sum(dtype=torch.int32)
-            if last:
-                c[1] += live_mask(out, opts, it_cap).sum(dtype=torch.int32)
+            counts[0] += lv.sum(dtype=torch.int32)
+            counts[1] += live_mask(out, opts, it_cap).sum(dtype=torch.int32)
         for a, b in zip(_leaves(s), _leaves(out)):
             a.copy_(b)
         return s
@@ -265,16 +262,18 @@ def al_pass_tail(blocks, opts, s, Knew, dff, dV1, dV2, Xts, Uts, Jts,
 
     cap_value = 2 ** 31 - 1 if it_cap is None else (
         0 if isinstance(it_cap, torch.Tensor) else int(it_cap))
-    cnt, first, last = counts if counts is not None else (None, 0, 0)
+    # the kernel's first and last flags (count on entry, count after the
+    # pass) are both on wherever it counts: a loop replay is one pass
+    count = int(counts is not None)
     ptrs = (ctypes.c_void_p * 24)(*[
         None if t is None else t.data_ptr() for t in (
             X, U, K, reg, grad, viol, it_rd, it, rounds, done, Knew, dff,
             dV1, dV2, Xts, Uts, Jts, packed.Cx, packed.Cu, packed.b,
             packed.mask, live,
-            it_cap if isinstance(it_cap, torch.Tensor) else None, cnt)])
+            it_cap if isinstance(it_cap, torch.Tensor) else None, counts)])
     ints = (ctypes.c_int * 11)(Bt, N, n, m, packed.P, L,
                                opts.iterations_inner, opts.iterations_outer,
-                               cap_value, int(bool(first)), int(bool(last)))
+                               cap_value, count, count)
     reals = (ctypes.c_double * (11 + L))(
         opts.gradient_tolerance, opts.ls_min_ratio, opts.reg_min,
         opts.reg_max, opts.reg_increase, opts.reg_decrease,

@@ -37,10 +37,9 @@ per group under a vmap over groups). Each iteration runs
 Loop control: one flat AL + iLQR loop. Each pass computes the per-lane
 ``live`` mask and applies the body under ``torch.where(live, new, old)``,
 so a lane freezes as soon as its own condition is false, as under ``vmap``
-of the JAX ``lax.while_loop``; passes past a lane's end change nothing, so
-the loop may test whether any lane is live once every k passes. Here the
-test is a host ``while`` (:func:`_flat_while`, one host sync per k
-passes); ``solver/graph.py`` replays k passes as a CUDA graph. The loop may
+of the JAX ``lax.while_loop``; passes past a lane's end change nothing.
+Here the loop is a host ``while`` (:func:`_flat_while`, one host sync per
+pass); ``solver/graph.py`` replays a pass as a CUDA graph. The loop may
 stop at an absolute iteration cap and resume from its state
 (:func:`solve_partial`, :func:`solve_resume`): a lane's iterates do not
 depend on where the loop paused or on which other lanes share its batch,
@@ -72,8 +71,6 @@ from .options import SolverOptions
 # Loop-body passes since the last reset, whatever the batch they ran on: with
 # straggler compaction a step's passes are no longer its lanes' largest
 # iteration count, and the kernels of a pass launch once per body pass.
-# Passes checked every k (``check_every``) include the frozen ones past the
-# last lane's end.
 pass_count = 0
 # Entries into the host-driven loop (:func:`_flat_while`) since the last
 # reset: a run on CUDA graphs (solver/graph.py) never enters it.
@@ -374,7 +371,7 @@ def solve_partial(prob: Problem, opts: SolverOptions,
 def solve_compacted(prob: Problem, opts: SolverOptions,
                     U0: Optional[torch.Tensor] = None,
                     X0: Optional[torch.Tensor] = None, *, it_cap: int,
-                    block: int, check_every: int = 1) -> Solution:
+                    block: int) -> Solution:
     """:func:`solve` with straggler compaction (the JAX package's
     ``quadruped_batched(compact_cap=)``, ``batched_families.py:308-336``):
     every lane runs to ``it_cap`` iterations, the ``block``
@@ -385,9 +382,9 @@ def solve_compacted(prob: Problem, opts: SolverOptions,
     s = solve_partial(prob, opts, U0, X0=X0, it_cap=it_cap)
     take = torch.argsort(s[10].to(torch.int32), stable=True)[:block]
     sub = _flat_while(take_lanes(prob, take), opts,
-                      map_state(lambda a: a[take], s), None, check_every)
+                      map_state(lambda a: a[take], s))
     s = map_state(lambda a, b: a.index_copy(0, take, b), s, sub)
-    return _finalize(prob, _flat_while(prob, opts, s, None, check_every))
+    return _finalize(prob, _flat_while(prob, opts, s))
 
 
 def map_state(fn, *states):
@@ -485,15 +482,11 @@ def _warmstart_state(prob: Problem, opts: SolverOptions,
 
 
 def _flat_while(prob: Problem, opts: SolverOptions, s,
-                it_cap: Optional[int] = None, check_every: int = 1):
+                it_cap: Optional[int] = None):
     """The flat AL + iLQR loop from state ``s``, driven from the host until
     no lane is live (or every live lane has reached the absolute iteration
-    count ``it_cap``), with ``check_every`` body passes between two tests of
-    the live mask (the passes past the last lane's end are frozen
-    no-ops)."""
+    count ``it_cap``), with one test of the live mask per body pass."""
     global eager_loop_count
-    if check_every < 1:
-        raise ValueError(f"check_every must be >= 1, got {check_every}")
     eager_loop_count += 1
     ctx, cond, body = loop_fns(prob, opts, s, it_cap)
     if ctx.pass_tail:
@@ -501,8 +494,7 @@ def _flat_while(prob: Problem, opts: SolverOptions, s,
         s = map_state(lambda a: a.clone(memory_format=torch.contiguous_format),
                       s)
     while bool(cond(s).any()):
-        for _ in range(check_every):
-            s = body(s)
+        s = body(s)
     return s
 
 
@@ -613,8 +605,8 @@ def loop_fns(prob: Problem, opts: SolverOptions, s0, it_cap=None,
     passes beyond a lane's end change nothing (``body(s, live)`` takes
     ``cond(s)`` computed by the caller). Where ``ctx.pass_tail``, the body
     writes the new state into the tensors of ``s`` in place and returns
-    ``s``, and ``body(s, counts=(c, first, last))`` adds the lanes live on
-    entry (``first``) and after the pass (``last``) to the int32 pair c
+    ``s``, and ``body(s, counts=c)`` adds the lanes live on entry and
+    after the pass to the int32 pair c
     (:func:`ops.pass_tail.al_pass_tail`); otherwise it returns a new
     state. ``it_cap``: lanes stop being live at that absolute iteration
     count (an int, or a 0-d int32 tensor on the batch's device, read at

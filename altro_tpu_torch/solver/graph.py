@@ -6,18 +6,21 @@ package's jitted solve around ``jax.lax.while_loop``,
 A :class:`LoopGraph` holds fixed buffers for everything the loop body reads:
 the problem's tensors, the packed constraint stacks, the loop state and the
 iteration cap (a 0-d device tensor, so one graph serves every absolute cap
-of a compaction schedule). Its graph runs k body passes (``check_every``),
-copies the final state back into the state buffers (where a pass ends in
-the pass-tail kernel, ``ops/pass_tail.py``, the kernel writes them in
-place and counts the live lanes itself) and two counts into pinned host
-memory: the lanes live when the replay began and when it ended.
-:meth:`LoopGraph.run` replays it until no lane is live at the end: one host
-sync per k passes. Every lane freezes on its own condition, so
-passes past the last lane's end, or past the cap, change no bit of the
-state.
+of a compaction schedule). Its graph runs one body pass, copies the new
+state back into the state buffers (where the pass ends in the pass-tail
+kernel, ``ops/pass_tail.py``, the kernel writes them in place and counts
+the live lanes itself) and two counts into pinned host memory: the lanes
+live when the pass began and when it ended. :meth:`LoopGraph.run` replays
+it until no lane is live at the end: one host sync per pass. Every lane
+freezes on its own condition, so passes past the last lane's end, or past
+the cap, change no bit of the state.
 
+A :class:`LoopSchedule` holds the loop graphs of a compaction schedule
+(``((it_cap, block), (extra_cap, sub_block), ...)``; empty: the plain
+loop): level 0's loop, then per level a gather graph, the loop of its block
+of stragglers and a scatter graph; it captures them and runs the schedule.
 :class:`GraphedSolve` adds a start graph (the warm-start rollout and dual
-init) and a finish graph (the solution's statistics) around a loop graph;
+init) and a finish graph (the solution's statistics) around a schedule;
 ``mpc.py`` builds the MPC steps from the same pieces.
 
 On a CUDA device each piece is captured on a side stream after one eager
@@ -49,7 +52,7 @@ import contextlib
 import dataclasses
 import gc
 import time
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional
 
 import torch
 
@@ -257,8 +260,8 @@ class Replayable:
 # ----------------------------------------------------------------------------
 
 class LoopGraph:
-    """The flat AL + iLQR loop of one batch over fixed buffers, k
-    (``check_every``) body passes per replay.
+    """The flat AL + iLQR loop of one batch over fixed buffers, one body
+    pass per replay.
 
     Built from a template problem and loop state (``solver.altro.
     _warmstart_state``'s tuple; the batch is the state's), whose tensors
@@ -269,8 +272,8 @@ class LoopGraph:
     the buffers, :meth:`set_cap` sets the absolute iteration cap and
     :meth:`run` replays until no lane is live. ``state`` holds the result
     between replays; a later replay or load overwrites it. ``live``: the
-    pinned int32 pair the last replay wrote, the lanes live when it began
-    and when it ended. ``name`` and ``level`` label its runs' spans while
+    pinned int32 pair the last replay wrote, the lanes live when its pass
+    began and when it ended. ``name`` and ``level`` label its runs' spans while
     tracing is on (set where a step's graphs are built); ``b_body``, the
     body kernel B takes in its passes (``solver.altro.b_body``; None on
     the split route), labels its ``capture`` span. ``capture``: capture
@@ -278,13 +281,10 @@ class LoopGraph:
     graphs in the order it replays them)."""
 
     def __init__(self, prob: Optional[Problem], opts: SolverOptions, state,
-                 *, check_every: int = 1, pool=None,
-                 share: Optional["LoopGraph"] = None, capture: bool = True):
-        if check_every < 1:
-            raise ValueError(f"check_every must be >= 1, got {check_every}")
+                 *, pool=None, share: Optional["LoopGraph"] = None,
+                 capture: bool = True):
         X_0 = state[0]
         dev = X_0.device
-        self.check_every = check_every
         self.state = clone_tree(state)
         if share is None:
             self.prob = clone_tree(prob)
@@ -310,13 +310,13 @@ class LoopGraph:
         self.graph = None
         if capture:
             self.capture()
-            # the warm-up ran k passes over the buffers: put the template
+            # the warm-up ran a pass over the buffers: put the template
             # back
             self.load(state=state)
 
     def capture(self) -> None:
         # the capture span names the body kernel B takes in the passes
-        self.graph = Replayable(self._passes, self.state[0].device,
+        self.graph = Replayable(self._pass, self.state[0].device,
                                 self.pool, "loop", b_body=self.b_body)
 
     @property
@@ -327,24 +327,19 @@ class LoopGraph:
     def capture_s(self) -> float:
         return self.graph.capture_s
 
-    def _passes(self) -> None:
+    def _pass(self) -> None:
         s = self.state
-        k = self.check_every
         if self.ctx.pass_tail:
-            # each pass writes the state buffers in place and counts the
-            # lanes live entering the first pass and leaving the last
+            # the pass writes the state buffers in place and counts the
+            # lanes live entering and leaving it
             self.counts.zero_()
-            for i in range(k):
-                self._body(s, counts=(self.counts, i == 0, i == k - 1))
+            self._body(s, counts=self.counts)
             self.live.copy_(self.counts, non_blocking=True)
             return
-        live = self._cond(s)           # the first pass freezes by it
-        entering = live
-        for _ in range(k):
-            s = self._body(s, live)
-            live = None
-        copy_into(self.state, s, "loop state")
-        self.live.copy_(torch.stack((entering, self._cond(s))).sum(
+        live = self._cond(s)           # the pass freezes by it
+        new = self._body(s, live)
+        copy_into(self.state, new, "loop state")
+        self.live.copy_(torch.stack((live, self._cond(new))).sum(
             1, dtype=torch.int32), non_blocking=True)
 
     def load(self, prob: Optional[Problem] = None, state=None) -> None:
@@ -368,12 +363,12 @@ class LoopGraph:
         self.cap.fill_(NO_CAP if it_cap is None else self.it_cap)
 
     def replay(self) -> None:
-        """One replay: k passes, without reading the live counts."""
+        """One replay (one pass), without reading the live counts."""
         self.graph.launch()
 
     def run(self, rest: bool = False) -> int:
         """Replay until no lane is live at the end of a replay (a replay
-        runs first, so a batch with no live lane costs k frozen passes and
+        runs first, so a batch with no live lane costs one frozen pass and
         one sync); returns the number of replays. ``rest``: the run is a
         catch-all (its span's name ends in ``.rest``)."""
         tr = profiling.tracer
@@ -394,9 +389,12 @@ class LoopGraph:
         after-event; the device times of what came before are read while
         the next replay runs."""
         replays = empty = 0
+        # check_every (body passes per replay) stays in the span as the
+        # constant 1: the benchmark's span reader multiplies the empty
+        # replays by it
         with tr.span(self.name + (".rest" if rest else ""), level=self.level,
                      lanes=int(self.state[0].shape[0]), cap=self.it_cap,
-                     check_every=self.check_every) as run:
+                     check_every=1) as run:
             while True:
                 rep = tr.open("replay", timed=self.cuda)
                 self.graph.launch()
@@ -416,8 +414,7 @@ class LoopGraph:
                 empty += live_in == 0
                 if not live_out:
                     break
-            run.args.update(replays=replays,
-                            passes=replays * self.check_every, empty=empty)
+            run.args.update(replays=replays, passes=replays, empty=empty)
         return replays
 
 
@@ -445,6 +442,93 @@ def scatter_fn(parent: LoopGraph, child: LoopGraph, gather: Replayable):
     return scatter
 
 
+class LoopSchedule:
+    """The loop graphs of a compaction schedule ``sched`` (``((it_cap,
+    block), (extra_cap, sub_block), ...)``; empty: the plain loop), in the
+    memory pool ``pool``.
+
+    Level 0's loop is built from a template problem and loop state, as a
+    :class:`LoopGraph`. Each level adds a loop of ``min(block, parent
+    batch)`` lanes, which reads its parent's problem buffers, or, where the
+    problem has per-lane data (``Problem.per_lane``), buffers of its own
+    that the level's gather fills with the lanes' data
+    (:func:`solver.altro.take_lanes`, which refuses grouped stacks). The
+    loops are ``loops[level]``, named ``loop.L<level>``; ``gathers`` and
+    ``scatters`` hold the graphs between a level and the next.
+
+    :meth:`capture` captures level 0's loop, then each level's gather and
+    loop, then the scatters from the innermost out: the order of their
+    first replay (see the module's docstring), so a step captures its start
+    graph just before and its finish graph just after. :meth:`run` runs
+    the schedule: level 0 to ``it_cap``, the gather of its ``block``
+    unconverged-first lanes, the next level to ``extra_cap`` more
+    iterations (the cap is absolute, so capped runs compose), and so on;
+    the innermost level to completion; then, from the innermost out, each
+    scatter and the catch-all of the level above (a ``.rest`` run, which
+    finds no live lane unless the block was too small)."""
+
+    def __init__(self, prob: Problem, opts: SolverOptions, state, sched=(),
+                 pool=None):
+        self.sched, self.pool = tuple(sched), pool
+        loops = [LoopGraph(prob, opts, state, pool=pool, capture=False)]
+        own = prob.per_lane or getattr(prob.dynamics, "grouped", False)
+        for _, block in self.sched:
+            parent = loops[-1]
+            blk = min(block, parent.state[0].shape[0])
+            sub = map_state(lambda a: a[:blk], parent.state)
+            if own:
+                head = torch.arange(blk, device=parent.state[0].device)
+                loops.append(LoopGraph(take_lanes(parent.prob, head), opts,
+                                       sub, pool=pool, capture=False))
+            else:
+                loops.append(LoopGraph(None, opts, sub, pool=pool,
+                                       share=parent, capture=False))
+        for lvl, loop in enumerate(loops):
+            loop.name, loop.level = f"loop.L{lvl}", lvl
+        self.loops = loops
+        self.gathers, self.scatters = [], []
+
+    def capture(self) -> None:
+        loops, pool = self.loops, self.pool
+        dev = loops[0].state[0].device
+        loops[0].capture()
+        for lvl, (parent, child) in enumerate(zip(loops, loops[1:])):
+            self.gathers.append(Replayable(
+                gather_fn(parent, child, child.state[0].shape[0]), dev, pool,
+                f"graph.gather.L{lvl}"))
+            child.capture()
+        self.scatters = [None] * len(self.gathers)
+        for lvl in reversed(range(len(self.gathers))):
+            self.scatters[lvl] = Replayable(
+                scatter_fn(loops[lvl], loops[lvl + 1], self.gathers[lvl]),
+                dev, pool, f"graph.scatter.L{lvl}")
+
+    @property
+    def capture_s(self) -> float:
+        return sum(g.capture_s for g in (self.loops + self.gathers
+                                          + self.scatters))
+
+    def _run(self, lvl: int, it_cap: Optional[int],
+             rest: bool = False) -> int:
+        loop = self.loops[lvl]
+        loop.set_cap(it_cap)
+        return loop.run(rest)
+
+    def run(self) -> int:
+        """Run the schedule from the state in level 0's buffers to
+        completion; returns the loop replays."""
+        replays = cum = 0
+        for lvl, (cap, _) in enumerate(self.sched):
+            cum += cap
+            replays += self._run(lvl, cum)
+            self.gathers[lvl].replay()
+        replays += self._run(len(self.sched), None)
+        for lvl in reversed(range(len(self.sched))):
+            self.scatters[lvl].replay()
+            replays += self._run(lvl, None, rest=True)
+        return replays
+
+
 # ----------------------------------------------------------------------------
 # a cold batch solve
 # ----------------------------------------------------------------------------
@@ -452,26 +536,24 @@ def scatter_fn(parent: LoopGraph, child: LoopGraph, gather: Replayable):
 class GraphedSolve:
     """``solver.altro.solve(prob, opts, U0)`` of a batch with no duals to
     start from, as a start graph (the init rollout, or with ``states`` the
-    given states, and the fresh duals), a :class:`LoopGraph` and a finish
-    graph, captured for the problem's shapes. ``prob.x0`` is [batch, n]
-    (or [n], broadcast to ``batch``).
+    given states, and the fresh duals), the loop graphs of a
+    :class:`LoopSchedule` and a finish graph, captured for the problem's
+    shapes. ``prob.x0`` is [batch, n] (or [n], broadcast to ``batch``).
 
     ``gs(x0, U0, X0)`` copies the initial states [batch, n], controls
     [batch, N-1, m] (zeros when None) and, with ``states``, the states to
     start from [batch, N, n] (``solve(..., X0=X0)``: no init rollout) into
     their buffers, replays and returns the solution (clones).
 
-    ``compact`` = (it_cap, block): straggler compaction, as
-    ``solver.altro.solve_compacted``: the loop runs every lane to
-    ``it_cap``, a gather graph takes the ``block`` unconverged-first lanes
-    with their problem data into a loop graph of the block's batch, a
-    scatter graph puts them back, and the loop resumes the whole batch
-    (a catch-all)."""
+    ``sched``: the compaction schedule (:class:`LoopSchedule`; empty: the
+    plain loop). With one level ``((it_cap, block),)`` it is
+    ``solver.altro.solve_compacted``: every lane runs to ``it_cap``, the
+    ``block`` unconverged-first lanes finish as a batch of their own, and a
+    catch-all resumes the whole batch."""
 
     def __init__(self, prob: Problem, opts: SolverOptions,
-                 batch: Optional[int] = None, *, check_every: int = 1,
-                 pool=None, states: bool = False,
-                 compact: Optional[Tuple[int, int]] = None):
+                 batch: Optional[int] = None, *, pool=None,
+                 states: bool = False, sched=()):
         x0 = prob.x0
         if x0.dim() == 1:
             if batch is None:
@@ -489,41 +571,21 @@ class GraphedSolve:
         self.X0 = (torch.zeros((x0.shape[0], prob.N, prob.n),
                                dtype=x0.dtype, device=dev)
                    if states else None)
-        self.compact = compact
         with profiling.span("build", lanes=int(x0.shape[0])):
-            self._build(prob, opts, check_every, pool)
+            self._build(prob, opts, sched, pool)
         self.replays = 0
 
-    def _build(self, prob: Problem, opts: SolverOptions, check_every: int,
+    def _build(self, prob: Problem, opts: SolverOptions, sched,
                pool) -> None:
-        x0, dev, compact = prob.x0, prob.x0.device, self.compact
+        dev = prob.x0.device
         with torch.no_grad(), uncounted():
             s0 = _warmstart_state(prob, opts, self.U0, None, self.X0)
-        self.loop = LoopGraph(prob, opts, s0, check_every=check_every,
-                              pool=pool, capture=False)
-        self.loop.name = "loop.L0"
-        if compact is not None:
-            blk = min(compact[1], x0.shape[0])
-            head = torch.arange(blk, device=dev)
-            self.block = LoopGraph(
-                take_lanes(self.loop.prob, head), opts,
-                map_state(lambda a: a[:blk], s0), check_every=check_every,
-                pool=pool, capture=False)
-            self.block.name, self.block.level = "loop.L1", 1
+        self.levels = LoopSchedule(prob, opts, s0, sched, pool)
+        self.loop = self.levels.loops[0]
         with capturing():
             self._start = Replayable(self._start_fn, dev, pool,
                                      "graph.start")
-            self.loop.capture()
-            if compact is not None:
-                # in the order of their first replay (see the module's
-                # docstring)
-                self._gather = Replayable(
-                    gather_fn(self.loop, self.block, blk), dev, pool,
-                    "graph.gather.L0")
-                self.block.capture()
-                self._scatter = Replayable(
-                    scatter_fn(self.loop, self.block, self._gather), dev,
-                    pool, "graph.scatter.L0")
+            self.levels.capture()
             self._finish = Replayable(
                 lambda: _finalize(self.loop.prob, self.loop.state), dev,
                 pool, "graph.finish")
@@ -534,10 +596,8 @@ class GraphedSolve:
 
     @property
     def capture_s(self) -> float:
-        return (self._start.capture_s + self.loop.capture_s
-                + self._finish.capture_s
-                + (self._gather.capture_s + self.block.capture_s
-                   + self._scatter.capture_s if self.compact else 0.0))
+        return (self._start.capture_s + self.levels.capture_s
+                + self._finish.capture_s)
 
     def __call__(self, x0: Optional[torch.Tensor] = None,
                  U0: Optional[torch.Tensor] = None,
@@ -562,16 +622,7 @@ class GraphedSolve:
             if X0 is not None:
                 copy_into(self.X0, X0, "X0")
             self._start.replay()
-            if self.compact is None:
-                self.replays += self.loop.run()
-            else:
-                self.loop.set_cap(self.compact[0])
-                self.replays += self.loop.run()
-                self._gather.replay()
-                self.replays += self.block.run()
-                self._scatter.replay()
-                self.loop.set_cap(None)
-                self.replays += self.loop.run(rest=True)    # the catch-all
+            self.replays += self.levels.run()
             self._finish.replay()
             return clone_tree(self._finish.out)
 
@@ -579,11 +630,10 @@ class GraphedSolve:
 def solve(prob: Problem, opts: SolverOptions,
           U0: Optional[torch.Tensor] = None,
           X0: Optional[torch.Tensor] = None, *,
-          graphed: Optional[bool] = None, check_every: int = 1) -> Solution:
+          graphed: Optional[bool] = None) -> Solution:
     """One cold batch solve (from states ``X0`` when given): through a
     :class:`GraphedSolve` captured for this call when ``graphed`` (None: on
     a CUDA device), else ``solver.altro.solve``."""
     if not use_graphs(graphed, prob.x0.device):
         return altro.solve(prob, opts, U0=U0, X0=X0)
-    return GraphedSolve(prob, opts, check_every=check_every,
-                        states=X0 is not None)(U0=U0, X0=X0)
+    return GraphedSolve(prob, opts, states=X0 is not None)(U0=U0, X0=X0)

@@ -318,7 +318,7 @@ def summarize(records: list) -> list:
             lp["passes"] += a["passes"]
             lp["empty"] += a["empty"]
             q["passes"] += a["passes"]
-            q["empty_passes"] += a["empty"] * a["check_every"]
+            q["empty_passes"] += a["empty"]
         if name == "replay" and parent is not None:
             q["live_in"] += a.get("live_in", 0)
             q["lane_slots"] += parent["args"]["lanes"]

@@ -1064,8 +1064,8 @@ def compacted_quadruped(card, reset_counts, read_counts, flat_rows):
         su = quadruped_setup(QUAD_B, lin, torch.float32, "cuda")
         x0 = su.draw_x0().to("cuda", torch.float32)
         sols, passes = {}, {}
-        for form, compact in (("plain", None), ("compacted", (cap, block))):
-            gs = graph.GraphedSolve(su.prob, su.opts, compact=compact)
+        for form, sched in (("plain", ()), ("compacted", ((cap, block),))):
+            gs = graph.GraphedSolve(su.prob, su.opts, sched=sched)
             gs(x0, su.U0)                                  # capture, warm
             p0 = altro.pass_count
             sols[form] = gs(x0, su.U0)
@@ -2887,8 +2887,8 @@ def main() -> None:
           f"{res['success_rate']:.4f} max_viol={res['max_viol']:.3e} "
           f"walls_s={['%.4f' % w for w in res['wall_s']]} "
           f"lane_max_iters={res['lane_max_iters']} passes={passes} "
-          f"graph_replays={res['graph_replays']} check_every="
-          f"{res['check_every']} capture_s={res['capture_s']:.3f} "
+          f"graph_replays={res['graph_replays']} "
+          f"capture_s={res['capture_s']:.3f} "
           f"launches={launches}")
     if res["success_rate"] != 1.0 or not res["max_viol"] <= 1e-4:
         raise AssertionError(f"flagship quality: {res}")
@@ -2920,8 +2920,7 @@ def main() -> None:
               f"max_viol_succeeded={res['max_viol_succeeded']:.3e} wall_s="
               f"{res['wall_s']:.4f} solves={res['solves']} passes={passes} "
               f"replays_per_step={res['graph_replays_per_step']:.3f} "
-              f"check_every={res['check_every']} capture_s="
-              f"{res['capture_s']:.3f} launches={launches}")
+              f"capture_s={res['capture_s']:.3f} launches={launches}")
         if not (res["success_rate"] >= 0.999
                 and res["max_viol_succeeded"] <= 1e-4):
             raise AssertionError(f"{family} quality: {res}")
@@ -3018,8 +3017,7 @@ def main() -> None:
           f"success_rate={fres['success_rate']:.5f} max_viol="
           f"{fres['max_viol']:.3e} wall_s={fres['wall_s']:.4f} passes="
           f"{fpasses} replays_per_step={fres['graph_replays_per_step']:.3f}"
-          f" check_every={fres['check_every']} capture_s="
-          f"{fres['capture_s']:.3f} launches={flaunches}")
+          f" capture_s={fres['capture_s']:.3f} launches={flaunches}")
     if not (fres["success_rate"] == 1.0 and fres["max_viol"] <= 1e-4):
         raise AssertionError(f"flexsat quality: {fres}")
     if not (fpasses > 0 and fpasses == fres["loop_iterations"]

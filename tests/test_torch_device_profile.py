@@ -92,8 +92,8 @@ def test_graphed_grasp_window_counts_passes():
     every step runs at least one pass per loop entry."""
     window = dp.conic_window("grasp", True, B=8, device="cpu", graphed=True)
     assert window() >= 5 * dp.GRASP_STEPS
-    (levels,) = window.step.sets.values()
-    assert [loop.state[0].shape[0] for loop in levels.loops] == [8, 8, 8]
+    (g,) = window.step.sets.values()
+    assert [loop.state[0].shape[0] for loop in g.levels.loops] == [8, 8, 8]
 
 
 @pytest.mark.parametrize("compact", [False, True], ids=["plain", "compacted"])

@@ -370,8 +370,8 @@ def test_compacted_flat_solve_is_the_plain_solve_and_jax_compacted():
     assert int((plain.stats.iterations > cap).sum()) > block
     eager = altro.solve_compacted(prob, su.opts, U0=su.U0, it_cap=cap,
                                   block=block)
-    fixed = graph.GraphedSolve(prob, su.opts, compact=(cap, block))(x0,
-                                                                    su.U0)
+    fixed = graph.GraphedSolve(prob, su.opts, sched=((cap, block),))(
+        x0, su.U0)
     for sol in (eager, fixed):
         for a, b in ((sol.X, plain.X), (sol.U, plain.U), (sol.K, plain.K),
                      (sol.stats.iterations, plain.stats.iterations),

@@ -2,10 +2,17 @@
 on the CPU in float64, where the graphed route runs the same functions
 over the same fixed buffers without capture:
 
-- the host loop checked every k passes (k = 4, 7) gives bit for bit the
-  k = 1 loop (X, U, K, duals, iterations, status) on the flagship, rocket,
-  grasp and quadruped slices, with and without an iteration cap (the loop
-  stops at the cap);
+- a bare ``LoopGraph`` (one body pass per replay) gives bit for bit the
+  host loop's final state (X, U, K, duals, iterations, status) on the
+  flagship, rocket, grasp and quadruped slices, with and without an
+  iteration cap (the loop stops at the cap), its replays the passes
+  counted;
+- ``GraphedSolve`` with no compaction schedule, one level and two levels
+  (a ``LoopSchedule``: shared problem buffers on the flagship, rocket and
+  grasp, the lanes' own dynamics gathered on the quadruped) gives bit for
+  bit the host-driven run of the same schedule (with no level, the plain
+  solve) on the same four slices, and the plain solve's status and
+  iterations;
 - the fixed-buffer route over three consecutive steps equals the eager
   step bit for bit: the flagship (new cost targets every step), grasp (new
   constraint stacks every step), the rocket in a compaction schedule with
@@ -98,39 +105,108 @@ SLICES = {"flagship": _flagship_cold, "rocket": _rocket_cold,
 
 
 @pytest.fixture(scope="module")
-def k1_runs():
-    """Per slice and cap: (prob, opts, s0, the k = 1 final state)."""
-    runs = {}
+def slices():
+    """Per slice: (prob, opts, U0), built once."""
+    made = {}
 
-    def get(name, cap):
-        if (name, cap) not in runs:
-            prob, opts, U0 = SLICES[name]()
-            s0 = altro._warmstart_state(prob, opts, U0, None)
-            runs[name, cap] = (prob, opts, s0,
-                               altro._flat_while(prob, opts, s0, cap))
-        return runs[name, cap]
+    def get(name):
+        if name not in made:
+            made[name] = SLICES[name]()
+        return made[name]
     return get
 
 
 @pytest.mark.parametrize("capped", [False, True], ids=["uncapped", "capped"])
-@pytest.mark.parametrize("k", [4, 7])
 @pytest.mark.parametrize("name", list(SLICES))
-def test_check_every_k_matches_every_pass(k1_runs, name, k, capped):
+def test_loop_graph_matches_the_host_loop(slices, name, capped):
+    """One body pass per replay: the final state is the host loop's, and
+    the replays are the passes ``solver.altro.pass_count`` counted."""
     cap = CAP if capped else None
-    prob, opts, s0, ref = k1_runs(name, cap)
+    prob, opts, U0 = slices(name)
+    s0 = altro._warmstart_state(prob, opts, U0, None)
+    ref = altro._flat_while(prob, opts, s0, cap)
+    loop = graph.LoopGraph(prob, opts, s0)
+    loop.set_cap(cap)
     before = altro.pass_count
-    got = altro._flat_while(prob, opts, s0, cap, check_every=k)
-    passes = altro.pass_count - before
-    assert passes % k == 0 and passes >= int(ref[8].max())
-    assert_trees_equal(got, ref)
-    fin, want = altro._finalize(prob, got), altro._finalize(prob, ref)
+    replays = loop.run()
+    assert altro.pass_count - before == replays >= int(ref[8].max())
+    assert_trees_equal(loop.state, ref)
+    fin, want = altro._finalize(prob, loop.state), altro._finalize(prob, ref)
     assert_trees_equal((fin.X, fin.U, fin.K, fin.duals, fin.stats),
                        (want.X, want.U, want.K, want.duals, want.stats))
     if capped:
         # the loop stops at the cap, which binds on some lane
-        assert int(got[8].max()) == CAP
+        assert int(loop.state[8].max()) == CAP
     else:
-        assert int(got[8].max()) > CAP
+        assert int(loop.state[8].max()) > CAP
+
+
+# compaction schedules small enough for the slices' batches of 4 to 16
+SCHEDS = {"none": (), "one": ((2, 3),), "two": ((1, 4), (1, 2))}
+
+
+def _host_schedule(prob, opts, U0, sched):
+    """The cold solve in the compaction schedule ``sched`` driven from the
+    host, as ``mpc._make_step``'s ``compact`` drives a step's and
+    ``altro.solve_compacted`` one level: each level's lanes resumed as a
+    batch of their own, with their dynamics where the problem has per-lane
+    data, scattered back, then the level's catch-all."""
+    def run(p, s, lvl, cum):
+        if lvl == len(sched):
+            return altro._flat_while(p, opts, s)
+        cum += sched[lvl][0]
+        s = altro._flat_while(p, opts, s, cum)
+        take = torch.argsort(s[10].to(torch.int32),
+                             stable=True)[:sched[lvl][1]]
+        sub = run(altro.take_lanes(p, take) if p.per_lane else p,
+                  altro.map_state(lambda a: a[take], s), lvl + 1, cum)
+        s = altro.map_state(lambda a, b: a.index_copy(0, take, b), s, sub)
+        return altro._flat_while(p, opts, s)
+    s0 = altro._warmstart_state(prob, opts, U0, None)
+    return altro._finalize(prob, run(prob, s0, 0, 0))
+
+
+@pytest.fixture(scope="module")
+def plain_solves(slices):
+    """Per slice: the plain solve from the slice's controls."""
+    made = {}
+
+    def get(name):
+        if name not in made:
+            prob, opts, U0 = slices(name)
+            made[name] = altro.solve(prob, opts, U0=U0)
+        return made[name]
+    return get
+
+
+@pytest.mark.parametrize("sched", list(SCHEDS))
+@pytest.mark.parametrize("name", list(SLICES))
+def test_graphed_solve_schedule_matches_the_host_schedule(
+        slices, plain_solves, name, sched):
+    """A cold solve through a ``LoopSchedule`` of no, one and two levels,
+    a level's lanes reading the parent's problem buffers (shared data) or
+    their own gathered dynamics (the quadruped's per-lane stacks): the
+    host-driven schedule's bits (with no level, the plain solve's), every
+    lane's status and iterations the plain solve's; the replays are the
+    passes counted. (The bits are held to the host-driven run of the same
+    batches: on the CPU the plain version of kernel B rounds grasp's last
+    bits differently at another batch size.)"""
+    prob, opts, U0 = slices(name)
+    plain = plain_solves(name)
+    gs = graph.GraphedSolve(prob, opts, sched=SCHEDS[sched])
+    levels = gs.levels.loops
+    assert len(levels) == 1 + len(SCHEDS[sched])
+    assert all((lp.prob is levels[0].prob) != prob.per_lane
+               for lp in levels[1:])
+    before = altro.pass_count
+    got = gs(U0=U0)
+    assert altro.pass_count - before == gs.replays
+    assert_trees_equal(got, _host_schedule(prob, opts, U0, SCHEDS[sched])
+                       if SCHEDS[sched] else plain)
+    assert torch.equal(got.stats.status, plain.stats.status)
+    assert torch.equal(got.stats.iterations, plain.stats.iterations)
+    # the first cap binds: the schedule gathers unconverged lanes
+    assert int(plain.stats.iterations.max()) > 2
 
 
 # ----------------------------------------------------------------------------
@@ -161,13 +237,12 @@ def _graphed_vs_eager(make, B, T, noise):
     return gouts
 
 
-@pytest.mark.parametrize("k", [1, 3])
-def test_flagship_fixed_buffers_match_eager(k):
+def test_flagship_fixed_buffers_match_eager():
     su = flagship_setup(8, 3, dtype=torch.float64, device="cpu")
     _graphed_vs_eager(
         lambda graphed: make_mpc_step(su.prob_mpc, su.opts, su.X_track,
-                                      su.U_track, graphed=graphed,
-                                      check_every=k), 8, 3, su.noise)
+                                      su.U_track, graphed=graphed), 8, 3,
+        su.noise)
 
 
 @pytest.fixture(scope="module")
@@ -202,8 +277,7 @@ def rocket_window():
     return gen_tracking_mpc(tp, X_tr, U_tr, 11, dt=0.05), X_tr, U_tr
 
 
-@pytest.mark.parametrize("k", [1, 3])
-def test_rocket_compacted_fixed_buffers_match_eager(rocket_window, k):
+def test_rocket_compacted_fixed_buffers_match_eager(rocket_window):
     """Three level batches (8 lanes, a block of 4, a sub-block of 2), the
     gathers, scatters and catch-alls between them."""
     tp, X_tr, U_tr = rocket_window
@@ -214,7 +288,7 @@ def test_rocket_compacted_fixed_buffers_match_eager(rocket_window, k):
         lambda graphed: make_mpc_step_device_compacted(
             tp, opts, X_tr, U_tr, noise_model=trocket.rocket_noise_model(),
             it_cap=1, block=4, levels=((1, 2),), warm_start="track",
-            graphed=graphed, check_every=k), 8, 3, noise)
+            graphed=graphed), 8, 3, noise)
     assert max(int(o.iters.max()) for _, o in outs) > 2
 
 
@@ -268,15 +342,15 @@ def _put(a, idx, b):
 def test_quadruped_graphed_solve_matches_eager(linearized):
     """Two rounds with new initial states through one GraphedSolve (the
     per-lane route: the PyTorch AL expansion and merit in the loop); the
-    passes counted are the replays times k."""
+    passes counted are the replays."""
     su = quadruped_setup(16, linearized, torch.float64, "cpu")
-    gs = graph.GraphedSolve(su.prob, su.opts, check_every=2)
+    gs = graph.GraphedSolve(su.prob, su.opts)
     entries = altro.eager_loop_count
     for _ in range(2):
         x0 = su.draw_x0()
         before, replays = altro.pass_count, gs.replays
         got = gs(x0, su.U0)
-        assert altro.pass_count - before == 2 * (gs.replays - replays)
+        assert altro.pass_count - before == gs.replays - replays
         assert altro.eager_loop_count == entries
         want = altro.solve(dataclasses.replace(su.prob, x0=x0), su.opts,
                            U0=su.U0)
@@ -314,8 +388,6 @@ def test_load_rejects_mismatches():
         loop.load(state=s0[:3] + ((),) + s0[4:])
     with pytest.raises(ValueError):
         loop.load(prob=dataclasses.replace(prob, constraints=()))
-    with pytest.raises(ValueError, match="check_every"):
-        graph.LoopGraph(prob, opts, s0, check_every=0)
 
 
 def test_fixed_buffer_flagship_matches_jax():
@@ -349,7 +421,7 @@ def test_fixed_buffer_flagship_matches_jax():
     tstep, tinit = make_mpc_step(
         convert.problem_from_numpy(convert.numpy_tree(prob_mpc)),
         tt.SolverOptions(**kw), torch.tensor(np.asarray(X_track)),
-        torch.tensor(np.asarray(U_track)), graphed=True, check_every=2)
+        torch.tensor(np.asarray(U_track)), graphed=True)
     tcarry = tinit(B)
     for t in range(T):
         jcarry, jout = vstep(jcarry, jnp.asarray(noise[t]),
@@ -394,7 +466,7 @@ def test_graphed_step_matches_eager_on_the_card(cuda, family):
 
         def make(graphed):
             return make_mpc_step(su.prob_mpc, su.opts, su.X_track,
-                                 su.U_track, graphed=graphed, check_every=2)
+                                 su.U_track, graphed=graphed)
         noise = su.noise
     else:
         su = conic.SETUPS[family](torch.float32, device=cuda)
@@ -403,7 +475,7 @@ def test_graphed_step_matches_eager_on_the_card(cuda, family):
         def make(graphed):
             return conic.make_step(su, cap, block // 4,
                                    tuple((c, b // 4) for c, b in levels),
-                                   graphed=graphed, check_every=2)
+                                   graphed=graphed)
         noise = torch.as_tensor(np.random.default_rng(2).standard_normal(
             (T, B, 6)), dtype=torch.float32, device=cuda)
     estep, init = make(False)
@@ -418,7 +490,7 @@ def test_graphed_step_matches_eager_on_the_card(cuda, family):
 @pytest.mark.cuda
 def test_graphed_solve_matches_eager_on_the_card(cuda):
     su = quadruped_setup(128, False, torch.float32, cuda)
-    gs = graph.GraphedSolve(su.prob, su.opts, check_every=4)
+    gs = graph.GraphedSolve(su.prob, su.opts)
     for _ in range(2):
         x0 = su.draw_x0().to(cuda, torch.float32)
         got = gs(x0, su.U0)
@@ -430,8 +502,8 @@ def test_graphed_solve_matches_eager_on_the_card(cuda):
 
 @pytest.mark.cuda
 def test_counters_count_replays(cuda):
-    """Each replay adds what the capture recorded: k passes, kernel B and
-    the ladder rollout once per pass; the capture itself adds nothing."""
+    """Each replay adds what the capture recorded: one pass, kernel B and
+    the ladder rollout once; the capture itself adds nothing."""
     from altro_tpu_torch.ops import riccati_fused, rollout
 
     su = flagship_setup(64, 1, device=cuda)
@@ -440,26 +512,26 @@ def test_counters_count_replays(cuda):
     s0 = altro._warmstart_state(prob, su.opts, None, None)
     counts = (altro.pass_count, rollout.launch_count,
               riccati_fused.launch_count)
-    loop = graph.LoopGraph(prob, su.opts, s0, check_every=3)
+    loop = graph.LoopGraph(prob, su.opts, s0)
     assert (altro.pass_count, rollout.launch_count,
             riccati_fused.launch_count) == counts
-    assert loop.per_replay[:3] == (3, 3, 3)
+    assert loop.per_replay[:3] == (1, 1, 1)
     for _ in range(5):
         loop.replay()
     assert (altro.pass_count - counts[0], rollout.launch_count - counts[1],
-            riccati_fused.launch_count - counts[2]) == (15, 15, 15)
+            riccati_fused.launch_count - counts[2]) == (5, 5, 5)
 
     # a cold solve: the ladder rollout once more per call (the init
     # rollout of its start graph), nothing for the set-up and the capture
     counts = (altro.pass_count, rollout.launch_count,
               riccati_fused.launch_count)
-    gs = graph.GraphedSolve(prob, su.opts, check_every=2)
+    gs = graph.GraphedSolve(prob, su.opts)
     assert (altro.pass_count, rollout.launch_count,
             riccati_fused.launch_count) == counts
     for _ in range(2):
         gs()
     passes = altro.pass_count - counts[0]
-    assert passes == 2 * gs.replays
+    assert passes == gs.replays
     assert rollout.launch_count - counts[1] == passes + 2
     assert riccati_fused.launch_count - counts[2] == passes
 

@@ -124,7 +124,7 @@ def test_wrapper_on_cpu_tensors_runs_the_plain_version(cpu_records):
         counts = torch.zeros(2, dtype=torch.int32)
         ret = pass_tail.al_pass_tail(
             prob.constraints, opts, got, Knew, dff, dV1, dV2, Xts, Uts, Jts,
-            alphas.tolist(), it_cap=6, counts=(counts, True, True))
+            alphas.tolist(), it_cap=6, counts=counts)
         assert ret is got
         assert [t.data_ptr() for t in _leaves(got)] == before
         for a, b in zip(_leaves(got), _leaves(want)):
@@ -166,9 +166,8 @@ def test_wrapper_refuses_mismatched_state(cpu_records):
                                dV2, Xts, Uts, Jts[:, :-1], alphas.tolist())
 
 
-@pytest.mark.parametrize("check_every", [1, 3])
 def test_forced_route_on_cpu_gives_the_plain_routes_bits(
-        monkeypatch, cpu_records, check_every):
+        monkeypatch, cpu_records):
     """With the gate forced on the CPU the loop body takes the wrapper (the
     plain version written into the state in place): the eager solve and the
     fixed-buffer loop (the in-place passes and their live counts) give the
@@ -185,8 +184,7 @@ def test_forced_route_on_cpu_gives_the_plain_routes_bits(
     def run():
         passes = altro.pass_count
         eager = altro.solve(prob, opts, U0, X0=X0)
-        gs = graph.GraphedSolve(prob, opts, check_every=check_every,
-                                states=True)
+        gs = graph.GraphedSolve(prob, opts, states=True)
         fixed = gs(U0=U0, X0=X0)
         return eager, fixed, gs.replays, altro.pass_count - passes
 
@@ -510,8 +508,7 @@ def _apply_case(case, prob, opts, s, ins, kw):
         it_rd.fill_(opts.iterations_inner - 1)
     elif case == "cap":
         kw["it_cap"] = it.median().to(torch.int32).add(1).reshape(())
-        kw["counts"] = (torch.zeros(2, dtype=torch.int32,
-                                    device=X.device), True, True)
+        kw["counts"] = torch.zeros(2, dtype=torch.int32, device=X.device)
     elif case in ("round end, converged", "round end, not converged"):
         it_rd.fill_(opts.iterations_inner - 1)
         opts = dataclasses.replace(opts, constraint_tolerance=(
@@ -592,7 +589,7 @@ def test_kernel_matches_plain_version_on_the_card(setups, family, B, case):
             prob.constraints, opts, s, live, ins, want))
         assert dist["lam"] <= 1.0 and dist["viol"] <= 1.0, dist
         if kw.get("counts") is not None:
-            assert kw["counts"][0].tolist() == [
+            assert kw["counts"].tolist() == [
                 int(live.sum()),
                 int(pass_tail.live_mask(want, opts, kw["it_cap"]).sum())]
         if case == "frozen":

@@ -9,6 +9,8 @@ their buffers, no capture), on the rocket's compacted tracking step:
 - each replay's entering live count is ``cond(state).sum()`` read just
   before it;
 - a catch-all that finds no live lane records exactly one empty replay;
+- every ``loop.*`` span counts one pass per replay, its ``check_every``
+  the constant 1;
 - the exported spans share ``torch.profiler``'s clock: a step's span holds
   its ``aten::`` operators once both are on the trace's base time;
 - each loop graph's ``capture`` span names the body kernel B takes in its
@@ -127,7 +129,7 @@ def test_entering_count_is_the_live_mask(track):
     step(carry0, noise[0], 0)
     seen = []
     for g in step.sets.values():
-        for loop in g.loops:
+        for loop in g.levels.loops:
             def launch(loop=loop, launch=loop.graph.launch):
                 seen.append(int(loop._cond(loop.state).sum()))
                 launch()
@@ -152,6 +154,21 @@ def test_empty_catch_all_is_one_empty_replay(track):
         assert q["empty_passes"] == 1
     loops = [r for r in tr.records() if r["name"].startswith("loop.")]
     assert [r["args"]["cap"] for r in loops[:3]] == [1, None, None]
+
+
+def test_loop_spans_are_one_pass_per_replay(track):
+    """Every ``loop.*`` span of the compacted step (every level and
+    catch-all) counts one pass per replay, and keeps ``check_every`` as
+    the constant 1 that the benchmark's span reader multiplies by."""
+    step, carry0, noise = _step(track)
+    with profiling.tracing() as tr:
+        _run(step, carry0, noise)
+    loops = [r for r in tr.records() if r["name"].startswith("loop.")]
+    assert {r["name"] for r in loops} == {
+        "loop.L0", "loop.L1", "loop.L2", "loop.L0.rest", "loop.L1.rest"}
+    for r in loops:
+        a = r["args"]
+        assert a["check_every"] == 1 and a["passes"] == a["replays"] > 0
 
 
 def test_spans_share_the_profilers_clock(track, tmp_path):
